@@ -33,6 +33,12 @@ def _seed_xfail_prefixes():
         return []
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the PyTorch port's hand-written "
+        "kernels); skips where there is none")
+
+
 def pytest_collection_modifyitems(config, items):
     prefixes = _seed_xfail_prefixes()
     if not prefixes:

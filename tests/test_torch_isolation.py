@@ -1,0 +1,77 @@
+"""The PyTorch port stands alone: it imports neither JAX nor anything of
+the JAX package ``repro``, its smoke serve runs with ``jax`` blocked, and
+its entry points refuse to run without CUDA unless told to use the CPU."""
+
+from __future__ import annotations
+
+import ast
+import os
+import runpy
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_repro(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def test_smoke_serve_runs_with_jax_blocked():
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[m] = None\n"
+            "from repro_torch.launch import serve\n"
+            "serve.main(['--smoke', '--device', 'cpu', '--requests', '2'])\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "[serve] qwen3-30b-a3b-smoke x layered" in out.stdout
+    assert "2 requests in" in out.stdout
+
+
+def test_entry_point_without_cpu_flag_raises_without_cuda(monkeypatch):
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--smoke", "--requests", "1"])
+
+
+def test_chip_smoke_fails_without_cuda_or_repo(tmp_path, capsys):
+    """No CUDA here: the script must exit non-zero and print no result —
+    from the repository, and from a directory holding only the script."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the script would really run")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    for script in (ROOT / "chip_smoke.py", alone):
+        with pytest.raises(SystemExit) as exit_:
+            runpy.run_path(str(script), run_name="__main__")
+        assert exit_.value.code not in (0, None)
+        assert '"ok"' not in capsys.readouterr().out
