@@ -7,22 +7,36 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 Phases (each raises on failure; nothing is caught and turned into exit 0):
 
-1. print the card's name and power limit; build the three CUDA kernels
-   from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a), in parallel.
-2. hold each kernel against its plain PyTorch version at the serving
-   path's qwen3-30b-a3b shapes in bf16 and time kernel, plain version and,
-   where one PyTorch call computes the same function, that call.
+1. print the card's name and power limit; build the CUDA kernels from
+   ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a), one process per
+   source, all started together.
+2. hold each of the six kernels against its plain PyTorch version at the
+   qwen3-30b-a3b shapes its path gives it, in bf16, and time kernel,
+   plain version and, where one PyTorch call computes the same function,
+   that call: K1 ragged SwiGLU, K2 prefill attention, K3 decode
+   attention, K4 dense SwiGLU, K5 paged decode attention over block
+   tables from the port's PagedKVAllocator (also against K3 on the same
+   keys as slot rows), K6 paged verify attention (W = 4, and W = 1
+   against K5).
 3. check the kernel path end to end against the CPU fp32 plain path on a
-   small model (finite logits that agree within a stated tolerance).
+   small model, under the ragged and the dense MoE dispatch (finite
+   logits that agree within a stated tolerance).
 4. serve qwen3-30b-a3b at full width (d_model 2048, 32/4 heads, 128
    experts top-8, 48 layers, random weights from a seed) through the
-   port's launcher with layered and then chunked prefill: every request
-   completes, every kernel launches, one host sync per iteration,
-   layered expert-load <= chunked; then profile the layered serve once
-   more (device time by kernel, the device's busy share).
+   port's launcher: the ragged dispatch with layered and then chunked
+   prefill on long prompts, then the dense dispatch with layered and
+   chunked prefill on a short-prompt trace and the ragged dispatch once
+   more on that trace as its yardstick.  Every request completes with
+   in-vocabulary tokens; every serve launches each kernel of its own
+   path and none of another's; one host sync per iteration; layered
+   expert-load <= chunked; dense and ragged expert-load side by side.
+   Then profile the ragged layered and the dense layered serve once more
+   (device time by kernel, the device's busy share).
 
 It prints a JSON ``kernels`` line, the ``nvidia-smi`` line, and, as its
-last line, ``{"ok": true, "device": {...}}``.  Without CUDA, or run from
+last line, ``{"ok": true, "device": {...}}``.  ``--skip-serve`` stops
+after phase 3 (a quick compile-and-check call): it prints the ``kernels``
+line without launch counts and exits 1 with no result.  Without CUDA, or run from
 a directory without the rest of the repository, it exits non-zero and
 prints no result.
 """
@@ -233,13 +247,170 @@ def check_decode_attention(gen, b=8, s_max=2048) -> dict:
             "shape": {"B": b, "S_max": s_max, "lengths": lens.tolist()}}
 
 
+def check_moe_gmm_dense(tag: str, c: int, gen) -> dict:
+    """K4 over the dense (E, C, d) buffer at qwen3-30b-a3b widths: C = 8 is
+    the engine's full-pool decode step (dropless, C = n_slots), C = 1024 a
+    packed 4 x 256-token prefill."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.layers import dense_init
+    e, d, f = 128, 2048, 768
+    dev = torch.device("cuda")
+    w_gate = dense_init((e, d, f), torch.bfloat16, dev, gen)
+    w_up = dense_init((e, d, f), torch.bfloat16, dev, gen)
+    w_down = dense_init((e, f, d), torch.bfloat16, dev, gen)
+    x = torch.randn((e, c, d), device=dev, generator=gen).to(torch.bfloat16)
+    args = (x, w_gate, w_up, w_down)
+    got = ops.moe_gmm(*args)
+    want = ref.moe_gmm_ref(*args)
+    torch.cuda.synchronize()
+    diff = got.float() - want.float()
+    rel = (diff.norm() / want.float().norm()).item()
+    max_abs = diff.abs().max().item()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"moe_gmm[{tag}]: non-finite output")
+    log(f"moe_gmm[{tag}] E {e} C {c}: rel Frobenius {rel:.3e} (tol "
+        f"{GMM_REL_FRO}), max abs {max_abs:.3e}")
+    if not rel <= GMM_REL_FRO:
+        raise AssertionError(f"moe_gmm[{tag}] disagrees: rel {rel}")
+    # every expert computes all C rows: all E experts' weights are read
+    nbytes = 2 * x.numel() * 2 + e * 3 * d * f * 2
+    flops = e * c * 6 * d * f
+    b_ms, b_by = bound_ms(nbytes, flops)
+    ms = cuda_time(lambda: ops.moe_gmm(*args), iters=10 if c <= 64 else 3)
+    plain = cuda_time(lambda: ref.moe_gmm_ref(*args), iters=3)
+    del want
+    return {"name": f"moe_gmm[{tag}]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+            "replaces": "src/repro/kernels/moe_gmm.py:45",
+            "max_abs_err": max_abs, "rel_fro_err": rel, "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes a per-expert "
+                            "fused SwiGLU",
+            "shape": {"E": e, "C": c, "d": d, "F": f}}
+
+
+def _paged_pool(lens, page, hkv, hd, gen):
+    """Slot rows of K/V for sequences of ``lens`` tokens, and the same
+    keys scattered into a page pool through block tables that the port's
+    PagedKVAllocator hands out as the sequences grow page by page in turns
+    (so each sequence's pages interleave with the others')."""
+    import torch
+    from repro_torch.serving.kvcache import PagedKVAllocator
+    dev = torch.device("cuda")
+    b = len(lens)
+    max_pages = -(-max(lens) // page)
+    alloc = PagedKVAllocator(n_pages=b * max_pages, page_size=page)
+    for rid in range(b):
+        alloc.reserve(rid, page)
+    for n in range(2 * page, max_pages * page + 1, page):
+        for rid, ln in enumerate(lens):
+            if n - page < ln:
+                alloc.grow_to(rid, min(n, ln))
+    s_max = max_pages * page
+    k_slot = torch.randn((b, s_max, hkv, hd), device=dev, generator=gen).to(torch.bfloat16)
+    v_slot = torch.randn((b, s_max, hkv, hd), device=dev, generator=gen).to(torch.bfloat16)
+    k_pages = torch.zeros((alloc.n_pages, page, hkv, hd), dtype=torch.bfloat16, device=dev)
+    v_pages = torch.zeros_like(k_pages)
+    bt = torch.zeros((b, max_pages), dtype=torch.int32)
+    for rid in range(b):
+        table = alloc.block_table(rid)
+        bt[rid, :len(table)] = torch.tensor(table, dtype=torch.int32)
+        ids = torch.tensor(table, device=dev)
+        k_pages[ids] = k_slot[rid, :len(table) * page].reshape(-1, page, hkv, hd)
+        v_pages[ids] = v_slot[rid, :len(table) * page].reshape(-1, page, hkv, hd)
+    return k_slot, v_slot, k_pages, v_pages, bt.to(dev)
+
+
+def check_paged_attention(gen) -> list:
+    """K5 and K6 at qwen3-30b-a3b widths (H 32, Hkv 4, hd 128) over the
+    engine's default 16-token pages, 8 sequences of 723-2049 tokens."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    h, hkv, hd, page = 32, 4, 128, 16
+    dev = torch.device("cuda")
+    lens = torch.randint(723, 2050, (8,), generator=torch.Generator().manual_seed(5))
+    lens[0], lens[-1] = 723, 2049
+    lens_l = [int(n) for n in lens.tolist()]
+    k_slot, v_slot, kp, vp, bt = _paged_pool(lens_l, page, hkv, hd, gen)
+    lengths = lens.to(dev, torch.int32)
+    b, max_pages = bt.shape
+    q = torch.randn((b, h, hd), device=dev, generator=gen).to(torch.bfloat16)
+    got = ops.paged_decode_attention(q, kp, vp, bt, lengths)
+    want = ref.paged_decode_attention_ref(q, kp, vp, bt, lengths)
+    slot = ops.decode_attention(q, k_slot, v_slot, lengths)
+    torch.cuda.synchronize()
+    max_abs = (got.float() - want.float()).abs().max().item()
+    vs_k3 = (got.float() - slot.float()).abs().max().item()
+    log(f"paged_decode_attention[B{b} pages of {page}, lengths {lens_l}]: "
+        f"max abs {max_abs:.3e} vs plain, {vs_k3:.3e} vs decode_attention "
+        f"on slot rows (tol {ATTN_TOL})")
+    if not (torch.allclose(got.float(), want.float(), **ATTN_TOL)
+            and torch.allclose(got.float(), slot.float(), **ATTN_TOL)):
+        raise AssertionError("paged_decode_attention disagrees")
+
+    def kv_bytes(n_tok):
+        return n_tok * 2 * hkv * hd * 2
+    table_bytes = bt.numel() * 4 + b * 4
+    nbytes = 2 * q.numel() * 2 + kv_bytes(sum(lens_l)) + table_bytes
+    b_ms, b_by = bound_ms(nbytes, 4 * hd * h * sum(lens_l))
+    ms = cuda_time(lambda: ops.paged_decode_attention(q, kp, vp, bt, lengths),
+                   iters=50)
+    plain = cuda_time(lambda: ref.paged_decode_attention_ref(q, kp, vp, bt,
+                                                             lengths), iters=10)
+    no_lib = "no PyTorch call reads K/V through a block table"
+    out = [{"name": "paged_decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:277",
+            "max_abs_err": max_abs, "max_abs_vs_decode_attention": vs_k3,
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "library_note": no_lib,
+            "shape": {"B": b, "page_size": page, "max_pages": max_pages,
+                      "lengths": lens_l}}]
+
+    # K6: a 4-token verify window, and W = 1 against K5
+    w = 4
+    qw = torch.randn((b, w, h, hd), device=dev, generator=gen).to(torch.bfloat16)
+    got = ops.paged_verify_attention(qw, kp, vp, bt, lengths)
+    want = ref.paged_verify_attention_ref(qw, kp, vp, bt, lengths)
+    one = ops.paged_verify_attention(q[:, None], kp, vp, bt, lengths)[:, 0]
+    dec = ops.paged_decode_attention(q, kp, vp, bt, lengths)
+    torch.cuda.synchronize()
+    max_abs = (got.float() - want.float()).abs().max().item()
+    vs_k5 = (one.float() - dec.float()).abs().max().item()
+    log(f"paged_verify_attention[W{w}]: max abs {max_abs:.3e} vs plain; "
+        f"W 1 vs paged_decode_attention max abs {vs_k5:.3e} (tol {ATTN_TOL})")
+    if not (torch.allclose(got.float(), want.float(), **ATTN_TOL)
+            and torch.allclose(one.float(), dec.float(), **ATTN_TOL)):
+        raise AssertionError("paged_verify_attention disagrees")
+    # window row j of a sequence of length n sees n - w + 1 + j keys
+    pairs = sum(n - w + 1 + j for n in lens_l for j in range(w))
+    nbytes = 2 * qw.numel() * 2 + kv_bytes(sum(lens_l)) + table_bytes
+    b_ms, b_by = bound_ms(nbytes, 4 * hd * h * pairs)
+    ms = cuda_time(lambda: ops.paged_verify_attention(qw, kp, vp, bt, lengths),
+                   iters=50)
+    plain = cuda_time(lambda: ref.paged_verify_attention_ref(qw, kp, vp, bt,
+                                                             lengths), iters=10)
+    out.append({"name": f"paged_verify_attention[W{w}]", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+                "replaces": "src/repro/kernels/decode_attention.py:216",
+                "max_abs_err": max_abs, "max_abs_w1_vs_paged_decode": vs_k5,
+                "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None, "library_note": no_lib,
+                "shape": {"B": b, "W": w, "page_size": page,
+                          "max_pages": max_pages, "lengths": lens_l}})
+    return out
+
+
 # ---------------------------------------------------------------- phase 3
 
 
 def check_small_model_end_to_end() -> None:
-    """The reduced qwen3 model in bf16 on the card (all three kernels) vs
-    the same weights in fp32 on the CPU (plain versions): a 48-token
-    prefill into the cache, then one decode step."""
+    """The reduced qwen3 model in bf16 on the card (the kernels of the
+    ragged and of the dense MoE path) vs the same weights in fp32 on the
+    CPU (plain versions, ragged): a 48-token prefill into the cache, then
+    one decode step."""
     import torch
     from repro_torch.launch.serve import ServeArgs, model_config
     from repro_torch.models.model import DecoderModel
@@ -259,37 +430,118 @@ def check_small_model_end_to_end() -> None:
     g = torch.Generator().manual_seed(2)
     toks = torch.randint(1, cfg.vocab_size, (2, 49), generator=g)
     off = torch.tensor([0, 5], dtype=torch.int32)
-    res = []
-    for model, p_, dev in ((gpu, params, "cuda"), (cpu, p_cpu, "cpu")):
+    def run(model, p_, dev, moe_dispatch):
         cache = model.init_cache(2, 128)
+        kw = dict(cache=cache, dropless=True, moe_dispatch=moe_dispatch)
         lp, cache, _ = model.forward(p_, toks[:, :48].to(dev),
-                                     offset=off.to(dev), cache=cache)
+                                     offset=off.to(dev), **kw)
         ld, cache, _ = model.forward(p_, toks[:, 48:].to(dev),
-                                     offset=(off + 48).to(dev), cache=cache)
-        res.append((lp.float().cpu(), ld.float().cpu()))
-    for name, a, b_ in (("prefill", res[0][0], res[1][0]),
-                        ("decode", res[0][1], res[1][1])):
-        if not torch.isfinite(a).all():
-            raise AssertionError(f"end-to-end {name}: non-finite logits")
-        rel = ((a - b_).norm() / b_.norm()).item()
-        agree = (a.argmax(-1) == b_.argmax(-1)).float().mean().item()
-        log(f"small model {name} logits, bf16 kernels vs fp32 CPU: rel "
-            f"Frobenius {rel:.3e} (tol {E2E_REL_FRO}), argmax agreement "
-            f"{agree:.3f}")
-        if not rel <= E2E_REL_FRO:
-            raise AssertionError(f"end-to-end {name} disagrees: rel {rel}")
+                                     offset=(off + 48).to(dev), **kw)
+        return lp.float().cpu(), ld.float().cpu()
+    want = run(cpu, p_cpu, "cpu", "ragged")
+    for moe_dispatch in ("ragged", "dense"):
+        got = run(gpu, params, "cuda", moe_dispatch)
+        for name, a, b_ in (("prefill", got[0], want[0]),
+                            ("decode", got[1], want[1])):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"end-to-end {name}: non-finite logits")
+            rel = ((a - b_).norm() / b_.norm()).item()
+            agree = (a.argmax(-1) == b_.argmax(-1)).float().mean().item()
+            log(f"small model {name} logits, {moe_dispatch} dispatch, bf16 "
+                f"kernels vs fp32 CPU: rel Frobenius {rel:.3e} (tol "
+                f"{E2E_REL_FRO}), argmax agreement {agree:.3f}")
+            if not rel <= E2E_REL_FRO:
+                raise AssertionError(f"end-to-end {name} ({moe_dispatch}) "
+                                     f"disagrees: rel {rel}")
 
 
 # ---------------------------------------------------------------- phase 4
 
 
+# the kernels each MoE dispatch's serve must launch; a serve launches no
+# other kernel (the paged kernels are on no serve path)
+PATH_KERNELS = {"ragged": ("moe_gmm_ragged", "prefill_attention",
+                           "decode_attention"),
+                "dense": ("moe_gmm", "prefill_attention", "decode_attention")}
+
+
+def run_serve(a, model, params, n_new: int) -> dict:
+    """One closed-loop serve through the port's launcher, with the launch
+    counts set to 0 just before it and read just after, and its host syncs
+    counted; raises unless every request completes with ``n_new``
+    in-vocabulary tokens, every kernel of the dispatch's path launched and
+    no other kernel did, and the serve made at most one host sync per
+    iteration (plus the two synchronize() calls that bound the timing)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_real
+    tag = f"{a.moe_dispatch}/{a.scheduler}"
+    # counts start at 0 just before the main path (the comparison
+    # launches of phase 2 do not count) and are read just after
+    ops.reset_launches()
+    # count the host syncs the serve makes: torch reports each
+    # synchronizing call as a warning in its sync debug mode
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            r = serve_real(a, model, params)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    counts = dict(ops.LAUNCHES)
+    sites = collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    r["host_syncs"] = sum(sites.values())
+    r["host_sync_sites"] = dict(sites)
+    r["launches"] = counts
+    torch.cuda.empty_cache()
+    vocab = model.cfg.vocab_size
+    if r["completed"] != r["requests"]:
+        raise AssertionError(f"{tag}: {r['completed']}/{r['requests']} "
+                             "requests completed")
+    if any(len(t) != n_new for t in r["outputs"].values()):
+        raise AssertionError(f"{tag}: a request did not get {n_new} tokens")
+    if any(not 0 <= x < vocab for t in r["outputs"].values() for x in t):
+        raise AssertionError(f"{tag}: token id out of range")
+    path = PATH_KERNELS[a.moe_dispatch]
+    missing = [k for k in path if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels never launched: {missing}")
+    stray = {k: v for k, v in counts.items() if k not in path and v}
+    if stray:
+        raise AssertionError(f"{tag}: kernels of another path launched: "
+                             f"{stray}")
+    if r["host_syncs"] > r["iterations"] + 2:
+        raise AssertionError(f"{tag}: {r['host_syncs']} host syncs in "
+                             f"{r['iterations']} iterations")
+    log(f"{tag}: {r['iterations']} iterations, {r['ms_per_iter']:.1f} "
+        f"ms/iter, expert-load {r['expert_load_bytes'] / 1e6:.1f} MB, "
+        f"{r['host_syncs']} host syncs {r['host_sync_sites']}, "
+        f"launches {counts}")
+    return r
+
+
+def _same_streams(x: dict, y: dict) -> str:
+    same = sum(x["outputs"][r] == y["outputs"][r] for r in x["outputs"])
+    first = sum(x["outputs"][r][0] == y["outputs"][r][0] for r in x["outputs"])
+    n = len(x["outputs"])
+    return (f"identical first tokens {first}/{n}, identical token streams "
+            f"{same}/{n}")
+
+
 def serve_full() -> dict:
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import ServeArgs, build_model, serve_real
+    from repro_torch.launch.serve import ServeArgs, build_model
     base = ServeArgs(arch="qwen3-30b-a3b", requests=4, max_len=2048, slots=8,
                      quantum=512, token_budget=512, seed=0,
                      prompt_len=(600, 1501), new_tokens=(16, 17))
+    # the dense dispatch computes every expert over every token of a batch
+    # (C = T), so it serves short prompts: 64-256 tokens, 8 new each
+    short = dataclasses.replace(base, max_len=512, quantum=128,
+                                token_budget=128, prompt_len=(64, 257),
+                                new_tokens=(8, 9))
     t0 = time.perf_counter()
     model, params = build_model(base)
     torch.cuda.synchronize()
@@ -300,65 +552,40 @@ def serve_full() -> dict:
         f"top-{cfg.moe.top_k}, vocab {cfg.vocab_size}; {n_params / 1e9:.2f} B "
         f"params ({torch.cuda.memory_allocated() / 1e9:.1f} GB) in "
         f"{time.perf_counter() - t0:.1f} s")
-    runs, launches = {}, {k: 0 for k in ops.LAUNCHES}
+    runs = {}
     for sched in ("layered", "chunked"):
-        a = dataclasses.replace(base, scheduler=sched)
-        # counts start at 0 just before the main path (the comparison
-        # launches of phase 2 do not count) and are read just after
-        ops.reset_launches()
-        # count the host syncs the serve makes: torch reports each
-        # synchronizing call as a warning in its sync debug mode
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                r = serve_real(a, model, params)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        counts = dict(ops.LAUNCHES)
-        sites = collections.Counter(
-            f"{Path(w.filename).name}:{w.lineno}" for w in caught
-            if "synchroniz" in str(w.message))
-        r["host_syncs"] = sum(sites.values())
-        r["host_sync_sites"] = dict(sites)
-        for k, v in counts.items():
-            launches[k] += v
-        r["launches"] = counts
-        runs[sched] = r
-        torch.cuda.empty_cache()
-        if r["completed"] != r["requests"]:
-            raise AssertionError(f"{sched}: {r['completed']}/{r['requests']} "
-                                 "requests completed")
-        if any(len(t) != 16 for t in r["outputs"].values()):
-            raise AssertionError(f"{sched}: a request did not get 16 tokens")
-        if any(not 0 <= x < cfg.vocab_size for t in r["outputs"].values() for x in t):
-            raise AssertionError(f"{sched}: token id out of range")
-        missing = [k for k, v in counts.items() if v <= 0]
-        if missing:
-            raise AssertionError(f"{sched}: kernels never launched: {missing}")
-        # one fetch per iteration, plus the two synchronize() calls that
-        # bound the timed region
-        if r["host_syncs"] > r["iterations"] + 2:
-            raise AssertionError(f"{sched}: {r['host_syncs']} host syncs in "
-                                 f"{r['iterations']} iterations")
-        log(f"{sched}: {r['iterations']} iterations, {r['ms_per_iter']:.1f} "
-            f"ms/iter, expert-load {r['expert_load_bytes'] / 1e6:.1f} MB, "
-            f"{r['host_syncs']} host syncs {r['host_sync_sites']}, "
-            f"launches {counts}")
-    lay, chk = runs["layered"], runs["chunked"]
+        runs[f"ragged/{sched}"] = run_serve(
+            dataclasses.replace(base, scheduler=sched), model, params, 16)
+    for disp, sched in (("dense", "layered"), ("dense", "chunked"),
+                        ("ragged", "layered")):
+        runs[f"short {disp}/{sched}"] = run_serve(
+            dataclasses.replace(short, scheduler=sched, moe_dispatch=disp),
+            model, params, 8)
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in ops.LAUNCHES}
+
+    lay, chk = runs["ragged/layered"], runs["ragged/chunked"]
     if not lay["expert_load_bytes"] <= chk["expert_load_bytes"]:
         raise AssertionError("layered expert-load exceeds chunked")
-    same = sum(lay["outputs"][r] == chk["outputs"][r] for r in lay["outputs"])
-    first = sum(lay["outputs"][r][0] == chk["outputs"][r][0]
-                for r in lay["outputs"])
     log(f"layered / chunked expert-load {lay['expert_load_bytes'] / 1e6:.1f} / "
         f"{chk['expert_load_bytes'] / 1e6:.1f} MB "
         f"({lay['expert_load_bytes'] / chk['expert_load_bytes']:.3f}); "
-        f"identical first tokens {first}/{len(lay['outputs'])}, identical "
-        f"token streams {same}/{len(lay['outputs'])} (bf16: other batch "
-        "shapes round differently and may flip an argmax)")
+        f"{_same_streams(lay, chk)} (bf16: other batch shapes round "
+        "differently and may flip an argmax)")
+    dl, dc = runs["short dense/layered"], runs["short dense/chunked"]
+    rl = runs["short ragged/layered"]
+    if not dl["expert_load_bytes"] <= dc["expert_load_bytes"]:
+        raise AssertionError("dense: layered expert-load exceeds chunked")
+    log(f"short trace, layered: dense / ragged expert-load "
+        f"{dl['expert_load_bytes'] / 1e6:.1f} / "
+        f"{rl['expert_load_bytes'] / 1e6:.1f} MB, {_same_streams(dl, rl)}; "
+        f"{dl['ms_per_iter']:.1f} / {rl['ms_per_iter']:.1f} ms/iter. Dense "
+        f"layered / chunked expert-load {dl['expert_load_bytes'] / 1e6:.1f} / "
+        f"{dc['expert_load_bytes'] / 1e6:.1f} MB, {_same_streams(dl, dc)}")
     profile_serve(dataclasses.replace(base, scheduler="layered"), model,
                   params)
+    profile_serve(dataclasses.replace(short, scheduler="layered",
+                                      moe_dispatch="dense"), model, params)
     return {"runs": {k: {kk: vv for kk, vv in v.items() if kk != "outputs"}
                      for k, v in runs.items()}, "launches": launches}
 
@@ -387,7 +614,8 @@ def profile_serve(a, model, params) -> None:
             dev.append((us, e.count, e.key))
     dev.sort(reverse=True)
     busy_ms = sum(us for us, _, _ in dev) / 1e3
-    log(f"profile of the {a.scheduler} serve ({r['iterations']} iterations, "
+    log(f"profile of the {a.moe_dispatch}/{a.scheduler} serve "
+        f"({r['iterations']} iterations, "
         f"{r['wall_s'] * 1e3:.1f} ms wall under the profiler): device busy "
         f"{busy_ms:.1f} ms = {busy_ms / (r['wall_s'] * 1e3):.3f} of wall")
     for us, n, name in dev[:12]:
@@ -431,7 +659,9 @@ def main() -> None:
     # K1 at decode (8 slots -> 960 rows, m_blk 8) and at a 2048-token
     # prefill (32640 rows, m_blk 128); K2 at a layered first group (4
     # whole prompts in the 2048 bucket) and a chunked step (512-token
-    # chunks at four offsets); K3 at the 8-slot decode step
+    # chunks at four offsets); K3 at the 8-slot decode step; K4 at the
+    # dense decode step (C 8) and a packed 4 x 256 prefill (C 1024); K5
+    # and K6 over the paged pool
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [check_moe_gmm("decode", 8, gen),
                check_moe_gmm("prefill", 2048, gen),
@@ -440,8 +670,17 @@ def main() -> None:
                                        offsets=[0, 512, 1024, 1536]),
                check_decode_attention(gen)]
     torch.cuda.empty_cache()
+    kernels += [check_moe_gmm_dense("decode", 8, gen),
+                check_moe_gmm_dense("prefill", 1024, gen)]
+    torch.cuda.empty_cache()
+    kernels += check_paged_attention(gen)
+    torch.cuda.empty_cache()
     check_small_model_end_to_end()
     torch.cuda.empty_cache()
+    if "--skip-serve" in sys.argv[1:]:
+        print(json.dumps({"kernels": kernels}))
+        raise SystemExit("[chip_smoke] --skip-serve: stopped after the kernel "
+                         "checks; no result")
 
     serve = serve_full()
     for k in kernels:

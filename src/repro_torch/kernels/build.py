@@ -5,7 +5,7 @@ the repository — one process per source, all started together — into
 ``build/kernels/`` at the repository root, then loads the shared library
 with ``ctypes`` (plain C entry points: no PyTorch headers, so a build takes
 seconds, not minutes).  A library's file name carries a hash of its source,
-the shared header and the flags, so an edited kernel is rebuilt and a stale
+the shared headers and the flags, so an edited kernel is rebuilt and a stale
 one is never loaded.  Nothing is built from outside the repository.
 
 Only the machine with the card has ``nvcc``; the CPU path never calls this
@@ -24,7 +24,10 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("moe_gmm_ragged", "prefill_attention", "decode_attention")
+KERNELS = ("moe_gmm_ragged", "prefill_attention", "decode_attention",
+           "moe_gmm", "paged_attention")
+# headers a source may include: any edit rebuilds every kernel
+HEADERS = ("common.cuh", "moe_swiglu.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -47,7 +50,7 @@ def nvcc() -> str:
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
     for part in ((CSRC / f"{name}.cu").read_bytes(),
-                 (CSRC / "common.cuh").read_bytes(),
+                 *((CSRC / hdr).read_bytes() for hdr in HEADERS),
                  " ".join(NVCC_FLAGS).encode()):
         h.update(part)
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"

@@ -1,5 +1,9 @@
-"""Wrappers the model calls for the three hot-path kernels, plus the slot-
-row gather/scatter of the engine's packed batches.
+"""Wrappers of the port's six kernels, plus the slot-row gather/scatter of
+the engine's packed batches.  The model calls ``moe_gmm_ragged`` (ragged
+MoE dispatch) or ``moe_gmm`` (dense dispatch), ``prefill_attention`` and
+``decode_attention``; ``paged_decode_attention`` and
+``paged_verify_attention`` read the paged KV pool and are on no engine
+path (the engine keeps slot rows).
 
 Each wrapper takes the kernel's plain PyTorch version (``ref.py``) for a
 tensor that lies on the CPU, and for a CUDA tensor launches the hand-
@@ -26,14 +30,25 @@ from repro_torch.kernels import ref
 Tensor = torch.Tensor
 
 LAUNCHES: Dict[str, int] = {"moe_gmm_ragged": 0, "prefill_attention": 0,
-                            "decode_attention": 0}
+                            "decode_attention": 0, "moe_gmm": 0,
+                            "paged_decode_attention": 0,
+                            "paged_verify_attention": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# kernel -> (source csrc/<source>.cu, C entry point, its argument types)
 _SIGNATURES = {
-    "moe_gmm_ragged": ("moe_gmm_ragged_bf16", [_P] * 6 + [_I] * 5 + [_P]),
-    "prefill_attention": ("prefill_attention_bf16",
+    "moe_gmm_ragged": ("moe_gmm_ragged", "moe_gmm_ragged_bf16",
+                       [_P] * 6 + [_I] * 5 + [_P]),
+    "prefill_attention": ("prefill_attention", "prefill_attention_bf16",
                           [_P] * 5 + [_I] * 7 + [_F, _P]),
-    "decode_attention": ("decode_attention_bf16", [_P] * 5 + [_I] * 6 + [_F, _P]),
+    "decode_attention": ("decode_attention", "decode_attention_bf16",
+                         [_P] * 5 + [_I] * 6 + [_F, _P]),
+    "moe_gmm": ("moe_gmm", "moe_gmm_bf16", [_P] * 5 + [_I] * 5 + [_P]),
+    # one kernel: paged decode is the verify window W = 1
+    "paged_decode_attention": ("paged_attention", "paged_attention_bf16",
+                               [_P] * 6 + [_I] * 8 + [_F, _P]),
+    "paged_verify_attention": ("paged_attention", "paged_attention_bf16",
+                               [_P] * 6 + [_I] * 8 + [_F, _P]),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -46,8 +61,8 @@ def reset_launches() -> None:
 def _fn(name: str):
     if name not in _fns:
         from repro_torch.kernels import build
-        sym, argtypes = _SIGNATURES[name]
-        f = getattr(build.load(name), sym)
+        source, sym, argtypes = _SIGNATURES[name]
+        f = getattr(build.load(source), sym)
         f.argtypes = argtypes
         f.restype = ctypes.c_int
         _fns[name] = f
@@ -184,6 +199,113 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
             v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
             k_cache.shape[2], k_cache.shape[1], hd, window or 0,
             1.0 / math.sqrt(hd))
+    return out
+
+
+# --------------------------------------------------------------------- K4
+
+def _row_tile(c: int) -> int:
+    """Rows per tile of the dense SwiGLU: the power of two in [8, 128]
+    nearest above C, so a decode buffer (C = 8) is one 8-row tile."""
+    m = 8
+    while m < min(c, 128):
+        m *= 2
+    return m
+
+
+def moe_gmm(x: Tensor, w_gate: Tensor, w_up: Tensor,
+            w_down: Tensor) -> Tensor:
+    """Batched per-expert fused SwiGLU over the dense capacity buffer:
+    x (E, C, d), w_gate/w_up (E, d, F), w_down (E, F, d) -> (E, C, d).
+    Any C, d and F: the kernel masks the ragged edges itself.  On the card:
+    bf16."""
+    e, c, d = x.shape
+    f = w_gate.shape[-1]
+    if (w_gate.shape != (e, d, f) or w_up.shape != w_gate.shape
+            or w_down.shape != (e, f, d)):
+        raise ValueError(f"moe_gmm: bad shapes x {tuple(x.shape)} w_gate "
+                         f"{tuple(w_gate.shape)} w_up {tuple(w_up.shape)} "
+                         f"w_down {tuple(w_down.shape)}")
+    if not _on_card("moe_gmm", x, w_gate, w_up, w_down):
+        return ref.moe_gmm_ref(x, w_gate, w_up, w_down)
+    _check_bf16("moe_gmm", x, w_gate, w_up, w_down)
+    m_tile = _row_tile(c)
+    if e > 65535 or -(-c // m_tile) > 65535:
+        raise ValueError(f"moe_gmm: grid past the launch limit (E={e}, "
+                         f"C={c})")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    _launch("moe_gmm", x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+            w_down.data_ptr(), out.data_ptr(), e, c, d, f, m_tile)
+    return out
+
+
+# ----------------------------------------------------------------- K5, K6
+
+def _paged(name: str, q: Tensor, k_pages: Tensor, v_pages: Tensor,
+           block_tables: Tensor, lengths: Tensor,
+           window: Optional[int]) -> Optional[Tensor]:
+    """Shared checks and launch of K5/K6 for q (B, W, H, hd); None when
+    the tensors lie on the CPU (the caller takes the plain version).  The
+    kernel holds all W * g query rows of a kv head in shared memory; a
+    window too wide for it fails its launch, which raises."""
+    b, w, h, hd = q.shape
+    if (k_pages.dim() != 4 or k_pages.shape != v_pages.shape
+            or k_pages.shape[3] != hd or block_tables.dim() != 2
+            or block_tables.shape[0] != b or lengths.shape != (b,)):
+        raise ValueError(f"{name}: bad shapes q {tuple(q.shape)} pages "
+                         f"{tuple(k_pages.shape)} block_tables "
+                         f"{tuple(block_tables.shape)} lengths "
+                         f"{tuple(lengths.shape)}")
+    if not _on_card(name, q, k_pages, v_pages, block_tables, lengths):
+        return None
+    _check_bf16(name, q, k_pages, v_pages)
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError(f"{name}: block_tables and lengths must be int32")
+    _, page_size, hkv, _ = k_pages.shape
+    if h % hkv or hd % 8 or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError(f"{name}: kernel needs H % Hkv == 0, hd a multiple "
+                         f"of 8 and 16-byte aligned pages (H={h}, Hkv={hkv}, "
+                         f"hd={hd})")
+    out = torch.empty_like(q)
+    _launch(name, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, w,
+            h, hkv, page_size, block_tables.shape[1], hd, window or 0,
+            1.0 / math.sqrt(hd))
+    return out
+
+
+def paged_decode_attention(q: Tensor, k_pages: Tensor, v_pages: Tensor,
+                           block_tables: Tensor, lengths: Tensor, *,
+                           window: Optional[int] = None) -> Tensor:
+    """Decode attention over the paged pool: q (B, H, hd); k/v pages
+    (n_pages, page_size, Hkv, hd); block_tables (B, max_pages) int32
+    physical page ids in logical order (entries past a sequence's pages
+    are never read); lengths (B,) int32 valid tokens including the new
+    token's K/V -> (B, H, hd)."""
+    out = _paged("paged_decode_attention", q[:, None], k_pages, v_pages,
+                 block_tables, lengths, window)
+    if out is None:
+        return ref.paged_decode_attention_ref(q, k_pages, v_pages,
+                                              block_tables, lengths,
+                                              window=window)
+    return out[:, 0]
+
+
+def paged_verify_attention(q: Tensor, k_pages: Tensor, v_pages: Tensor,
+                           block_tables: Tensor, lengths: Tensor, *,
+                           window: Optional[int] = None) -> Tensor:
+    """Speculative verify-window attention over the paged pool: q
+    (B, W, H, hd), the W window tokens oldest first, whose K/V are already
+    written; lengths count them -> (B, W, H, hd).  Each sequence's K/V
+    stream is read once for the whole window."""
+    out = _paged("paged_verify_attention", q, k_pages, v_pages,
+                 block_tables, lengths, window)
+    if out is None:
+        return ref.paged_verify_attention_ref(q, k_pages, v_pages,
+                                              block_tables, lengths,
+                                              window=window)
     return out
 
 

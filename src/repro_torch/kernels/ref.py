@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three kernels on the serving path.
+"""Plain PyTorch versions of the port's six kernels.
 
 These are what the CPU runs (the wrappers in ``ops.py`` take them for a
 tensor that lies on the CPU) and what ``chip_smoke.py`` holds each CUDA
@@ -10,7 +10,12 @@ and are no yardstick of speed.
   version of both attention kernels:
   ``prefill_attention_ref`` and ``decode_attention_ref`` only build its
   masks from the kernels' contracts.
+* ``paged_decode_attention_ref`` and ``paged_verify_attention_ref`` —
+  decode attention over the paged KV pool: they gather each sequence's
+  pages through its block table into a contiguous row and defer to
+  ``masked_attention``.
 * ``moe_gmm_ragged_ref`` — the ragged grouped fused SwiGLU.
+* ``moe_gmm_ref`` — the fused SwiGLU over the dense (E, C, d) buffer.
 """
 
 from __future__ import annotations
@@ -102,6 +107,56 @@ def decode_attention_ref(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     out = masked_attention(q[:, None], k_cache, v_cache, (ln - 1)[:, None],
                            kv_pos, kv_valid, window=window)
     return out[:, 0]
+
+
+def _gather_pages(pages: Tensor, block_tables: Tensor) -> Tensor:
+    """(n_pages, page_size, Hkv, hd) pool + (B, max_pages) block tables ->
+    (B, max_pages * page_size, Hkv, hd): the logical rows the tables
+    encode (entries past a sequence's pages read some page; the lengths
+    mask them)."""
+    b, max_pages = block_tables.shape
+    rows = pages[block_tables.to(pages.device).long()]
+    return rows.reshape(b, max_pages * pages.shape[1], *pages.shape[2:])
+
+
+def paged_verify_attention_ref(q: Tensor, k_pages: Tensor, v_pages: Tensor,
+                               block_tables: Tensor, lengths: Tensor, *,
+                               window: Optional[int] = None) -> Tensor:
+    """The verify kernel's contract: q (B, W, H, hd), the W window tokens
+    of each sequence, oldest first; pages (n_pages, page_size, Hkv, hd);
+    block_tables (B, max_pages); lengths (B,) valid tokens INCLUDING the
+    window's K/V.  Window query w sits at position ``length - W + w`` and
+    sees keys ``< length - W + 1 + w`` (with a window, also ``>= length -
+    W + 1 + w - window``); a row that sees no key outputs 0."""
+    w_len = q.shape[1]
+    k = _gather_pages(k_pages, block_tables)
+    v = _gather_pages(v_pages, block_tables)
+    ln = lengths.to(device=q.device, dtype=torch.int64)
+    kv_pos = torch.arange(k.shape[1], device=q.device)
+    kv_valid = kv_pos[None, :] < ln[:, None]
+    q_pos = ln[:, None] - w_len + torch.arange(w_len, device=q.device)[None]
+    return masked_attention(q, k, v, q_pos, kv_pos, kv_valid, window=window)
+
+
+def paged_decode_attention_ref(q: Tensor, k_pages: Tensor, v_pages: Tensor,
+                               block_tables: Tensor, lengths: Tensor, *,
+                               window: Optional[int] = None) -> Tensor:
+    """The paged decode kernel's contract: ``decode_attention_ref`` over
+    the pool, q (B, H, hd) -> (B, H, hd); the verify window with W = 1."""
+    return paged_verify_attention_ref(q[:, None], k_pages, v_pages,
+                                      block_tables, lengths,
+                                      window=window)[:, 0]
+
+
+def moe_gmm_ref(x: Tensor, w_gate: Tensor, w_up: Tensor,
+                w_down: Tensor) -> Tensor:
+    """Fused SwiGLU per expert over the dense capacity buffer:
+    ``out[e] = (silu(x[e] @ Wg[e]) * (x[e] @ Wu[e])) @ Wd[e]``;
+    x (E, C, d), w_gate/w_up (E, d, F), w_down (E, F, d) -> (E, C, d),
+    computed in fp32 and rounded once to ``x.dtype``."""
+    xf = x.float()
+    h = F.silu(torch.bmm(xf, w_gate.float())) * torch.bmm(xf, w_up.float())
+    return torch.bmm(h, w_down.float()).to(x.dtype)
 
 
 def moe_gmm_ragged_ref(rows: Tensor, w_gate: Tensor, w_up: Tensor,

@@ -12,6 +12,10 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-30b-a3b \\
       --scheduler layered --requests 4 --max-len 2048
 
+  # the dense (E, C, d) capacity-buffer MoE dispatch instead of ragged:
+  PYTHONPATH=src python -m repro_torch.launch.serve --moe-dispatch dense \\
+      --requests 4 --max-len 512
+
   # on the CPU, reduced model (the kernels' plain versions run):
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --requests 2
@@ -48,6 +52,7 @@ class ServeArgs:
     slots: int = 8
     quantum: int = 512
     token_budget: int = 512
+    moe_dispatch: str = "ragged"
     seed: int = 0
     dtype: Optional[str] = None        # None: the config's own dtypes
     device: Optional[str] = None       # None: cuda
@@ -78,7 +83,8 @@ def build_engine(a: ServeArgs, model=None, params=None) -> Engine:
         model, params = build_model(a)
     sched = make_scheduler(a.scheduler, model.n_blocks, n_slots=a.slots,
                            quantum=a.quantum, token_budget=a.token_budget)
-    return Engine(model, params, sched, n_slots=a.slots, max_len=a.max_len)
+    return Engine(model, params, sched, n_slots=a.slots, max_len=a.max_len,
+                  moe_dispatch=a.moe_dispatch)
 
 
 def submit_closed_loop(eng: Engine, a: ServeArgs) -> None:
@@ -116,7 +122,8 @@ def serve_real(a: ServeArgs, model=None, params=None) -> dict:
     m = request_metrics(reqs)
     cfg = eng.cfg
     print(f"[serve] {cfg.name} x {a.scheduler} (closed-loop, "
-          f"{cfg.n_layers} layers, {eng.device}): {a.requests} requests in "
+          f"{cfg.n_layers} layers, {a.moe_dispatch} MoE dispatch, "
+          f"{eng.device}): {a.requests} requests in "
           f"{eng.iteration} iterations")
     print(f"[serve] ttft(iters) mean={_f(m['ttft_mean'], '.1f')} "
           f"p99={_f(m['ttft_p99'], '.1f')}; expert-load "
@@ -155,6 +162,9 @@ def parse_args(argv=None) -> ServeArgs:
     ap.add_argument("--slots", type=int, default=d.slots)
     ap.add_argument("--quantum", type=int, default=d.quantum)
     ap.add_argument("--token-budget", type=int, default=d.token_budget)
+    ap.add_argument("--moe-dispatch", default=d.moe_dispatch,
+                    choices=["ragged", "dense"],
+                    help="dropless MoE data path")
     ap.add_argument("--seed", type=int, default=d.seed)
     ap.add_argument("--dtype", default=None,
                     choices=["float32", "bfloat16"],
@@ -165,7 +175,8 @@ def parse_args(argv=None) -> ServeArgs:
     return ServeArgs(arch=ns.arch, smoke=ns.smoke, scheduler=ns.scheduler,
                      requests=ns.requests, max_len=ns.max_len,
                      slots=ns.slots, quantum=ns.quantum,
-                     token_budget=ns.token_budget, seed=ns.seed,
+                     token_budget=ns.token_budget,
+                     moe_dispatch=ns.moe_dispatch, seed=ns.seed,
                      dtype=ns.dtype, device=ns.device)
 
 

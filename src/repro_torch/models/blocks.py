@@ -40,7 +40,7 @@ def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
 def apply_block(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
                 positions: Tensor, offset: Optional[Tensor] = None,
                 cache: Optional[dict] = None,
-                valid: Optional[Tensor] = None,
+                valid: Optional[Tensor] = None, dropless: bool = False,
                 moe_dispatch: str = "ragged"
                 ) -> Tuple[Tensor, Optional[dict], dict]:
     """x: (B,S,D) -> (x', cache (updated in place), aux)."""
@@ -54,6 +54,7 @@ def apply_block(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
         h2 = layers.apply_norm(cfg, p["ln2"], x)
         if spec.ffn == FFN_MOE:
             out2, aux = moe.apply_moe(cfg, p["moe"], h2, valid=valid,
+                                      dropless=dropless,
                                       moe_dispatch=moe_dispatch)
         else:
             out2 = layers.apply_mlp(cfg, p["mlp"], h2)

@@ -97,7 +97,7 @@ class DecoderModel:
     def run_blocks(self, params, x: Tensor, start: int, n: int, *,
                    positions: Tensor, offset: Optional[Tensor] = None,
                    cache: Optional[list] = None,
-                   valid: Optional[Tensor] = None,
+                   valid: Optional[Tensor] = None, dropless: bool = False,
                    moe_dispatch: str = "ragged"):
         """Run blocks [start, start+n) over x (B, S, D).  Returns (x', cache,
         aux-list-in-block-order); ``cache`` (leaves (reps, B, ...)) is
@@ -112,7 +112,7 @@ class DecoderModel:
             x, _, aux = blocks.apply_block(
                 self.cfg, self.specs[b], self.block_params(params, b), x,
                 positions=positions, offset=offset, cache=c, valid=valid,
-                moe_dispatch=moe_dispatch)
+                dropless=dropless, moe_dispatch=moe_dispatch)
             auxes.append(aux)
         return x, cache, auxes
 
@@ -120,7 +120,7 @@ class DecoderModel:
                 positions: Optional[Tensor] = None,
                 offset: Optional[Tensor] = None,
                 cache: Optional[list] = None,
-                valid: Optional[Tensor] = None,
+                valid: Optional[Tensor] = None, dropless: bool = False,
                 moe_dispatch: str = "ragged"):
         """tokens (B, S) -> (logits (B, S, V) fp32, cache, aux) with
         ``aux["expert_counts"]`` of shape (L, E)."""
@@ -134,7 +134,8 @@ class DecoderModel:
         x = self.embed(params, tokens)
         x, cache, auxes = self.run_blocks(
             params, x, 0, self.n_blocks, positions=positions, offset=offset,
-            cache=cache, valid=valid, moe_dispatch=moe_dispatch)
+            cache=cache, valid=valid, dropless=dropless,
+            moe_dispatch=moe_dispatch)
         aux = {
             "expert_counts": torch.stack([a["expert_counts"] for a in auxes]),
             "aux_loss": sum(a["aux_loss"] for a in auxes),

@@ -31,10 +31,14 @@ Hot-path contract:
     through pinned memory without blocking.
   * PyTorch runs eagerly: there is no executable cache.
 
+MoE runs dropless under either ``moe_dispatch``: "ragged" (the default)
+or "dense" (the (E, C, d) capacity buffer with C = the batch's token
+count).  Routing is the same under both, so are the expert-load counters.
+
 Only the main path is ported: recompute preemption; ``prefix_cache`` is
 off by default and ``True`` raises, as do ``preemption_mode`` other than
-"recompute", ``spec_mode`` other than "off", ``moe_dispatch`` other than
-"ragged" and encoder inputs (``enc_frames``).
+"recompute", ``spec_mode`` other than "off" and encoder inputs
+(``enc_frames``).
 """
 
 from __future__ import annotations
@@ -84,8 +88,9 @@ class Engine:
         scheduler (default: enough pages to fill every slot row); memory
         pressure evicts by recompute.  ``prefix_cache`` defaults to False
         here (the JAX engine defaults to True): prefix caching, swap
-        preemption, speculative decode and the dense MoE dispatch are not
-        ported yet and raise."""
+        preemption and speculative decode are not ported yet and raise.
+        ``moe_dispatch`` selects the dropless MoE data path: "ragged" or
+        "dense"."""
         if prefix_cache:
             raise NotImplementedError("prefix caching is not ported yet")
         if preemption_mode != "recompute":
@@ -93,9 +98,8 @@ class Engine:
                 f"preemption_mode={preemption_mode!r}: only recompute is ported")
         if spec_mode != "off":
             raise NotImplementedError("speculative decode is not ported yet")
-        if moe_dispatch != "ragged":
-            raise NotImplementedError(
-                f"moe_dispatch={moe_dispatch!r}: only ragged is ported")
+        if moe_dispatch not in ("dense", "ragged"):
+            raise ValueError(f"unknown moe_dispatch {moe_dispatch!r}")
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -212,7 +216,7 @@ class Engine:
         logits, _, aux = self.model.forward(
             self.params, tokens, positions=offsets.long()[:, None],
             offset=offsets, cache=self.cache, valid=valid_rows[:, None],
-            moe_dispatch=self.moe_dispatch)
+            dropless=True, moe_dispatch=self.moe_dispatch)
         next_tok = torch.argmax(logits[:, -1], dim=-1)
         return next_tok, aux["expert_counts"] > 0
 
@@ -230,7 +234,7 @@ class Engine:
             p, device=self.device)[None]
         x, rows, auxes = self.model.run_blocks(
             self.params, hidden, start, n, positions=positions,
-            offset=offset, cache=rows, valid=valid,
+            offset=offset, cache=rows, valid=valid, dropless=True,
             moe_dispatch=self.moe_dispatch)
         scatter_slot_rows(self.cache, rows, slots)
         loads = torch.stack([a["expert_counts"] > 0 for a in auxes])

@@ -8,8 +8,9 @@ with only PyTorch:
         -W ignore::pytest.PytestUnknownMarkWarning tests/test_torch_cuda.py
 
 Tolerances: bf16 inputs against the fp32 plain versions — attention
-within atol = rtol = 2e-2, the ragged SwiGLU within 1e-2 relative
-Frobenius (the kernel rounds H to bf16 for the tensor cores)."""
+(prefill, decode, paged decode and paged verify) within atol = rtol =
+2e-2, the ragged and the dense SwiGLU within 1e-2 relative Frobenius (the
+kernels round H to bf16 for the tensor cores)."""
 
 from __future__ import annotations
 
@@ -79,6 +80,91 @@ def test_attention_kernels_match_plain(cuda):
         torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
 
 
+def _rel_fro(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f", [(4, 8, 256, 128), (3, 130, 128, 64),
+                                     (2, 13, 40, 100)])
+def test_moe_gmm_kernel_matches_plain(cuda, e, c, d, f):
+    """The dense SwiGLU at a decode-like C, a C past one 128-row tile, and
+    C, d and F off every tile size (the kernel masks the edges)."""
+    rng = np.random.default_rng(2)
+    args = (_bf16(rng, (e, c, d), cuda), _bf16(rng, (e, d, f), cuda, d ** -0.5),
+            _bf16(rng, (e, d, f), cuda, d ** -0.5),
+            _bf16(rng, (e, f, d), cuda, f ** -0.5))
+    before = ops.LAUNCHES["moe_gmm"]
+    got = ops.moe_gmm(*args)
+    assert ops.LAUNCHES["moe_gmm"] == before + 1
+    assert torch.isfinite(got.float()).all()
+    assert _rel_fro(got, ref.moe_gmm_ref(*args)) <= 1e-2
+
+
+def _pool(rng, b, page, n_pages, max_pages, hkv, hd, dev, min_len=1):
+    lengths = rng.integers(min_len, max_pages * page + 1, size=b)
+    lengths[0] = min_len
+    bt = np.zeros((b, max_pages), np.int32)
+    perm, k = rng.permutation(n_pages), 0
+    for i in range(b):
+        n = -(-int(lengths[i]) // page)
+        bt[i, :n] = perm[k:k + n]
+        k += n
+    return (_bf16(rng, (n_pages, page, hkv, hd), dev),
+            _bf16(rng, (n_pages, page, hkv, hd), dev),
+            torch.from_numpy(bt).to(dev),
+            torch.from_numpy(lengths.astype(np.int32)).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 24])
+def test_paged_attention_kernels_match_plain(cuda, window):
+    rng = np.random.default_rng(3)
+    b, h, hkv, hd, page, max_pages = 4, 32, 4, 128, 16, 6
+    kp, vp, bt, lens = _pool(rng, b, page, 40, max_pages, hkv, hd, cuda)
+    q = _bf16(rng, (b, h, hd), cuda)
+    got = ops.paged_decode_attention(q, kp, vp, bt, lens, window=window)
+    want = ref.paged_decode_attention_ref(q, kp, vp, bt, lens, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    for w in (1, 4, 5):
+        kp, vp, bt, lens = _pool(rng, b, page, 40, max_pages, hkv, hd, cuda,
+                                 min_len=w)
+        qw = _bf16(rng, (b, w, h, hd), cuda)
+        got = ops.paged_verify_attention(qw, kp, vp, bt, lens, window=window)
+        want = ref.paged_verify_attention_ref(qw, kp, vp, bt, lens,
+                                              window=window)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+        if w == 1:
+            assert torch.equal(got[:, 0], ops.paged_decode_attention(
+                qw[:, 0].contiguous(), kp, vp, bt, lens, window=window))
+
+
+@pytest.mark.cuda
+def test_paged_verify_too_wide_a_window_raises(cuda):
+    """W * g query rows beyond one block's shared memory fail the launch
+    and raise; the kernel never caps W quietly, and the next launch runs."""
+    rng = np.random.default_rng(5)
+    kp, vp, bt, lens = _pool(rng, 2, 16, 16, 8, 4, 128, cuda, min_len=64)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops.paged_verify_attention(_bf16(rng, (2, 64, 32, 128), cuda), kp, vp,
+                                   bt, lens)
+    # the refusal is not left behind for the next launch to report
+    ops.paged_verify_attention(_bf16(rng, (2, 4, 32, 128), cuda), kp, vp, bt,
+                               lens)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_paged_attention_length_zero_outputs_zero(cuda):
+    rng = np.random.default_rng(4)
+    kp, vp, bt, lens = _pool(rng, 2, 16, 8, 4, 2, 64, cuda)
+    lens[0] = 0
+    out = ops.paged_decode_attention(_bf16(rng, (2, 4, 64), cuda), kp, vp, bt,
+                                     lens)
+    assert not out[0].any() and out[1].any()
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_float32_on_the_card(cuda):
     q = torch.zeros(1, 2, 4, 16, device=cuda)
@@ -88,16 +174,29 @@ def test_kernels_refuse_float32_on_the_card(cuda):
                                                    device=cuda))
 
 
+# the kernels each MoE dispatch's serve launches; the paged kernels are
+# on no serve path
+PATH_KERNELS = {"ragged": ("moe_gmm_ragged", "prefill_attention",
+                           "decode_attention"),
+                "dense": ("moe_gmm", "prefill_attention", "decode_attention")}
+
+
 @pytest.mark.cuda
-def test_engine_serves_on_the_card(cuda):
+@pytest.mark.parametrize("moe_dispatch", ["ragged", "dense"])
+def test_engine_serves_on_the_card(cuda, moe_dispatch):
     """The reduced qwen3 model in bf16 through the port's launcher on the
-    card: every request completes and every kernel launches."""
+    card: every request completes, every kernel of the dispatch's path
+    launches and no other kernel does."""
     from repro_torch.launch.serve import ServeArgs, serve_real
     ops.reset_launches()
     r = serve_real(ServeArgs(smoke=True, dtype="bfloat16", requests=3,
-                             max_len=128, quantum=32, token_budget=32))
+                             max_len=128, quantum=32, token_budget=32,
+                             moe_dispatch=moe_dispatch))
     assert r["completed"] == r["requests"] == 3
-    assert all(n > 0 for n in ops.LAUNCHES.values()), ops.LAUNCHES
+    path = PATH_KERNELS[moe_dispatch]
+    assert all(ops.LAUNCHES[k] > 0 for k in path), ops.LAUNCHES
+    assert all(n == 0 for k, n in ops.LAUNCHES.items() if k not in path), \
+        ops.LAUNCHES
 
 
 @pytest.mark.cuda

@@ -5,7 +5,9 @@ prefix_cache=False)`` and through ``repro_torch.serving.engine.Engine`` on
 the iteration clock, under layered and chunked prefill, in a KV pool small
 enough to force recompute preemption.  The iteration plans, the token
 streams and ``expert_load_bytes`` must be identical, and layered prefill
-must load no more expert bytes than chunked.
+must load no more expert bytes than chunked.  The same holds under the
+dense MoE dispatch, which must also give the port's ragged path's tokens
+and expert bytes.
 """
 
 from __future__ import annotations
@@ -49,18 +51,19 @@ def _plan_key(plan):
 
 
 @functools.lru_cache(maxsize=None)
-def _run(framework: str, sched: str):
+def _run(framework: str, sched: str, moe_dispatch: str = "ragged"):
     jm, jp, tm, tp = models(CFG)
     if framework == "jax":
         s = jax_make_scheduler(sched, jm.n_blocks, n_slots=4, quantum=8,
                                token_budget=16)
-        eng = JaxEngine(jm, jp, s, prefix_cache=False, **ENGINE_KW)
+        eng = JaxEngine(jm, jp, s, prefix_cache=False,
+                        moe_dispatch=moe_dispatch, **ENGINE_KW)
         runtime = JaxRuntime(JaxExecutor(eng), clock="iteration",
                              record_plans=True)
     else:
         s = make_scheduler(sched, tm.n_blocks, n_slots=4, quantum=8,
                            token_budget=16)
-        eng = Engine(tm, tp, s, **ENGINE_KW)
+        eng = Engine(tm, tp, s, moe_dispatch=moe_dispatch, **ENGINE_KW)
         runtime = ServingRuntime(EngineExecutor(eng), clock="iteration",
                                  record_plans=True)
     for prompt, max_new in _jobs():
@@ -88,6 +91,30 @@ def test_engine_trace_matches_jax_engine(sched):
     assert all(len(t) == 8 for t in got["outputs"].values())
 
 
+@pytest.mark.parametrize("sched", ["layered", "chunked"])
+def test_engine_dense_dispatch_matches_jax_engine(sched):
+    """``moe_dispatch="dense"`` in both engines (dropless capacity buffer):
+    the same plans, tokens, expert bytes, TTFTs, preemptions and
+    dispatches."""
+    want, got = _run("jax", sched, "dense"), _run("torch", sched, "dense")
+    assert got["n_preempted"] > 0
+    for key in ("plans", "outputs", "expert_load_bytes", "n_preempted",
+                "n_dispatches", "ttft"):
+        assert got[key] == want[key], key
+    assert got["pages_left"] == 0
+
+
+@pytest.mark.parametrize("sched", ["layered", "chunked"])
+def test_dense_dispatch_matches_ragged(sched):
+    """Dense and ragged dispatch route identically and neither drops, so
+    tokens and expert-load bytes are identical (the port's counterpart of
+    tests/test_engine_equivalence.py)."""
+    dense, ragged = _run("torch", sched, "dense"), _run("torch", sched)
+    assert dense["outputs"] == ragged["outputs"]
+    assert dense["expert_load_bytes"] == ragged["expert_load_bytes"]
+    assert dense["plans"] == ragged["plans"]
+
+
 def test_layered_loads_no_more_expert_bytes_than_chunked():
     lay, chk = _run("torch", "layered"), _run("torch", "chunked")
     assert lay["outputs"] == chk["outputs"]
@@ -107,9 +134,11 @@ def test_engine_eos_early_exit():
 def test_unported_options_raise():
     _, _, tm, tp = models(CFG)
     for kw in (dict(prefix_cache=True), dict(spec_mode="ngram"),
-               dict(preemption_mode="swap"), dict(moe_dispatch="dense")):
+               dict(preemption_mode="swap")):
         with pytest.raises(NotImplementedError):
             Engine(tm, tp, "layered", n_slots=2, max_len=64, **kw)
+    with pytest.raises(ValueError, match="unknown moe_dispatch"):
+        Engine(tm, tp, "layered", n_slots=2, max_len=64, moe_dispatch="sparse")
     eng = Engine(tm, tp, "layered", n_slots=2, max_len=64)
     from repro_torch.core.plan import SubmitSpec
     with pytest.raises(NotImplementedError):

@@ -5,7 +5,8 @@ kernel's plain PyTorch version; these tests hold those against the JAX
 package's oracles (``repro.kernels.ref``), its Pallas kernels in interpret
 mode and, for prefill attention with offsets, the model's own
 ``masked_attention`` — the same numpy inputs to both packages, over the
-shape and window sweeps of tests/test_kernels.py.  Tolerance: atol = rtol
+shape and window sweeps of tests/test_kernels.py (the dense SwiGLU, the
+paged decode and the paged verify kernels included).  Tolerance: atol = rtol
 = 1e-5 (summation order differs).  The hand-written kernels themselves
 are held against the plain versions on the card by
 ``tests/test_torch_cuda.py``.
@@ -217,6 +218,168 @@ def test_decode_attention_stale_length_past_cache_reads_whole_row():
     np.testing.assert_allclose(over.numpy(), full.numpy(), **TOL)
 
 
+# ------------------------------------------------------------------ K4
+
+GMM_SWEEP = [
+    # (E, C, d, F) — C and F off the Pallas kernel's 128-tiles included
+    (4, 128, 64, 128),
+    (8, 8, 32, 64),          # decode-like capacity
+    (2, 300, 64, 100),       # ragged C and F
+    (3, 13, 48, 40),
+]
+
+
+@pytest.mark.parametrize("e,c,d,f", GMM_SWEEP)
+def test_moe_gmm_plain_matches_jax(e, c, d, f):
+    rng = np.random.default_rng(e * c + f)
+    x = _np(rng, (e, c, d))
+    wg = _np(rng, (e, d, f), d ** -0.5)
+    wu = _np(rng, (e, d, f), d ** -0.5)
+    wd = _np(rng, (e, f, d), f ** -0.5)
+    got = ops.moe_gmm(_t(x), _t(wg), _t(wu), _t(wd))
+    assert got.shape == (e, c, d) and got.dtype == torch.float32
+    want = jax.jit(jref.moe_gmm_ref)(x, wg, wu, wd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    pallas = jops.moe_gmm(x, wg, wu, wd, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
+
+
+# ----------------------------------------------------------------- K5, K6
+
+PAGED_SWEEP = [
+    # (B, H, Hkv, hd, page_size, n_pages, max_pages), tests/test_kernels.py
+    (3, 4, 2, 64, 16, 24, 6),
+    (2, 8, 1, 32, 8, 40, 10),      # MQA, small pages
+    (1, 4, 4, 128, 32, 8, 4),      # MHA
+    (4, 4, 2, 64, 16, 20, 4),      # tight pool, short sequences
+]
+
+VERIFY_SWEEP = [
+    # (B, W, H, Hkv, hd, page_size, n_pages, max_pages)
+    (3, 3, 4, 2, 64, 16, 24, 6),
+    (2, 5, 8, 1, 32, 8, 40, 10),
+    (1, 2, 4, 4, 128, 32, 8, 4),
+    (4, 4, 4, 2, 64, 16, 20, 4),
+]
+
+
+def _block_tables(rng, b, min_len, page_size, n_pages, max_pages):
+    """Lengths in [min_len, max_pages * page_size] and SHUFFLED physical
+    pages: logical order comes only from the table; entries past a
+    sequence's pages are 0 padding."""
+    lengths = rng.integers(min_len, max_pages * page_size + 1, size=b)
+    bt = np.zeros((b, max_pages), np.int32)
+    perm = rng.permutation(n_pages)
+    k = 0
+    for i in range(b):
+        n = -(-int(lengths[i]) // page_size)
+        bt[i, :n] = perm[k:k + n]
+        k += n
+    assert k <= n_pages, "sweep entry overcommits the page pool"
+    return lengths.astype(np.int32), bt
+
+
+paged_decode_ref = jax.jit(jref.paged_decode_attention_ref,
+                           static_argnames=("window",))
+paged_verify_ref = jax.jit(jref.paged_verify_attention_ref,
+                           static_argnames=("window",))
+
+
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("b,h,hkv,hd,page,npages,maxp", PAGED_SWEEP)
+def test_paged_decode_attention_plain_matches_jax(b, h, hkv, hd, page, npages,
+                                                  maxp, window):
+    rng = np.random.default_rng(b * hd + page)
+    q = _np(rng, (b, h, hd))
+    kp, vp = _np(rng, (npages, page, hkv, hd)), _np(rng, (npages, page, hkv, hd))
+    lengths, bt = _block_tables(rng, b, 1, page, npages, maxp)
+    got = ops.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(bt),
+                                     _t(lengths), window=window)
+    want = paged_decode_ref(q, kp, vp, bt, lengths, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    pallas = jops.paged_decode_attention(q, kp, vp, bt, lengths,
+                                         window=window, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
+
+
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("b,w,h,hkv,hd,page,npages,maxp", VERIFY_SWEEP)
+def test_paged_verify_attention_plain_matches_jax(b, w, h, hkv, hd, page,
+                                                  npages, maxp, window):
+    """The W-token window, lengths covering it (the engine writes the
+    window's K/V before verifying)."""
+    rng = np.random.default_rng(b * hd + w)
+    q = _np(rng, (b, w, h, hd))
+    kp, vp = _np(rng, (npages, page, hkv, hd)), _np(rng, (npages, page, hkv, hd))
+    lengths, bt = _block_tables(rng, b, w, page, npages, maxp)
+    got = ops.paged_verify_attention(_t(q), _t(kp), _t(vp), _t(bt),
+                                     _t(lengths), window=window)
+    want = paged_verify_ref(q, kp, vp, bt, lengths, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    pallas = jops.paged_verify_attention(q, kp, vp, bt, lengths,
+                                         window=window, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
+
+
+def test_paged_decode_over_allocator_tables_equals_contiguous_decode():
+    """Slot rows scattered into the pool through the port's own
+    PagedKVAllocator block tables: paged decode over the pool equals
+    contiguous decode over the slot rows."""
+    from repro_torch.serving.kvcache import PagedKVAllocator
+    b, h, hkv, hd, page, s_max = 3, 4, 2, 32, 8, 64
+    kv = PagedKVAllocator(n_pages=b * s_max // page, page_size=page)
+    lengths = np.array([50, 17, 8], np.int32)
+    for rid, n in enumerate(lengths):
+        kv.reserve(rid, int(n))
+    rng = np.random.default_rng(12)
+    q = _np(rng, (b, h, hd))
+    k_slot, v_slot = _np(rng, (b, s_max, hkv, hd)), _np(rng, (b, s_max, hkv, hd))
+    kp = np.zeros((kv.n_pages, page, hkv, hd), np.float32)
+    vp = np.zeros_like(kp)
+    bt = np.zeros((b, s_max // page), np.int32)
+    for rid in range(b):
+        table = kv.block_table(rid)
+        bt[rid, :len(table)] = table
+        for j, pid in enumerate(table):
+            kp[pid] = k_slot[rid, j * page:(j + 1) * page]
+            vp[pid] = v_slot[rid, j * page:(j + 1) * page]
+    got = ops.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(bt),
+                                     _t(lengths))
+    want = ops.decode_attention(_t(q), _t(k_slot), _t(v_slot), _t(lengths))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+def test_paged_verify_window_one_equals_paged_decode():
+    rng = np.random.default_rng(13)
+    b, h, hkv, hd, page, npages, maxp = 3, 4, 2, 64, 16, 24, 6
+    q = _np(rng, (b, h, hd))
+    kp, vp = _np(rng, (npages, page, hkv, hd)), _np(rng, (npages, page, hkv, hd))
+    lengths, bt = _block_tables(rng, b, 1, page, npages, maxp)
+    args = (_t(kp), _t(vp), _t(bt), _t(lengths))
+    got = ops.paged_verify_attention(_t(q)[:, None], *args)[:, 0]
+    want = ops.paged_decode_attention(_t(q), *args)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_paged_length_zero_outputs_zero():
+    """A sequence of length 0 outputs 0, as the Pallas kernel does (it
+    clamps its denominator at 1e-30); so do verify rows that see no key."""
+    rng = np.random.default_rng(14)
+    q = _np(rng, (2, 3, 4, 16))
+    kp, vp = _np(rng, (4, 8, 2, 16)), _np(rng, (4, 8, 2, 16))
+    bt = np.asarray([[0, 1], [2, 3]], np.int32)
+    lengths = np.asarray([0, 2], np.int32)
+    got = ops.paged_verify_attention(_t(q), _t(kp), _t(vp), _t(bt),
+                                     _t(lengths)).numpy()
+    assert not got[0].any() and not got[1, 0].any() and got[1, 1:].any()
+    pallas = jops.paged_decode_attention(q[:, 0], kp, vp, bt, lengths,
+                                         interpret=True)
+    np.testing.assert_allclose(
+        ops.paged_decode_attention(_t(q[:, 0]), _t(kp), _t(vp), _t(bt),
+                                   _t(lengths)).numpy(),
+        np.asarray(pallas), **TOL)
+
+
 # ------------------------------------------------ slot-row gather/scatter
 
 def _cache_tree(rng, reps=2, n_slots=4, s=6):
@@ -271,6 +434,14 @@ def test_wrappers_take_no_silent_fallback():
     with pytest.raises(ValueError):
         ops.moe_gmm_ragged(rows, w, w, w,
                            torch.empty(1, dtype=torch.int32, device="meta"), 8)
+    with pytest.raises(ValueError):
+        ops.moe_gmm(rows[None], w[:1], w[:1], w[:1])
+    pages = torch.empty(4, 8, 2, 16, device="meta")
+    bt = torch.empty(1, 2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        ops.paged_decode_attention(q[:, 0], pages, pages, bt, bt[:, 0])
+    with pytest.raises(ValueError):
+        ops.paged_verify_attention(q, pages, pages, bt, bt[:, 0])
 
 
 def test_cpu_path_launches_no_kernel():

@@ -323,11 +323,77 @@ def test_valid_mask_excludes_padding_from_counts():
 
 
 def test_unported_dispatch_raises():
+    """Both dispatches are ported; an unknown one raises ValueError, as
+    the JAX apply_moe does."""
     cfg = port_cfg(tiny_moe())
     _, p = _moe_params(tiny_moe())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown moe_dispatch"):
         tmoe.apply_moe(cfg, p, torch.zeros(1, 2, cfg.d_model),
-                       moe_dispatch="dense")
+                       moe_dispatch="sparse")
+    with pytest.raises(ValueError, match="unknown moe_dispatch"):
+        jmoe.apply_moe(tiny_moe(), jax.tree_util.tree_map(
+            jnp.asarray, _moe_params(tiny_moe())[0]),
+            jnp.zeros((1, 2, cfg.d_model)), moe_dispatch="sparse")
+
+
+@pytest.mark.parametrize("n_tokens", [1, 7, 8, 16, 33, 100, 1000])
+@pytest.mark.parametrize("cf", [1.0, 1.25, 2.0])
+def test_capacity_matches_jax(n_tokens, cf):
+    cfg = tiny_moe(moe=MoEConfig(n_experts=8, top_k=2, expert_d_ff=64,
+                                 capacity_factor=cf))
+    assert tmoe.capacity(port_cfg(cfg), n_tokens) == jmoe.capacity(cfg,
+                                                                   n_tokens)
+
+
+@pytest.mark.parametrize("t_,e,cap", [(1, 2, 1), (7, 4, 3), (33, 8, 8),
+                                      (64, 3, 64), (20, 4, 2)])
+def test_dispatch_indices_match_jax(t_, e, cap):
+    """Slots, keep and counts of the dense capacity buffer are identical
+    to the JAX dispatch, with masked (id == E) and over-capacity
+    assignments."""
+    rng = np.random.default_rng(t_ * e + cap)
+    idx = rng.integers(0, e + 1, size=(t_, 2))          # e == sentinel
+    sj, kj, cj = jit(jmoe.dispatch_indices, n_experts=e, cap=cap)(idx)
+    st, kt, ct = tmoe.dispatch_indices(t(idx), e, cap)
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+
+
+@pytest.mark.parametrize("dropless", [True, False], ids=["dropless", "capacity"])
+def test_apply_moe_dense_matches_jax(dropless):
+    """Dense dispatch with valid masking and a shared expert: outputs,
+    expert counts, active experts and dropped assignments match the JAX
+    apply_moe; with GShard capacity (factor 0.5) some assignments drop."""
+    cfg = tiny_moe()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_shared_experts=1, shared_d_ff=32, capacity_factor=0.5))
+    jp, tp = _moe_params(cfg)
+    rng = np.random.default_rng(15)
+    x = rng.normal(size=(2, 16, cfg.d_model)).astype(np.float32)
+    valid = np.ones((2, 16), bool)
+    valid[1, 11:] = False
+    out_j, aux_j = jit(jmoe.apply_moe, cfg, dropless=dropless,
+                       moe_dispatch="dense")(jp, x, valid=valid)
+    out_t, aux_t = tmoe.apply_moe(port_cfg(cfg), tp, t(x), valid=t(valid),
+                                  dropless=dropless, moe_dispatch="dense")
+    close(out_t, out_j)
+    for key in ("expert_counts", "active_experts", "dropped"):
+        np.testing.assert_array_equal(aux_t[key].numpy(), np.asarray(aux_j[key]))
+    close(aux_t["aux_loss"], aux_j["aux_loss"])
+    assert (int(aux_t["dropped"]) == 0) == dropless
+
+
+def test_dense_and_ragged_dispatch_agree_when_dropless():
+    cfg = tiny_moe()
+    _, p = _moe_params(cfg)
+    x = t(np.random.default_rng(16).normal(
+        size=(2, 9, cfg.d_model)).astype(np.float32))
+    out_r, aux_r = tmoe.apply_moe(port_cfg(cfg), p, x)
+    out_d, aux_d = tmoe.apply_moe(port_cfg(cfg), p, x, dropless=True,
+                                  moe_dispatch="dense")
+    close(out_d, out_r.numpy())
+    assert torch.equal(aux_d["expert_counts"], aux_r["expert_counts"])
 
 
 # ------------------------------------------------------------- blocks
@@ -386,6 +452,26 @@ def test_forward_matches_jax(make_cfg):
     lj, _, _ = fwd(jp, toks)
     lt, _, _ = tm.forward(tp, t(toks).long())
     close(lt, lj)
+
+
+def test_forward_dense_dispatch_matches_jax():
+    """The full forward with a cache under the dense dispatch, dropless as
+    the engine runs it: logits within 1e-5, expert counts exact."""
+    cfg = tiny_moe()
+    jm, jp, tm, tp = models(cfg)
+    rng = np.random.default_rng(17)
+    toks = rng.integers(1, cfg.vocab_size, size=(2, 9)).astype(np.int32)
+    off = np.asarray([0, 3], np.int32)
+    jc, tc = jm.init_cache(2, 24), tm.init_cache(2, 24)
+    fwd = jit(jm.forward, dropless=True, moe_dispatch="dense")
+    for sl, o in ((slice(0, 8), off), (slice(8, 9), off + 8)):
+        lj, jc, aj = fwd(jp, toks[:, sl], offset=o, cache=jc)
+        lt, tc, at = tm.forward(tp, t(toks[:, sl]).long(), offset=t(o),
+                                cache=tc, dropless=True, moe_dispatch="dense")
+        close(lt, lj)
+        np.testing.assert_array_equal(at["expert_counts"].numpy(),
+                                      np.asarray(aj["expert_counts"]))
+        assert int(at["dropped"]) == int(aj["dropped"]) == 0
 
 
 def test_run_blocks_split_at_every_boundary():
