@@ -13,11 +13,16 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
 2. hold each of the six kernels against its plain PyTorch version at the
    qwen3-30b-a3b shapes its path gives it, in bf16, and time kernel,
    plain version and, where one PyTorch call computes the same function,
-   that call: K1 ragged SwiGLU, K2 prefill attention, K3 decode
-   attention, K4 dense SwiGLU, K5 paged decode attention over block
+   that call: K1 ragged SwiGLU, K2 prefill attention (with its CTA
+   count), K3 decode attention at S_max 2048 and 512 (with its split
+   count; all three timings rotate over cache copies larger than L2, so
+   each call reads its cache cold, as the serve's layers do; two launches
+   must agree bit for bit), K4 dense SwiGLU, K5 paged decode attention over block
    tables from the port's PagedKVAllocator (also against K3 on the same
    keys as slot rows), K6 paged verify attention (W = 4, and W = 1
-   against K5).
+   against K5).  Each kernel's share of its bound is bound_ms / ms.  The
+   build's ptxas report and, where cuobjdump exists, the SASS opcodes that
+   show K2 on wgmma (HGMMA) and TMA (UTMALDG) are printed.
 3. check the kernel path end to end against the CPU fp32 plain path on a
    small model, under the ragged and the dense MoE dispatch (finite
    logits that agree within a stated tolerance).
@@ -58,6 +63,7 @@ SRC = ROOT / "src"
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 FLOP/s
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+L2_BYTES = 50e6
 
 # tolerances against the fp32 plain versions, in bf16
 ATTN_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 inputs, fp32 softmax; P rounded to bf16
@@ -198,52 +204,122 @@ def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
     mask = ((pos[None, None, :] <= qpos[:, :, None])
             & (pos[None, None, :] < (off.long() + p)[:, None, None]))[:, None]
     lib = cuda_time(lambda: _sdpa_gmajor(qt, kt, vt, mask), iters=5)
+    rows = ops.PREFILL_ROWS
+    ctas = -(-p * g // rows) * hkv * b
     return {"name": f"prefill_attention[{tag}]", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/prefill_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:78",
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "ctas": ctas, "achieved_tflops": flops / ms / 1e9,
             "shape": {"B": b, "P": p, "S_max": s_max, "offsets": offl}}
 
 
-def check_decode_attention(gen, b=8, s_max=2048) -> dict:
+def cuda_time_cold(fn, n_copies: int, rounds: int, graph: bool = True) -> float:
+    """Mean milliseconds per call of ``fn(i)``, where call i reads input
+    copy ``i % n_copies`` (CUDA events): with the copies together larger
+    than the 50 MB L2, each call finds its inputs cold, as each of the
+    serve's 48 layers finds its own cache.  With ``graph`` the calls are
+    captured once in a CUDA graph and replayed, so the time is the card's
+    and not that of the Python that launches them (a call that takes the
+    card a few microseconds takes the host longer to launch)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(n_copies):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    n = n_copies * rounds
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for i in range(n):
+                fn(i % n_copies)
+        g.replay()
+        torch.cuda.synchronize()
+        run = g.replay
+    else:
+        def run():
+            for i in range(n):
+                fn(i % n_copies)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def check_decode_attention(gen, tag: str, b=8, s_max=2048,
+                           len_range=(601, 1517)) -> dict:
+    """K3 at the serve's decode step (8 slots, one of them idle with the
+    stale length S_max + 1), timed cold in CUDA graphs: kernel, plain
+    version and SDPA each rotate over copies of the cache that together
+    exceed 4 x the 50 MB L2.  ``ms_hot`` repeats one copy and
+    ``ms_eager`` launches from Python: how K3 was timed before it became
+    faster than its own launch."""
     import torch
     from repro_torch.kernels import ops, ref
     h, hkv, hd = 32, 4, 128
     dev = torch.device("cuda")
     q = torch.randn((b, h, hd), device=dev, generator=gen).to(torch.bfloat16)
-    kc = torch.randn((b, s_max, hkv, hd), device=dev, generator=gen).to(torch.bfloat16)
-    vc = torch.randn((b, s_max, hkv, hd), device=dev, generator=gen).to(torch.bfloat16)
-    # prompts of 600-1500 tokens part-way through 16 new tokens, and one
-    # idle slot with the stale offset max_len (length clamps to S_max)
-    lens = torch.randint(601, 1517, (b,), device=dev, generator=gen, dtype=torch.int32)
+    cache_bytes = 2 * b * s_max * hkv * hd * 2
+    n_copies = max(2, int(-(-4 * L2_BYTES // cache_bytes)))
+    caches = [tuple(torch.randn((b, s_max, hkv, hd), device=dev, generator=gen)
+                    .to(torch.bfloat16) for _ in range(2)) for _ in range(n_copies)]
+    kc, vc = caches[0]
+    lens = torch.randint(*len_range, (b,), device=dev, generator=gen,
+                         dtype=torch.int32)
     lens[-1] = s_max + 1
     got = ops.decode_attention(q, kc, vc, lens)
     want = ref.decode_attention_ref(q, kc, vc, lens)
     torch.cuda.synchronize()
     max_abs = (got.float() - want.float()).abs().max().item()
     ok = torch.allclose(got.float(), want.float(), **ATTN_TOL)
-    log(f"decode_attention[B{b} lengths {lens.tolist()}]: max abs "
-        f"{max_abs:.3e} (tol {ATTN_TOL})")
+    split = ops.decode_split(b, hkv, s_max)
+    log(f"decode_attention[{tag}] B{b} S_max {s_max} lengths {lens.tolist()}: "
+        f"max abs {max_abs:.3e} (tol {ATTN_TOL}); split {split}, "
+        f"{split * hkv * b} CTAs")
     if not ok:
-        raise AssertionError("decode_attention disagrees")
+        raise AssertionError(f"decode_attention[{tag}] disagrees")
+    again = ops.decode_attention(q, kc, vc, lens)
+    if not torch.equal(got, again):
+        raise AssertionError(f"decode_attention[{tag}]: two launches differ")
     used = [min(int(n), s_max) for n in lens.tolist()]
     nbytes = 2 * q.numel() * 2 + sum(used) * 2 * hkv * hd * 2 + b * 4
     flops = 4 * hd * h * sum(used)
     b_ms, b_by = bound_ms(nbytes, flops)
-    ms = cuda_time(lambda: ops.decode_attention(q, kc, vc, lens), iters=50)
-    plain = cuda_time(lambda: ref.decode_attention_ref(q, kc, vc, lens), iters=10)
+    ms = cuda_time_cold(lambda i: ops.decode_attention(q, *caches[i], lens),
+                        n_copies, rounds=8)
+    ms_eager = cuda_time_cold(
+        lambda i: ops.decode_attention(q, *caches[i], lens), n_copies,
+        rounds=8, graph=False)
+    ms_hot = cuda_time_cold(lambda i: ops.decode_attention(q, kc, vc, lens),
+                            1, rounds=48)
+    plain = cuda_time_cold(
+        lambda i: ref.decode_attention_ref(q, *caches[i], lens), n_copies,
+        rounds=2)
     g = h // hkv
-    kt = kc.transpose(1, 2).repeat(1, g, 1, 1)
-    vt = vc.transpose(1, 2).repeat(1, g, 1, 1)
+    rep = [tuple(c.transpose(1, 2).repeat(1, g, 1, 1) for c in kv)
+           for kv in caches]
     mask = (torch.arange(s_max, device=dev)[None, :]
             < lens.clamp(max=s_max).long()[:, None])[:, None, None, :]
-    lib = cuda_time(lambda: _sdpa_gmajor(q[:, :, None], kt, vt, mask), iters=50)
-    return {"name": "decode_attention", "route": "cuda",
+    lib = cuda_time_cold(lambda i: _sdpa_gmajor(q[:, :, None], *rep[i], mask),
+                         n_copies, rounds=8)
+    del caches, rep
+    return {"name": f"decode_attention[{tag}]", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:85",
-            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "max_abs_err": max_abs, "ms": ms, "ms_hot": ms_hot,
+            "ms_eager": ms_eager,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "split": split, "ctas": split * hkv * b,
+            "timing": f"CUDA graph replay, cold: {n_copies} cache copies "
+                      f"of {cache_bytes / 1e6:.1f} MB rotated; ms_hot: one "
+                      "copy; ms_eager: cold, launched from Python",
             "shape": {"B": b, "S_max": s_max, "lengths": lens.tolist()}}
 
 
@@ -618,8 +694,10 @@ def profile_serve(a, model, params) -> None:
         f"({r['iterations']} iterations, "
         f"{r['wall_s'] * 1e3:.1f} ms wall under the profiler): device busy "
         f"{busy_ms:.1f} ms = {busy_ms / (r['wall_s'] * 1e3):.3f} of wall")
-    for us, n, name in dev[:12]:
-        log(f"  {us / 1e3:10.1f} ms {n:7d} x  {name[:100]}")
+    own = ("moe_gmm", "prefill_attention", "decode_", "paged_attention")
+    for rank, (us, n, name) in enumerate(dev):
+        if rank < 12 or any(k in name for k in own):
+            log(f"  {us / 1e3:10.1f} ms {n:7d} x  {name[:100]}")
 
 
 def _leaves(t):
@@ -653,13 +731,20 @@ def main() -> None:
     log(f"built kernels in {time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "setmaxnreg" in line:
                 log(f"  {name}: {line.strip()}")
+    # the prefill kernel's products should run on wgmma (HGMMA) and its
+    # tiles arrive by TMA (UTMALDG); the decode kernel's on mma.sync (HMMA)
+    # fed by cp.async (LDGSTS)
+    log(f"SASS opcodes: prefill_attention "
+        f"{build.sass_counts('prefill_attention')}, decode_attention "
+        f"{build.sass_counts('decode_attention', ('HMMA', 'LDGSTS', 'MOVM'))}")
 
     # K1 at decode (8 slots -> 960 rows, m_blk 8) and at a 2048-token
     # prefill (32640 rows, m_blk 128); K2 at a layered first group (4
     # whole prompts in the 2048 bucket) and a chunked step (512-token
-    # chunks at four offsets); K3 at the 8-slot decode step; K4 at the
+    # chunks at four offsets); K3 at the 8-slot decode step of the long
+    # (S_max 2048) and the short (S_max 512) trace; K4 at the
     # dense decode step (C 8) and a packed 4 x 256 prefill (C 1024); K5
     # and K6 over the paged pool
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -668,13 +753,17 @@ def main() -> None:
                check_prefill_attention("layered", gen),
                check_prefill_attention("chunked", gen, b=4, p=512,
                                        offsets=[0, 512, 1024, 1536]),
-               check_decode_attention(gen)]
+               check_decode_attention(gen, "long"),
+               check_decode_attention(gen, "short", s_max=512,
+                                      len_range=(65, 266))]
     torch.cuda.empty_cache()
     kernels += [check_moe_gmm_dense("decode", 8, gen),
                 check_moe_gmm_dense("prefill", 1024, gen)]
     torch.cuda.empty_cache()
     kernels += check_paged_attention(gen)
     torch.cuda.empty_cache()
+    for k in kernels:
+        k["bound_share"] = k["bound_ms"] / k["ms"]
     check_small_model_end_to_end()
     torch.cuda.empty_cache()
     if "--skip-serve" in sys.argv[1:]:

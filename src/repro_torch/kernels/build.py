@@ -17,17 +17,18 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("moe_gmm_ragged", "prefill_attention", "decode_attention",
            "moe_gmm", "paged_attention")
 # headers a source may include: any edit rebuilds every kernel
-HEADERS = ("common.cuh", "moe_swiglu.cuh")
+HEADERS = ("common.cuh", "moe_swiglu.cuh", "hopper.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -83,6 +84,22 @@ def build_all() -> Dict[str, str]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports
+
+
+def sass_counts(name: str, opcodes=("HGMMA", "UTMALDG")) -> Optional[Dict[str, int]]:
+    """How often each SASS opcode occurs in kernel ``name``'s built
+    library (``cuobjdump -sass``), or None where the toolkit has no
+    cuobjdump.  Shows, for example, that a kernel's products run on wgmma
+    (HGMMA) and its tiles arrive by TMA (UTMALDG)."""
+    tool = Path(nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    path = _lib_path(name)
+    if not path.exists():
+        build_all()
+    sass = subprocess.run([str(tool), "-sass", str(path)], check=True,
+                          capture_output=True, text=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,5 +1,5 @@
 // Single-token GQA decode attention over the contiguous slot-row cache, by
-// hand for Hopper (sm_90a).
+// hand for Hopper (sm_90a): split-K over the key axis.
 //
 // Replaces: src/repro/kernels/decode_attention.py, decode_attention_pallas
 // (body _decode_kernel).  Same contract: q (B, H, hd), caches (B, S_max,
@@ -7,160 +7,316 @@
 // with a window the query sees keys >= length - window.  Query head h reads
 // kv head h % Hkv (g-major grouping).  ``length`` is clamped to S_max: an
 // idle slot of the engine's full-pool decode step may carry a stale offset
-// equal to max_len.
+// equal to max_len.  A query that sees no key outputs 0.
 //
 // Bound on an H100 SXM (3.35 TB/s): the valid K and V rows must be read
 // once, 2 * Hkv * hd * 2 B = 2 KB per cached token at qwen3-30b-a3b (Hkv 4,
 // hd 128): 8 slots at 2048 tokens move 33.6 MB, about 10 us.  With g = 8
-// query heads per kv head the work is 2 flops per byte read — far below
-// the ~295 the tensor cores need — so bytes bound it.
+// query heads per kv head the work is 2 flops per byte read, far below the
+// ~295 the tensor cores need, so bytes bound it.
 //
-// Design.  One CTA per (kv head, slot) streams that head's rows once, in
-// KT-key tiles through shared memory, for all g query heads that read it;
-// scores, the online softmax and the PV sum run on the CUDA cores in fp32
-// (the work per byte is too small for tensor cores to matter).  At 8 slots
-// and 4 kv heads that is only 32 CTAs on 132 SMs: splitting the key axis
-// across CTAs (split-K, with a second pass to merge the softmax partials)
-// is the later fix.
-#include "common.cuh"
+// Design.
+//  * Grid (split, Hkv, B).  The host picks ``split`` from the shapes it
+//    knows (ops.decode_split: two waves on 132 SMs, 9 at 8 slots x 4 kv
+//    heads).  Lengths stay on the card: each CTA reads lengths[b] itself
+//    and takes its share of that row's own [lo, length), in 16-key units;
+//    a CTA whose share is empty writes an empty partial.
+//  * K/V stream through a two-stage ring of 64-key tiles in shared memory
+//    with 16-byte cp.async (zero-filled past the share), so the next
+//    tile's copy is in flight while the current one is computed.
+//  * Each of the 4 warps owns 16 keys of a tile and keeps its own online
+//    softmax (m, l, O) for the g heads: S^T = K Q^T is one mma.sync
+//    m16n8k16 per 16 hd (the g <= 8 query heads fill n = 8; g <= 16 takes
+//    two), P^T goes to bf16 and through movmatrix into the B fragment of
+//    O^T += V^T P^T (V^T by ldmatrix.trans).  exp2f with log2(e) folded
+//    into the scale.  No barrier between warps inside the tile loop.
+//  * At the end the 4 warps' partials merge through shared memory; with
+//    split > 1 the CTA writes (O, m, l) for its split to fp32 scratch and a
+//    second launch merges the splits in a fixed order: no float atomics,
+//    the same result from run to run.
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;            // 4 warps, 16 keys each per tile
 constexpr int kWarps = kThreads / 32;
-constexpr int KT = 32;            // keys per tile
-constexpr int ACC_MAX = 16;       // accumulators per thread: g * hd <= 4096
-constexpr float kNegInf = -1e30f;
+constexpr int KT = 16 * kWarps;          // keys per tile
+constexpr int STAGES = 2;
+constexpr int HD_MAX = 128;
+constexpr int G_MAX = 16;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__host__ __device__ inline size_t smem_bytes(int g, int hd) {
-  // q (g x hd), K tile (KT x hd+1, padded against bank conflicts),
-  // V tile (KT x hd), probabilities (g x KT), alpha (g)
-  return sizeof(float) * (static_cast<size_t>(g) * hd + KT * (hd + 1) + KT * hd +
-                          g * KT + g);
+__host__ __device__ inline size_t smem_bytes(int hd) {
+  const size_t ring = sizeof(bf16) * STAGES * 2 * KT * (hd + 8);
+  const size_t merge = sizeof(float) * kWarps * G_MAX * (hd + 2);
+  return ring > merge ? ring : merge;
 }
 
+template <int NT>   // n-tiles of 8 query heads: g <= 8 * NT
 __global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const int* __restrict__ lengths,
-                        bf16* __restrict__ out, int H, int Hkv, int S_max, int hd,
-                        int window, float scale) {
-  const int kh = blockIdx.x;
-  const int b = blockIdx.y;
+decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const int* __restrict__ lengths,
+                    bf16* __restrict__ out, float* __restrict__ part, int H, int Hkv,
+                    int S_max, int hd, int window, float scale_log2, int split) {
+  const int s = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int g = H / Hkv;
-  extern __shared__ float sm[];
-  float* qs = sm;                          // g x hd (pre-scaled)
-  float* ks = qs + g * hd;                 // KT x (hd + 1)
-  float* vs = ks + KT * (hd + 1);          // KT x hd
-  float* ps = vs + KT * hd;                // g x KT
-  float* as = ps + g * KT;                 // g
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int hd16 = hd / 16;
+  const int ld = hd + 8;   // padded rows: ldmatrix reads 8 rows without bank conflicts
 
-  for (int i = threadIdx.x; i < g * hd; i += kThreads) {
-    const int gi = i / hd, c = i - gi * hd;
-    qs[i] = __bfloat162float(q[(static_cast<long>(b) * H + gi * Hkv + kh) * hd + c]) * scale;
-  }
+  // this CTA's share of the row's visible keys [lo, length); the window
+  // counts back from the query's own position, lengths[b] - 1, before the
+  // clamp (an idle slot's stale length is S_max + 1)
   const int length = min(lengths[b], S_max);
-  const int lo = window > 0 ? max(0, length - window) : 0;
+  const int lo = window > 0 ? max(0, lengths[b] - window) : 0;
+  const int n = max(length - lo, 0);
+  const int chunk = ((n + split - 1) / split + 15) & ~15;
+  const int start = lo + s * chunk;
+  const int end = min(start + chunk, length);
+  const int n_tiles = end > start ? (end - start + KT - 1) / KT : 0;
 
-  float acc[ACC_MAX];
-#pragma unroll
-  for (int i = 0; i < ACC_MAX; ++i) acc[i] = 0.0f;
-  // warp w keeps the running max / denominator of heads w, w + 8, ...
-  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.0f, 0.0f};
-
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);   // [STAGES][KT][ld]
+  bf16* vs = ks + STAGES * KT * ld;
   const long kv_row = static_cast<long>(Hkv) * hd;
   const bf16* kb = k + (static_cast<long>(b) * S_max * Hkv + kh) * hd;
   const bf16* vb = v + (static_cast<long>(b) * S_max * Hkv + kh) * hd;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int chunks = hd / 8;
 
-  for (int t0 = lo; t0 < length; t0 += KT) {
-    const int n = min(KT, length - t0);
-    __syncthreads();   // q loaded / previous tile consumed
-    for (int i = threadIdx.x; i < KT * hd; i += kThreads) {
-      const int j = i / hd, c = i - j * hd;
-      float kv = 0.0f, vv = 0.0f;
-      if (j < n) {
-        kv = __bfloat162float(kb[(t0 + j) * kv_row + c]);
-        vv = __bfloat162float(vb[(t0 + j) * kv_row + c]);
-      }
-      ks[j * (hd + 1) + c] = kv;
-      vs[j * hd + c] = vv;
+  auto load_tile = [&](int t, int st) {
+    const int t0 = start + t * KT;
+    for (int i = threadIdx.x; i < KT * chunks; i += kThreads) {
+      const int j = i / chunks, c = (i - j * chunks) * 8;
+      const bool ok = t0 + j < end;
+      const long src = static_cast<long>(ok ? t0 + j : start) * kv_row + c;
+      cp_async16(ks + (st * KT + j) * ld + c, kb + src, ok);
+      cp_async16(vs + (st * KT + j) * ld + c, vb + src, ok);
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < g * KT; i += kThreads) {
-      const int gi = i / KT, j = i - gi * KT;
-      float s = kNegInf;
-      if (j < n) {
-        s = 0.0f;
-        for (int c = 0; c < hd; ++c) s += qs[gi * hd + c] * ks[j * (hd + 1) + c];
-      }
-      ps[i] = s;
-    }
-    __syncthreads();
-    // online softmax: lane j of warp w handles key j of heads w, w + 8
-    for (int u = 0; u * kWarps + warp < g && u < 2; ++u) {
-      const int gi = u * kWarps + warp;
-      const bool ok = lane < n;
-      const float s = ok ? ps[gi * KT + lane] : kNegInf;
-      float tmax = s;
-      for (int o = 16; o > 0; o >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-      const float m_new = fmaxf(m_run[u], tmax);
-      const float p = ok ? expf(s - m_new) : 0.0f;
-      float psum = p;
-      for (int o = 16; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      const float alpha = expf(m_run[u] - m_new);
-      l_run[u] = alpha * l_run[u] + psum;
-      m_run[u] = m_new;
-      ps[gi * KT + lane] = p;
-      if (lane == 0) as[gi] = alpha;
-    }
-    __syncthreads();
+  };
 #pragma unroll
-    for (int a = 0; a < ACC_MAX; ++a) {
-      const int i = threadIdx.x + a * kThreads;
-      if (i < g * hd) {
-        const int gi = i / hd, c = i - gi * hd;
-        float sum = 0.0f;
-        for (int j = 0; j < KT; ++j) sum += ps[gi * KT + j] * vs[j * hd + c];
-        acc[a] = acc[a] * as[gi] + sum;
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < n_tiles) load_tile(t, t);
+    cp_async_commit();
+  }
+
+  // B fragments of Q^T: lane holds heads nt * 8 + gid, hd pairs tig * 2 (+8)
+  uint32_t qf[NT][HD_MAX / 16][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int head = nt * 8 + gid;
+    const bf16* qr = q + (static_cast<long>(b) * H + head * Hkv + kh) * hd + tig * 2;
+#pragma unroll
+    for (int kk = 0; kk < HD_MAX / 16; ++kk) {
+      const bool ok = head < g && kk < hd16;
+      qf[nt][kk][0] = ok ? *reinterpret_cast<const uint32_t*>(qr + kk * 16) : 0u;
+      qf[nt][kk][1] = ok ? *reinterpret_cast<const uint32_t*>(qr + kk * 16 + 8) : 0u;
+    }
+  }
+
+  // per warp: O^T (hd x heads) fragments, running max and sum per head
+  float o[NT][HD_MAX / 16][4];
+  float m_run[NT][2], l_run[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int mt = 0; mt < HD_MAX / 16; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nt][mt][e] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      m_run[nt][j] = -INFINITY;
+      l_run[nt][j] = 0.0f;
+    }
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();   // tile t visible to all; tile t - 1's stage free
+    if (t + STAGES - 1 < n_tiles) load_tile(t + STAGES - 1, (t + STAGES - 1) % STAGES);
+    cp_async_commit();
+
+    const int st = t % STAGES;
+    const bf16* kt = ks + (st * KT + warp * 16) * ld;
+    const bf16* vt = vs + (st * KT + warp * 16) * ld;
+    const int key0 = start + t * KT + warp * 16;
+
+    // S^T (16 keys x 8 heads) = K (16 x hd) Q^T (hd x 8)
+    float sc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < HD_MAX / 16; ++kk) {
+      if (kk < hd16) {
+        uint32_t a[4];
+        ldmatrix_x4(a, kt + ((lane % 8) + ((lane / 8) & 1) * 8) * ld + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_m16n8k16(sc[nt], a, qf[nt][kk][0], qf[nt][kk][1]);
+      }
+    }
+
+    // online softmax per head column; lanes of one tig share a head
+    const bool ok0 = key0 + gid < end, ok1 = key0 + gid + 8 < end;
+    uint32_t pb[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float x0 = ok0 ? sc[nt][j] * scale_log2 : -INFINITY;
+        const float x1 = ok1 ? sc[nt][2 + j] * scale_log2 : -INFINITY;
+        float mx = fmaxf(x0, x1);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float m_new = fmaxf(m_run[nt][j], mx);
+        const float m_use = m_new == -INFINITY ? 0.0f : m_new;
+        const float alpha = exp2f(m_run[nt][j] - m_use);
+        const float p0 = exp2f(x0 - m_use), p1 = exp2f(x1 - m_use);
+        l_run[nt][j] = l_run[nt][j] * alpha + p0 + p1;
+        m_run[nt][j] = m_new;
+        sc[nt][j] = p0;
+        sc[nt][2 + j] = p1;
+#pragma unroll
+        for (int mt = 0; mt < HD_MAX / 16; ++mt) {
+          o[nt][mt][j] *= alpha;
+          o[nt][mt][2 + j] *= alpha;
+        }
+      }
+      // P^T (keys x heads) -> B fragment (k = key, n = head)
+      pb[nt][0] = movmatrix_trans(pack_bf16(sc[nt][0], sc[nt][1]));
+      pb[nt][1] = movmatrix_trans(pack_bf16(sc[nt][2], sc[nt][3]));
+    }
+
+    // O^T (hd x heads) += V^T (hd x 16 keys) P^T (16 keys x heads)
+#pragma unroll
+    for (int mt = 0; mt < HD_MAX / 16; ++mt) {
+      if (mt < hd16) {
+        const int mat = lane / 8;
+        uint32_t a[4];
+        ldmatrix_x4_trans(a, vt + ((mat >> 1) * 8 + lane % 8) * ld + mt * 16 + (mat & 1) * 8);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_m16n8k16(o[nt][mt], a, pb[nt][0], pb[nt][1]);
       }
     }
   }
-  // publish the denominators, then normalise
-  __syncthreads();
-  for (int u = 0; u * kWarps + warp < g && u < 2; ++u)
-    if (lane == 0) as[u * kWarps + warp] = l_run[u];
-  __syncthreads();
+  cp_async_wait<0>();
+  __syncthreads();   // the ring becomes the merge area
+
+  // merge the 4 warps' partials through shared memory
+  float* wm = reinterpret_cast<float*>(smem);   // [kWarps][G_MAX]
+  float* wl = wm + kWarps * G_MAX;
+  float* wo = wl + kWarps * G_MAX;              // [kWarps][G_MAX][hd]
 #pragma unroll
-  for (int a = 0; a < ACC_MAX; ++a) {
-    const int i = threadIdx.x + a * kThreads;
-    if (i < g * hd) {
-      const int gi = i / hd, c = i - gi * hd;
-      const float l = as[gi];
-      const float o = l > 0.0f ? acc[a] / l : 0.0f;
-      out[(static_cast<long>(b) * H + gi * Hkv + kh) * hd + c] = __float2bfloat16(o);
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float l = l_run[nt][j];
+      l += __shfl_xor_sync(0xffffffffu, l, 4);
+      l += __shfl_xor_sync(0xffffffffu, l, 8);
+      l += __shfl_xor_sync(0xffffffffu, l, 16);
+      const int head = nt * 8 + tig * 2 + j;
+      if (gid == 0) {
+        wm[warp * G_MAX + head] = m_run[nt][j];
+        wl[warp * G_MAX + head] = l;
+      }
+      float* row = wo + (warp * G_MAX + head) * hd;
+#pragma unroll
+      for (int mt = 0; mt < HD_MAX / 16; ++mt) {
+        if (mt < hd16) {
+          row[mt * 16 + gid] = o[nt][mt][j];
+          row[mt * 16 + gid + 8] = o[nt][mt][2 + j];
+        }
+      }
     }
   }
+  __syncthreads();
+  for (int i = threadIdx.x; i < g * hd; i += kThreads) {
+    const int gi = i / hd, c = i - gi * hd;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w * G_MAX + gi]);
+    const float m_use = mx == -INFINITY ? 0.0f : mx;
+    float l = 0.0f, acc = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = exp2f(wm[w * G_MAX + gi] - m_use);
+      l += wl[w * G_MAX + gi] * f;
+      acc += wo[(w * G_MAX + gi) * hd + c] * f;
+    }
+    const long bh = static_cast<long>(b) * H + gi * Hkv + kh;
+    if (split == 1) {
+      out[bh * hd + c] = __float2bfloat16(l > 0.0f ? acc / l : 0.0f);
+    } else {
+      const long ps = bh * split + s;
+      part[ps * hd + c] = acc;
+      if (c == 0) {
+        float* ml = part + static_cast<long>(gridDim.z) * H * split * hd;
+        ml[ps * 2] = mx;
+        ml[ps * 2 + 1] = l;
+      }
+    }
+  }
+}
+
+// One CTA per (query head, slot), one thread per hd column: merge the
+// splits' (O, m, l) in split order.
+__global__ void decode_merge_kernel(const float* __restrict__ part, bf16* __restrict__ out,
+                                    int B, int H, int hd, int split) {
+  const int h = blockIdx.x, b = blockIdx.y, c = threadIdx.x;
+  const long bh = static_cast<long>(b) * H + h;
+  const float* po = part + bh * split * hd;
+  const float* ml = part + static_cast<long>(B) * H * split * hd + bh * split * 2;
+  float mx = -INFINITY;
+  for (int s = 0; s < split; ++s) mx = fmaxf(mx, ml[s * 2]);
+  const float m_use = mx == -INFINITY ? 0.0f : mx;
+  float l = 0.0f, acc = 0.0f;
+  for (int s = 0; s < split; ++s) {
+    const float f = exp2f(ml[s * 2] - m_use);
+    l += ml[s * 2 + 1] * f;
+    acc += po[s * hd + c] * f;
+  }
+  out[bh * hd + c] = __float2bfloat16(l > 0.0f ? acc / l : 0.0f);
+}
+
+template <int NT>
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const int* lengths, bf16* out,
+                   float* part, int B, int H, int Hkv, int S_max, int hd, int window,
+                   float scale, int split, cudaStream_t stream) {
+  const size_t smem = smem_bytes(hd);
+  cudaError_t err = allow_smem(decode_split_kernel<NT>, smem);
+  if (err != cudaSuccess) return err;
+  decode_split_kernel<NT><<<dim3(split, Hkv, B), kThreads, smem, stream>>>(
+      q, k, v, lengths, out, part, H, Hkv, S_max, hd, window, scale * kLog2e, split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return err;
+  decode_merge_kernel<<<dim3(H, B), hd, 0, stream>>>(part, out, B, H, hd, split);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// ``scratch``: split > 1 needs B * H * split * (hd + 2) fp32 (unused, and
+// may be null, at split 1).  Two CUDA launches when split > 1.
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v,
-                                     const void* lengths, void* out, int B, int H,
-                                     int Hkv, int S_max, int hd, int window, float scale,
-                                     void* stream) {
+                                     const void* lengths, void* out, void* scratch, int B,
+                                     int H, int Hkv, int S_max, int hd, int window,
+                                     float scale, int split, void* stream) {
   if (B == 0) return 0;
-  const int g = H / Hkv;
-  // KT == 32 keys per tile: one lane per key in the softmax; <= 16 heads
-  // per kv head (two per warp); <= 16 accumulators per thread
-  if (H % Hkv != 0 || g > 2 * kWarps || g * hd > ACC_MAX * kThreads)
+  const int g = Hkv > 0 ? H / Hkv : 0;
+  if (Hkv <= 0 || H % Hkv != 0 || g > G_MAX || hd % 16 != 0 || hd > HD_MAX || split < 1 ||
+      split > 65535 || (split > 1 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(g, hd);
-  cudaError_t err = allow_smem(decode_attention_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(Hkv, B);
-  decode_attention_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(lengths), static_cast<bf16*>(out), H, Hkv, S_max, hd, window,
-      scale);
-  return static_cast<int>(cudaGetLastError());
+  auto qq = static_cast<const bf16*>(q);
+  auto kk = static_cast<const bf16*>(k);
+  auto vv = static_cast<const bf16*>(v);
+  auto ln = static_cast<const int*>(lengths);
+  auto oo = static_cast<bf16*>(out);
+  auto part = static_cast<float*>(scratch);
+  auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      g <= 8 ? launch<1>(qq, kk, vv, ln, oo, part, B, H, Hkv, S_max, hd, window, scale, split, st)
+             : launch<2>(qq, kk, vv, ln, oo, part, B, H, Hkv, S_max, hd, window, scale, split, st);
+  return static_cast<int>(err);
 }

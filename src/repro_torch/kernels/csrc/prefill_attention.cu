@@ -1,15 +1,15 @@
 // Causal GQA prefill attention over the slot-row KV cache, by hand for
-// Hopper (sm_90a).
+// Hopper (sm_90a): wgmma products on TMA-fed tiles, warp-specialised.
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention_pallas
 // (body _flash_kernel), but to the serving path's contract rather than the
 // Pallas kernel's: q (B, P, H, hd) holds P new tokens per row at positions
 // offset[b] + i; k/v are the row's whole cache (B, S_max, Hkv, hd) with the
 // new keys already written.  Key j is visible to query i when
-// j < offset + P, j <= offset + i and, with a window, j > offset + i -
-// window (the masks of models/attention.py apply_gqa).  Query head h reads
-// kv head h % Hkv (g-major grouping).  A query row that sees no key
-// outputs 0.
+// j < offset + P, j < S_max, j <= offset + i and, with a window,
+// j > offset + i - window (the masks of models/attention.py apply_gqa).
+// Query head h reads kv head h % Hkv (g-major grouping).  A query row that
+// sees no key outputs 0.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): the causal
 // products QK^T and PV, 4 * hd flops per visible (query head, key) pair;
@@ -18,221 +18,293 @@
 // operations-bound.  Reading q, the visible K/V once and writing the
 // output is 2 * 2048 * (32 + 2 * 4) * 128 * 2 B = 42 MB, about 12.5 us.
 //
-// Design.  One CTA per (q tile, kv head, row b).  A CTA holds QT = 64 / g
-// positions of all g query heads that share its kv head — 64 query rows —
-// so each K/V tile is read once for g heads.  It walks kv tiles of KT keys
-// over [max(0, first_q - window + 1), min(offset + P, last_q + 1)) with an
-// online softmax: S = Q K^T and O += P V run on the tensor cores through
-// WMMA (mma.sync 16x16x16 bf16 -> fp32); the running max, denominator and
-// the O accumulator stay in fp32 in shared memory.  No wgmma or TMA yet;
-// K/V tiles are re-read from L2 by the CTAs of other q tiles.
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+// Design.  One CTA per (q tile, kv head, row b), 3 warpgroups:
+//  * 128 query rows per CTA, as (position, head-of-group) pairs of one kv
+//    head: 128 / g positions x g heads (16 x 8 at qwen3), so each K/V tile
+//    is read once for all g heads.  Q (B, P, H, hd) is described to TMA as
+//    (hd, Hkv, g, P, B): one box lands in exactly that row order.
+//  * Warpgroup 2 is the producer: after setmaxnreg gives its registers
+//    away, one thread loads Q once and keeps a two-stage ring of 128-key
+//    K/V tiles full with TMA (4-D maps over (hd, Hkv, S_max, B): keys past
+//    S_max arrive as zeros, never as the next row's keys), each stage
+//    signalled on a "full" mbarrier and freed on an "empty" one.
+//  * Warpgroups 0 and 1 consume 64 rows each: S = Q K^T is a wgmma
+//    m64n128k16 with both operands in shared memory (128-byte swizzle, or
+//    64-byte at hd 32; a 128-wide bf16 row is two TMA boxes) and S stays in
+//    registers; the online softmax runs there (row max and sum by quad
+//    shuffles, exp2f with log2(e) in the scale); P goes to bf16 in
+//    registers, in the accumulator's own layout, which is the layout of
+//    wgmma's A-from-registers operand; O += P V is a wgmma with V as the
+//    MN-major B operand from shared memory (one m64n64, or n32, per
+//    64-column box).  O stays in fp32 registers until one final
+//    normalisation and store.
+//  * Only tiles that cross the diagonal, the window's edge or the end of
+//    the keys evaluate the mask.  blockIdx.x walks q tiles from the last
+//    (most keys) to the first, so the longest CTAs start first.
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;   // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int R = 64;           // query rows per CTA (QT positions x g heads)
-constexpr int KT = 64;          // keys per kv tile
-constexpr int HD_MAX = 128;
-constexpr int LDS = KT + 4;     // fp32 scores
-constexpr int LDP = KT + 8;     // bf16 probabilities
-constexpr float kNegInf = -1e30f;
+constexpr int ROWS = 128;        // query rows per CTA (2 consumer warpgroups)
+constexpr int KT = 128;          // keys per tile
+constexpr int STAGES = 2;
+constexpr int kThreads = 384;    // consumers: warpgroups 0, 1; producer: 2
+constexpr int kConsumerWarps = 8;
+constexpr float kLog2e = 1.4426950408889634f;
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-struct Smem {
-  size_t qs, ks, vs, ss, ps, os, m, l, alpha, total;
+template <int HD>
+struct Tile {
+  static constexpr int EB = HD < 64 ? HD : 64;       // elements per box row
+  static constexpr int SWZ = EB * 2;                 // row bytes = swizzle span
+  static constexpr int NBOX = HD / EB;               // boxes across hd
+  static constexpr int Q_BYTES = ROWS * HD * 2;
+  static constexpr int KV_BYTES = KT * HD * 2;       // one of K or V, one stage
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 64;
 };
 
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
-__host__ __device__ inline Smem smem_layout(int hd) {
-  const int ldh = hd + 8, ldo = hd + 4;
-  Smem s;
-  size_t o = 0;
-  s.qs = o; o = align128(o + sizeof(bf16) * R * ldh);
-  s.ks = o; o = align128(o + sizeof(bf16) * KT * ldh);
-  s.vs = o; o = align128(o + sizeof(bf16) * KT * ldh);
-  s.ss = o; o = align128(o + sizeof(float) * R * LDS);
-  s.ps = o; o = align128(o + sizeof(bf16) * R * LDP);
-  s.os = o; o = align128(o + sizeof(float) * R * ldo);
-  s.m = o; o = align128(o + sizeof(float) * R);
-  s.l = o; o = align128(o + sizeof(float) * R);
-  s.alpha = o; o = align128(o + sizeof(float) * R);
-  s.total = o;
-  return s;
-}
-
-__global__ void __launch_bounds__(kThreads)
-prefill_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const int* __restrict__ offset,
-                         bf16* __restrict__ out, int P, int H, int Hkv, int S_max,
-                         int hd, int window, float scale) {
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+prefill_attention_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const int* __restrict__ offset, bf16* __restrict__ out, int P, int H,
+                         int Hkv, int S_max, int window, float scale_log2, int n_qtiles) {
+  using T = Tile<HD>;
   const int g = H / Hkv;
-  const int qt = R / g;                       // positions per CTA
-  const int q0 = blockIdx.x * qt;
+  const int qt = ROWS / g;                              // positions per CTA
+  const int q0 = (n_qtiles - 1 - blockIdx.x) * qt;      // most expensive first
   const int kh = blockIdx.y;
   const int b = blockIdx.z;
   const int off = offset[b];
-  const int ldh = hd + 8, ldo = hd + 4;
+  const int q_last = min(q0 + qt, P) - 1;
+  const int kv_end = min(off + q_last + 1, S_max);
+  const int kv_begin = window > 0 ? max(0, off + q0 - window + 1) : 0;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + KT - 1) / KT : 0;
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem L = smem_layout(hd);
-  bf16* qs = reinterpret_cast<bf16*>(smem + L.qs);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L.ks);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L.vs);
-  float* ss = reinterpret_cast<float*>(smem + L.ss);
-  bf16* ps = reinterpret_cast<bf16*>(smem + L.ps);
-  float* os = reinterpret_cast<float*>(smem + L.os);
-  float* m_s = reinterpret_cast<float*>(smem + L.m);
-  float* l_s = reinterpret_cast<float*>(smem + L.l);
-  float* a_s = reinterpret_cast<float*>(smem + L.alpha);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* qs = reinterpret_cast<bf16*>(base);                        // NBOX x [ROWS][EB]
+  bf16* ks = reinterpret_cast<bf16*>(base + T::Q_BYTES);           // STAGES x NBOX x [KT][EB]
+  bf16* vs = reinterpret_cast<bf16*>(base + T::Q_BYTES + STAGES * T::KV_BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + T::Q_BYTES + 2 * STAGES * T::KV_BYTES);
+  uint64_t* full = bars;
+  uint64_t* empty = bars + STAGES;
+  uint64_t* qbar = bars + 2 * STAGES;
 
-  // query row r <-> (position q0 + r / g, head (r % g) * Hkv + kh)
-  const int chunks = hd / 8;
-  for (int i = threadIdx.x; i < R * chunks; i += kThreads) {
-    const int r = i / chunks, c = (i - r * chunks) * 8;
-    const int qi = q0 + r / g;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (qi < P) {
-      const int h = (r % g) * Hkv + kh;
-      val = *reinterpret_cast<const uint4*>(q + ((static_cast<long>(b) * P + qi) * H + h) * hd + c);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
     }
-    *reinterpret_cast<uint4*>(qs + r * ldh + c) = val;
-  }
-  for (int i = threadIdx.x; i < R * hd; i += kThreads) {
-    const int r = i / hd, c = i - r * hd;
-    os[r * ldo + c] = 0.0f;
-  }
-  for (int r = threadIdx.x; r < R; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.0f;
-  }
-
-  const int q_first = off + q0;
-  const int q_last = off + min(q0 + qt, P) - 1;
-  const int kv_end = min(min(off + P, q_last + 1), S_max);
-  const int kv_begin = window > 0 ? max(0, q_first - window + 1) : 0;
-  const long kv_row = static_cast<long>(Hkv) * hd;   // elements between keys
-  const bf16* kb = k + (static_cast<long>(b) * S_max * Hkv + kh) * hd;
-  const bf16* vb = v + (static_cast<long>(b) * S_max * Hkv + kh) * hd;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  for (int t0 = kv_begin; t0 < kv_end; t0 += KT) {
-    const int n = min(KT, kv_end - t0);
-    __syncthreads();   // previous tile consumed; Q/O/m/l initialised
-    load_tile_bf16(ks, ldh, kb + t0 * kv_row, kv_row, KT, hd, n, hd);
-    load_tile_bf16(vs, ldh, vb + t0 * kv_row, kv_row, KT, hd, n, hd);
-    __syncthreads();
-
-    // S = Q K^T: (R x KT) = 4 x 4 fragments, two per warp
-    for (int f = warp; f < (R / 16) * (KT / 16); f += kWarps) {
-      const int rb = f / (KT / 16), cb = f % (KT / 16);
-      FragC acc;
-      wmma::fill_fragment(acc, 0.0f);
-      for (int kk = 0; kk < hd; kk += 16) {
-        FragA a;
-        FragBCol bk;
-        wmma::load_matrix_sync(a, qs + rb * 16 * ldh + kk, ldh);
-        wmma::load_matrix_sync(bk, ks + cb * 16 * ldh + kk, ldh);
-        wmma::mma_sync(acc, a, bk, acc);
-      }
-      wmma::store_matrix_sync(ss + rb * 16 * LDS + cb * 16, acc, LDS, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // online softmax, one warp per row, two keys per lane
-    for (int r = warp; r < R; r += kWarps) {
-      const int q_pos = off + q0 + r / g;
-      float s[2];
-      bool vis[2];
-      float tmax = kNegInf;
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int j = lane + 32 * u;
-        const int kp = t0 + j;
-        vis[u] = j < n && kp <= q_pos && (window <= 0 || kp > q_pos - window);
-        s[u] = vis[u] ? ss[r * LDS + j] * scale : kNegInf;
-        tmax = fmaxf(tmax, s[u]);
-      }
-      for (int o = 16; o > 0; o >>= 1) tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, tmax);
-      float psum = 0.0f;
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const float p = vis[u] ? expf(s[u] - m_new) : 0.0f;
-        psum += p;
-        ps[r * LDP + lane + 32 * u] = __float2bfloat16(p);
-      }
-      for (int o = 16; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[r] = alpha;
-        l_s[r] = alpha * l_s[r] + psum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < R * hd; i += kThreads) {
-      const int r = i / hd, c = i - r * hd;
-      os[r * ldo + c] *= a_s[r];
-    }
-    __syncthreads();
-
-    // O += P V: (R x hd) = 4 x hd/16 fragments
-    for (int f = warp; f < (R / 16) * (hd / 16); f += kWarps) {
-      const int rb = f / (hd / 16), cb = f % (hd / 16);
-      FragC acc;
-      wmma::load_matrix_sync(acc, os + rb * 16 * ldo + cb * 16, ldo, wmma::mem_row_major);
-      for (int kk = 0; kk < KT; kk += 16) {
-        FragA a;
-        FragBRow bv;
-        wmma::load_matrix_sync(a, ps + rb * 16 * LDP + kk, LDP);
-        wmma::load_matrix_sync(bv, vs + kk * ldh + cb * 16, ldh);
-        wmma::mma_sync(acc, a, bv, acc);
-      }
-      wmma::store_matrix_sync(os + rb * 16 * ldo + cb * 16, acc, ldo, wmma::mem_row_major);
-    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < R * hd; i += kThreads) {
-    const int r = i / hd, c = i - r * hd;
-    const int qi = q0 + r / g;
-    if (qi >= P) continue;
-    const int h = (r % g) * Hkv + kh;
-    const float l = l_s[r];
-    const float o = l > 0.0f ? os[r * ldo + c] / l : 0.0f;
-    out[((static_cast<long>(b) * P + qi) * H + h) * hd + c] = __float2bfloat16(o);
+  if (threadIdx.x >= 256) {
+    // ------------------------------------------------------- producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      tma_prefetch_map(&qmap);
+      tma_prefetch_map(&kmap);
+      tma_prefetch_map(&vmap);
+      mbar_expect_tx(qbar, T::Q_BYTES);
+      for (int bx = 0; bx < T::NBOX; ++bx)
+        tma_load_5d(qs + bx * ROWS * T::EB, &qmap, qbar, bx * T::EB, kh, 0, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % STAGES;
+        const uint32_t ph = (t / STAGES) & 1;
+        mbar_wait(&empty[st], ph ^ 1);
+        mbar_expect_tx(&full[st], 2 * T::KV_BYTES);
+        const int key0 = kv_begin + t * KT;
+        for (int bx = 0; bx < T::NBOX; ++bx) {
+          const int box = (st * T::NBOX + bx) * KT * T::EB;
+          tma_load_4d(ks + box, &kmap, &full[st], bx * T::EB, kh, key0, b);
+          tma_load_4d(vs + box, &vmap, &full[st], bx * T::EB, kh, key0, b);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    setmaxnreg_inc<232>();
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int r0 = wg * 64 + warp * 16 + lane / 4;       // rows r0 and r0 + 8
+    const int qp[2] = {off + q0 + r0 / g, off + q0 + (r0 + 8) / g};
+
+    float o[T::NBOX][T::EB / 2];
+#pragma unroll
+    for (int bx = 0; bx < T::NBOX; ++bx)
+#pragma unroll
+      for (int i = 0; i < T::EB / 2; ++i) o[bx][i] = 0.0f;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
+
+    mbar_wait(qbar, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % STAGES;
+      mbar_wait(&full[st], (t / STAGES) & 1);
+      const bf16* kst = ks + st * T::NBOX * KT * T::EB;
+      const bf16* vst = vs + st * T::NBOX * KT * T::EB;
+
+      // S (64 x KT) = Q (64 x hd) K^T
+      float sacc[KT / 2];
+#pragma unroll
+      for (int i = 0; i < KT / 2; ++i) sacc[i] = 0.0f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int bx = kk / (T::EB / 16), within = (kk % (T::EB / 16)) * 16;
+        const uint64_t da = wgmma_desc(qs + (bx * ROWS + wg * 64) * T::EB + within, T::SWZ);
+        const uint64_t db = wgmma_desc(kst + bx * KT * T::EB + within, T::SWZ);
+        wgmma_ss_m64n128(sacc, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sacc);
+
+      // online softmax in registers: element i is row r0 + 8 * ((i >> 1) & 1),
+      // key key0 + (i / 4) * 8 + (lane % 4) * 2 + (i & 1)
+      const int key0 = kv_begin + t * KT;
+      const bool masked = key0 + KT > kv_end || key0 + KT - 1 > off + q0 ||
+                          (window > 0 && key0 <= off + q0 + qt - 1 - window);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < KT / 2; ++i) {
+        float s = sacc[i] * scale_log2;
+        if (masked) {
+          const int key = key0 + (i / 4) * 8 + (lane % 4) * 2 + (i & 1);
+          const int p = qp[(i >> 1) & 1];
+          const bool vis = key < kv_end && key <= p && (window <= 0 || key > p - window);
+          s = vis ? s : -INFINITY;
+        }
+        sacc[i] = s;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s);
+      }
+      float alpha[2], m_use[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_run[r], mx[r]);
+        m_use[r] = m_new == -INFINITY ? 0.0f : m_new;
+        alpha[r] = exp2f(m_run[r] - m_use[r]);
+        m_run[r] = m_new;
+        l_run[r] *= alpha[r];
+      }
+      uint32_t pa[KT / 16][4];
+#pragma unroll
+      for (int i = 0; i < KT / 2; i += 2) {
+        const int r = (i >> 1) & 1;
+        const float p0 = exp2f(sacc[i] - m_use[r]);
+        const float p1 = exp2f(sacc[i + 1] - m_use[r]);
+        l_run[r] += p0 + p1;
+        // accumulator pairs (8kk..8kk+7) are the A fragment of k-step kk
+        pa[i / 8][(i % 8) / 2] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+      for (int bx = 0; bx < T::NBOX; ++bx)
+#pragma unroll
+        for (int i = 0; i < T::EB / 2; ++i) o[bx][i] *= alpha[(i >> 1) & 1];
+
+      // O (64 x hd) += P (64 x KT) V (KT x hd)
+#pragma unroll
+      for (int bx = 0; bx < T::NBOX; ++bx) fence_regs(o[bx]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) {
+#pragma unroll
+        for (int bx = 0; bx < T::NBOX; ++bx) {
+          const uint64_t db = wgmma_desc(vst + (bx * KT + kk * 16) * T::EB, T::SWZ);
+          if constexpr (T::EB == 64) wgmma_rs_m64n64(o[bx], pa[kk], db);
+          else wgmma_rs_m64n32(o[bx], pa[kk], db);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int bx = 0; bx < T::NBOX; ++bx) fence_regs(o[bx]);
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+
+    // normalise once and store: rows r0, r0 + 8 -> (position, head)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = l > 0.0f ? 1.0f / l : 0.0f;
+      const int row = r0 + 8 * r;
+      const int pos = q0 + row / g;
+      if (pos >= P) continue;
+      const int h = (row % g) * Hkv + kh;
+      bf16* dst = out + ((static_cast<long>(b) * P + pos) * H + h) * HD + (lane % 4) * 2;
+#pragma unroll
+      for (int bx = 0; bx < T::NBOX; ++bx)
+#pragma unroll
+        for (int c = 0; c < T::EB / 8; ++c)
+          *reinterpret_cast<uint32_t*>(dst + bx * T::EB + c * 8) =
+              pack_bf16(o[bx][c * 4 + 2 * r] * inv, o[bx][c * 4 + 2 * r + 1] * inv);
+    }
   }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const int* offset, bf16* out, int B,
+           int P, int H, int Hkv, int S_max, int window, float scale, cudaStream_t stream) {
+  using T = Tile<HD>;
+  const int g = H / Hkv;
+  const cuuint64_t e = 2;   // bytes per element
+  CUtensorMap qmap, kmap, vmap;
+  {
+    const cuuint64_t dims[5] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(Hkv),
+                                static_cast<cuuint64_t>(g), static_cast<cuuint64_t>(P),
+                                static_cast<cuuint64_t>(B)};
+    const cuuint64_t strides[4] = {HD * e, Hkv * HD * e, H * HD * e,
+                                   static_cast<cuuint64_t>(P) * H * HD * e};
+    const cuuint32_t box[5] = {T::EB, 1, static_cast<cuuint32_t>(g),
+                               static_cast<cuuint32_t>(ROWS / g), 1};
+    const int err = encode_bf16_map(&qmap, 5, q, dims, strides, box, T::SWZ);
+    if (err) return err;
+  }
+  {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(Hkv),
+                                static_cast<cuuint64_t>(S_max), static_cast<cuuint64_t>(B)};
+    const cuuint64_t strides[3] = {HD * e, Hkv * HD * e,
+                                   static_cast<cuuint64_t>(S_max) * Hkv * HD * e};
+    const cuuint32_t box[4] = {T::EB, 1, KT, 1};
+    int err = encode_bf16_map(&kmap, 4, k, dims, strides, box, T::SWZ);
+    if (!err) err = encode_bf16_map(&vmap, 4, v, dims, strides, box, T::SWZ);
+    if (err) return err;
+  }
+  cudaError_t err = allow_smem(prefill_attention_kernel<HD>, T::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int qt = ROWS / g;
+  const int n_qtiles = (P + qt - 1) / qt;
+  prefill_attention_kernel<HD><<<dim3(n_qtiles, Hkv, B), kThreads, T::SMEM, stream>>>(
+      qmap, kmap, vmap, offset, out, P, H, Hkv, S_max, window, scale * kLog2e, n_qtiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// hd 32, 64 or 128; g = H / Hkv must divide 128; q, k, v 16-byte aligned.
 extern "C" int prefill_attention_bf16(const void* q, const void* k, const void* v,
                                       const void* offset, void* out, int B, int P,
                                       int H, int Hkv, int S_max, int hd, int window,
                                       float scale, void* stream) {
   if (B == 0 || P == 0) return 0;
-  if (hd % 16 != 0 || hd > HD_MAX || H % Hkv != 0 || R % (H / Hkv) != 0)
+  if (Hkv <= 0 || H % Hkv != 0 || ROWS % (H / Hkv) != 0 || B > 65535 || Hkv > 65535 ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_layout(hd).total;
-  cudaError_t err = allow_smem(prefill_attention_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int qt = R / (H / Hkv);
-  dim3 grid((P + qt - 1) / qt, Hkv, B);
-  prefill_attention_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(offset), static_cast<bf16*>(out), P, H, Hkv, S_max, hd,
-      window, scale);
-  return static_cast<int>(cudaGetLastError());
+  auto off = static_cast<const int*>(offset);
+  auto o = static_cast<bf16*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 32: return launch<32>(q, k, v, off, o, B, P, H, Hkv, S_max, window, scale, st);
+    case 64: return launch<64>(q, k, v, off, o, B, P, H, Hkv, S_max, window, scale, st);
+    case 128: return launch<128>(q, k, v, off, o, B, P, H, Hkv, S_max, window, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -29,6 +29,9 @@ from repro_torch.kernels import ref
 
 Tensor = torch.Tensor
 
+# one count per wrapper call that launched its kernel; decode_attention's
+# split-K design is two CUDA launches (split, then merge) when its split
+# count exceeds 1, and still counts one
 LAUNCHES: Dict[str, int] = {"moe_gmm_ragged": 0, "prefill_attention": 0,
                             "decode_attention": 0, "moe_gmm": 0,
                             "paged_decode_attention": 0,
@@ -42,7 +45,7 @@ _SIGNATURES = {
     "prefill_attention": ("prefill_attention", "prefill_attention_bf16",
                           [_P] * 5 + [_I] * 7 + [_F, _P]),
     "decode_attention": ("decode_attention", "decode_attention_bf16",
-                         [_P] * 5 + [_I] * 6 + [_F, _P]),
+                         [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
     "moe_gmm": ("moe_gmm", "moe_gmm_bf16", [_P] * 5 + [_I] * 5 + [_P]),
     # one kernel: paged decode is the verify window W = 1
     "paged_decode_attention": ("paged_attention", "paged_attention_bf16",
@@ -133,7 +136,19 @@ def moe_gmm_ragged(rows: Tensor, w_gate: Tensor, w_up: Tensor,
     return out
 
 
+def _check_aligned(name: str, *tensors: Tensor) -> None:
+    """The kernels read 16-byte chunks (cp.async, TMA)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: kernel needs 16-byte aligned tensors")
+
+
 # --------------------------------------------------------------------- K2
+
+# query rows per CTA of the prefill kernel ((position, head-of-group)
+# pairs; the group size must divide it) and the head dims it is built for
+PREFILL_ROWS = 128
+PREFILL_HEAD_DIMS = (32, 64, 128)
+
 
 def _check_attention(name: str, q: Tensor, k: Tensor, v: Tensor,
                      idx: Tensor) -> None:
@@ -163,9 +178,11 @@ def prefill_attention(q: Tensor, k: Tensor, v: Tensor, offset: Tensor, *,
         return ref.prefill_attention_ref(q, k, v, offset, window=window)
     _check_attention("prefill_attention", q, k, v, offset)
     g = h // k.shape[2]
-    if 64 % g:
+    if PREFILL_ROWS % g or hd not in PREFILL_HEAD_DIMS:
         raise ValueError(f"prefill_attention: kernel needs the group size "
-                         f"to divide 64 (g={g})")
+                         f"to divide {PREFILL_ROWS} and hd in "
+                         f"{PREFILL_HEAD_DIMS} (g={g}, hd={hd})")
+    _check_aligned("prefill_attention", q, k, v)
     out = torch.empty_like(q)
     _launch("prefill_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             offset.data_ptr(), out.data_ptr(), b, p, h, k.shape[2],
@@ -174,6 +191,23 @@ def prefill_attention(q: Tensor, k: Tensor, v: Tensor, offset: Tensor, *,
 
 
 # --------------------------------------------------------------------- K3
+
+# the card's SMs (H100 SXM) and the decode kernel's keys per tile
+_SMS = 132
+_DECODE_KT = 64
+_DECODE_MAX_SPLIT = 32
+
+
+def decode_split(b: int, hkv: int, s_max: int) -> int:
+    """Key-axis splits of the decode kernel, from the shapes the host
+    knows (never the lengths, which stay on the card): enough CTAs on the
+    (split, Hkv, B) grid for two waves over 132 SMs, but no more splits
+    than S_max has 64-key tiles (a split of a full row keeps at least one
+    tile) and at most 32."""
+    want = -(-2 * _SMS // max(b * hkv, 1))
+    tiles = -(-s_max // _DECODE_KT)
+    return max(1, min(want, tiles, _DECODE_MAX_SPLIT))
+
 
 def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
                      lengths: Tensor, *,
@@ -194,11 +228,17 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     if h // k_cache.shape[2] > 16:
         raise ValueError("decode_attention: kernel takes at most 16 query "
                          "heads per kv head")
+    _check_aligned("decode_attention", q, k_cache, v_cache)
+    hkv, s_max = k_cache.shape[2], k_cache.shape[1]
+    split = decode_split(b, hkv, s_max)
     out = torch.empty_like(q)
+    # fp32 partials (O, then m and l) of every (slot, head, split)
+    scratch = (torch.empty(b * h * split * (hd + 2), dtype=torch.float32,
+                           device=q.device) if split > 1 else None)
     _launch("decode_attention", q.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
-            k_cache.shape[2], k_cache.shape[1], hd, window or 0,
-            1.0 / math.sqrt(hd))
+            v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, b, h, hkv,
+            s_max, hd, window or 0, 1.0 / math.sqrt(hd), split)
     return out
 
 

@@ -80,6 +80,121 @@ def test_attention_kernels_match_plain(cuda):
         torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
 
 
+# (hd, H, Hkv): hd 128 / 64 / 32 (qwen3-30b-a3b, the test above, the
+# reduced model), group sizes 1, 4, 8 and 16
+ATTN_SHAPES = [(128, 32, 4), (64, 8, 2), (32, 8, 1), (64, 4, 4),
+               (128, 16, 1), (32, 4, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,h,hkv", ATTN_SHAPES)
+@pytest.mark.parametrize("window", [None, 70])
+def test_decode_attention_kernel_matches_plain(cuda, hd, h, hkv, window):
+    """The split-K decode kernel against its plain version: lengths of 1,
+    exactly at split and tile boundaries, mid-tile, S_max, and the idle
+    clamp S_max + 1; a window that crosses splits and tile edges; two
+    launches give bit-identical outputs (the splits merge in a fixed
+    order, no float atomics)."""
+    rng = np.random.default_rng(6)
+    b, s_max = 8, 320
+    split = ops.decode_split(b, hkv, s_max)
+    assert split > 1
+    lens = [1, s_max + 1, 16 * split, 64 * split, 17, s_max, 129,
+            16 * split + 1]
+    q = _bf16(rng, (b, h, hd), cuda)
+    k, v = _bf16(rng, (b, s_max, hkv, hd), cuda), _bf16(rng, (b, s_max, hkv, hd), cuda)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = ops.LAUNCHES["decode_attention"]
+    got = ops.decode_attention(q, k, v, lengths, window=window)
+    again = ops.decode_attention(q, k, v, lengths, window=window)
+    assert ops.LAUNCHES["decode_attention"] == before + 2
+    want = ref.decode_attention_ref(q, k, v, lengths, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_decode_attention_unsplit_and_empty_rows(cuda):
+    """One 64-key tile per row (split 1: no merge launch) and a row of
+    length 0, which sees no key and outputs 0."""
+    rng = np.random.default_rng(7)
+    b, h, hkv, hd, s_max = 4, 8, 1, 64, 64
+    assert ops.decode_split(b, hkv, s_max) == 1
+    q = _bf16(rng, (b, h, hd), cuda)
+    k, v = _bf16(rng, (b, s_max, hkv, hd), cuda), _bf16(rng, (b, s_max, hkv, hd), cuda)
+    lengths = torch.tensor([0, 1, 40, 64], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, lengths)
+    want = ref.decode_attention_ref(q, k, v, lengths)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert not got[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,h,hkv", ATTN_SHAPES)
+@pytest.mark.parametrize("window", [None, 20, 150])
+def test_prefill_attention_kernel_matches_plain(cuda, hd, h, hkv, window):
+    """The wgmma prefill kernel against its plain version: P = 40 is no
+    multiple of the 128-row tile at any group size; offsets put the end of
+    the keys mid-tile and past the 128-key tile edge; S_max = 300 is no
+    multiple of the key tile; the 150-key window crosses a tile edge; two
+    launches give bit-identical outputs."""
+    rng = np.random.default_rng(8)
+    b, p, s_max = 4, 40, 300
+    q = _bf16(rng, (b, p, h, hd), cuda)
+    k, v = _bf16(rng, (b, s_max, hkv, hd), cuda), _bf16(rng, (b, s_max, hkv, hd), cuda)
+    off = torch.tensor([0, 50, 101, 260], dtype=torch.int32, device=cuda)
+    got = ops.prefill_attention(q, k, v, off, window=window)
+    again = ops.prefill_attention(q, k, v, off, window=window)
+    want = ref.prefill_attention_ref(q, k, v, off, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,h,hkv", [(128, 32, 4), (32, 8, 1)])
+def test_prefill_attention_kernel_long_rows_and_no_cache_call(cuda, hd, h,
+                                                              hkv):
+    """Rows of many key tiles (the two-stage ring wraps several times),
+    and the no-cache call of apply_gqa: S_max = P, offsets 0."""
+    rng = np.random.default_rng(9)
+    b, p, s_max = 3, 300, 1000
+    q = _bf16(rng, (b, p, h, hd), cuda)
+    k, v = _bf16(rng, (b, s_max, hkv, hd), cuda), _bf16(rng, (b, s_max, hkv, hd), cuda)
+    off = torch.tensor([0, 333, 700], dtype=torch.int32, device=cuda)
+    for window in (None, 200):
+        got = ops.prefill_attention(q, k, v, off, window=window)
+        want = ref.prefill_attention_ref(q, k, v, off, window=window)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+    kn = k[:, :p].contiguous()
+    vn = v[:, :p].contiguous()
+    zeros = torch.zeros(b, dtype=torch.int32, device=cuda)
+    got = ops.prefill_attention(q, kn, vn, zeros)
+    want = ref.prefill_attention_ref(q, kn, vn, zeros)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_refuse_what_they_do_not_take(cuda):
+    """A CUDA tensor the kernel does not take raises ValueError, never
+    falls back: prefill needs hd in (32, 64, 128) and a group size that
+    divides 128; decode takes at most 16 query heads per kv head."""
+    z = torch.zeros(1, dtype=torch.int32, device=cuda)
+    bf = dict(dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="hd"):
+        ops.prefill_attention(torch.zeros(1, 4, 8, 48, **bf),
+                              torch.zeros(1, 8, 2, 48, **bf),
+                              torch.zeros(1, 8, 2, 48, **bf), z)
+    with pytest.raises(ValueError, match="group size"):
+        ops.prefill_attention(torch.zeros(1, 4, 12, 64, **bf),
+                              torch.zeros(1, 8, 1, 64, **bf),
+                              torch.zeros(1, 8, 1, 64, **bf), z)
+    with pytest.raises(ValueError, match="16 query heads"):
+        ops.decode_attention(torch.zeros(1, 32, 64, **bf),
+                             torch.zeros(1, 8, 1, 64, **bf),
+                             torch.zeros(1, 8, 1, 64, **bf), z)
+
+
 def _rel_fro(got, want):
     return ((got.float() - want.float()).norm() / want.float().norm()).item()
 

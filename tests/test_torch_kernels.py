@@ -229,6 +229,24 @@ GMM_SWEEP = [
 ]
 
 
+@pytest.mark.parametrize("b,hkv,s_max,want", [
+    (8, 4, 2048, 9),      # the serve's decode step: 288 CTAs, two waves
+    (8, 4, 512, 8),       # the short trace: as many splits as 64-key tiles
+    (8, 4, 64, 1),        # one tile per row: no split, no merge launch
+    (1, 1, 100000, 32),   # capped
+    (64, 8, 2048, 1),     # the grid fills the card unsplit
+    (3, 2, 128, 2),
+])
+def test_decode_split_count(b, hkv, s_max, want):
+    """The decode kernel's key-axis split comes from host-known shapes
+    only: two waves of CTAs over 132 SMs, no more splits than the row
+    has 64-key tiles, at most 32."""
+    split = ops.decode_split(b, hkv, s_max)
+    assert split == want
+    if want < min(32, -(-s_max // 64)):
+        assert split * hkv * b >= 2 * 132
+
+
 @pytest.mark.parametrize("e,c,d,f", GMM_SWEEP)
 def test_moe_gmm_plain_matches_jax(e, c, d, f):
     rng = np.random.default_rng(e * c + f)
