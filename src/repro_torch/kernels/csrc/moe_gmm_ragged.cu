@@ -15,66 +15,28 @@
 // experts (1.2 GB, 0.36 ms) for 16384 assignments (155 GFLOP, 0.16 ms), so
 // it is still bytes-bound at that size.
 //
-// Design.  One CTA per (row tile, d-output tile of DT columns); blockIdx.x
-// runs over the d-tiles so that the CTAs of one expert tile run together
-// and share its weights through the 50 MB L2.  The tile body
-// (moe_swiglu.cuh, shared with moe_gmm.cu) loops over F inside the CTA and
-// keeps the down-projection sum in fp32 until one final rounding.  (The
-// Pallas kernel rounds its running sum to the output dtype after every F
-// step; this kernel does not, so in bf16 the two differ by design —
-// chip_smoke.py holds it to a relative Frobenius error <= 1e-2 against the
-// fp32 plain version.)  The gate/up products are recomputed for each
-// d-tile: d/DT = 16 times at qwen widths — the price of keeping H out of
-// device memory in this first, simple kernel.  Decode tiles (m_blk 8) are
-// below wgmma's M = 64: they are padded to one 16-row WMMA tile here, and a
-// decode-specialised kernel (or split over F) is the later fix.  A
-// sentinel tile writes zeros and returns before touching any weight.
+// Design: the two-phase grouped GEMM of moe_swiglu.cuh (shared with
+// moe_gmm.cu), with the tile's expert read from tile_expert.  Phase A
+// writes H (n_rows, F) in bf16 to the scratch ``h``; phase B reads it back
+// (H of a 2048-token prefill is 50 MB, against 1.2 GB of weights).  Each
+// CTA reads a weight tile once, so a decode step streams each active
+// expert's weights once instead of once per output tile.  The Pallas
+// kernel rounds its running sum to the output dtype after every F step;
+// this kernel keeps it in fp32 to one final rounding, so in bf16 the two
+// differ by design (chip_smoke.py holds it to a relative Frobenius error
+// <= 1e-2 against the fp32 plain version).  Two CUDA launches per call.
 #include "moe_swiglu.cuh"
 
-using namespace moe_swiglu;
-
-namespace {
-
-__global__ void __launch_bounds__(kThreads)
-moe_gmm_ragged_kernel(const bf16* __restrict__ rows, const bf16* __restrict__ wg,
-                      const bf16* __restrict__ wu, const bf16* __restrict__ wd,
-                      const int* __restrict__ tile_expert, bf16* __restrict__ out,
-                      int d, int F, int E, int m_blk) {
-  const int d0 = blockIdx.x * DT;
-  const int tile = blockIdx.y;
-  const long row0 = static_cast<long>(tile) * m_blk;
-  const int e = tile_expert[tile];
-
-  if (e >= E) {   // alignment-padding tile: zeros, no weight traffic
-    const int ncols = min(DT, d - d0);
-    for (int i = threadIdx.x; i < m_blk * ncols; i += kThreads) {
-      const int r = i / ncols, c = i - r * ncols;
-      out[(row0 + r) * d + d0 + c] = __float2bfloat16(0.0f);
-    }
-    return;
-  }
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  const long w_off = static_cast<long>(e) * d * F;
-  swiglu_tile(rows + row0 * d, m_blk, wg + w_off, wu + w_off, wd + w_off, d, F,
-              d0, out + row0 * d, smem);
-}
-
-}  // namespace
-
+// d and F multiples of 8; m_blk a power of two in [8, 128]; n_rows a
+// multiple of m_blk; every pointer 16-byte aligned; h holds n_rows * F.
 extern "C" int moe_gmm_ragged_bf16(const void* rows, const void* w_gate,
                                    const void* w_up, const void* w_down,
-                                   const void* tile_expert, void* out,
+                                   const void* tile_expert, void* h, void* out,
                                    int n_rows, int d, int F, int E, int m_blk,
                                    void* stream) {
   if (n_rows == 0) return 0;
-  const size_t smem = smem_layout(padded_rows(m_blk)).total;
-  cudaError_t err = allow_smem(moe_gmm_ragged_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((d + DT - 1) / DT, n_rows / m_blk);
-  moe_gmm_ragged_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(rows), static_cast<const bf16*>(w_gate),
-      static_cast<const bf16*>(w_up), static_cast<const bf16*>(w_down),
-      static_cast<const int*>(tile_expert), static_cast<bf16*>(out), d, F, E, m_blk);
-  return static_cast<int>(cudaGetLastError());
+  if (m_blk <= 0 || n_rows % m_blk) return static_cast<int>(cudaErrorInvalidValue);
+  const moe_swiglu::RaggedTiles tiles{static_cast<const int*>(tile_expert), m_blk, E};
+  return moe_swiglu::launch(tiles, n_rows / m_blk, rows, n_rows, 1, w_gate, w_up, w_down, h, out,
+                            E, d, F, static_cast<cudaStream_t>(stream));
 }

@@ -31,22 +31,27 @@ Tensor = torch.Tensor
 
 # one count per wrapper call that launched its kernel; decode_attention's
 # split-K design is two CUDA launches (split, then merge) when its split
-# count exceeds 1, and still counts one
+# count exceeds 1, and moe_gmm_ragged's and moe_gmm's two-phase design is
+# always two (gate/up, then down): each still counts one
 LAUNCHES: Dict[str, int] = {"moe_gmm_ragged": 0, "prefill_attention": 0,
                             "decode_attention": 0, "moe_gmm": 0,
                             "paged_decode_attention": 0,
                             "paged_verify_attention": 0}
+# calls of moe_gmm on the card that zero-padded d or F to a multiple of 8
+# (a copy of the operands; widths of real models never take it)
+PAD_COPIES: Dict[str, int] = {"moe_gmm": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel -> (source csrc/<source>.cu, C entry point, its argument types)
 _SIGNATURES = {
+    # the MoE kernels take an H scratch (rows, F) between their two phases
     "moe_gmm_ragged": ("moe_gmm_ragged", "moe_gmm_ragged_bf16",
-                       [_P] * 6 + [_I] * 5 + [_P]),
+                       [_P] * 7 + [_I] * 5 + [_P]),
     "prefill_attention": ("prefill_attention", "prefill_attention_bf16",
                           [_P] * 5 + [_I] * 7 + [_F, _P]),
     "decode_attention": ("decode_attention", "decode_attention_bf16",
                          [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
-    "moe_gmm": ("moe_gmm", "moe_gmm_bf16", [_P] * 5 + [_I] * 5 + [_P]),
+    "moe_gmm": ("moe_gmm", "moe_gmm_bf16", [_P] * 6 + [_I] * 5 + [_P]),
     # one kernel: paged decode is the verify window W = 1
     "paged_decode_attention": ("paged_attention", "paged_attention_bf16",
                                [_P] * 6 + [_I] * 8 + [_F, _P]),
@@ -57,8 +62,9 @@ _fns: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, PAD_COPIES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _fn(name: str):
@@ -104,13 +110,17 @@ def _check_bf16(name: str, *tensors: Tensor) -> None:
 
 # --------------------------------------------------------------------- K1
 
+# row-tile heights of the MoE kernels (one expert per tile)
+_ROW_TILES = (8, 16, 32, 64, 128)
+
+
 def moe_gmm_ragged(rows: Tensor, w_gate: Tensor, w_up: Tensor,
                    w_down: Tensor, tile_expert: Tensor, m_blk: int) -> Tensor:
     """Ragged grouped fused SwiGLU: rows (n_rows, d) expert-sorted in
     ``m_blk``-aligned groups, w_gate/w_up (E, d, F), w_down (E, F, d),
     tile_expert (n_rows / m_blk,) with sentinel E for padding tiles ->
-    (n_rows, d).  On the card: bf16, d and F multiples of 16, m_blk a
-    power of two in [8, 128]."""
+    (n_rows, d).  On the card: bf16, d and F multiples of 8, m_blk a
+    power of two in [8, 128], 16-byte aligned tensors."""
     n_rows, d = rows.shape
     e, d2, f = w_gate.shape
     if (d2 != d or w_up.shape != w_gate.shape or w_down.shape != (e, f, d)
@@ -125,14 +135,16 @@ def moe_gmm_ragged(rows: Tensor, w_gate: Tensor, w_up: Tensor,
     _check_bf16("moe_gmm_ragged", rows, w_gate, w_up, w_down)
     if tile_expert.dtype != torch.int32:
         raise TypeError("moe_gmm_ragged: tile_expert must be int32")
-    if d % 16 or f % 16 or m_blk not in (8, 16, 32, 64, 128) \
-            or n_rows // m_blk > 65535:
-        raise ValueError(f"moe_gmm_ragged: kernel needs d, F multiples of 16 "
-                         f"and m_blk in 8..128 (d={d}, F={f}, m_blk={m_blk})")
+    if d % 8 or f % 8 or m_blk not in _ROW_TILES:
+        raise ValueError(f"moe_gmm_ragged: kernel needs d, F multiples of 8 "
+                         f"and m_blk in {_ROW_TILES} (d={d}, F={f}, "
+                         f"m_blk={m_blk})")
+    _check_aligned("moe_gmm_ragged", rows, w_gate, w_up, w_down)
     out = torch.empty_like(rows)
+    h = torch.empty((n_rows, f), dtype=rows.dtype, device=rows.device)
     _launch("moe_gmm_ragged", rows.data_ptr(), w_gate.data_ptr(),
             w_up.data_ptr(), w_down.data_ptr(), tile_expert.data_ptr(),
-            out.data_ptr(), n_rows, d, f, e, m_blk)
+            h.data_ptr(), out.data_ptr(), n_rows, d, f, e, m_blk)
     return out
 
 
@@ -253,12 +265,29 @@ def _row_tile(c: int) -> int:
     return m
 
 
+def pad_widths(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor):
+    """The dense SwiGLU's operands with d and F zero-padded to multiples
+    of 8 (the kernel's TMA rows must be 16-byte multiples), as the JAX
+    wrapper pads C and F with a copy.  Exact: the zero columns of x and
+    rows of Wg/Wu add zero products, H's padded columns are silu(0) * 0 =
+    0, and Wd's padded rows and columns meet only those zeros or are
+    sliced off.  Returns the inputs themselves where nothing needs
+    padding."""
+    d, f = x.shape[-1], w_gate.shape[-1]
+    pd, pf = -d % 8, -f % 8
+    if not (pd or pf):
+        return x, w_gate, w_up, w_down
+    pad = torch.nn.functional.pad
+    return (pad(x, (0, pd)) if pd else x, pad(w_gate, (0, pf, 0, pd)),
+            pad(w_up, (0, pf, 0, pd)), pad(w_down, (0, pd, 0, pf)))
+
+
 def moe_gmm(x: Tensor, w_gate: Tensor, w_up: Tensor,
             w_down: Tensor) -> Tensor:
     """Batched per-expert fused SwiGLU over the dense capacity buffer:
     x (E, C, d), w_gate/w_up (E, d, F), w_down (E, F, d) -> (E, C, d).
-    Any C, d and F: the kernel masks the ragged edges itself.  On the card:
-    bf16."""
+    Any C; on the card bf16, and d or F off a multiple of 8 costs a padded
+    copy of the operands (``pad_widths``, counted in ``PAD_COPIES``)."""
     e, c, d = x.shape
     f = w_gate.shape[-1]
     if (w_gate.shape != (e, d, f) or w_up.shape != w_gate.shape
@@ -270,15 +299,21 @@ def moe_gmm(x: Tensor, w_gate: Tensor, w_up: Tensor,
         return ref.moe_gmm_ref(x, w_gate, w_up, w_down)
     _check_bf16("moe_gmm", x, w_gate, w_up, w_down)
     m_tile = _row_tile(c)
-    if e > 65535 or -(-c // m_tile) > 65535:
+    if e * -(-c // m_tile) > 2 ** 31 - 1:
         raise ValueError(f"moe_gmm: grid past the launch limit (E={e}, "
                          f"C={c})")
-    out = torch.empty_like(x)
     if x.numel() == 0:
-        return out
-    _launch("moe_gmm", x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-            w_down.data_ptr(), out.data_ptr(), e, c, d, f, m_tile)
-    return out
+        return torch.empty_like(x)
+    xp, wg, wu, wd = pad_widths(x, w_gate, w_up, w_down)
+    if wg is not w_gate:
+        PAD_COPIES["moe_gmm"] += 1
+    _check_aligned("moe_gmm", xp, wg, wu, wd)
+    out = torch.empty_like(xp)
+    h = torch.empty((e * c, wg.shape[-1]), dtype=x.dtype, device=x.device)
+    _launch("moe_gmm", xp.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+            wd.data_ptr(), h.data_ptr(), out.data_ptr(), e, c, xp.shape[-1],
+            wg.shape[-1], m_tile)
+    return out if xp is x else out[..., :d].contiguous()
 
 
 # ----------------------------------------------------------------- K5, K6

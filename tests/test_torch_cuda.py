@@ -10,7 +10,7 @@ with only PyTorch:
 Tolerances: bf16 inputs against the fp32 plain versions — attention
 (prefill, decode, paged decode and paged verify) within atol = rtol =
 2e-2, the ragged and the dense SwiGLU within 1e-2 relative Frobenius (the
-kernels round H to bf16 for the tensor cores)."""
+kernels round H to bf16 between their two phases)."""
 
 from __future__ import annotations
 
@@ -44,10 +44,25 @@ def _bf16(rng, shape, dev, scale=1.0):
     return torch.from_numpy(a).to(dev, torch.bfloat16)
 
 
+# (E, d, F, m_blk, counts): the last four run the TMA ring around several
+# times (d 512: 8 stages of gate/up, F 256: 4 of down) over empty experts
+# and a sentinel tail, at tile heights 8, 128 (two consumer warpgroups), 16
+# (an all-padding buffer) and 32 (d 520 and F 264, off the 64-column
+# tiles: a partial reduction stage and a last d-tile of 8 columns)
+RAGGED_CASES = [
+    (4, 256, 128, 8, [16, 0, 3, 1]), (8, 128, 256, 64, [64, 0, 0, 70, 0, 0, 0, 1]),
+    (16, 512, 256, 8, [9, 0, 0, 1, 24, 0, 7, 0, 0, 0, 3, 0, 0, 0, 0, 17]),
+    (16, 512, 256, 128, [130, 0, 0, 1, 240, 0, 7, 0, 0, 0, 3, 0, 0, 0, 0, 17]),
+    (16, 512, 256, 16, [0] * 16),
+    (16, 520, 264, 32, [33, 0, 5] + [0] * 13),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("e,d,f,m_blk,counts", [
-    (4, 256, 128, 8, [16, 0, 3, 1]), (8, 128, 256, 64, [64, 0, 0, 70, 0, 0, 0, 1])])
+@pytest.mark.parametrize("e,d,f,m_blk,counts", RAGGED_CASES)
 def test_moe_gmm_ragged_kernel_matches_plain(cuda, e, d, f, m_blk, counts):
+    """The two-phase ragged kernel against its plain version; sentinel
+    tiles give zero rows; two launches give bit-identical outputs."""
     n_rows, te = _ragged_layout(e, m_blk, counts)
     rng = np.random.default_rng(0)
     args = (_bf16(rng, (n_rows, d), cuda), _bf16(rng, (e, d, f), cuda, d ** -0.5),
@@ -55,10 +70,44 @@ def test_moe_gmm_ragged_kernel_matches_plain(cuda, e, d, f, m_blk, counts):
             _bf16(rng, (e, f, d), cuda, f ** -0.5),
             torch.from_numpy(te).to(cuda), m_blk)
     before = ops.LAUNCHES["moe_gmm_ragged"]
-    got = ops.moe_gmm_ragged(*args).float()
-    assert ops.LAUNCHES["moe_gmm_ragged"] == before + 1
+    got = ops.moe_gmm_ragged(*args)
+    again = ops.moe_gmm_ragged(*args)
+    assert ops.LAUNCHES["moe_gmm_ragged"] == before + 2
+    assert torch.equal(got, again)
+    sentinel = torch.from_numpy(te == e).to(cuda).repeat_interleave(m_blk)
+    assert not got[sentinel].any()
+    assert torch.isfinite(got.float()).all()
     want = ref.moe_gmm_ragged_ref(*args).float()
-    assert ((got - want).norm() / want.norm()).item() <= 1e-2
+    # (an all-padding buffer has want = 0 and must give exactly 0)
+    assert (got.float() - want).norm() <= 1e-2 * want.norm()
+
+
+@pytest.mark.cuda
+def test_moe_kernels_give_the_same_rows_at_every_tile_height(cuda):
+    """The same tokens of one expert through K1 (m_blk 8, 64, 128) and K4
+    (C 8, 64 and 72, so row tiles of 8, 64 and 128) come out bit for bit
+    the same: one instruction, K order and rounding for every row,
+    whatever the tile height, the consumer warpgroup or the kernel."""
+    rng = np.random.default_rng(10)
+    e, d, f, n_tok = 4, 256, 192, 72
+    tokens = _bf16(rng, (n_tok, d), cuda)
+    w = (_bf16(rng, (e, d, f), cuda, d ** -0.5), _bf16(rng, (e, d, f), cuda, d ** -0.5),
+         _bf16(rng, (e, f, d), cuda, f ** -0.5))
+    outs = []
+    for m_blk in (8, 64, 128):
+        # expert 0: 5 other rows; expert 1: the tokens; sentinel tail
+        n_rows, te = _ragged_layout(e, m_blk, [5, n_tok, 0, 0])
+        rows = _bf16(rng, (n_rows, d), cuda)
+        rows[m_blk:m_blk + n_tok] = tokens
+        y = ops.moe_gmm_ragged(rows, *w, torch.from_numpy(te).to(cuda), m_blk)
+        outs.append(y[m_blk:m_blk + n_tok])
+    for c in (8, 64, 72):
+        x = _bf16(rng, (e, c, d), cuda)
+        n = min(c, n_tok)
+        x[1, :n] = tokens[:n]
+        outs.append(ops.moe_gmm(x, *w)[1, :n])
+    for y in outs[1:]:
+        assert torch.equal(y, outs[0][:len(y)])
 
 
 @pytest.mark.cuda
@@ -201,17 +250,24 @@ def _rel_fro(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("e,c,d,f", [(4, 8, 256, 128), (3, 130, 128, 64),
-                                     (2, 13, 40, 100)])
+                                     (2, 13, 40, 100), (3, 300, 200, 40)])
 def test_moe_gmm_kernel_matches_plain(cuda, e, c, d, f):
     """The dense SwiGLU at a decode-like C, a C past one 128-row tile, and
-    C, d and F off every tile size (the kernel masks the edges)."""
+    C, d and F off every tile size (TMA zero-fills the edges; F 100 is
+    padded to 104); two launches give bit-identical outputs."""
     rng = np.random.default_rng(2)
     args = (_bf16(rng, (e, c, d), cuda), _bf16(rng, (e, d, f), cuda, d ** -0.5),
             _bf16(rng, (e, d, f), cuda, d ** -0.5),
             _bf16(rng, (e, f, d), cuda, f ** -0.5))
     before = ops.LAUNCHES["moe_gmm"]
+    padded = ops.PAD_COPIES["moe_gmm"]
     got = ops.moe_gmm(*args)
-    assert ops.LAUNCHES["moe_gmm"] == before + 1
+    again = ops.moe_gmm(*args)
+    assert ops.LAUNCHES["moe_gmm"] == before + 2
+    # d or F off a multiple of 8 takes the zero-padded copy
+    assert ops.PAD_COPIES["moe_gmm"] == padded + 2 * bool(d % 8 or f % 8)
+    assert got.shape == (e, c, d) and got.is_contiguous()
+    assert torch.equal(got, again)
     assert torch.isfinite(got.float()).all()
     assert _rel_fro(got, ref.moe_gmm_ref(*args)) <= 1e-2
 

@@ -262,6 +262,27 @@ def test_moe_gmm_plain_matches_jax(e, c, d, f):
     np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
 
 
+@pytest.mark.parametrize("e,c,d,f", [(2, 13, 40, 100), (3, 5, 20, 36),
+                                     (2, 7, 33, 17), (1, 9, 64, 64)])
+def test_moe_gmm_zero_padding_is_exact(e, c, d, f):
+    """On the card ``moe_gmm`` zero-pads d and F to multiples of 8 (TMA
+    rows are 16-byte multiples) and slices the output: in fp32 the padded
+    plain version gives exactly the unpadded one.  Aligned widths are not
+    copied."""
+    rng = np.random.default_rng(c * d + f)
+    args = (_t(_np(rng, (e, c, d))), _t(_np(rng, (e, d, f), d ** -0.5)),
+            _t(_np(rng, (e, d, f), d ** -0.5)), _t(_np(rng, (e, f, d), f ** -0.5)))
+    padded = ops.pad_widths(*args)
+    want = ref.moe_gmm_ref(*args)
+    if d % 8 == 0 and f % 8 == 0:
+        assert all(p is a for p, a in zip(padded, args))
+        return
+    assert padded[0].shape == (e, c, -(-d // 8) * 8)
+    assert padded[1].shape == (e, -(-d // 8) * 8, -(-f // 8) * 8)
+    assert padded[3].shape == (e, -(-f // 8) * 8, -(-d // 8) * 8)
+    assert torch.equal(ref.moe_gmm_ref(*padded)[..., :d], want)
+
+
 # ----------------------------------------------------------------- K5, K6
 
 PAGED_SWEEP = [
