@@ -20,12 +20,16 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    must agree bit for bit), K4 dense SwiGLU (beside the cuBLAS chain of
    three bf16 bmm calls), K5 paged decode attention over block tables from
    the port's PagedKVAllocator (also against K3 on the same keys as slot
-   rows), K6 paged verify attention (W = 4, and W = 1 against K5).  K1
-   and K4 at decode are timed in CUDA graphs beside their eager time; two
-   launches of each must agree bit for bit.  Each kernel's share of its
+   rows, and beside a gather-then-SDPA chain), K6 paged verify attention
+   (W = 4 and 5, and W = 1 bit for bit equal to K5); K5 and K6 are timed
+   as K3 is, with their split, row blocks and CTA count.  K1 and K4 at
+   decode are timed in CUDA graphs beside their eager time; two launches
+   of each kernel must agree bit for bit.  Each kernel's share of its
    bound is bound_ms / ms.  The build's ptxas report and, where cuobjdump
    exists, the SASS opcodes that show K2, K1 and K4 on wgmma (HGMMA) and
-   TMA (UTMALDG) are printed (none in K1 or K4 fails the run).
+   TMA (UTMALDG), and K3 and K5/K6 on mma.sync (HMMA) fed by cp.async
+   (LDGSTS), are printed (none in K1 or K4, or no HMMA in K5/K6, fails
+   the run).
 3. check the kernel path end to end against the CPU fp32 plain path on a
    small model, under the ragged and the dense MoE dispatch (finite
    logits that agree within a stated tolerance).
@@ -39,7 +43,8 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    path and none of another's; one host sync per iteration; no MoE call
    padded its operands; layered expert-load <= chunked; on the short
    trace the dense and the ragged layered serves give the same expert-load
-   bytes and the same token streams.
+   bytes and the same token streams (each serve's record carries a digest
+   of its token streams, to compare trees).
    Then profile the ragged layered and the dense layered serve once more
    (device time by kernel, the device's busy share).
 
@@ -55,6 +60,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
@@ -441,11 +447,20 @@ def _paged_pool(lens, page, hkv, hd, gen):
 
 
 def check_paged_attention(gen) -> list:
-    """K5 and K6 at qwen3-30b-a3b widths (H 32, Hkv 4, hd 128) over the
-    engine's default 16-token pages, 8 sequences of 723-2049 tokens."""
+    """K5, and K6 at W 4 and W 5 (the JAX engine's default spec_k 4 plus
+    the bonus token), at qwen3-30b-a3b widths (H 32, Hkv 4, hd 128) over
+    the engine's default 16-token pages, 8 sequences of 723-2049 tokens.
+    Timed as K3: ``ms`` cold in CUDA graphs over copies of the page pool
+    that together exceed 4 x the 50 MB L2, ``ms_eager`` the same calls
+    launched from Python, ``ms_hot_eager`` one pool launched from Python
+    (``cuda_time``, how these two kernels were first timed).  Beside
+    them: K3 on the same keys in slot rows and a gather chain (the pages
+    gathered by index into slot rows, then SDPA over KV repeated g-major),
+    both cold in graphs."""
     import torch
     from repro_torch.kernels import ops, ref
     h, hkv, hd, page = 32, 4, 128, 16
+    g = h // hkv
     dev = torch.device("cuda")
     lens = torch.randint(723, 2050, (8,), generator=torch.Generator().manual_seed(5))
     lens[0], lens[-1] = 723, 2049
@@ -453,70 +468,118 @@ def check_paged_attention(gen) -> list:
     k_slot, v_slot, kp, vp, bt = _paged_pool(lens_l, page, hkv, hd, gen)
     lengths = lens.to(dev, torch.int32)
     b, max_pages = bt.shape
-    q = torch.randn((b, h, hd), device=dev, generator=gen).to(torch.bfloat16)
-    got = ops.paged_decode_attention(q, kp, vp, bt, lengths)
-    want = ref.paged_decode_attention_ref(q, kp, vp, bt, lengths)
-    slot = ops.decode_attention(q, k_slot, v_slot, lengths)
-    torch.cuda.synchronize()
-    max_abs = (got.float() - want.float()).abs().max().item()
-    vs_k3 = (got.float() - slot.float()).abs().max().item()
-    log(f"paged_decode_attention[B{b} pages of {page}, lengths {lens_l}]: "
-        f"max abs {max_abs:.3e} vs plain, {vs_k3:.3e} vs decode_attention "
-        f"on slot rows (tol {ATTN_TOL})")
-    if not (torch.allclose(got.float(), want.float(), **ATTN_TOL)
-            and torch.allclose(got.float(), slot.float(), **ATTN_TOL)):
-        raise AssertionError("paged_decode_attention disagrees")
+    s_max = max_pages * page
 
-    def kv_bytes(n_tok):
-        return n_tok * 2 * hkv * hd * 2
-    table_bytes = bt.numel() * 4 + b * 4
-    nbytes = 2 * q.numel() * 2 + kv_bytes(sum(lens_l)) + table_bytes
-    b_ms, b_by = bound_ms(nbytes, 4 * hd * h * sum(lens_l))
-    ms = cuda_time(lambda: ops.paged_decode_attention(q, kp, vp, bt, lengths),
-                   iters=50)
-    plain = cuda_time(lambda: ref.paged_decode_attention_ref(q, kp, vp, bt,
-                                                             lengths), iters=10)
+    def copies(kv):
+        n = max(2, int(-(-4 * L2_BYTES // (2 * kv[0].numel() * 2))))
+        return [kv] + [tuple(t.clone() for t in kv) for _ in range(n - 1)]
+    pools, slots = copies((kp, vp)), copies((k_slot, v_slot))
+    pool_mb = 2 * kp.numel() * 2 / 1e6
+    bt_flat = bt.long().reshape(-1)
+    pos = torch.arange(s_max, device=dev)
+
+    def chain(i, qw):
+        # the pages gathered into slot rows, then one SDPA over KV repeated
+        # g-major; window row j of a sequence of length n sees n - W + 1 + j keys
+        w = qw.shape[1]
+        kv = [t.index_select(0, bt_flat).reshape(b, s_max, hkv, hd)
+              .transpose(1, 2).repeat(1, g, 1, 1) for t in pools[i]]
+        horizon = (lengths.long()[:, None] - w + 1
+                   + torch.arange(w, device=dev)[None])
+        mask = (pos[None, None, :] < horizon[:, :, None])[:, None]
+        return _sdpa_gmajor(qw.transpose(1, 2), *kv, mask)
+
+    # K/V bytes of the keys read, the block-table entries read, q in and out
+    kv_bytes = sum(lens_l) * 2 * hkv * hd * 2
+    table_bytes = sum(-(-n // page) for n in lens_l) * 4 + b * 4
+    timing = (f"ms: CUDA graph replay, cold: {len(pools)} pool copies of "
+              f"{pool_mb:.1f} MB rotated; ms_eager: the same calls launched "
+              "from Python; ms_hot_eager: one pool, launched from Python "
+              "(cuda_time)")
     no_lib = "no PyTorch call reads K/V through a block table"
-    out = [{"name": "paged_decode_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-            "replaces": "src/repro/kernels/decode_attention.py:277",
-            "max_abs_err": max_abs, "max_abs_vs_decode_attention": vs_k3,
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "library_note": no_lib,
-            "shape": {"B": b, "page_size": page, "max_pages": max_pages,
-                      "lengths": lens_l}}]
+    out = []
+    for w in (1, 4, 5):
+        qw = torch.randn((b, w, h, hd), device=dev, generator=gen).to(torch.bfloat16)
+        if w == 1:
+            name = "paged_decode_attention"
+            q = qw[:, 0].contiguous()
 
-    # K6: a 4-token verify window, and W = 1 against K5
-    w = 4
-    qw = torch.randn((b, w, h, hd), device=dev, generator=gen).to(torch.bfloat16)
-    got = ops.paged_verify_attention(qw, kp, vp, bt, lengths)
-    want = ref.paged_verify_attention_ref(qw, kp, vp, bt, lengths)
-    one = ops.paged_verify_attention(q[:, None], kp, vp, bt, lengths)[:, 0]
-    dec = ops.paged_decode_attention(q, kp, vp, bt, lengths)
-    torch.cuda.synchronize()
-    max_abs = (got.float() - want.float()).abs().max().item()
-    vs_k5 = (one.float() - dec.float()).abs().max().item()
-    log(f"paged_verify_attention[W{w}]: max abs {max_abs:.3e} vs plain; "
-        f"W 1 vs paged_decode_attention max abs {vs_k5:.3e} (tol {ATTN_TOL})")
-    if not (torch.allclose(got.float(), want.float(), **ATTN_TOL)
-            and torch.allclose(one.float(), dec.float(), **ATTN_TOL)):
-        raise AssertionError("paged_verify_attention disagrees")
-    # window row j of a sequence of length n sees n - w + 1 + j keys
-    pairs = sum(n - w + 1 + j for n in lens_l for j in range(w))
-    nbytes = 2 * qw.numel() * 2 + kv_bytes(sum(lens_l)) + table_bytes
-    b_ms, b_by = bound_ms(nbytes, 4 * hd * h * pairs)
-    ms = cuda_time(lambda: ops.paged_verify_attention(qw, kp, vp, bt, lengths),
-                   iters=50)
-    plain = cuda_time(lambda: ref.paged_verify_attention_ref(qw, kp, vp, bt,
-                                                             lengths), iters=10)
-    out.append({"name": f"paged_verify_attention[W{w}]", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-                "replaces": "src/repro/kernels/decode_attention.py:216",
-                "max_abs_err": max_abs, "max_abs_w1_vs_paged_decode": vs_k5,
-                "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": None, "library_note": no_lib,
-                "shape": {"B": b, "W": w, "page_size": page,
-                          "max_pages": max_pages, "lengths": lens_l}})
+            def kern(i, q=q):
+                return ops.paged_decode_attention(q, *pools[i], bt, lengths)
+
+            def plain(i, q=q):
+                return ref.paged_decode_attention_ref(q, *pools[i], bt, lengths)
+        else:
+            name = f"paged_verify_attention[W{w}]"
+
+            def kern(i, qw=qw):
+                return ops.paged_verify_attention(qw, *pools[i], bt, lengths)
+
+            def plain(i, qw=qw):
+                return ref.paged_verify_attention_ref(qw, *pools[i], bt,
+                                                      lengths)
+        got, again, want = kern(0), kern(0), plain(0)
+        torch.cuda.synchronize()
+        max_abs = (got.float() - want.float()).abs().max().item()
+        if not torch.allclose(got.float(), want.float(), **ATTN_TOL):
+            raise AssertionError(f"{name} disagrees with its plain version: "
+                                 f"max abs {max_abs}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two launches differ")
+        row_blocks = ops.paged_row_blocks(w, g)
+        split = ops.paged_split(b, hkv, row_blocks, max_pages, page)
+        extra = {}
+        if w == 1:
+            # K3 on the same keys as slot rows, and verify at W 1 is K5
+            slot = ops.decode_attention(q, k_slot, v_slot, lengths)
+            one = ops.paged_verify_attention(qw, kp, vp, bt, lengths)[:, 0]
+            torch.cuda.synchronize()
+            vs_k3 = (got.float() - slot.float()).abs().max().item()
+            if not torch.allclose(got.float(), slot.float(), **ATTN_TOL):
+                raise AssertionError(f"{name} disagrees with decode_attention "
+                                     f"on slot rows: max abs {vs_k3}")
+            if not torch.equal(one, got):
+                raise AssertionError("paged_verify_attention at W 1 differs "
+                                     "from paged_decode_attention")
+            extra = {"max_abs_vs_decode_attention": vs_k3,
+                     "equal_to_decode_attention": torch.equal(got, slot),
+                     "k3_same_keys_ms": cuda_time_cold(
+                         lambda i: ops.decode_attention(q, *slots[i], lengths),
+                         len(slots), rounds=8)}
+        log(f"{name} B{b} pages of {page}, lengths {lens_l}: max abs "
+            f"{max_abs:.3e} vs plain (tol {ATTN_TOL}); split {split}, "
+            f"{row_blocks} row blocks, {split * hkv * row_blocks * b} CTAs"
+            + (f"; vs decode_attention on slot rows max abs "
+               f"{extra['max_abs_vs_decode_attention']:.3e}, bit-equal "
+               f"{extra['equal_to_decode_attention']}; W 1 verify == K5"
+               if w == 1 else ""))
+        # window row j of a sequence of length n sees n - w + 1 + j keys
+        pairs = sum(n - w + 1 + j for n in lens_l for j in range(w))
+        b_ms, b_by = bound_ms(2 * qw.numel() * 2 + kv_bytes + table_bytes,
+                              4 * hd * h * pairs)
+        ms = cuda_time_cold(kern, len(pools), rounds=8)
+        ms_eager = cuda_time_cold(kern, len(pools), rounds=8, graph=False)
+        ms_hot_eager = cuda_time(lambda: kern(0), iters=50)
+        plain_ms = cuda_time_cold(plain, len(pools), rounds=2)
+        chain_ms = cuda_time_cold(lambda i, qw=qw: chain(i, qw), len(pools),
+                                  rounds=2)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": ("src/repro/kernels/decode_attention.py:277" if w == 1
+                         else "src/repro/kernels/decode_attention.py:216"),
+            "max_abs_err": max_abs, "ms": ms, "ms_eager": ms_eager,
+            "ms_hot_eager": ms_hot_eager, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library_note": no_lib, "gather_chain_ms": chain_ms,
+            "gather_chain_note": "index_select of the pages into slot rows, "
+                                 "repeat to H heads g-major, one SDPA: a "
+                                 "yardstick of several calls, not library_ms",
+            **extra, "split": split, "row_blocks": row_blocks,
+            "ctas": split * hkv * row_blocks * b, "timing": timing,
+            "shape": {"B": b, "W": w, "page_size": page,
+                      "max_pages": max_pages, "lengths": lens_l}})
+    del pools, slots
     return out
 
 
@@ -609,6 +672,8 @@ def run_serve(a, model, params, n_new: int) -> dict:
     sites = collections.Counter(
         f"{Path(w.filename).name}:{w.lineno}" for w in caught
         if "synchroniz" in str(w.message))
+    r["streams_sha256"] = hashlib.sha256(json.dumps(
+        r["outputs"], sort_keys=True, default=int).encode()).hexdigest()[:16]
     r["host_syncs"] = sum(sites.values())
     r["host_sync_sites"] = dict(sites)
     r["launches"] = counts
@@ -639,7 +704,8 @@ def run_serve(a, model, params, n_new: int) -> dict:
     log(f"{tag}: {r['iterations']} iterations, {r['ms_per_iter']:.1f} "
         f"ms/iter, expert-load {r['expert_load_bytes'] / 1e6:.1f} MB, "
         f"{r['host_syncs']} host syncs {r['host_sync_sites']}, "
-        f"launches {counts}, padded MoE copies {r['pad_copies']}")
+        f"launches {counts}, padded MoE copies {r['pad_copies']}, token "
+        f"streams sha256 {r['streams_sha256']}")
     return r
 
 
@@ -788,16 +854,20 @@ def main() -> None:
                     or "entry function" in line):
                 log(f"  {name}: {line.strip()[:160]}")
     # the prefill and the two MoE kernels' products should run on wgmma
-    # (HGMMA) and their tiles arrive by TMA (UTMALDG); the decode kernel's
-    # on mma.sync (HMMA) fed by cp.async (LDGSTS)
+    # (HGMMA) and their tiles arrive by TMA (UTMALDG); the decode and the
+    # paged kernels' on mma.sync (HMMA) fed by cp.async (LDGSTS)
     sass = {k: build.sass_counts(k) for k in ("prefill_attention",
                                               "moe_gmm_ragged", "moe_gmm")}
-    log(f"SASS opcodes: {sass}, decode_attention "
-        f"{build.sass_counts('decode_attention', ('HMMA', 'LDGSTS', 'MOVM'))}")
+    mma = {k: build.sass_counts(k, ("HMMA", "LDGSTS", "MOVM"))
+           for k in ("decode_attention", "paged_attention")}
+    log(f"SASS opcodes: {sass}, {mma}")
     for k in ("moe_gmm_ragged", "moe_gmm"):
         if sass[k] is not None and not (sass[k]["HGMMA"] > 0
                                         and sass[k]["UTMALDG"] > 0):
             raise AssertionError(f"{k}: no wgmma or TMA in its SASS: {sass[k]}")
+    if mma["paged_attention"] is not None and not mma["paged_attention"]["HMMA"]:
+        raise AssertionError(f"paged_attention: no mma.sync in its SASS: "
+                             f"{mma['paged_attention']}")
 
     # K1 at decode (8 slots -> 960 rows, m_blk 8) and at a 2048-token
     # prefill (32640 rows, m_blk 128); K2 at a layered first group (4

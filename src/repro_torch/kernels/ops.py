@@ -3,7 +3,9 @@ the engine's packed batches.  The model calls ``moe_gmm_ragged`` (ragged
 MoE dispatch) or ``moe_gmm`` (dense dispatch), ``prefill_attention`` and
 ``decode_attention``; ``paged_decode_attention`` and
 ``paged_verify_attention`` read the paged KV pool and are on no engine
-path (the engine keeps slot rows).
+path (the engine keeps slot rows).  The decode kernels (contiguous and
+paged) split the key axis and are two CUDA launches (split, then merge)
+when their split count exceeds 1.
 
 Each wrapper takes the kernel's plain PyTorch version (``ref.py``) for a
 tensor that lies on the CPU, and for a CUDA tensor launches the hand-
@@ -29,10 +31,11 @@ from repro_torch.kernels import ref
 
 Tensor = torch.Tensor
 
-# one count per wrapper call that launched its kernel; decode_attention's
-# split-K design is two CUDA launches (split, then merge) when its split
-# count exceeds 1, and moe_gmm_ragged's and moe_gmm's two-phase design is
-# always two (gate/up, then down): each still counts one
+# one count per wrapper call that launched its kernel; the split-K
+# designs of decode_attention and of the paged kernels are two CUDA
+# launches (split, then merge) when their split count exceeds 1, and
+# moe_gmm_ragged's and moe_gmm's two-phase design is always two (gate/up,
+# then down): each still counts one
 LAUNCHES: Dict[str, int] = {"moe_gmm_ragged": 0, "prefill_attention": 0,
                             "decode_attention": 0, "moe_gmm": 0,
                             "paged_decode_attention": 0,
@@ -54,9 +57,9 @@ _SIGNATURES = {
     "moe_gmm": ("moe_gmm", "moe_gmm_bf16", [_P] * 6 + [_I] * 5 + [_P]),
     # one kernel: paged decode is the verify window W = 1
     "paged_decode_attention": ("paged_attention", "paged_attention_bf16",
-                               [_P] * 6 + [_I] * 8 + [_F, _P]),
+                               [_P] * 7 + [_I] * 8 + [_F, _I, _P]),
     "paged_verify_attention": ("paged_attention", "paged_attention_bf16",
-                               [_P] * 6 + [_I] * 8 + [_F, _P]),
+                               [_P] * 7 + [_I] * 8 + [_F, _I, _P]),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -318,13 +321,32 @@ def moe_gmm(x: Tensor, w_gate: Tensor, w_up: Tensor,
 
 # ----------------------------------------------------------------- K5, K6
 
+# query rows (window token, head-in-group pairs) per CTA of the paged
+# kernel: its mma n-tiles hold 16
+_PAGED_ROWS = 16
+
+
+def paged_row_blocks(w: int, g: int) -> int:
+    """CTAs per (kv head, split) of the paged kernel: the W * g query rows
+    that read one kv head, in blocks of at most 16."""
+    return max(1, -(-w * g // _PAGED_ROWS))
+
+
+def paged_split(b: int, hkv: int, row_blocks: int, max_pages: int,
+                page_size: int) -> int:
+    """Key-axis splits of the paged kernel: ``decode_split`` with S_max =
+    max_pages * page_size and each row block counted as a sequence of the
+    (split, Hkv * row_blocks, B) grid."""
+    return decode_split(b * row_blocks, hkv, max_pages * page_size)
+
+
 def _paged(name: str, q: Tensor, k_pages: Tensor, v_pages: Tensor,
            block_tables: Tensor, lengths: Tensor,
            window: Optional[int]) -> Optional[Tensor]:
     """Shared checks and launch of K5/K6 for q (B, W, H, hd); None when
-    the tensors lie on the CPU (the caller takes the plain version).  The
-    kernel holds all W * g query rows of a kv head in shared memory; a
-    window too wide for it fails its launch, which raises."""
+    the tensors lie on the CPU (the caller takes the plain version).  On
+    the card: bf16, H % Hkv == 0, hd a multiple of 16 up to 128, 16-byte
+    aligned tensors; any W and page size."""
     b, w, h, hd = q.shape
     if (k_pages.dim() != 4 or k_pages.shape != v_pages.shape
             or k_pages.shape[3] != hd or block_tables.dim() != 2
@@ -339,15 +361,28 @@ def _paged(name: str, q: Tensor, k_pages: Tensor, v_pages: Tensor,
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError(f"{name}: block_tables and lengths must be int32")
     _, page_size, hkv, _ = k_pages.shape
-    if h % hkv or hd % 8 or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError(f"{name}: kernel needs H % Hkv == 0, hd a multiple "
-                         f"of 8 and 16-byte aligned pages (H={h}, Hkv={hkv}, "
+    if h % hkv or hd % 16 or hd > 128:
+        raise ValueError(f"{name}: kernel needs H % Hkv == 0 and hd a "
+                         f"multiple of 16 up to 128 (H={h}, Hkv={hkv}, "
                          f"hd={hd})")
+    _check_aligned(name, q, k_pages, v_pages)
+    max_pages = block_tables.shape[1]
+    row_blocks = paged_row_blocks(w, h // hkv)
+    if b > 65535 or hkv * row_blocks > 65535:
+        raise ValueError(f"{name}: grid past the launch limit (B={b}, "
+                         f"Hkv={hkv}, row blocks={row_blocks})")
     out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    split = paged_split(b, hkv, row_blocks, max_pages, page_size)
+    # fp32 partials (O, then m and l) of every (sequence, token, head, split)
+    scratch = (torch.empty(b * w * h * split * (hd + 2), dtype=torch.float32,
+                           device=q.device) if split > 1 else None)
     _launch(name, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, w,
-            h, hkv, page_size, block_tables.shape[1], hd, window or 0,
-            1.0 / math.sqrt(hd))
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, b, w, h,
+            hkv, page_size, max_pages, hd, window or 0, 1.0 / math.sqrt(hd),
+            split)
     return out
 
 

@@ -272,19 +272,44 @@ def test_moe_gmm_kernel_matches_plain(cuda, e, c, d, f):
     assert _rel_fro(got, ref.moe_gmm_ref(*args)) <= 1e-2
 
 
-def _pool(rng, b, page, n_pages, max_pages, hkv, hd, dev, min_len=1):
-    lengths = rng.integers(min_len, max_pages * page + 1, size=b)
-    lengths[0] = min_len
+def _pool(rng, b, page, n_pages, max_pages, hkv, hd, dev, min_len=1,
+          lengths=None):
+    """K/V pages and block tables over SHUFFLED physical pages for ``b``
+    sequences of the given ``lengths`` (else random in [min_len,
+    max_pages * page], the first min_len); table entries past a
+    sequence's pages are 0 padding."""
+    if lengths is None:
+        lengths = rng.integers(min_len, max_pages * page + 1, size=b)
+        lengths[0] = min_len
+    lengths = np.asarray(lengths)
     bt = np.zeros((b, max_pages), np.int32)
     perm, k = rng.permutation(n_pages), 0
     for i in range(b):
         n = -(-int(lengths[i]) // page)
         bt[i, :n] = perm[k:k + n]
         k += n
+    assert k <= n_pages, "the pool is overcommitted"
     return (_bf16(rng, (n_pages, page, hkv, hd), dev),
             _bf16(rng, (n_pages, page, hkv, hd), dev),
             torch.from_numpy(bt).to(dev),
             torch.from_numpy(lengths.astype(np.int32)).to(dev))
+
+
+def _check_paged(q, kp, vp, bt, lens, window):
+    """The paged kernel on q (B, W, H, hd) against its plain version, and
+    a second launch bit for bit (the splits merge in a fixed order);
+    verify at W 1 is paged decode itself."""
+    before = ops.LAUNCHES["paged_verify_attention"]
+    got = ops.paged_verify_attention(q, kp, vp, bt, lens, window=window)
+    again = ops.paged_verify_attention(q, kp, vp, bt, lens, window=window)
+    assert ops.LAUNCHES["paged_verify_attention"] == before + 2
+    want = ref.paged_verify_attention_ref(q, kp, vp, bt, lens, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(got, again)
+    if q.shape[1] == 1:
+        assert torch.equal(got[:, 0], ops.paged_decode_attention(
+            q[:, 0].contiguous(), kp, vp, bt, lens, window=window))
+    return got
 
 
 @pytest.mark.cuda
@@ -311,19 +336,105 @@ def test_paged_attention_kernels_match_plain(cuda, window):
                 qw[:, 0].contiguous(), kp, vp, bt, lens, window=window))
 
 
+# the CPU tests' sweeps (tests/test_torch_kernels.py, from
+# tests/test_kernels.py): (B, H, Hkv, hd, page_size, n_pages, max_pages)
+PAGED_SWEEP = [
+    (3, 4, 2, 64, 16, 24, 6),
+    (2, 8, 1, 32, 8, 40, 10),      # MQA, small pages
+    (1, 4, 4, 128, 32, 8, 4),      # MHA
+    (4, 4, 2, 64, 16, 20, 4),      # tight pool, short sequences
+]
+# (B, W, H, Hkv, hd, page_size, n_pages, max_pages)
+VERIFY_SWEEP = [
+    (3, 3, 4, 2, 64, 16, 24, 6),
+    (2, 5, 8, 1, 32, 8, 40, 10),
+    (1, 2, 4, 4, 128, 32, 8, 4),
+    (4, 4, 4, 2, 64, 16, 20, 4),
+]
+
+
 @pytest.mark.cuda
-def test_paged_verify_too_wide_a_window_raises(cuda):
-    """W * g query rows beyond one block's shared memory fail the launch
-    and raise; the kernel never caps W quietly, and the next launch runs."""
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("b,h,hkv,hd,page,npages,maxp", PAGED_SWEEP)
+def test_paged_decode_kernel_matches_plain_sweep(cuda, b, h, hkv, hd, page,
+                                                 npages, maxp, window):
+    rng = np.random.default_rng(b * hd + page)
+    kp, vp, bt, lens = _pool(rng, b, page, npages, maxp, hkv, hd, cuda)
+    q = _bf16(rng, (b, 1, h, hd), cuda)
+    _check_paged(q, kp, vp, bt, lens, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("b,w,h,hkv,hd,page,npages,maxp", VERIFY_SWEEP)
+def test_paged_verify_kernel_matches_plain_sweep(cuda, b, w, h, hkv, hd, page,
+                                                 npages, maxp, window):
+    rng = np.random.default_rng(b * hd + w)
+    kp, vp, bt, lens = _pool(rng, b, page, npages, maxp, hkv, hd, cuda,
+                             min_len=w)
+    _check_paged(_bf16(rng, (b, w, h, hd), cuda), kp, vp, bt, lens, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [8, 16, 32])
+@pytest.mark.parametrize("w", [1, 2, 4, 5, 8])
+@pytest.mark.parametrize("g,hkv,hd", [(1, 4, 64), (2, 2, 32), (8, 4, 128),
+                                      (16, 1, 128)])
+def test_paged_kernel_over_groups_windows_and_pages(cuda, g, hkv, hd, w, page):
+    """Group sizes 1-16 and windows W 1-8 (W * g from 1 to 128 query rows:
+    one to eight row blocks, the last one partial), page sizes 8-32, over
+    320 keys a sequence split several ways: lengths of 1 (the window rows
+    before the first key see none and output 0), of W, of exactly
+    max_pages * page_size and in between; no window and a 24-key one."""
+    rng = np.random.default_rng(100 * g + 10 * w + page)
+    b, max_pages = 5, 320 // page
+    assert ops.paged_split(b, hkv, ops.paged_row_blocks(w, g), max_pages,
+                           page) > 1
+    lens = [1, w, max_pages * page, 133, 200]
+    kp, vp, bt, lengths = _pool(rng, b, page, b * max_pages + 3, max_pages,
+                                hkv, hd, cuda, lengths=lens)
+    q = _bf16(rng, (b, w, g * hkv, hd), cuda)
+    for window in (None, 24):
+        got = _check_paged(q, kp, vp, bt, lengths, window)
+        # of a 1-token sequence only the newest window row sees a key
+        assert not got[0, :w - 1].any() and got[0, w - 1].any()
+
+
+@pytest.mark.cuda
+def test_paged_attention_unsplit_shape(cuda):
+    """One 64-key tile per sequence: split 1, the kernel alone writes the
+    output (no merge launch, no scratch)."""
+    rng = np.random.default_rng(8)
+    b, h, hkv, hd, page, max_pages = 4, 8, 1, 64, 16, 4
+    assert ops.paged_split(b, hkv, 1, max_pages, page) == 1
+    kp, vp, bt, lens = _pool(rng, b, page, 16, max_pages, hkv, hd, cuda,
+                             lengths=[1, 17, 40, 64])
+    _check_paged(_bf16(rng, (b, 1, h, hd), cuda), kp, vp, bt, lens, None)
+
+
+@pytest.mark.cuda
+def test_paged_verify_wide_window_matches_plain(cuda):
+    """W 64 at g 8: 512 query rows a kv head in 32 row blocks; the kernel
+    has no shared-memory limit on the window."""
     rng = np.random.default_rng(5)
     kp, vp, bt, lens = _pool(rng, 2, 16, 16, 8, 4, 128, cuda, min_len=64)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        ops.paged_verify_attention(_bf16(rng, (2, 64, 32, 128), cuda), kp, vp,
+    _check_paged(_bf16(rng, (2, 64, 32, 128), cuda), kp, vp, bt, lens, None)
+
+
+@pytest.mark.cuda
+def test_paged_attention_refuses_head_dim_24(cuda):
+    """hd off a multiple of 16 raises ValueError on the card, never falls
+    back to the plain version."""
+    rng = np.random.default_rng(9)
+    kp, vp, bt, lens = _pool(rng, 2, 16, 8, 4, 2, 24, cuda)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="hd"):
+        ops.paged_decode_attention(_bf16(rng, (2, 4, 24), cuda), kp, vp, bt,
+                                   lens)
+    with pytest.raises(ValueError, match="hd"):
+        ops.paged_verify_attention(_bf16(rng, (2, 3, 4, 24), cuda), kp, vp,
                                    bt, lens)
-    # the refusal is not left behind for the next launch to report
-    ops.paged_verify_attention(_bf16(rng, (2, 4, 32, 128), cuda), kp, vp, bt,
-                               lens)
-    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before
 
 
 @pytest.mark.cuda

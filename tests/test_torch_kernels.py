@@ -247,6 +247,40 @@ def test_decode_split_count(b, hkv, s_max, want):
         assert split * hkv * b >= 2 * 132
 
 
+@pytest.mark.parametrize("b,hkv,row_blocks,max_pages,page,want", [
+    (8, 4, 1, 129, 16, 9),     # K5 on the 723-2049-token pool: 288 CTAs
+    (8, 4, 2, 129, 16, 5),     # K6 at W 4 (32 rows, 2 row blocks): 320 CTAs
+    (8, 4, 3, 129, 16, 3),     # K6 at W 5 (40 rows, 3 row blocks)
+    (8, 4, 1, 8, 16, 2),       # 128 keys: as many splits as 64-key tiles
+    (8, 4, 1, 4, 16, 1),       # one tile: no split, no merge launch
+    (1, 1, 1, 4096, 32, 32),   # capped
+    (64, 8, 1, 129, 16, 1),    # the grid fills the card unsplit
+    (2, 1, 32, 64, 8, 5),      # W 64 at g 8: row blocks fill the grid
+])
+def test_paged_split_count(b, hkv, row_blocks, max_pages, page, want):
+    """The paged kernel's key-axis split comes from host-known shapes
+    only, as the decode kernel's with S_max = max_pages * page_size and
+    the row blocks counted among the CTAs: two waves over 132 SMs, no
+    more splits than 64-key tiles, at most 32."""
+    split = ops.paged_split(b, hkv, row_blocks, max_pages, page)
+    assert split == want
+    if want < min(32, -(-max_pages * page // 64)):
+        assert split * hkv * row_blocks * b >= 2 * 132
+    if row_blocks == 1:
+        assert split == ops.decode_split(b, hkv, max_pages * page)
+
+
+@pytest.mark.parametrize("w,g,want", [
+    (1, 8, 1), (1, 16, 1), (2, 8, 1), (4, 8, 2), (5, 8, 3), (64, 8, 32),
+    (1, 1, 1), (3, 5, 1), (9, 2, 2),
+])
+def test_paged_row_blocks(w, g, want):
+    """The W * g query rows of one kv head go to CTAs in blocks of at most
+    16 (W * g = 8, 16, 32, 40, 512 above, and ragged counts)."""
+    assert ops.paged_row_blocks(w, g) == want
+    assert (want - 1) * 16 < w * g <= want * 16
+
+
 @pytest.mark.parametrize("e,c,d,f", GMM_SWEEP)
 def test_moe_gmm_plain_matches_jax(e, c, d, f):
     rng = np.random.default_rng(e * c + f)
