@@ -38,30 +38,51 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    port's launcher: the ragged dispatch with layered and then chunked
    prefill on long prompts, then the dense dispatch with layered and
    chunked prefill on a short-prompt trace and the ragged dispatch once
-   more on that trace as its yardstick.  Every request completes with
-   in-vocabulary tokens; every serve launches each kernel of its own
-   path and none of another's; one host sync per iteration; no MoE call
-   padded its operands; layered expert-load <= chunked; on the short
-   trace the dense and the ragged layered serves give the same expert-load
-   bytes and the same token streams (each serve's record carries a digest
-   of its token streams, to compare trees).
-   Then profile the ragged layered and the dense layered serve once more
-   (device time by kernel, the device's busy share).
+   more on that trace as its yardstick (these five without the prefix
+   cache, as before it was ported).  Then: open-loop replay of
+   ``ServeConfig.engine_trace`` (8 Poisson arrivals at 1.3 req/s) on the
+   wall clock, layered and chunked,
+   with TTFT and TBT in ms; a shared-prefix trace (2 prefixes of 512
+   tokens) with prefix hits and row restores; swap preemption in an
+   oversubscribed page pool (every victim swapped back in) beside the same
+   trace without pressure; and the hybrid, continuous and static
+   schedulers on the short trace.  Every request completes with
+   in-vocabulary tokens; every serve launches each kernel of its own path
+   and none of another's; one host sync per iteration; no MoE call padded
+   its operands; layered expert-load <= chunked; on the short trace the
+   dense and the ragged layered serves give the same expert-load bytes
+   and the same token streams (each serve's record carries a digest of
+   its token streams, to compare trees).  Then profile the ragged layered
+   and the dense layered serve once more (device time by kernel, the
+   device's busy share).
+5. free qwen3 and serve gpt-oss-20b at full width (d_model 2880, 64/8
+   heads of 64, 32 experts top-4 of d_ff 2880, 24 layers): the long trace
+   layered and chunked (layered expert-load <= chunked), and the short
+   trace under the dense dispatch.  Phase 2 holds K1-K4 at its shapes
+   too (K2 and K3 at hd 64; K1 and K4 at d = F = 2880, off the
+   128-column d-tile).  Each phase's seconds are printed.
 
-It prints a JSON ``kernels`` line, the ``nvidia-smi`` line, and, as its
-last line, ``{"ok": true, "device": {...}}``.  ``--skip-serve`` stops
-after phase 3 (a quick compile-and-check call): it prints the ``kernels``
-line without launch counts and exits 1 with no result.  Without CUDA, or run from
-a directory without the rest of the repository, it exits non-zero and
-prints no result.
+It prints a JSON ``kernels`` line (each row's ``launches`` summed over
+the serves of its own model, ``launches_of``), the ``nvidia-smi`` line,
+and, as its last line, ``{"ok": true, "device": {...}}``.
+``--explain-divergence`` adds to phase 4 the analysis of the long
+trace's bf16 streams: where a request's layered and chunked streams
+part, that position's logits are recomputed by one bf16 prefill (and
+once more padded to 2048 tokens) and the gaps printed in bf16 ulps.
+``--skip-serve`` stops after phase 3 (a quick compile-and-check call): it
+prints the ``kernels`` line without launch counts and exits 1 with no
+result.  Without CUDA, or run from a directory without the rest of the
+repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import hashlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -117,14 +138,19 @@ def bound_ms(nbytes: float, flops: float):
 # ---------------------------------------------------------------- phase 2
 
 
-def check_moe_gmm(tag: str, n_tokens: int, gen) -> dict:
+QWEN3_MOE = (128, 8, 2048, 768)        # E, top-k, d, F
+GPT_OSS_MOE = (32, 4, 2880, 2880)
+
+
+def check_moe_gmm(tag: str, n_tokens: int, gen, widths=QWEN3_MOE) -> dict:
     """K1 at the ragged layout the model builds for ``n_tokens`` routed
-    tokens at qwen3-30b-a3b widths (E 128, top-8, d 2048, F 768)."""
+    tokens at qwen3-30b-a3b widths (E 128, top-8, d 2048, F 768) or
+    gpt-oss-20b's (E 32, top-4, d = F = 2880)."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.models import moe
     from repro_torch.models.layers import dense_init
-    e, k, d, f = 128, 8, 2048, 768
+    e, k, d, f = widths
     dev = torch.device("cuda")
     w_gate = dense_init((e, d, f), torch.bfloat16, dev, gen)
     w_up = dense_init((e, d, f), torch.bfloat16, dev, gen)
@@ -174,7 +200,8 @@ def check_moe_gmm(tag: str, n_tokens: int, gen) -> dict:
             "library_ms": None,
             "library_note": "no single PyTorch call computes a per-expert "
                             "fused SwiGLU",
-            "shape": {"rows": n_rows, "m_blk": m_blk, "active_experts": n_active}}
+            "shape": {"rows": n_rows, "m_blk": m_blk, "active_experts": n_active,
+                      "E": e, "top_k": k, "d": d, "F": f}}
 
 
 def _time_gmm(fn, decode: bool):
@@ -197,11 +224,15 @@ def _sdpa_gmajor(q, k, v, mask):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
+QWEN3_ATTN = (32, 4, 128)              # H, Hkv, hd
+GPT_OSS_ATTN = (64, 8, 64)
+
+
 def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
-                            offsets=None) -> dict:
+                            offsets=None, heads=QWEN3_ATTN) -> dict:
     import torch
     from repro_torch.kernels import ops, ref
-    h, hkv, hd = 32, 4, 128
+    h, hkv, hd = heads
     dev = torch.device("cuda")
     q = torch.randn((b, p, h, hd), device=dev, generator=gen).to(torch.bfloat16)
     kc = torch.randn((b, s_max, hkv, hd), device=dev, generator=gen).to(torch.bfloat16)
@@ -243,7 +274,8 @@ def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "ctas": ctas, "achieved_tflops": flops / ms / 1e9,
-            "shape": {"B": b, "P": p, "S_max": s_max, "offsets": offl}}
+            "shape": {"B": b, "P": p, "S_max": s_max, "offsets": offl,
+                      "H": h, "Hkv": hkv, "hd": hd}}
 
 
 def cuda_time_cold(fn, n_copies: int, rounds: int, graph: bool = True) -> float:
@@ -285,7 +317,7 @@ def cuda_time_cold(fn, n_copies: int, rounds: int, graph: bool = True) -> float:
 
 
 def check_decode_attention(gen, tag: str, b=8, s_max=2048,
-                           len_range=(601, 1517)) -> dict:
+                           len_range=(601, 1517), heads=QWEN3_ATTN) -> dict:
     """K3 at the serve's decode step (8 slots, one of them idle with the
     stale length S_max + 1), timed cold in CUDA graphs: kernel, plain
     version and SDPA each rotate over copies of the cache that together
@@ -294,7 +326,7 @@ def check_decode_attention(gen, tag: str, b=8, s_max=2048,
     faster than its own launch."""
     import torch
     from repro_torch.kernels import ops, ref
-    h, hkv, hd = 32, 4, 128
+    h, hkv, hd = heads
     dev = torch.device("cuda")
     q = torch.randn((b, h, hd), device=dev, generator=gen).to(torch.bfloat16)
     cache_bytes = 2 * b * s_max * hkv * hd * 2
@@ -351,18 +383,20 @@ def check_decode_attention(gen, tag: str, b=8, s_max=2048,
             "timing": f"CUDA graph replay, cold: {n_copies} cache copies "
                       f"of {cache_bytes / 1e6:.1f} MB rotated; ms_hot: one "
                       "copy; ms_eager: cold, launched from Python",
-            "shape": {"B": b, "S_max": s_max, "lengths": lens.tolist()}}
+            "shape": {"B": b, "S_max": s_max, "lengths": lens.tolist(),
+                      "H": h, "Hkv": hkv, "hd": hd}}
 
 
-def check_moe_gmm_dense(tag: str, c: int, gen) -> dict:
-    """K4 over the dense (E, C, d) buffer at qwen3-30b-a3b widths: C = 8 is
-    the engine's full-pool decode step (dropless, C = n_slots), C = 1024 a
-    packed 4 x 256-token prefill."""
+def check_moe_gmm_dense(tag: str, c: int, gen, widths=QWEN3_MOE) -> dict:
+    """K4 over the dense (E, C, d) buffer at qwen3-30b-a3b widths or
+    gpt-oss-20b's: C = 8 is the engine's full-pool decode step (dropless,
+    C = n_slots), C = 1024 the short trace's packed prefill (4 prompts of
+    201-242 tokens in the 256-token bucket)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     from repro_torch.models.layers import dense_init
-    e, d, f = 128, 2048, 768
+    e, _, d, f = widths
     dev = torch.device("cuda")
     w_gate = dense_init((e, d, f), torch.bfloat16, dev, gen)
     w_up = dense_init((e, d, f), torch.bfloat16, dev, gen)
@@ -380,7 +414,7 @@ def check_moe_gmm_dense(tag: str, c: int, gen) -> dict:
     max_abs = diff.abs().max().item()
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"moe_gmm[{tag}]: non-finite output")
-    log(f"moe_gmm[{tag}] E {e} C {c}: rel Frobenius {rel:.3e} (tol "
+    log(f"moe_gmm[{tag}] E {e} C {c} d {d} F {f}: rel Frobenius {rel:.3e} (tol "
         f"{GMM_REL_FRO}), max abs {max_abs:.3e}")
     if not rel <= GMM_REL_FRO:
         raise AssertionError(f"moe_gmm[{tag}] disagrees: rel {rel}")
@@ -592,9 +626,9 @@ def check_small_model_end_to_end() -> None:
     CPU (plain versions, ragged): a 48-token prefill into the cache, then
     one decode step."""
     import torch
-    from repro_torch.launch.serve import ServeArgs, model_config
+    from repro_torch.launch.serve import ServeConfig, model_config
     from repro_torch.models.model import DecoderModel
-    cfg = model_config(ServeArgs(smoke=True, dtype="bfloat16"))
+    cfg = model_config(ServeConfig(smoke=True, dtype="bfloat16"))
     gpu = DecoderModel(cfg, device="cuda")
     params = gpu.init_params(torch.Generator(device="cuda").manual_seed(1))
     cpu = DecoderModel(dataclasses.replace(cfg, dtype="float32",
@@ -619,6 +653,24 @@ def check_small_model_end_to_end() -> None:
                                      offset=(off + 48).to(dev), **kw)
         return lp.float().cpu(), ld.float().cpu()
     want = run(cpu, p_cpu, "cpu", "ragged")
+    # the same prefill in three 16-token chunks through the cache (the
+    # chunked scheduler's path: K2 at non-zero offsets): as close to the
+    # fp32 one-shot logits as the one-shot bf16 path is
+    cache = gpu.init_cache(2, 128)
+    for c0 in range(0, 48, 16):
+        lc, cache, _ = gpu.forward(params, toks[:, c0:c0 + 16].cuda(),
+                                   offset=(off + c0).cuda(), cache=cache,
+                                   dropless=True)
+    lc = lc.float().cpu()
+    one = run(gpu, params, "cuda", "ragged")[0][:, 32:]
+    ref_ = want[0][:, 32:]
+    rel_chunk = ((lc - ref_).norm() / ref_.norm()).item()
+    rel_one = ((one - ref_).norm() / ref_.norm()).item()
+    log(f"small model prefill in 16-token chunks through the cache, bf16 "
+        f"kernels vs fp32 CPU one-shot (last chunk's logits): rel Frobenius "
+        f"{rel_chunk:.3e} (one-shot bf16: {rel_one:.3e}; tol {E2E_REL_FRO})")
+    if not rel_chunk <= E2E_REL_FRO:
+        raise AssertionError(f"chunked prefill disagrees: rel {rel_chunk}")
     for moe_dispatch in ("ragged", "dense"):
         got = run(gpu, params, "cuda", moe_dispatch)
         for name, a, b_ in (("prefill", got[0], want[0]),
@@ -645,17 +697,18 @@ PATH_KERNELS = {"ragged": ("moe_gmm_ragged", "prefill_attention",
                 "dense": ("moe_gmm", "prefill_attention", "decode_attention")}
 
 
-def run_serve(a, model, params, n_new: int) -> dict:
-    """One closed-loop serve through the port's launcher, with the launch
-    counts set to 0 just before it and read just after, and its host syncs
-    counted; raises unless every request completes with ``n_new``
+def run_serve(a, model, params, trace=None) -> dict:
+    """One serve through the port's launcher (closed loop, or open loop
+    over ``trace`` / ``a.engine_trace``), with the launch counts set to 0
+    just before it and read just after, and its host syncs counted;
+    raises unless every request completes with its ``max_new_tokens``
     in-vocabulary tokens, every kernel of the dispatch's path launched and
     no other kernel did, and the serve made at most one host sync per
     iteration (plus the two synchronize() calls that bound the timing)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve_real
-    tag = f"{a.moe_dispatch}/{a.scheduler}"
+    tag = f"{a.arch} {a.moe_dispatch}/{a.scheduler}"
     # counts start at 0 just before the main path (the comparison
     # launches of phase 2 do not count) and are read just after
     ops.reset_launches()
@@ -665,7 +718,7 @@ def run_serve(a, model, params, n_new: int) -> dict:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            r = serve_real(a, model, params)
+            r = serve_real(a, model, params, trace=trace)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     counts = dict(ops.LAUNCHES)
@@ -678,13 +731,17 @@ def run_serve(a, model, params, n_new: int) -> dict:
     r["host_sync_sites"] = dict(sites)
     r["launches"] = counts
     r["pad_copies"] = dict(ops.PAD_COPIES)
+    gc.collect()
     torch.cuda.empty_cache()
     vocab = model.cfg.vocab_size
     if r["completed"] != r["requests"]:
         raise AssertionError(f"{tag}: {r['completed']}/{r['requests']} "
                              "requests completed")
-    if any(len(t) != n_new for t in r["outputs"].values()):
-        raise AssertionError(f"{tag}: a request did not get {n_new} tokens")
+    short = [rid for rid, t in r["outputs"].items()
+             if len(t) != r["max_new"][rid]]
+    if short:
+        raise AssertionError(f"{tag}: requests {short} did not get all "
+                             "their tokens")
     if any(not 0 <= x < vocab for t in r["outputs"].values() for x in t):
         raise AssertionError(f"{tag}: token id out of range")
     path = PATH_KERNELS[a.moe_dispatch]
@@ -697,15 +754,30 @@ def run_serve(a, model, params, n_new: int) -> dict:
                              f"{stray}")
     if any(r["pad_copies"].values()):
         raise AssertionError(f"{tag}: the MoE kernel padded its operands "
-                             f"{r['pad_copies']}: qwen3 widths never need it")
+                             f"{r['pad_copies']}: the models' widths never "
+                             "need it")
     if r["host_syncs"] > r["iterations"] + 2:
         raise AssertionError(f"{tag}: {r['host_syncs']} host syncs in "
                              f"{r['iterations']} iterations")
-    log(f"{tag}: {r['iterations']} iterations, {r['ms_per_iter']:.1f} "
-        f"ms/iter, expert-load {r['expert_load_bytes'] / 1e6:.1f} MB, "
-        f"{r['host_syncs']} host syncs {r['host_sync_sites']}, "
-        f"launches {counts}, padded MoE copies {r['pad_copies']}, token "
-        f"streams sha256 {r['streams_sha256']}")
+    ms = 1e3 if r["clock_unit"] == "s" else None
+    lat = (f"TTFT p50/p99 {r['ttft_p50'] * ms:.1f}/{r['ttft_p99'] * ms:.1f} "
+           f"ms, TBT p50/p99 {r['tbt_p50'] * ms:.1f}/{r['tbt_p99'] * ms:.1f} "
+           "ms, " if ms else "")
+    extra = ""
+    if a.prefix_cache:
+        extra += (f", prefix hits {r['n_prefix_hits']} "
+                  f"({r['n_prefix_tokens']} tokens), restores "
+                  f"{r['n_prefix_restores']}")
+    if r["n_swapped_out"] or a.preemption in ("swap", "auto"):
+        extra += (f", swapped out/in {r['n_swapped_out']}/"
+                  f"{r['n_swapped_in']}")
+    log(f"{tag}{' open-loop ' + a.clock if a.open_loop else ''}: "
+        f"{r['requests']} requests, {r['iterations']} iterations, "
+        f"{r['ms_per_iter']:.1f} ms/iter, {lat}expert-load "
+        f"{r['expert_load_bytes'] / 1e6:.1f} MB, preemptions "
+        f"{r['n_preempted']}{extra}, {r['host_syncs']} host syncs "
+        f"{r['host_sync_sites']}, launches {counts}, padded MoE copies "
+        f"{r['pad_copies']}, token streams sha256 {r['streams_sha256']}")
     return r
 
 
@@ -717,39 +789,141 @@ def _same_streams(x: dict, y: dict) -> str:
             f"{same}/{n}")
 
 
-def serve_full() -> dict:
+def _bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at ``x`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def explain_divergence(model, params, lay: dict, chk: dict) -> list:
+    """Where a request's layered and chunked bf16 streams part, recompute
+    that position's logits with ONE bf16 prefill of prompt + the common
+    prefix of the two streams (no cache, a third batch shape) and report
+    the gap between the two tokens the schedulers chose, and the top-2
+    gap, beside bf16's ulp at the top logit.  Then the same prefill once
+    more with the sequence padded to 2048 tokens (masked padding after
+    it: causal, so the same function, only other GEMM shapes): how far
+    rounding alone moves the logits, and how many of the routers' top-k
+    assignments it moves (the per-block expert counts of the real
+    tokens)."""
     import torch
-    from repro_torch.kernels import ops
-    from repro_torch.launch.serve import ServeArgs, build_model
-    base = ServeArgs(arch="qwen3-30b-a3b", requests=4, max_len=2048, slots=8,
-                     quantum=512, token_budget=512, seed=0,
-                     prompt_len=(600, 1501), new_tokens=(16, 17))
-    # the dense dispatch computes every expert over every token of a batch
-    # (C = T), so it serves short prompts: 64-256 tokens, 8 new each
+    out = []
+    for rid, a_toks in lay["outputs"].items():
+        b_toks = chk["outputs"][rid]
+        j = next((i for i, (x, y) in enumerate(zip(a_toks, b_toks))
+                  if x != y), None)
+        if j is None:
+            continue
+        seq = [int(t) for t in lay["prompts"][rid]] + list(a_toks[:j])
+        n = len(seq)
+        toks = torch.tensor([seq], dtype=torch.long, device=model.device)
+        pad = torch.randint(1, model.cfg.vocab_size, (1, 2048 - n),
+                            generator=torch.Generator().manual_seed(rid))
+        padded = torch.cat([toks, pad.to(model.device)], dim=1)
+        valid = torch.arange(2048, device=model.device)[None] < n
+        with torch.no_grad():
+            logits, _, aux = model.forward(params, toks, dropless=True)
+            lg = logits[0, -1].float()
+            del logits
+            logits_p, _, aux_p = model.forward(params, padded, valid=valid,
+                                               dropless=True)
+            lp = logits_p[0, n - 1].float()
+            del logits_p
+        moved = int((aux["expert_counts"] - aux_p["expert_counts"]).abs()
+                    .sum()) // 2
+        n_assign = n * model.cfg.moe.top_k * model.n_blocks
+        top = torch.topk(lg, 2)
+        t1, t2 = (float(v) for v in top.values)
+        la, lb = float(lg[a_toks[j]]), float(lg[b_toks[j]])
+        ulp = _bf16_ulp(t1)
+        row = {"req": rid, "position": j, "prompt_len": len(lay["prompts"][rid]),
+               "layered_token": a_toks[j], "chunked_token": b_toks[j],
+               "top2_tokens": [int(i) for i in top.indices],
+               "top2_gap": t1 - t2, "chosen_gap": abs(la - lb),
+               "bf16_ulp_at_top": ulp,
+               "top2_gap_ulps": (t1 - t2) / ulp,
+               "chosen_gap_ulps": abs(la - lb) / ulp,
+               "padded_same_argmax": bool(lg.argmax() == lp.argmax()),
+               "padded_max_shift_ulps": float((lg - lp).abs().max()) / ulp,
+               "padded_rel_fro": float((lg - lp).norm() / lg.norm()),
+               "padded_routing_moved": moved,
+               "routing_assignments": n_assign}
+        log(f"  divergence req {rid} at new token {j} (prompt "
+            f"{row['prompt_len']}): layered {a_toks[j]} / chunked "
+            f"{b_toks[j]}; one-prefill logits: top-2 {row['top2_tokens']} "
+            f"gap {t1 - t2:.4g} = {row['top2_gap_ulps']:.2f} ulp, the two "
+            f"chosen tokens' gap {abs(la - lb):.4g} = "
+            f"{row['chosen_gap_ulps']:.2f} ulp (bf16 ulp at {t1:.4g}: "
+            f"{ulp:.4g}); padded to 2048: argmax same "
+            f"{row['padded_same_argmax']}, logits moved up to "
+            f"{row['padded_max_shift_ulps']:.1f} ulp (rel Frobenius "
+            f"{row['padded_rel_fro']:.3e}), {moved} of {n_assign} routed "
+            "assignments moved")
+        out.append(row)
+    return out
+
+
+def _phase(name: str, t0: float, times: dict) -> float:
+    t = time.perf_counter()
+    times[name] = t - t0
+    log(f"phase {name}: {t - t0:.1f} s")
+    return t
+
+
+def serve_configs(arch: str):
+    """The long and the short trace's closed-loop configs of ``arch``: the
+    serves of earlier runs, without the prefix cache (their plans, streams
+    and digests stay comparable).  The dense dispatch computes every
+    expert over every token of a batch (C = T), so it serves the short
+    trace: 64-256-token prompts, 8 new tokens each."""
+    from repro_torch.launch.serve import ServeConfig
+    base = ServeConfig(arch=arch, requests=4, max_len=2048, slots=8,
+                       quantum=512, token_budget=512, seed=0,
+                       prompt_len=(600, 1501), new_tokens=(16, 17),
+                       prefix_cache=False)
     short = dataclasses.replace(base, max_len=512, quantum=128,
                                 token_budget=128, prompt_len=(64, 257),
                                 new_tokens=(8, 9))
+    return base, short
+
+
+def build_logged(a, label: str, times: dict):
+    """The model of ``a`` at full width, its build logged and timed."""
+    import torch
+    from repro_torch.launch.serve import build_model
     t0 = time.perf_counter()
-    model, params = build_model(base)
+    model, params = build_model(a)
     torch.cuda.synchronize()
     cfg = model.cfg
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"built {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.moe.n_experts} experts "
-        f"top-{cfg.moe.top_k}, vocab {cfg.vocab_size}; {n_params / 1e9:.2f} B "
-        f"params ({torch.cuda.memory_allocated() / 1e9:.1f} GB) in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads (hd {cfg.head_dim_}), "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, expert d_ff "
+        f"{cfg.moe.expert_d_ff}, vocab {cfg.vocab_size}; "
+        f"{n_params / 1e9:.2f} B params "
+        f"({torch.cuda.memory_allocated() / 1e9:.1f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s; expert bytes "
+        f"{cfg.expert_bytes(2) / 1e6:.1f} MB")
+    return model, params, _phase(f"{label} build", t0, times)
+
+
+def serve_qwen3(times: dict, explain: bool = False) -> dict:
+    """Phase 4a: every serve at qwen3-30b-a3b width.  With ``explain``,
+    the long trace's layered/chunked bf16 divergence is analysed too."""
+    from repro_torch.launch.serve import ServeConfig
+    from repro_torch.serving.traffic import shared_prefix_trace
+    base, short = serve_configs("qwen3-30b-a3b")
+    model, params, t0 = build_logged(base, "qwen3", times)
+    cfg = model.cfg
     runs = {}
     for sched in ("layered", "chunked"):
         runs[f"ragged/{sched}"] = run_serve(
-            dataclasses.replace(base, scheduler=sched), model, params, 16)
+            dataclasses.replace(base, scheduler=sched), model, params)
     for disp, sched in (("dense", "layered"), ("dense", "chunked"),
                         ("ragged", "layered")):
         runs[f"short {disp}/{sched}"] = run_serve(
             dataclasses.replace(short, scheduler=sched, moe_dispatch=disp),
-            model, params, 8)
-    launches = {k: sum(r["launches"][k] for r in runs.values())
-                for k in ops.LAUNCHES}
+            model, params)
+    t0 = _phase("qwen3 closed-loop serves", t0, times)
 
     lay, chk = runs["ragged/layered"], runs["ragged/chunked"]
     if not lay["expert_load_bytes"] <= chk["expert_load_bytes"]:
@@ -759,6 +933,8 @@ def serve_full() -> dict:
         f"({lay['expert_load_bytes'] / chk['expert_load_bytes']:.3f}); "
         f"{_same_streams(lay, chk)} (bf16: other batch shapes round "
         "differently and may flip an argmax)")
+    divergence = (explain_divergence(model, params, lay, chk) if explain
+                  else None)
     dl, dc = runs["short dense/layered"], runs["short dense/chunked"]
     rl = runs["short ragged/layered"]
     if not dl["expert_load_bytes"] <= dc["expert_load_bytes"]:
@@ -777,12 +953,97 @@ def serve_full() -> dict:
         f"{dl['ms_per_iter']:.1f} / {rl['ms_per_iter']:.1f} ms/iter. Dense "
         f"layered / chunked expert-load {dl['expert_load_bytes'] / 1e6:.1f} / "
         f"{dc['expert_load_bytes'] / 1e6:.1f} MB, {_same_streams(dl, dc)}")
+    t0 = _phase("qwen3 serve checks", t0, times)
+
+    # open loop on the wall clock: ServeConfig.engine_trace, 8 Poisson
+    # arrivals at the JAX launcher's 1.3 req/s, the prefix cache on
+    wall = ServeConfig(arch="qwen3-30b-a3b", open_loop=True, clock="wall",
+                       requests=8, rate=1.3, max_len=2048, slots=8,
+                       quantum=512, token_budget=512, seed=0)
+    for sched in ("layered", "chunked"):
+        runs[f"open-loop {sched}"] = run_serve(
+            dataclasses.replace(wall, scheduler=sched), model, params)
+    ol, oc = runs["open-loop layered"], runs["open-loop chunked"]
+    log(f"open loop: layered / chunked expert-load "
+        f"{ol['expert_load_bytes'] / 1e6:.1f} / "
+        f"{oc['expert_load_bytes'] / 1e6:.1f} MB; TTFT p99 "
+        f"{ol['ttft_p99'] * 1e3:.1f} / {oc['ttft_p99'] * 1e3:.1f} ms, TBT p99 "
+        f"{ol['tbt_p99'] * 1e3:.1f} / {oc['tbt_p99'] * 1e3:.1f} ms")
+    t0 = _phase("qwen3 open-loop serves", t0, times)
+
+    # prefix hits: two 512-token system prompts, 64-token suffixes
+    trace = shared_prefix_trace(8, n_prefixes=2, prefix_len=512,
+                                suffix_len=64, output_len=8, rate=1.3,
+                                vocab_size=cfg.vocab_size, seed=0)
+    r = runs["prefix layered"] = run_serve(
+        dataclasses.replace(wall, scheduler="layered"), model, params,
+        trace=trace)
+    if not (r["n_prefix_hits"] > 0 and r["n_prefix_restores"] > 0):
+        raise AssertionError(f"prefix trace: {r['n_prefix_hits']} hits, "
+                             f"{r['n_prefix_restores']} restores")
+    t0 = _phase("qwen3 prefix-cache serve", t0, times)
+
+    # swap: 8 requests of 64-256 prompt tokens and 48 new ones in 80
+    # pages of 16 tokens (the schedule swaps twice), then the same trace
+    # with no pressure
+    swap = dataclasses.replace(short, requests=8, new_tokens=(48, 49),
+                               pages=80, preemption="swap")
+    sw = runs["swap layered"] = run_serve(swap, model, params)
+    if not sw["n_swapped_in"] == sw["n_swapped_out"] > 0:
+        raise AssertionError(f"swap serve: swapped out/in "
+                             f"{sw['n_swapped_out']}/{sw['n_swapped_in']}")
+    free = runs["swap layered, no pressure"] = run_serve(
+        dataclasses.replace(swap, pages=None, preemption="on"), model,
+        params)
+    victims = sw["swapped_ids"]
+    same = sum(sw["outputs"][v] == free["outputs"][v] for v in victims)
+    log(f"swap: victims {victims}; {same}/{len(victims)} victims' streams "
+        f"equal their unpressured streams, {_same_streams(sw, free)} over "
+        "all requests (bf16: the decode batch differs; equality is held in "
+        "fp32 on the CPU)")
+    sw["victims_equal_unpressured"] = same
+    t0 = _phase("qwen3 swap serves", t0, times)
+
+    # the three other schedulers on the short trace
+    for sched in ("hybrid", "continuous", "static"):
+        runs[f"short ragged/{sched}"] = run_serve(
+            dataclasses.replace(short, scheduler=sched), model, params)
+    t0 = _phase("qwen3 other schedulers", t0, times)
+
     profile_serve(dataclasses.replace(base, scheduler="layered"), model,
                   params)
     profile_serve(dataclasses.replace(short, scheduler="layered",
                                       moe_dispatch="dense"), model, params)
-    return {"runs": {k: {kk: vv for kk, vv in v.items() if kk != "outputs"}
-                     for k, v in runs.items()}, "launches": launches}
+    _phase("qwen3 profiles", t0, times)
+    del model, params
+    return {"runs": runs, "divergence": divergence}
+
+
+def serve_gpt_oss(times: dict) -> dict:
+    """Phase 4b: gpt-oss-20b at full width (after qwen3 is freed: the two
+    do not fit on one 80 GB card together)."""
+    import torch
+    base, short = serve_configs("gpt-oss-20b")
+    model, params, t0 = build_logged(base, "gpt-oss", times)
+    runs = {}
+    for sched in ("layered", "chunked"):
+        runs[f"gpt-oss ragged/{sched}"] = run_serve(
+            dataclasses.replace(base, scheduler=sched), model, params)
+    runs["gpt-oss short dense/layered"] = run_serve(
+        dataclasses.replace(short, scheduler="layered", moe_dispatch="dense"),
+        model, params)
+    lay, chk = runs["gpt-oss ragged/layered"], runs["gpt-oss ragged/chunked"]
+    if not lay["expert_load_bytes"] <= chk["expert_load_bytes"]:
+        raise AssertionError("gpt-oss: layered expert-load exceeds chunked")
+    log(f"gpt-oss layered / chunked expert-load "
+        f"{lay['expert_load_bytes'] / 1e6:.1f} / "
+        f"{chk['expert_load_bytes'] / 1e6:.1f} MB "
+        f"({lay['expert_load_bytes'] / chk['expert_load_bytes']:.3f}); "
+        f"{_same_streams(lay, chk)}")
+    _phase("gpt-oss serves", t0, times)
+    del model, params
+    torch.cuda.empty_cache()
+    return {"runs": runs}
 
 
 def profile_serve(a, model, params) -> None:
@@ -891,19 +1152,63 @@ def main() -> None:
     torch.cuda.empty_cache()
     kernels += check_paged_attention(gen)
     torch.cuda.empty_cache()
+    # gpt-oss-20b's shapes, as its serves give them: K1 at the 8-slot
+    # decode step and a 2048-token prefill (E 32 top-4, d = F = 2880, off
+    # the 128-column d-tile), K2 at hd 64, g 8 at a layered first group
+    # and a chunked step, K3 at hd 64 at the long and the short trace's
+    # decode step, K4 at the dense decode step and the short trace's
+    # packed prefill
+    kernels += [check_moe_gmm("gpt-oss decode", 8, gen, GPT_OSS_MOE),
+                check_moe_gmm("gpt-oss prefill", 2048, gen, GPT_OSS_MOE),
+                check_prefill_attention("gpt-oss layered", gen,
+                                        heads=GPT_OSS_ATTN),
+                check_prefill_attention("gpt-oss chunked", gen, b=4, p=512,
+                                        offsets=[0, 512, 1024, 1536],
+                                        heads=GPT_OSS_ATTN),
+                check_decode_attention(gen, "gpt-oss long",
+                                       heads=GPT_OSS_ATTN),
+                check_decode_attention(gen, "gpt-oss short", s_max=512,
+                                       len_range=(65, 266),
+                                       heads=GPT_OSS_ATTN)]
+    torch.cuda.empty_cache()
+    kernels += [check_moe_gmm_dense("gpt-oss decode", 8, gen, GPT_OSS_MOE),
+                check_moe_gmm_dense("gpt-oss prefill", 1024, gen,
+                                    GPT_OSS_MOE)]
+    torch.cuda.empty_cache()
     for k in kernels:
         k["bound_share"] = k["bound_ms"] / k["ms"]
     check_small_model_end_to_end()
     torch.cuda.empty_cache()
+    times: dict = {}
+    _phase("build and kernel checks", t_start, times)
     if "--skip-serve" in sys.argv[1:]:
         print(json.dumps({"kernels": kernels}))
         raise SystemExit("[chip_smoke] --skip-serve: stopped after the kernel "
                          "checks; no result")
 
-    serve = serve_full()
+    qwen = serve_qwen3(times, explain="--explain-divergence" in sys.argv[1:])
+    gc.collect()
+    torch.cuda.empty_cache()
+    oss = serve_gpt_oss(times)
+    runs = {**qwen["runs"], **oss["runs"]}
+    # each kernel row's launches: the sum over its own model's serves,
+    # each counted from 0 just before it and read just after
+    launches = {arch: {k: sum(r["launches"][k] for r in m["runs"].values())
+                       for k in ops.LAUNCHES}
+                for arch, m in (("qwen3-30b-a3b", qwen),
+                                ("gpt-oss-20b", oss))}
     for k in kernels:
-        k["launches"] = serve["launches"][k["name"].split("[")[0]]
-    log("serve summary " + json.dumps(serve["runs"]))
+        k["launches_of"] = ("gpt-oss-20b" if "gpt-oss" in k["name"]
+                            else "qwen3-30b-a3b")
+        k["launches"] = launches[k["launches_of"]][k["name"].split("[")[0]]
+    drop = ("outputs", "prompts", "max_new")
+    log("serve summary " + json.dumps(
+        {k: {kk: vv for kk, vv in v.items() if kk not in drop}
+         for k, v in runs.items()}))
+    if qwen["divergence"] is not None:
+        log("bf16 divergence " + json.dumps(qwen["divergence"]))
+    log("phase seconds " + json.dumps({k: round(v, 1)
+                                       for k, v in times.items()}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

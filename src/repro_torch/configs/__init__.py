@@ -1,6 +1,7 @@
 """Architecture registry of the port: only the configurations the port
-runs.  Access via ``get_config(name)`` / ``list_configs()``; smoke
-variants via ``get_smoke_config(name)``."""
+runs (the paper's two evaluation models).  Access via
+``get_config(name)`` / ``list_configs()``; smoke variants via
+``get_smoke_config(name)``."""
 
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ from repro_torch.models.config import ModelConfig, reduced
 _MODULES = {
     # the paper's primary evaluation model
     "qwen3-30b-a3b": "qwen3_30b_a3b",
+    # the paper's second evaluation model
+    "gpt-oss-20b": "gpt_oss_20b",
 }
 
 

@@ -441,7 +441,7 @@ def gather_slot_rows(cache, slots):
     def take(c: Tensor) -> Tensor:
         return c.index_select(1, to_device(np.minimum(s, c.shape[1] - 1),
                                            c.device))
-    return _tree_map(take, cache)
+    return tree_map(take, cache)
 
 
 def scatter_slot_rows(cache, rows, slots) -> None:
@@ -459,23 +459,23 @@ def scatter_slot_rows(cache, rows, slots) -> None:
         src = part if len(keep) == len(s) else part.index_select(
             1, to_device(keep, part.device))
         full.index_copy_(1, dst, src.to(full.dtype))
-    _tree_zip(put, cache, rows)
+    tree_zip(put, cache, rows)
 
 
-def _tree_map(fn, tree):
+def tree_map(fn, tree):
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 
-def _tree_zip(fn, a, b) -> None:
+def tree_zip(fn, a, b) -> None:
     if isinstance(a, dict):
         for k in a:
-            _tree_zip(fn, a[k], b[k])
+            tree_zip(fn, a[k], b[k])
     elif isinstance(a, (list, tuple)):
         for x, y in zip(a, b):
-            _tree_zip(fn, x, y)
+            tree_zip(fn, x, y)
     else:
         fn(a, b)

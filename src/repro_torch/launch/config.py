@@ -1,0 +1,270 @@
+"""ServeConfig: the one typed configuration behind the port's serving
+launcher — the JAX package's ``ServeConfig`` restricted to the fields the
+port runs, plus the port's own ``dtype``, ``device``, ``prompt_len`` and
+``new_tokens``.
+
+  * ``add_arguments`` / ``from_args`` — the single argparse definition,
+  * ``validate`` — cross-field checks, raising ``ValueError`` with the
+    offending field named,
+  * ``engine_kwargs`` / ``scheduler_kwargs`` — the derived constructor
+    argument dicts,
+  * ``engine_trace`` — builds the open-loop trace (the traffic module's
+    generators with a length model shrunk to the engine's max_len).
+
+Not here: the simulator, disaggregated pools, speculative decode, the HTTP
+front-end, fault injection and the per-slice ``packed=False`` path (none
+of them is ported).  Everything here is declarative: no model
+construction, no torch import.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+from repro_torch.configs import list_configs
+from repro_torch.core.base import SCHEDULERS
+from repro_torch.serving.metrics import SLOConfig
+from repro_torch.serving.traffic import (ARRIVAL_PROCESSES, ClassSpec,
+                                         DatasetModel, LengthModel,
+                                         attach_prompt_tokens,
+                                         multi_class_trace)
+
+
+@dataclass
+class ServeConfig:
+    # model / scheduler
+    arch: str = "qwen3-30b-a3b"
+    scheduler: str = "layered"
+    smoke: bool = False
+    # loop shape
+    open_loop: bool = False
+    clock: str = "virtual"              # virtual | wall
+    stream: bool = False
+    # traffic
+    arrival: str = "poisson"
+    rate: float = 1.3
+    requests: int = 8
+    batch_fraction: float = 0.0
+    class_headroom: int = 0
+    seed: int = 0
+    # batching / memory
+    slots: int = 64
+    quantum: int = 512
+    token_budget: int = 512
+    max_len: int = 256
+    pages: Optional[int] = None
+    page_size: int = 16
+    preemption: str = "on"              # on|off|recompute|swap|auto
+    host_pages: Optional[int] = None
+    swap_in_budget: Optional[int] = None
+    decode_reserve: Optional[int] = None
+    # prefix cache
+    prefix_cache: bool = True
+    prefix_lru_pages: Optional[int] = None
+    # MoE / SLO
+    moe_dispatch: str = "ragged"
+    ttft_slo: float = 10.0
+    tbt_slo: float = 0.125
+    # the port's own: dtype override (None: the config's own), device
+    # (None: cuda), and the closed loop's prompt and new-token ranges
+    # [lo, hi) (None: the JAX launcher's (16, max_len // 2) and (4, 16))
+    dtype: Optional[str] = None
+    device: Optional[str] = None
+    prompt_len: Optional[Tuple[int, int]] = None
+    new_tokens: Optional[Tuple[int, int]] = None
+
+    # ------------------------------------------------------------ validation
+
+    def validate(self) -> "ServeConfig":
+        choices = {
+            "arch": tuple(list_configs()),
+            "scheduler": tuple(sorted(SCHEDULERS)),
+            "clock": ("virtual", "wall"),
+            "arrival": tuple(sorted(ARRIVAL_PROCESSES)),
+            "preemption": ("on", "off", "recompute", "swap", "auto"),
+            "moe_dispatch": ("ragged", "dense"),
+            "dtype": (None, "float32", "bfloat16"),
+        }
+        for name, opts in choices.items():
+            if getattr(self, name) not in opts:
+                raise ValueError(f"{name}={getattr(self, name)!r} "
+                                 f"not one of {opts}")
+        positive = ["rate", "requests", "slots", "quantum", "token_budget",
+                    "max_len", "page_size", "ttft_slo", "tbt_slo"]
+        for name in positive:
+            if getattr(self, name) <= 0:
+                raise ValueError(f"{name} must be positive "
+                                 f"(got {getattr(self, name)})")
+        for name in ("pages", "host_pages", "swap_in_budget",
+                     "prefix_lru_pages"):
+            v = getattr(self, name)
+            if v is not None and v <= 0:
+                raise ValueError(f"{name} must be positive or None "
+                                 f"(got {v})")
+        if not 0.0 <= self.batch_fraction <= 1.0:
+            raise ValueError(f"batch_fraction must be in [0, 1] "
+                             f"(got {self.batch_fraction})")
+        if self.class_headroom < 0 or self.decode_reserve is not None \
+                and self.decode_reserve < 0:
+            raise ValueError("class_headroom/decode_reserve must be >= 0")
+        for name in ("prompt_len", "new_tokens"):
+            v = getattr(self, name)
+            if v is not None and not 0 < v[0] < v[1]:
+                raise ValueError(f"{name} must be a range 0 < lo < hi "
+                                 f"(got {v})")
+        return self
+
+    # -------------------------------------------------------------- argparse
+
+    @staticmethod
+    def add_arguments(ap: argparse.ArgumentParser) -> None:
+        d = ServeConfig()
+        ap.add_argument("--arch", default=d.arch, choices=list_configs())
+        ap.add_argument("--scheduler", default=d.scheduler,
+                        choices=sorted(SCHEDULERS))
+        ap.add_argument("--smoke", action="store_true",
+                        help="run the reduced variant of the config")
+        ap.add_argument("--open-loop", action="store_true",
+                        help="replay a timed trace (requests injected at "
+                             "their arrival times) instead of the "
+                             "closed-loop submit-everything drain")
+        ap.add_argument("--clock", default=d.clock,
+                        choices=["virtual", "wall"],
+                        help="open-loop clock: virtual (1 unit per "
+                             "iteration, deterministic) or wall (arrival "
+                             "times in real seconds; idles really sleep)")
+        ap.add_argument("--stream", action="store_true",
+                        help="print every generated token as it is emitted")
+        ap.add_argument("--arrival", default=d.arrival,
+                        choices=sorted(ARRIVAL_PROCESSES),
+                        help="arrival process (bursty = on/off modulated "
+                             "Poisson with the same long-run rate)")
+        ap.add_argument("--rate", type=float, default=d.rate)
+        ap.add_argument("--requests", type=int, default=d.requests)
+        ap.add_argument("--batch-fraction", type=float,
+                        default=d.batch_fraction,
+                        help="open loop: fraction of requests tagged "
+                             "slo_class=batch (evicted before interactive "
+                             "under memory pressure)")
+        ap.add_argument("--class-headroom", type=int,
+                        default=d.class_headroom,
+                        help="pages reserved for interactive admissions")
+        ap.add_argument("--slots", type=int, default=d.slots)
+        ap.add_argument("--quantum", type=int, default=d.quantum)
+        ap.add_argument("--token-budget", type=int, default=d.token_budget)
+        ap.add_argument("--max-len", type=int, default=d.max_len)
+        ap.add_argument("--pages", type=int, default=d.pages,
+                        help="paged KV pool size in pages (default: every "
+                             "slot row fits)")
+        ap.add_argument("--page-size", type=int, default=d.page_size,
+                        help="KV tokens per page")
+        ap.add_argument("--preemption", default=d.preemption,
+                        choices=["on", "off", "recompute", "swap", "auto"],
+                        help="memory-pressure eviction mode: recompute "
+                             "(= on), swap (KV rows to pinned host memory, "
+                             "copied back on swap-in), auto (per-victim "
+                             "choice), off (queueing-only admission)")
+        ap.add_argument("--host-pages", type=int, default=d.host_pages,
+                        help="host-side swap pool size in pages (default: "
+                             "4x the device pool when swap/auto)")
+        ap.add_argument("--swap-in-budget", type=int,
+                        default=d.swap_in_budget,
+                        help="max KV tokens copied back from host per "
+                             "iteration (default: unlimited)")
+        ap.add_argument("--decode-reserve", type=int,
+                        default=d.decode_reserve,
+                        help="per-request decode KV reservation in tokens "
+                             "(default: one page)")
+        ap.add_argument("--prefix-cache", default=d.prefix_cache,
+                        action=argparse.BooleanOptionalAction,
+                        help="automatic prefix caching over a refcounted "
+                             "content-hash page index; --no-prefix-cache "
+                             "restores cold prefill")
+        ap.add_argument("--prefix-lru-pages", type=int,
+                        default=d.prefix_lru_pages,
+                        help="cap on retained refcount-0 cached pages "
+                             "(default: unbounded)")
+        ap.add_argument("--moe-dispatch", default=d.moe_dispatch,
+                        choices=["ragged", "dense"],
+                        help="dropless MoE data path")
+        ap.add_argument("--ttft-slo", type=float, default=d.ttft_slo)
+        ap.add_argument("--tbt-slo", type=float, default=d.tbt_slo)
+        ap.add_argument("--seed", type=int, default=d.seed)
+        ap.add_argument("--dtype", default=None,
+                        choices=["float32", "bfloat16"],
+                        help="override the config's activation/param dtype")
+        ap.add_argument("--device", default=None,
+                        help="cuda (default) or cpu")
+
+    @classmethod
+    def from_args(cls, args: argparse.Namespace) -> "ServeConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in vars(args).items()
+                      if k in known}).validate()
+
+    # ------------------------------------------------------- derived kwargs
+
+    def preemption_opts(self) -> Tuple[bool, str]:
+        """(enabled, mode): "on" is an alias for "recompute"; "off"
+        disables eviction entirely (queueing-only admission)."""
+        enabled = self.preemption != "off"
+        mode = self.preemption if self.preemption in ("swap", "auto") \
+            else "recompute"
+        return enabled, mode
+
+    def class_headroom_opt(self) -> Optional[Dict[str, int]]:
+        return {"interactive": self.class_headroom} \
+            if self.class_headroom else None
+
+    def scheduler_kwargs(self) -> Dict:
+        return dict(n_slots=self.slots, quantum=self.quantum,
+                    token_budget=self.token_budget)
+
+    def engine_kwargs(self) -> Dict:
+        """Engine(...) keyword arguments (model/params/scheduler are the
+        caller's three positionals)."""
+        enabled, mode = self.preemption_opts()
+        return dict(n_slots=self.slots, max_len=self.max_len,
+                    moe_dispatch=self.moe_dispatch,
+                    pages=self.pages, page_size=self.page_size,
+                    preemption=enabled, preemption_mode=mode,
+                    host_pages=self.host_pages,
+                    swap_in_budget=self.swap_in_budget,
+                    decode_reserve=self.decode_reserve,
+                    class_headroom=self.class_headroom_opt(),
+                    prefix_cache=self.prefix_cache,
+                    prefix_lru_pages=self.prefix_lru_pages)
+
+    def slo(self) -> SLOConfig:
+        return SLOConfig(self.ttft_slo, self.tbt_slo)
+
+    # ---------------------------------------------------------- open loop
+
+    def engine_trace(self, vocab_size: int):
+        """Open-loop trace for the engine, built with the traffic module's
+        generators (``arrival`` selects the process, ``batch_fraction`` the
+        class mix) with a length model shrunk to the engine's max_len, and
+        real token ids attached for replay.  ``rate`` is requests per unit
+        of the selected clock."""
+        smoke = DatasetModel(
+            name="engine-smoke",
+            input_len=LengthModel(mean=self.max_len // 6,
+                                  std=self.max_len // 8,
+                                  lo=16, hi=self.max_len // 2),
+            output_len=LengthModel(mean=9, std=4, lo=4, hi=15))
+        n_batch = int(round(self.requests * self.batch_fraction))
+        specs = [ClassSpec("batch", smoke,
+                           self.rate * self.batch_fraction,
+                           n_batch, process=self.arrival)] if n_batch \
+            else []
+        if self.requests - n_batch:
+            specs.append(ClassSpec(
+                "interactive", smoke,
+                self.rate * (1 - self.batch_fraction),
+                self.requests - n_batch,
+                process=self.arrival if not n_batch else "poisson"))
+        trace = multi_class_trace(specs, seed=self.seed)
+        return attach_prompt_tokens(trace, vocab_size, seed=self.seed)

@@ -1,20 +1,27 @@
-"""Serving launcher of the port: the real-execution engine in a closed loop,
-on the card by default.
+"""Serving launcher of the port: the real-execution engine, on the card by
+default, in a closed loop or replaying a timed open-loop trace.
 
 The model runs at its full configured width (``--smoke`` selects the
 reduced variant); weights are random, drawn from ``--seed``.  The same
-``ServingRuntime`` loop as the JAX package drives the engine on the
-iteration clock, and the report prints the JAX launcher's ``[serve]``
-lines plus each kernel's launch count.
+``ServingRuntime`` loop as the JAX package drives the engine: closed-loop
+drain on the iteration clock by default, open-loop replay of
+``ServeConfig.engine_trace`` with ``--open-loop`` (on the iteration clock,
+or on the wall clock with ``--clock wall``).  Every flag lives on
+``ServeConfig`` (launch/config.py).  The report prints the JAX launcher's
+``[serve]`` lines plus each kernel's launch count.
 
 Usage:
-  # on the card, full qwen3-30b-a3b, layered prefill:
+  # on the card, full qwen3-30b-a3b, layered prefill, closed loop:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-30b-a3b \\
       --scheduler layered --requests 4 --max-len 2048
 
-  # the dense (E, C, d) capacity-buffer MoE dispatch instead of ragged:
-  PYTHONPATH=src python -m repro_torch.launch.serve --moe-dispatch dense \\
-      --requests 4 --max-len 512
+  # open-loop Poisson replay on the wall clock (1.3 req/s):
+  PYTHONPATH=src python -m repro_torch.launch.serve --open-loop \\
+      --clock wall --requests 8 --max-len 2048
+
+  # gpt-oss-20b, swap preemption in an oversubscribed page pool:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-oss-20b \\
+      --preemption swap --pages 64 --slots 8
 
   # on the CPU, reduced model (the kernels' plain versions run):
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
@@ -27,49 +34,29 @@ import argparse
 import dataclasses
 import math
 import time
-from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, get_smoke_config, list_configs
-from repro_torch.core import SCHEDULERS, make_scheduler
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core import make_scheduler
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.launch.config import ServeConfig
 from repro_torch.models.model import DecoderModel
 from repro_torch.serving.engine import Engine
-from repro_torch.serving.metrics import request_metrics
+from repro_torch.serving.metrics import per_class_metrics, request_metrics
 from repro_torch.serving.runtime import EngineExecutor, ServingRuntime
 
 
-@dataclasses.dataclass
-class ServeArgs:
-    arch: str = "qwen3-30b-a3b"
-    smoke: bool = False
-    scheduler: str = "layered"
-    requests: int = 8
-    max_len: int = 256
-    slots: int = 8
-    quantum: int = 512
-    token_budget: int = 512
-    moe_dispatch: str = "ragged"
-    seed: int = 0
-    dtype: Optional[str] = None        # None: the config's own dtypes
-    device: Optional[str] = None       # None: cuda
-    # closed-loop traffic: prompt lengths and new tokens are drawn
-    # uniformly from [lo, hi); None keeps the JAX launcher's ranges
-    prompt_len: Optional[Tuple[int, int]] = None
-    new_tokens: Optional[Tuple[int, int]] = None
-
-
-def model_config(a: ServeArgs):
+def model_config(a: ServeConfig):
     cfg = get_smoke_config(a.arch) if a.smoke else get_config(a.arch)
     if a.dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=a.dtype, param_dtype=a.dtype)
     return cfg
 
 
-def build_model(a: ServeArgs):
+def build_model(a: ServeConfig):
     """The model and its random parameters (drawn on the device from
     ``a.seed``) — shared by every engine a caller builds over them."""
     model = DecoderModel(model_config(a), device=resolve_device(a.device))
@@ -77,17 +64,16 @@ def build_model(a: ServeArgs):
     return model, model.init_params(gen)
 
 
-def build_engine(a: ServeArgs, model=None, params=None) -> Engine:
+def build_engine(a: ServeConfig, model=None, params=None) -> Engine:
     """The engine of one run (builds the model unless one is given)."""
     if model is None:
         model, params = build_model(a)
-    sched = make_scheduler(a.scheduler, model.n_blocks, n_slots=a.slots,
-                           quantum=a.quantum, token_budget=a.token_budget)
-    return Engine(model, params, sched, n_slots=a.slots, max_len=a.max_len,
-                  moe_dispatch=a.moe_dispatch)
+    sched = make_scheduler(a.scheduler, model.n_blocks,
+                           **a.scheduler_kwargs())
+    return Engine(model, params, sched, **a.engine_kwargs())
 
 
-def submit_closed_loop(eng: Engine, a: ServeArgs) -> None:
+def submit_closed_loop(eng: Engine, a: ServeConfig) -> None:
     """Closed-loop requests with random prompts drawn from ``a.seed``."""
     rng = np.random.default_rng(a.seed)
     lo, hi = a.prompt_len or (16, a.max_len // 2)
@@ -104,41 +90,92 @@ def _f(v, spec: str = ".2f") -> str:
     return format(v, spec)
 
 
-def serve_real(a: ServeArgs, model=None, params=None) -> dict:
-    """Build an engine, serve ``a.requests`` closed-loop requests to
-    completion, print the report and return its numbers."""
+def _print_per_class(requests, slo=None) -> None:
+    per = per_class_metrics(requests, slo)
+    if len(per) < 2:
+        return
+    for cls, m in per.items():
+        att = f" slo={_f(m['slo_attainment'])}" if "slo_attainment" in m \
+            else ""
+        print(f"[serve]   class {cls:<12} n={m['n_requests']:.0f} "
+              f"ttft mean={_f(m['ttft_mean'])} p99={_f(m['ttft_p99'])}; "
+              f"preempt rate {_f(m['preemption_rate'])}/req; "
+              f"swap rate {_f(m['swap_rate'])}/req{att}")
+
+
+def serve_real(a: ServeConfig, model=None, params=None, trace=None) -> dict:
+    """Build an engine and serve: closed loop (``a.requests`` random
+    requests submitted up front, drained on the iteration clock) or, with
+    ``a.open_loop``, a timed replay of ``trace`` (default
+    ``a.engine_trace``) on the iteration clock or, with ``a.clock ==
+    "wall"``, on the wall clock.  Prints the report and returns its
+    numbers; TTFT/TBT are in the clock's unit (seconds on the wall
+    clock, iterations otherwise)."""
     eng = build_engine(a, model, params)
-    submit_closed_loop(eng, a)
+
+    def _stream(rid, tok, t):
+        print(f"[stream] t={t:8.2f} req={rid:<4} tok={tok}")
+    on_token = _stream if a.stream else None
+    wall_clock = a.open_loop and a.clock == "wall"
+    if a.open_loop:
+        if trace is None:
+            trace = a.engine_trace(eng.cfg.vocab_size)
+        runtime = ServingRuntime(
+            EngineExecutor(eng, wall=wall_clock), on_token=on_token,
+            clock="executor" if wall_clock else "iteration")
+    else:
+        trace = ()
+        submit_closed_loop(eng, a)
+        runtime = ServingRuntime(EngineExecutor(eng), on_token=on_token,
+                                 clock="iteration")
+    unit = "s" if wall_clock else "iters"
     cuda = eng.device.type == "cuda"
     if cuda:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ServingRuntime(EngineExecutor(eng), clock="iteration").run(
-        (), max_iterations=100_000)
+    runtime.run(trace, max_iterations=100_000)
     if cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     reqs = list(eng.requests.values())
     m = request_metrics(reqs)
     cfg = eng.cfg
-    print(f"[serve] {cfg.name} x {a.scheduler} (closed-loop, "
+    loop = "open-loop" if a.open_loop else "closed-loop"
+    print(f"[serve] {cfg.name} x {a.scheduler} ({loop}, "
           f"{cfg.n_layers} layers, {a.moe_dispatch} MoE dispatch, "
-          f"{eng.device}): {a.requests} requests in "
+          f"{eng.device}): {len(reqs)} requests in "
           f"{eng.iteration} iterations")
-    print(f"[serve] ttft(iters) mean={_f(m['ttft_mean'], '.1f')} "
-          f"p99={_f(m['ttft_p99'], '.1f')}; expert-load "
+    print(f"[serve] ttft({unit}) mean={_f(m['ttft_mean'], '.3g')} "
+          f"p50={_f(m['ttft_p50'], '.3g')} p99={_f(m['ttft_p99'], '.3g')}; "
+          f"tbt({unit}) p50={_f(m['tbt_p50'], '.3g')} "
+          f"p99={_f(m['tbt_p99'], '.3g')}; expert-load "
           f"{eng.expert_load_bytes / 1e6:.1f} MB")
     print(f"[serve] kv pages high-water {eng.alloc.pages_high_water}"
           f"/{eng.alloc.n_pages}; queue delay mean "
-          f"{_f(m['queue_delay_mean'], '.1f')} iters; "
+          f"{_f(m['queue_delay_mean'], '.3g')} {unit}; "
           f"preemptions {eng.n_preempted} "
           f"(rate {_f(m['preemption_rate'])}/req)")
     print(f"[serve] hot path: packed; {eng.n_dispatches} device launches "
           f"({eng.n_dispatches / max(eng.iteration, 1):.1f}/iter), "
           f"{eng.n_prefill_dispatches} prefill batches; "
           f"{wall * 1e3 / max(eng.iteration, 1):.1f} ms/iter wall")
+    if a.prefix_cache:
+        print(f"[serve] prefix cache: hit rate "
+              f"{m['prefix_hit_rate']:.2f} "
+              f"({eng.alloc.n_prefix_hits} hits, "
+              f"{eng.alloc.n_prefix_tokens} cached tokens, "
+              f"{eng.n_prefix_restores} row restores); "
+              f"{eng.alloc.n_shared_pages} shared pages live, "
+              f"{eng.alloc.n_prefix_evictions} LRU reclaims")
+    if eng.alloc.n_host_pages:
+        print(f"[serve] swap: {eng.n_swapped_out} out / "
+              f"{eng.n_swapped_in} in; host pages high-water "
+              f"{eng.alloc.host_pages_high_water}/{eng.alloc.n_host_pages};"
+              f" restore latency mean "
+              f"{_f(m['restore_latency_mean'], '.3g')} {unit}")
     print("[serve] kernel launches: " + ", ".join(
         f"{k} {v}" for k, v in ops.LAUNCHES.items()))
+    _print_per_class(reqs, a.slo())
     done = sum(r.finish_time is not None for r in reqs)
     return {"iterations": eng.iteration, "wall_s": wall,
             "ms_per_iter": wall * 1e3 / max(eng.iteration, 1),
@@ -146,38 +183,24 @@ def serve_real(a: ServeArgs, model=None, params=None) -> dict:
             "completed": done, "requests": len(reqs),
             "generated": sum(len(v) for v in eng.outputs.values()),
             "outputs": {rid: list(t) for rid, t in eng.outputs.items()},
-            "n_preempted": eng.n_preempted}
+            "prompts": {r.req_id: list(r.prompt_tokens) for r in reqs},
+            "max_new": {r.req_id: r.max_new_tokens for r in reqs},
+            "n_preempted": eng.n_preempted,
+            "n_swapped_out": eng.n_swapped_out,
+            "n_swapped_in": eng.n_swapped_in,
+            "swapped_ids": sorted(r.req_id for r in reqs if r.n_swaps),
+            "n_prefix_hits": eng.alloc.n_prefix_hits,
+            "n_prefix_tokens": eng.alloc.n_prefix_tokens,
+            "n_prefix_restores": eng.n_prefix_restores,
+            "clock_unit": unit,
+            **{k: m[k] for k in ("ttft_p50", "ttft_p99", "tbt_p50",
+                                 "tbt_p99")}}
 
 
-def parse_args(argv=None) -> ServeArgs:
-    d = ServeArgs()
+def parse_args(argv=None) -> ServeConfig:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default=d.arch, choices=list_configs())
-    ap.add_argument("--smoke", action="store_true",
-                    help="run the reduced variant of the config")
-    ap.add_argument("--scheduler", default=d.scheduler,
-                    choices=sorted(SCHEDULERS))
-    ap.add_argument("--requests", type=int, default=d.requests)
-    ap.add_argument("--max-len", type=int, default=d.max_len)
-    ap.add_argument("--slots", type=int, default=d.slots)
-    ap.add_argument("--quantum", type=int, default=d.quantum)
-    ap.add_argument("--token-budget", type=int, default=d.token_budget)
-    ap.add_argument("--moe-dispatch", default=d.moe_dispatch,
-                    choices=["ragged", "dense"],
-                    help="dropless MoE data path")
-    ap.add_argument("--seed", type=int, default=d.seed)
-    ap.add_argument("--dtype", default=None,
-                    choices=["float32", "bfloat16"],
-                    help="override the config's activation/param dtype")
-    ap.add_argument("--device", default=None,
-                    help="cuda (default) or cpu")
-    ns = ap.parse_args(argv)
-    return ServeArgs(arch=ns.arch, smoke=ns.smoke, scheduler=ns.scheduler,
-                     requests=ns.requests, max_len=ns.max_len,
-                     slots=ns.slots, quantum=ns.quantum,
-                     token_budget=ns.token_budget,
-                     moe_dispatch=ns.moe_dispatch, seed=ns.seed,
-                     dtype=ns.dtype, device=ns.device)
+    ServeConfig.add_arguments(ap)
+    return ServeConfig.from_args(ap.parse_args(argv))
 
 
 def main(argv=None) -> None:

@@ -1,9 +1,11 @@
-"""The serving engine of the port: executes IterationPlans from the layered
-or chunked scheduler against a REAL torch model.
+"""The serving engine of the port: executes IterationPlans from any
+scheduler against a REAL torch model.
 
 Execution model per iteration (the JAX engine's, main path only):
 
-  1. admissions — allocate a KV slot row.
+  1. admissions — allocate a KV slot row; a prompt that hits the prefix
+     cache has its slot row seeded from the cached snapshot and starts
+     prefill past the cached tokens.
   2. prefill slices — each slice is a (token-range x block-range)
      rectangle.  All slices of a plan sharing (block_start, block_end,
      emits_first_token) run as ONE packed batch over a slot vector; token
@@ -28,17 +30,26 @@ Hot-path contract:
   * ONE host sync per iteration: launches return device tensors, and a
     single ``.cpu()`` of the flattened tokens and expert masks fetches
     everything the host bookkeeping needs.  Host-to-device index copies go
-    through pinned memory without blocking.
+    through pinned memory without blocking.  A swap victim's row is
+    copied into pinned host memory with a ``non_blocking`` copy that the
+    same ``.cpu()`` completes; a swap-in copies it back without blocking.
   * PyTorch runs eagerly: there is no executable cache.
+
+Snapshots are COPIES.  The JAX engine's row slices are immutable device
+arrays; here the cache is written in place, so a view of a slot row would
+see the slot's later occupants.  Swap victims and prefix-cache rows are
+therefore copied, and only the positions a restore can read: a swap
+victim's ``[0, offset)``, a prefix row's ``[0, deepest chain x
+page_size)``.  Positions past those are masked by the offset on every
+read, so restores are identical to the JAX engine's whole-row ones.
 
 MoE runs dropless under either ``moe_dispatch``: "ragged" (the default)
 or "dense" (the (E, C, d) capacity buffer with C = the batch's token
 count).  Routing is the same under both, so are the expert-load counters.
 
-Only the main path is ported: recompute preemption; ``prefix_cache`` is
-off by default and ``True`` raises, as do ``preemption_mode`` other than
-"recompute", ``spec_mode`` other than "off" and encoder inputs
-(``enc_frames``).
+Not ported: ``spec_mode`` other than "off" and encoder inputs
+(``enc_frames``) raise; the per-slice ``packed=False`` reference path and
+the disaggregated handoff are absent.
 """
 
 from __future__ import annotations
@@ -54,7 +65,8 @@ from repro_torch.core.base import Scheduler, make_scheduler
 from repro_torch.core.plan import (IterationPlan, PrefillSlice, Request,
                                    RequestState, SubmitSpec)
 from repro_torch.device import to_device
-from repro_torch.kernels.ops import gather_slot_rows, scatter_slot_rows
+from repro_torch.kernels.ops import (gather_slot_rows, scatter_slot_rows,
+                                     tree_map, tree_zip)
 from repro_torch.models.config import dtype_bytes
 from repro_torch.models.model import DecoderModel
 from repro_torch.serving.kvcache import PagedKVAllocator
@@ -75,27 +87,52 @@ def _bucket(n: int, minimum: int = 16, cap: Optional[int] = None) -> int:
     return b
 
 
+def _snapshot(c: Tensor, slot: int, n: int, host: bool) -> Tensor:
+    """A COPY of positions ``[0, n)`` of one slot row of a cache leaf
+    ``(reps, n_slots, max_len, ...)`` -> ``(reps, n, ...)``.  With ``host``
+    and a CUDA leaf the copy lands in pinned host memory without blocking:
+    the caller's next sync completes it, and later writes to the slot are
+    ordered after it on the stream."""
+    src = c[:, slot, :n]
+    if not (host and c.is_cuda):
+        return src.clone()
+    dst = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    dst.copy_(src, non_blocking=True)
+    return dst
+
+
 class Engine:
     def __init__(self, model: DecoderModel, params, scheduler, *,
                  n_slots: int = 8, max_len: int = 512,
                  pages: Optional[int] = None, page_size: int = 16,
+                 preemption: bool = True,
                  preemption_mode: str = "recompute",
+                 host_pages: Optional[int] = None,
+                 swap_in_budget: Optional[int] = None,
+                 swap_cost_fn=None,
                  decode_reserve: Optional[int] = None,
+                 class_headroom: Optional[Dict[str, int]] = None,
                  eos_token: Optional[int] = None,
                  moe_dispatch: str = "ragged",
-                 prefix_cache: bool = False, spec_mode: str = "off"):
+                 prefix_cache: bool = True,
+                 prefix_lru_pages: Optional[int] = None,
+                 spec_mode: str = "off"):
         """``pages``/``page_size`` size the paged KV pool shared with the
-        scheduler (default: enough pages to fill every slot row); memory
-        pressure evicts by recompute.  ``prefix_cache`` defaults to False
-        here (the JAX engine defaults to True): prefix caching, swap
-        preemption and speculative decode are not ported yet and raise.
-        ``moe_dispatch`` selects the dropless MoE data path: "ragged" or
-        "dense"."""
-        if prefix_cache:
-            raise NotImplementedError("prefix caching is not ported yet")
-        if preemption_mode != "recompute":
-            raise NotImplementedError(
-                f"preemption_mode={preemption_mode!r}: only recompute is ported")
+        scheduler (default: enough pages to fill every slot row).
+        ``preemption`` enables memory-pressure eviction;
+        ``preemption_mode`` picks its flavour ("recompute" | "swap" |
+        "auto"): under swap, victims' cache rows are copied to pinned host
+        memory and restored verbatim on swap-in (gated by
+        ``swap_in_budget`` KV tokens per iteration), sized by ``host_pages``
+        (default 4x the device pool).  ``swap_cost_fn`` prices swap vs
+        recompute per victim for "auto".  ``class_headroom`` reserves
+        admission pages per SLO class.  ``prefix_cache`` (default on, as
+        in the JAX engine) content-hashes completed prompts' full KV pages;
+        an admission whose prompt matches a cached chain restores the
+        cached row and skips the matched tokens.  ``prefix_lru_pages`` caps
+        the reclaimable cached pages kept resident.  ``moe_dispatch``
+        selects the dropless MoE data path: "ragged" or "dense".
+        Speculative decode is not ported and raises."""
         if spec_mode != "off":
             raise NotImplementedError("speculative decode is not ported yet")
         if moe_dispatch not in ("dense", "ragged"):
@@ -116,11 +153,26 @@ class Engine:
             per_slot = (-(-(max_len + reserve) // page_size)
                         + -(-int(max_len * stash_factor + 1) // page_size))
             pages = n_slots * per_slot
+        if host_pages is None:
+            host_pages = 4 * pages if preemption_mode != "recompute" else 0
         self.alloc = PagedKVAllocator(pages, page_size,
                                       stash_factor=stash_factor,
-                                      n_host_pages=0, prefix_caching=False)
+                                      n_host_pages=host_pages,
+                                      prefix_caching=prefix_cache,
+                                      prefix_lru_pages=prefix_lru_pages)
+        self.prefix_cache = prefix_cache
+        # digest -> (device row snapshot, usable tokens): the physical
+        # realization of the allocator's shared-prefix index; the reclaim
+        # hook drops a row the moment its index entry dies
+        self._prefix_rows: Dict[bytes, Tuple[object, int]] = {}
+        rows = self._prefix_rows        # (not self: no engine cycle)
+        self.alloc.on_prefix_evict = lambda digest: rows.pop(digest, None)
         self.scheduler.attach_kv(self.alloc, decode_reserve=decode_reserve,
-                                 mode="recompute")
+                                 preemption=preemption,
+                                 mode=preemption_mode,
+                                 swap_in_budget=swap_in_budget,
+                                 swap_cost_fn=swap_cost_fn,
+                                 class_headroom=class_headroom)
         self.n_slots = n_slots
         self.max_len = max_len
         self.eos_token = eos_token
@@ -140,11 +192,15 @@ class Engine:
         # req -> (packed boundary batch, row index, token count): cohort
         # members share ONE (B, P, d) batch tensor
         self.stash: Dict[int, Tuple[Tensor, int, int]] = {}
+        # swapped-out requests: req -> (host row copy, offset, last_tok)
+        self.host_kv: Dict[int, Tuple[object, int, int]] = {}
 
         # metrics
         self.iteration = 0
         self._step_events: List[TokenEvent] = []
         self.n_preempted = 0
+        self.n_swapped_out = 0
+        self.n_swapped_in = 0
         self.expert_load_bytes = 0
         self.iter_log: List[dict] = []
         self._expert_bytes = self.cfg.expert_bytes(
@@ -153,6 +209,10 @@ class Engine:
         # regather) and packed prefill batches
         self.n_dispatches = 0
         self.n_prefill_dispatches = 0
+        # prefix-cache accounting: restores = admissions that seeded their
+        # slot row from a cached prefix (the allocator counts hits/tokens)
+        self.n_prefix_restores = 0
+        self._prefix_seen = (0, 0)          # (n_prefix_hits, n_prefix_tokens)
 
     # ------------------------------------------------------------------ API
 
@@ -254,17 +314,23 @@ class Engine:
         """Execute one scheduler-produced plan and return the tokens it
         emitted.  Prefill groups and the decode step are LAUNCHED first
         (device tensors only), then ONE ``.cpu()`` fetches every emitted
-        token and expert-activation mask, and all bookkeeping (offsets,
-        EOS, token events, expert union) runs on the fetched values."""
+        token and expert-activation mask (and completes this iteration's
+        swap-out copies), and all bookkeeping (offsets, EOS, token events,
+        expert union) runs on the fetched values."""
         self._step_events = []
         dispatches0 = self.n_dispatches
+        prefix_hits0, prefix_toks0 = self._prefix_seen
         block_expert_union = np.zeros(
             (self.model.n_blocks, max(self.cfg.moe.n_experts, 1)), bool)
 
+        # memory-pressure victims first: their slot rows and stash must be
+        # released before this iteration's swap-ins/admissions reuse them
         for rid in plan.preempted_ids:
             self._preempt(rid)
-        if plan.swapped_out_ids or plan.swapped_in_ids:
-            raise NotImplementedError("swap preemption is not ported yet")
+        for rid in plan.swapped_out_ids:
+            self._swap_out(rid)
+        for rid in plan.swapped_in_ids:
+            self._swap_in(rid)
         for rid in plan.admitted_ids:
             self._admit(rid)
 
@@ -312,18 +378,28 @@ class Engine:
             "prefill_tokens": prefill_tokens,
             "expert_load_bytes": loaded * self._expert_bytes,
             "pages_in_use": self.alloc.pages_in_use(),
+            "host_pages_in_use": self.alloc.host_pages_in_use(),
             "n_preempted": len(plan.preempted_ids),
+            "n_swapped_out": len(plan.swapped_out_ids),
+            "n_swapped_in": len(plan.swapped_in_ids),
             "n_dispatches": self.n_dispatches - dispatches0,
+            "n_prefix_hits": self.alloc.n_prefix_hits - prefix_hits0,
+            "prefix_cached_tokens": (self.alloc.n_prefix_tokens
+                                     - prefix_toks0),
         })
+        self._prefix_seen = (self.alloc.n_prefix_hits,
+                             self.alloc.n_prefix_tokens)
         self.iteration += 1
         return self._step_events
 
     def release_request(self, rid: int) -> None:
         """Drop every physical resource a SHED request still holds (slot
-        row, boundary stash) without touching its token buffers."""
+        row, boundary stash, host copy) without touching its token
+        buffers."""
         slot = self._slot_of.pop(rid, None)
         if slot is not None:
             self._free_slots.append(slot)
+        self.host_kv.pop(rid, None)
         self.stash.pop(rid, None)
 
     # -------------------------------------------------------------- helpers
@@ -331,10 +407,13 @@ class Engine:
     def _preempt(self, rid: int) -> None:
         """Execute a scheduler eviction: release the slot row and the
         boundary stash, and fold the tokens generated so far into the
-        recompute prompt (matching the scheduler's prompt_len fold)."""
+        recompute prompt (matching the scheduler's prompt_len fold).  A
+        demoted SWAPPED victim holds no slot: its host copy is dropped."""
         slot = self._slot_of.pop(rid, None)
         if slot is not None:
             self._free_slots.append(slot)
+        else:
+            self.host_kv.pop(rid, None)
         self.stash.pop(rid, None)
         # append only the tokens generated since the last fold
         tail = self.requests[rid].prompt_len - len(self.prompts[rid])
@@ -346,10 +425,56 @@ class Engine:
             (rid, len(self.prompts[rid]), self.requests[rid].prompt_len)
         self.n_preempted += 1
 
+    def _copy_row(self, slot: int, n: int, host: bool = False):
+        """A copy of positions ``[0, n)`` of one slot row, every layer."""
+        return tree_map(lambda c: _snapshot(c, slot, n, host), self.cache)
+
+    def _restore_row(self, slot: int, row) -> None:
+        """Write a row copy back into positions ``[0, n)`` of ``slot``
+        (from pinned host memory without blocking)."""
+        def put(c: Tensor, r: Tensor) -> None:
+            c[:, slot, :r.shape[1]].copy_(r, non_blocking=True)
+        tree_zip(put, self.cache, row)
+
+    def _swap_out(self, rid: int) -> None:
+        """Execute a swap-to-host eviction: copy the victim's filled
+        positions (every layer's K/V) to pinned host memory and release
+        the slot.  The copy is queued on the stream before any later write
+        to the slot, and the iteration's one ``.cpu()`` completes it.  The
+        scheduler already moved the allocator pages to the host pool."""
+        slot = self._slot_of.pop(rid)
+        assert rid not in self.stash, rid       # swap victims are DECODE
+        offset = int(self.offsets[slot])
+        self.host_kv[rid] = (self._copy_row(slot, offset, host=True), offset,
+                             int(self.last_tok[slot]))
+        self._free_slots.append(slot)
+        self.n_swapped_out += 1
+
+    def _swap_in(self, rid: int) -> None:
+        """Restore the host copy into a fresh slot row and resume decode
+        where the victim left off (bit-identical KV)."""
+        slot = self._free_slots.pop()
+        self._slot_of[rid] = slot
+        row, offset, last = self.host_kv.pop(rid)
+        self._restore_row(slot, row)
+        self.offsets[slot] = offset
+        self.last_tok[slot] = last
+        self.n_swapped_in += 1
+
     def _admit(self, rid: int) -> None:
         slot = self._free_slots.pop()
         self._slot_of[rid] = slot
         self.offsets[slot] = 0
+        hit = self.alloc.prefix_hit(rid)
+        if hit.cached_tokens:
+            # seed the slot row with the cached prefix KV (positions
+            # 0..usable-1 of the registering request; on a COW hit the
+            # tail page's extra positions are re-prefilled or masked)
+            row, usable = self._prefix_rows[hit.leaf]
+            assert usable >= hit.cached_tokens, (rid, usable, hit)
+            self._restore_row(slot, row)
+            self.offsets[slot] = hit.cached_tokens
+            self.n_prefix_restores += 1
 
     def _pack_slices(self, slices: List[PrefillSlice]):
         """Group the plan's prefill slices by layer-group rectangle: every
@@ -441,11 +566,31 @@ class Engine:
         if sl.block_end == self.model.n_blocks:
             self.offsets[slot] = sl.token_end
         if sl.emits_first_token:
+            if self.prefix_cache:
+                # snapshot BEFORE _maybe_finish can free the allocator
+                # state of an instantly-done (EOS-on-first-token) request
+                self._snapshot_prefix_rows(rid, slot)
             self._record_token(rid, tok, first=True)
             self.offsets[slot] = req.prompt_len
             self.last_tok[slot] = tok
             # EOS can end a request on its very first token
             self._maybe_finish(rid, tok)
+
+    def _snapshot_prefix_rows(self, rid: int, slot: int) -> None:
+        """Copy the completed prompt's KV row once and file it under every
+        shared-index chain this request's own pages serve (registration
+        happened scheduler-side at plan time).  Only positions up to the
+        deepest new chain are copied: no restore reads past them."""
+        chains = self.alloc.owned_chains(
+            rid, self.requests[rid].cacheable_prompt)
+        missing = [(d, depth) for d, depth in chains
+                   if d not in self._prefix_rows]
+        if not missing:
+            return
+        ps = self.alloc.page_size
+        row = self._copy_row(slot, max(depth for _, depth in missing) * ps)
+        for d, depth in missing:
+            self._prefix_rows[d] = (row, depth * ps)
 
     def _launch_decode(self, decode_ids: List[int]):
         """Launch the full-pool decode step; returns the slot -> request map

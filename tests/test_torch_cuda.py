@@ -469,11 +469,11 @@ def test_engine_serves_on_the_card(cuda, moe_dispatch):
     """The reduced qwen3 model in bf16 through the port's launcher on the
     card: every request completes, every kernel of the dispatch's path
     launches and no other kernel does."""
-    from repro_torch.launch.serve import ServeArgs, serve_real
+    from repro_torch.launch.serve import ServeConfig, serve_real
     ops.reset_launches()
-    r = serve_real(ServeArgs(smoke=True, dtype="bfloat16", requests=3,
-                             max_len=128, quantum=32, token_budget=32,
-                             moe_dispatch=moe_dispatch))
+    r = serve_real(ServeConfig(smoke=True, dtype="bfloat16", requests=3,
+                               slots=8, max_len=128, quantum=32,
+                               token_budget=32, moe_dispatch=moe_dispatch))
     assert r["completed"] == r["requests"] == 3
     path = PATH_KERNELS[moe_dispatch]
     assert all(ops.LAUNCHES[k] > 0 for k in path), ops.LAUNCHES
@@ -487,9 +487,9 @@ def test_engine_preempts_on_the_card(cuda):
     the boundary-stash regather) on the card; every request still gets
     all its tokens."""
     from repro_torch.core.base import make_scheduler
-    from repro_torch.launch.serve import ServeArgs, build_model
+    from repro_torch.launch.serve import ServeConfig, build_model
     from repro_torch.serving.engine import Engine
-    model, params = build_model(ServeArgs(smoke=True, dtype="bfloat16"))
+    model, params = build_model(ServeConfig(smoke=True, dtype="bfloat16"))
     sched = make_scheduler("layered", model.n_blocks, n_slots=4, quantum=8)
     # 28 four-token pages: the schedule (not the token values) decides
     # the pressure, and it evicts once for this trace
@@ -502,3 +502,79 @@ def test_engine_preempts_on_the_card(cuda):
     assert eng.n_preempted > 0
     assert all(len(t) == 8 for t in eng.outputs.values())
     assert eng.alloc.pages_in_use() == 0
+
+
+# gpt-oss-20b's expert widths: E 32, d = F = 2880 (45 tiles of 64
+# columns, not a multiple of the 128-column d-tile)
+GPT_OSS_E, GPT_OSS_D = 32, 2880
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_blk,counts", [
+    (8, [3, 0, 9, 1] + [0] * 27 + [2]),
+    (128, [200, 0, 31, 1, 0, 129] + [0] * 25 + [64])])
+def test_moe_gmm_ragged_kernel_at_gpt_oss_widths(cuda, m_blk, counts):
+    """K1 at gpt-oss-20b's widths, at a decode and a prefill tile height,
+    against its plain version; no padded copy is taken."""
+    e, d = GPT_OSS_E, GPT_OSS_D
+    n_rows, te = _ragged_layout(e, m_blk, counts)
+    rng = np.random.default_rng(11)
+    args = (_bf16(rng, (n_rows, d), cuda), _bf16(rng, (e, d, d), cuda, d ** -0.5),
+            _bf16(rng, (e, d, d), cuda, d ** -0.5),
+            _bf16(rng, (e, d, d), cuda, d ** -0.5),
+            torch.from_numpy(te).to(cuda), m_blk)
+    got = ops.moe_gmm_ragged(*args)
+    assert torch.equal(got, ops.moe_gmm_ragged(*args))
+    sentinel = torch.from_numpy(te == e).to(cuda).repeat_interleave(m_blk)
+    assert not got[sentinel].any()
+    assert _rel_fro(got, ref.moe_gmm_ragged_ref(*args)) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 200])
+def test_moe_gmm_kernel_at_gpt_oss_widths(cuda, c):
+    """K4 at gpt-oss-20b's widths (2880 % 8 == 0: no padded copy)."""
+    e, d = GPT_OSS_E, GPT_OSS_D
+    rng = np.random.default_rng(12)
+    args = (_bf16(rng, (e, c, d), cuda), _bf16(rng, (e, d, d), cuda, d ** -0.5),
+            _bf16(rng, (e, d, d), cuda, d ** -0.5),
+            _bf16(rng, (e, d, d), cuda, d ** -0.5))
+    padded = ops.PAD_COPIES["moe_gmm"]
+    got = ops.moe_gmm(*args)
+    assert ops.PAD_COPIES["moe_gmm"] == padded
+    assert torch.equal(got, ops.moe_gmm(*args))
+    assert _rel_fro(got, ref.moe_gmm_ref(*args)) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_engine_swaps_on_the_card(cuda):
+    """Swap preemption on the card: victims' rows go to pinned host memory
+    and come back; every victim is swapped back in and every request gets
+    all its tokens, with no page left in either pool."""
+    from repro_torch.launch.serve import ServeConfig, serve_real
+    sc = ServeConfig(smoke=True, dtype="bfloat16", requests=12, slots=4,
+                     max_len=64, quantum=8, token_budget=16, pages=16,
+                     page_size=4, decode_reserve=1, preemption="swap",
+                     prompt_len=(4, 10), new_tokens=(12, 13))
+    r = serve_real(sc)
+    assert r["n_swapped_out"] == r["n_swapped_in"] > 0
+    assert r["completed"] == r["requests"] == 12
+    assert all(len(t) == 12 for t in r["outputs"].values())
+
+
+@pytest.mark.cuda
+def test_engine_prefix_hits_on_the_card(cuda):
+    """Prefix caching on the card: a shared-prefix trace hits, restores
+    cached rows into fresh slots, and every request completes."""
+    from repro_torch.launch.serve import ServeConfig, serve_real
+    from repro_torch.serving.traffic import shared_prefix_trace
+    sc = ServeConfig(smoke=True, dtype="bfloat16", requests=8, slots=4,
+                     max_len=128, quantum=16, token_budget=64, page_size=4,
+                     open_loop=True)
+    trace = shared_prefix_trace(8, n_prefixes=2, prefix_len=40,
+                                suffix_len=6, output_len=4, rate=0.5,
+                                vocab_size=500, seed=1)
+    r = serve_real(sc, trace=trace)
+    assert r["n_prefix_hits"] > 0 and r["n_prefix_restores"] > 0
+    assert r["completed"] == r["requests"] == 8
+    assert all(len(t) == 4 for t in r["outputs"].values())

@@ -63,7 +63,8 @@ def _run(framework: str, sched: str, moe_dispatch: str = "ragged"):
     else:
         s = make_scheduler(sched, tm.n_blocks, n_slots=4, quantum=8,
                            token_budget=16)
-        eng = Engine(tm, tp, s, moe_dispatch=moe_dispatch, **ENGINE_KW)
+        eng = Engine(tm, tp, s, prefix_cache=False, moe_dispatch=moe_dispatch,
+                     **ENGINE_KW)
         runtime = ServingRuntime(EngineExecutor(eng), clock="iteration",
                                  record_plans=True)
     for prompt, max_new in _jobs():
@@ -132,11 +133,18 @@ def test_engine_eos_early_exit():
 
 
 def test_unported_options_raise():
+    """Speculation and encoder inputs are not ported and raise; swap
+    preemption without a host pool and an unknown preemption mode raise
+    ``ValueError`` as the JAX engine does (through ``attach_kv``)."""
     _, _, tm, tp = models(CFG)
-    for kw in (dict(prefix_cache=True), dict(spec_mode="ngram"),
-               dict(preemption_mode="swap")):
-        with pytest.raises(NotImplementedError):
-            Engine(tm, tp, "layered", n_slots=2, max_len=64, **kw)
+    with pytest.raises(NotImplementedError):
+        Engine(tm, tp, "layered", n_slots=2, max_len=64, spec_mode="ngram")
+    with pytest.raises(ValueError, match="host pool"):
+        Engine(tm, tp, "layered", n_slots=2, max_len=64,
+               preemption_mode="swap", host_pages=0)
+    with pytest.raises(ValueError, match="unknown preemption mode"):
+        Engine(tm, tp, "layered", n_slots=2, max_len=64,
+               preemption_mode="dma")
     with pytest.raises(ValueError, match="unknown moe_dispatch"):
         Engine(tm, tp, "layered", n_slots=2, max_len=64, moe_dispatch="sparse")
     eng = Engine(tm, tp, "layered", n_slots=2, max_len=64)
@@ -144,6 +152,21 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         eng.submit_spec(SubmitSpec(max_new_tokens=2, prompt_tokens=[1, 2],
                                    enc_frames=np.zeros((4, 64))))
+
+
+def test_defaults_run_prefix_caching_with_recompute_preemption():
+    """The port's Engine() defaults, like the JAX engine's: prefix caching
+    on, recompute preemption, no host pool; swap and auto build."""
+    jm, jp, tm, tp = models(CFG)
+    got, want = Engine(tm, tp, "layered"), JaxEngine(jm, jp, "layered")
+    for eng in (got, want):
+        assert eng.prefix_cache and eng.alloc.prefix_caching
+        assert eng.scheduler.preemption_mode == "recompute"
+        assert eng.alloc.n_host_pages == 0
+    for mode in ("swap", "auto"):
+        eng = Engine(tm, tp, "layered", preemption_mode=mode)
+        assert eng.alloc.n_host_pages == 4 * eng.alloc.n_pages
+        assert eng.scheduler.preemption_mode == mode
 
 
 def test_bucket_capped_at_max_len():
