@@ -22,7 +22,11 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    the port's PagedKVAllocator (also against K3 on the same keys as slot
    rows, and beside a gather-then-SDPA chain), K6 paged verify attention
    (W = 4 and 5, and W = 1 bit for bit equal to K5); K5 and K6 are timed
-   as K3 is, with their split, row blocks and CTA count.  K1 and K4 at
+   as K3 is, with their split, row blocks and CTA count.  K2 also at the
+   group sizes that do not divide its 128 query rows (phi4-mini's g 3 and
+   yi-34b's g 7, layered) and at the verify window (P 5 over 8 rows deep
+   in their cache); K3 at g 3 and g 7; and K2 at g 8 must give the bits
+   of the kernel before it took every group size (``K2_G8_SHA256``).  K1 and K4 at
    decode are timed in CUDA graphs beside their eager time; two launches
    of each kernel must agree bit for bit.  Each kernel's share of its
    bound is bound_ms / ms.  The build's ptxas report and, where cuobjdump
@@ -46,7 +50,17 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    tokens) with prefix hits and row restores; swap preemption in an
    oversubscribed page pool (every victim swapped back in) beside the same
    trace without pressure; and the hybrid, continuous and static
-   schedulers on the short trace.  Every request completes with
+   schedulers on the short trace.  Then speculative verify-k decoding:
+   a repetitive-prompt trace (``repetitive_trace``) under the n-gram
+   drafter (spec_k 4) beside speculation off, and the draft model on the short
+   trace, once the target drafting for itself and once a differently
+   seeded 2-layer twin (their accepted shares reported); the draft step
+   (capacity-limited dense dispatch, K2 and K4) is held against the
+   target's no-cache forward on the self-draft's histories, each proposal
+   within 4 bf16 ulps of the top logit; where spec and spec-off streams
+   part, the first parting position and its logit gap in bf16 ulps are
+   reported, not asserted.
+   Every request completes with
    in-vocabulary tokens; every serve launches each kernel of its own path
    and none of another's; one host sync per iteration; no MoE call padded
    its operands; layered expert-load <= chunked; on the short trace the
@@ -60,7 +74,14 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    layered and chunked (layered expert-load <= chunked), and the short
    trace under the dense dispatch.  Phase 2 holds K1-K4 at its shapes
    too (K2 and K3 at hd 64; K1 and K4 at d = F = 2880, off the
-   128-column d-tile).  Each phase's seconds are printed.
+   128-column d-tile).
+6. free gpt-oss and serve the dense decoders at full width, which launch
+   K2 and K3 and no MoE kernel: phi4-mini-3.8b (32 layers, 24/8 heads:
+   g 3) on the short trace layered and chunked and the n-gram serves of
+   phase 4; then yi-34b (60 layers, 56/8 heads:
+   g 7, 68.8 GB of bf16 weights, drawn on the card) on the short trace,
+   layered, at the depth the card's free memory holds (the reckoning and
+   any cut are logged).  Each phase's seconds are printed.
 
 It prints a JSON ``kernels`` line (each row's ``launches`` summed over
 the serves of its own model, ``launches_of``), the ``nvidia-smi`` line,
@@ -226,10 +247,18 @@ def _sdpa_gmajor(q, k, v, mask):
 
 QWEN3_ATTN = (32, 4, 128)              # H, Hkv, hd
 GPT_OSS_ATTN = (64, 8, 64)
+PHI4_MINI_ATTN = (24, 8, 128)          # g 3
+YI_34B_ATTN = (56, 8, 128)             # g 7
 
 
 def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
-                            offsets=None, heads=QWEN3_ATTN) -> dict:
+                            offsets=None, heads=QWEN3_ATTN,
+                            cold: bool = False) -> dict:
+    """K2 against its plain version, timed beside SDPA.  With ``cold`` (a
+    verify window: tens of microseconds, less than its launch from
+    Python) kernel, plain version and SDPA are timed as K3 is, in CUDA
+    graphs over cache copies larger than L2; ``ms_eager`` keeps the time
+    of launches from Python."""
     import torch
     from repro_torch.kernels import ops, ref
     h, hkv, hd = heads
@@ -255,27 +284,84 @@ def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
     nbytes = 2 * q.numel() * 2 + kv_rows * 2 * hkv * hd * 2 + b * 4
     flops = 4 * hd * h * pairs
     b_ms, b_by = bound_ms(nbytes, flops)
-    ms = cuda_time(lambda: ops.prefill_attention(q, kc, vc, off), iters=5)
-    plain = cuda_time(lambda: ref.prefill_attention_ref(q, kc, vc, off), iters=2)
+    ms = ms_eager = cuda_time(lambda: ops.prefill_attention(q, kc, vc, off),
+                              iters=5)
     g = h // hkv
     qt = q.transpose(1, 2)
-    kt = kc.transpose(1, 2).repeat(1, g, 1, 1)
-    vt = vc.transpose(1, 2).repeat(1, g, 1, 1)
     pos = torch.arange(s_max, device=dev)
     qpos = off.long()[:, None] + torch.arange(p, device=dev)[None]
     mask = ((pos[None, None, :] <= qpos[:, :, None])
             & (pos[None, None, :] < (off.long() + p)[:, None, None]))[:, None]
-    lib = cuda_time(lambda: _sdpa_gmajor(qt, kt, vt, mask), iters=5)
-    rows = ops.PREFILL_ROWS
-    ctas = -(-p * g // rows) * hkv * b
+    extra = {}
+    if cold:
+        n = max(2, int(-(-4 * L2_BYTES // (2 * kc.numel() * 2))))
+        kv = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(n - 1)]
+        rep = [tuple(t.transpose(1, 2).repeat(1, g, 1, 1) for t in c)
+               for c in kv]
+        ms = cuda_time_cold(lambda i: ops.prefill_attention(q, *kv[i], off),
+                            n, rounds=8)
+        plain = cuda_time_cold(
+            lambda i: ref.prefill_attention_ref(q, *kv[i], off), n, rounds=2)
+        lib = cuda_time_cold(lambda i: _sdpa_gmajor(qt, *rep[i], mask), n,
+                             rounds=8)
+        extra = {"ms_eager": ms_eager,
+                 "timing": f"CUDA graph replay, cold: {n} cache copies "
+                           "rotated; ms_eager: launched from Python"}
+        del kv, rep
+    else:
+        plain = cuda_time(lambda: ref.prefill_attention_ref(q, kc, vc, off),
+                          iters=2)
+        kt = kc.transpose(1, 2).repeat(1, g, 1, 1)
+        vt = vc.transpose(1, 2).repeat(1, g, 1, 1)
+        lib = cuda_time(lambda: _sdpa_gmajor(qt, kt, vt, mask), iters=5)
+    ctas = -(-p // (ops.PREFILL_ROWS // g)) * hkv * b
     return {"name": f"prefill_attention[{tag}]", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/prefill_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:78",
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-            "ctas": ctas, "achieved_tflops": flops / ms / 1e9,
+            "ctas": ctas, "achieved_tflops": flops / ms / 1e9, **extra,
             "shape": {"B": b, "P": p, "S_max": s_max, "offsets": offl,
                       "H": h, "Hkv": hkv, "hd": hd}}
+
+
+# K2 at g 8 on inputs built by integer hashing (exact in bf16, the same on
+# every torch version): the sha256 of the outputs of these calls.  The
+# digest was taken from the kernel before it took every group size (the
+# tree of the parent commit, built and run on an H100 by this function);
+# at a group size that divides 128 the repaired kernel must give the same
+# bits.  (B, P, S_max, H, Hkv, hd, offsets, window)
+K2_G8_CASES = ((2, 300, 512, 32, 4, 128, (0, 137), None),
+               (3, 40, 300, 64, 8, 64, (0, 50, 260), 70),
+               (8, 5, 2048, 32, 4, 128, (700, 900, 1100, 1300, 1500, 1700,
+                                         1900, 2000), None))
+K2_G8_SHA256 = "93ea6e2424650d26"
+
+
+def hashed_bf16(shape, salt: int, device):
+    """Values k / 64, k in [-128, 128), from a multiplicative hash of the
+    element index: exactly representable in bf16, no random generator."""
+    import torch
+    i = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    h = (i * 2654435761 + salt * 97531) % 4294967296
+    h = ((h >> 11) ^ h) % 256
+    return ((h - 128).float() / 64).reshape(shape).to(torch.bfloat16)
+
+
+def k2_g8_digest() -> str:
+    """sha256 (first 16 hex digits) of K2's outputs on K2_G8_CASES."""
+    import torch
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    h = hashlib.sha256()
+    for n, (b, p, s_max, nh, hkv, hd, offs, window) in enumerate(K2_G8_CASES):
+        q = hashed_bf16((b, p, nh, hd), 3 * n, dev)
+        k = hashed_bf16((b, s_max, hkv, hd), 3 * n + 1, dev)
+        v = hashed_bf16((b, s_max, hkv, hd), 3 * n + 2, dev)
+        off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        out = ops.prefill_attention(q, k, v, off, window=window)
+        h.update(out.view(torch.int16).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def cuda_time_cold(fn, n_copies: int, rounds: int, graph: bool = True) -> float:
@@ -690,25 +776,61 @@ def check_small_model_end_to_end() -> None:
 # ---------------------------------------------------------------- phase 4
 
 
-# the kernels each MoE dispatch's serve must launch; a serve launches no
-# other kernel (the paged kernels are on no serve path)
-PATH_KERNELS = {"ragged": ("moe_gmm_ragged", "prefill_attention",
-                           "decode_attention"),
-                "dense": ("moe_gmm", "prefill_attention", "decode_attention")}
+# the MoE kernel of each dispatch
+MOE_KERNEL = {"ragged": "moe_gmm_ragged", "dense": "moe_gmm"}
 
 
-def run_serve(a, model, params, trace=None) -> dict:
+def path_kernels(eng):
+    """(kernels the serve must launch, kernels it may launch): K2, the
+    MoE dispatch's kernel on an MoE model, K4 on an MoE draft model (the
+    draft runs the capacity-limited dense dispatch, as JAX's does), and K3
+    — which a speculating serve launches only for rows that fall back to
+    plain decode.  No serve launches anything else (the paged kernels are
+    on no serve path)."""
+    need = ["prefill_attention"]
+    if eng.cfg.moe.enabled:
+        need.append(MOE_KERNEL[eng.moe_dispatch])
+    if eng.draft_model is not None and eng.draft_model.cfg.moe.enabled:
+        need.append(MOE_KERNEL["dense"])
+    may = ["decode_attention"]
+    if eng.spec_mode == "off":
+        need, may = need + may, []
+    return tuple(need), tuple(need) + tuple(may)
+
+
+def draft_engine(a, model, params, draft, spec_k=4):
+    """``a``'s engine with ``draft`` = (model, params) drafting for it
+    (the launcher's ``--spec draft`` builds the smoke variant of the
+    config ``--draft-config`` names; these drafts are full width)."""
+    from repro_torch.core import make_scheduler
+    from repro_torch.serving.engine import Engine
+    sched = make_scheduler(a.scheduler, model.n_blocks,
+                           **a.scheduler_kwargs())
+    return Engine(model, params, sched, **dict(
+        a.engine_kwargs(), spec_mode="draft", spec_k=spec_k,
+        draft_model=draft[0], draft_params=draft[1]))
+
+
+def run_serve(a, model, params, trace=None, draft=None) -> dict:
     """One serve through the port's launcher (closed loop, or open loop
-    over ``trace`` / ``a.engine_trace``), with the launch counts set to 0
-    just before it and read just after, and its host syncs counted;
-    raises unless every request completes with its ``max_new_tokens``
-    in-vocabulary tokens, every kernel of the dispatch's path launched and
-    no other kernel did, and the serve made at most one host sync per
-    iteration (plus the two synchronize() calls that bound the timing)."""
+    over ``trace`` / ``a.engine_trace``; ``draft`` = (model, params)
+    drafts for it, spec_k 4, on ``draft_engine``), with the launch counts
+    set to 0 just before it and read just after, and its host syncs
+    counted; raises unless every
+    request completes with its ``max_new_tokens`` in-vocabulary tokens,
+    every kernel of its path launched and no other kernel did, and the
+    serve made at most one host sync per iteration (plus the two
+    synchronize() calls that bound the timing).  A speculating serve must
+    launch verify windows, each one K2 call per layer, and (n-gram) its
+    drafter must propose."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import serve_real
-    tag = f"{a.arch} {a.moe_dispatch}/{a.scheduler}"
+    from repro_torch.launch.serve import build_engine, run_engine
+    eng = (build_engine(a, model, params) if draft is None
+           else draft_engine(a, model, params, draft))
+    spec = eng.spec_mode
+    tag = f"{a.arch} {a.moe_dispatch}/{a.scheduler}" + (
+        f" spec {spec}" if spec != "off" else "")
     # counts start at 0 just before the main path (the comparison
     # launches of phase 2 do not count) and are read just after
     ops.reset_launches()
@@ -718,7 +840,7 @@ def run_serve(a, model, params, trace=None) -> dict:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            r = serve_real(a, model, params, trace=trace)
+            r = run_engine(eng, a, trace)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     counts = dict(ops.LAUNCHES)
@@ -731,6 +853,9 @@ def run_serve(a, model, params, trace=None) -> dict:
     r["host_sync_sites"] = dict(sites)
     r["launches"] = counts
     r["pad_copies"] = dict(ops.PAD_COPIES)
+    r["arch"] = a.arch
+    need, may = path_kernels(eng)
+    del eng
     gc.collect()
     torch.cuda.empty_cache()
     vocab = model.cfg.vocab_size
@@ -744,11 +869,10 @@ def run_serve(a, model, params, trace=None) -> dict:
                              "their tokens")
     if any(not 0 <= x < vocab for t in r["outputs"].values() for x in t):
         raise AssertionError(f"{tag}: token id out of range")
-    path = PATH_KERNELS[a.moe_dispatch]
-    missing = [k for k in path if counts[k] <= 0]
+    missing = [k for k in need if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{tag}: kernels never launched: {missing}")
-    stray = {k: v for k, v in counts.items() if k not in path and v}
+    stray = {k: v for k, v in counts.items() if k not in may and v}
     if stray:
         raise AssertionError(f"{tag}: kernels of another path launched: "
                              f"{stray}")
@@ -759,6 +883,17 @@ def run_serve(a, model, params, trace=None) -> dict:
     if r["host_syncs"] > r["iterations"] + 2:
         raise AssertionError(f"{tag}: {r['host_syncs']} host syncs in "
                              f"{r['iterations']} iterations")
+    if spec != "off":
+        verify_k2 = r["n_verify_dispatches"] * model.n_blocks
+        if not (r["n_verify_dispatches"] > 0
+                and counts["prefill_attention"] >= verify_k2):
+            raise AssertionError(f"{tag}: {r['n_verify_dispatches']} verify "
+                                 f"windows, {counts['prefill_attention']} "
+                                 "K2 launches")
+        if spec == "ngram" and not r["n_spec_proposed"] > 0:
+            raise AssertionError(f"{tag}: the n-gram drafter never proposed")
+        r["accepted_share"] = (r["n_spec_accepted"]
+                               / max(r["n_spec_proposed"], 1))
     ms = 1e3 if r["clock_unit"] == "s" else None
     lat = (f"TTFT p50/p99 {r['ttft_p50'] * ms:.1f}/{r['ttft_p99'] * ms:.1f} "
            f"ms, TBT p50/p99 {r['tbt_p50'] * ms:.1f}/{r['tbt_p99'] * ms:.1f} "
@@ -771,6 +906,11 @@ def run_serve(a, model, params, trace=None) -> dict:
     if r["n_swapped_out"] or a.preemption in ("swap", "auto"):
         extra += (f", swapped out/in {r['n_swapped_out']}/"
                   f"{r['n_swapped_in']}")
+    if spec != "off":
+        extra += (f", spec k {r['spec_k']}: {r['n_spec_proposed']} proposed, "
+                  f"{r['n_spec_accepted']} accepted (share "
+                  f"{r['accepted_share']:.4f}), {r['n_verify_dispatches']} "
+                  f"verify + {r['n_draft_dispatches']} draft launches")
     log(f"{tag}{' open-loop ' + a.clock if a.open_loop else ''}: "
         f"{r['requests']} requests, {r['iterations']} iterations, "
         f"{r['ms_per_iter']:.1f} ms/iter, {lat}expert-load "
@@ -794,8 +934,10 @@ def _bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
 
 
-def explain_divergence(model, params, lay: dict, chk: dict) -> list:
-    """Where a request's layered and chunked bf16 streams part, recompute
+def explain_divergence(model, params, lay: dict, chk: dict,
+                       labels=("layered", "chunked")) -> list:
+    """Where a request's two bf16 streams part (layered and chunked, or
+    the ``labels`` of two other serves of the same requests), recompute
     that position's logits with ONE bf16 prefill of prompt + the common
     prefix of the two streams (no cache, a third batch shape) and report
     the gap between the two tokens the schedulers chose, and the top-2
@@ -836,7 +978,7 @@ def explain_divergence(model, params, lay: dict, chk: dict) -> list:
         la, lb = float(lg[a_toks[j]]), float(lg[b_toks[j]])
         ulp = _bf16_ulp(t1)
         row = {"req": rid, "position": j, "prompt_len": len(lay["prompts"][rid]),
-               "layered_token": a_toks[j], "chunked_token": b_toks[j],
+               f"{labels[0]}_token": a_toks[j], f"{labels[1]}_token": b_toks[j],
                "top2_tokens": [int(i) for i in top.indices],
                "top2_gap": t1 - t2, "chosen_gap": abs(la - lb),
                "bf16_ulp_at_top": ulp,
@@ -848,7 +990,7 @@ def explain_divergence(model, params, lay: dict, chk: dict) -> list:
                "padded_routing_moved": moved,
                "routing_assignments": n_assign}
         log(f"  divergence req {rid} at new token {j} (prompt "
-            f"{row['prompt_len']}): layered {a_toks[j]} / chunked "
+            f"{row['prompt_len']}): {labels[0]} {a_toks[j]} / {labels[1]} "
             f"{b_toks[j]}; one-prefill logits: top-2 {row['top2_tokens']} "
             f"gap {t1 - t2:.4g} = {row['top2_gap_ulps']:.2f} ulp, the two "
             f"chosen tokens' gap {abs(la - lb):.4g} = "
@@ -886,12 +1028,22 @@ def serve_configs(arch: str):
     return base, short
 
 
-def build_logged(a, label: str, times: dict):
-    """The model of ``a`` at full width, its build logged and timed."""
+def build_logged(a, label: str, times: dict, n_layers=None, seed=None):
+    """The model of ``a`` at full width (``n_layers`` cuts its depth,
+    ``seed`` replaces ``a.seed``), its build logged and timed."""
     import torch
-    from repro_torch.launch.serve import build_model
+    from repro_torch.launch.serve import build_model, model_config
+    from repro_torch.models.model import DecoderModel
     t0 = time.perf_counter()
-    model, params = build_model(a)
+    if n_layers is None and seed is None:
+        model, params = build_model(a)
+    else:
+        cfg = model_config(a)
+        model = DecoderModel(dataclasses.replace(
+            cfg, n_layers=n_layers or cfg.n_layers), device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(
+            a.seed if seed is None else seed)
+        params = model.init_params(gen)
     torch.cuda.synchronize()
     cfg = model.cfg
     n_params = sum(t.numel() for t in _leaves(params))
@@ -1010,13 +1162,178 @@ def serve_qwen3(times: dict, explain: bool = False) -> dict:
             dataclasses.replace(short, scheduler=sched), model, params)
     t0 = _phase("qwen3 other schedulers", t0, times)
 
+    spec = serve_spec(model, params, short, runs, times, t0)
+
     profile_serve(dataclasses.replace(base, scheduler="layered"), model,
                   params)
     profile_serve(dataclasses.replace(short, scheduler="layered",
                                       moe_dispatch="dense"), model, params)
     _phase("qwen3 profiles", t0, times)
     del model, params
-    return {"runs": runs, "divergence": divergence}
+    return {"runs": runs, "divergence": divergence, "spec": spec}
+
+
+def repetitive_trace(vocab: int, seed: int = 0) -> list:
+    """8 requests at time 0, 64 new tokens each, whose prompts are a block
+    of 1024-1407 distinct random tokens followed by 256-511 tokens that
+    repeat a random pattern of 3-8 tokens.  The n-gram drafter proposes
+    where the model's last token occurs earlier in its history.  A
+    random-weight model never repeats a token on its own (a periodic
+    prompt alone gave the drafter nothing in 38 iterations), so its
+    matches fall on the block of distinct tokens, as answers that quote a
+    retrieved document do: about 4 of the 512 new tokens at qwen3's vocab
+    of 151936."""
+    import numpy as np
+    from repro_torch.serving.traffic import TraceRequest
+    rng = np.random.default_rng(seed)
+    trace = []
+    for _ in range(8):
+        block = rng.choice(np.arange(1, vocab),
+                           min(int(rng.integers(1024, 1408)), vocab - 1),
+                           replace=False)
+        pattern = rng.integers(1, vocab, int(rng.integers(3, 9)))
+        n = int(rng.integers(256, 512))
+        prompt = np.concatenate(
+            [block, np.tile(pattern, -(-n // len(pattern)))[:n]])
+        trace.append(TraceRequest(0.0, len(prompt), 64, prompt_tokens=tuple(
+            int(x) for x in prompt)))
+    return trace
+
+
+def ngram_serves(model, params, runs: dict, label: str) -> None:
+    """The repetitive trace under the n-gram drafter (spec_k 4) and with
+    speculation off."""
+    ng = spec_config(model.cfg.name)
+    trace = repetitive_trace(model.cfg.vocab_size)
+    runs[f"{label}spec ngram"] = run_serve(ng, model, params, trace=trace)
+    runs[f"{label}spec off, ngram trace"] = run_serve(
+        dataclasses.replace(ng, spec="off"), model, params, trace=trace)
+
+
+def spec_config(arch: str, spec: str = "ngram"):
+    """The repetitive trace's serve: replayed on the iteration clock (every
+    request arrives at 0: a closed loop), layered, ragged, 8 slots."""
+    from repro_torch.launch.serve import ServeConfig
+    return ServeConfig(arch=arch, open_loop=True, clock="virtual",
+                       requests=8, max_len=2048, slots=8, quantum=512,
+                       token_budget=512, seed=0, prefix_cache=False,
+                       spec=spec, spec_k=4)
+
+
+def compare_streams(model, params, x: dict, y: dict, labels) -> dict:
+    """Digests of two serves of the same requests and, where a request's
+    streams part, the first parting position with the logit gap there in
+    bf16 ulps (``explain_divergence``): reported, not asserted (bf16
+    rounds the verify window's batch otherwise than the decode step's)."""
+    rows = explain_divergence(model, params, x, y, labels)
+    log(f"{labels[0]} / {labels[1]}: streams sha256 {x['streams_sha256']} / "
+        f"{y['streams_sha256']}; {_same_streams(x, y)}")
+    return {"labels": list(labels), "sha256": [x["streams_sha256"],
+                                               y["streams_sha256"]],
+            "parted": rows}
+
+
+def check_draft_step(model, params, a, r, k: int = 4) -> dict:
+    """The draft step of the target drafting for itself, at the self-draft
+    serve's shapes, against the target's own no-cache ``forward`` under
+    the draft's dispatch (capacity-limited dense MoE over the padded
+    batch, full (B, P, V) logits) on the same histories: each request's
+    prompt and the first half of its served stream, padded as the engine
+    pads them, and extended step by step with the draft's own proposals
+    (teacher forcing).  Each proposal must be the reference's argmax or
+    within 4 bf16 ulps of its top logit (near-ties of random weights:
+    the two computations round in other GEMM shapes); a wrong position,
+    token write or length in the draft loop misses by far more.  Reports
+    the exact matches, the largest gap in ulps, and the real tokens'
+    routed assignments the capacity dropped."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import _bucket
+    eng = draft_engine(a, model, params, (model, params), spec_k=k)
+    hists = [list(r["prompts"][rid]) + list(t[:len(t) // 2])
+             for rid, t in sorted(r["outputs"].items())]
+    b = _bucket(len(hists), minimum=1, cap=eng.n_slots)
+    p = _bucket(max(map(len, hists)) + k, cap=eng.max_len + k)
+    toks = np.zeros((b, p), np.int64)
+    lens = np.ones(b, np.int64)
+    for i, h in enumerate(hists):
+        toks[i, :len(h)] = h
+        lens[i] = len(h)
+    dev = model.device
+    with torch.no_grad():
+        props = eng._draft_impl(k, torch.from_numpy(toks).to(dev),
+                                torch.from_numpy(lens).to(dev)).cpu().numpy()
+        del eng
+        n = len(hists)
+        exact, worst, dropped = 0, 0.0, 0
+        for j in range(k):
+            logits, _, aux = model.forward(
+                params, torch.from_numpy(toks).to(dev), dropless=False,
+                moe_dispatch="dense")
+            at = logits[torch.arange(n, device=dev),
+                        torch.from_numpy(lens[:n] - 1 + j)
+                        .to(dev)].float().cpu()
+            del logits
+            dropped += int(aux["dropped"])
+            for i in range(n):
+                top = float(at[i].max())
+                gap = (top - float(at[i, props[i, j]])) / _bf16_ulp(top)
+                exact += int(at[i].argmax()) == int(props[i, j])
+                worst = max(worst, gap)
+            toks[np.arange(n), lens[:n] + j] = props[:n, j]
+    routed = k * b * p * model.cfg.moe.top_k * model.n_blocks
+    log(f"draft step vs the target's no-cache forward (B {b}, P {p}, "
+        f"k {k}): {exact}/{n * k} proposals its argmax, largest gap "
+        f"{worst:.2f} bf16 ulp; the capacity dropped {dropped} of the "
+        f"{routed} routed assignments of the {k} steps (padding's too)")
+    if worst > 4:
+        raise AssertionError(f"a draft proposal is {worst:.2f} bf16 ulp "
+                             "below the target's top logit")
+    return {"proposals": n * k, "argmax": exact, "max_gap_ulps": worst,
+            "dropped": dropped, "routed": routed}
+
+
+def serve_spec(model, params, short, runs: dict, times: dict, t0) -> dict:
+    """Phase 4, speculative verify-k at qwen3-30b-a3b width: the n-gram
+    drafter (spec_k 4) on the repetitive trace beside the same trace with
+    speculation off (``ngram_serves``); then the draft model on the short
+    trace, once the target drafting for itself and once a differently
+    seeded twin of the target cut to 2 layers (a full-depth twin would
+    not fit beside the target).  The self-draft's step is held against
+    the target's no-cache forward (``check_draft_step``); its accepted
+    share beside the twin's is reported, not asserted (random weights
+    leave the logits nearly flat, so bf16 rounding decides most argmaxes,
+    and the draft's capacity drops tokens the target's verify keeps)."""
+    import torch
+    cfg = model.cfg
+    ngram_serves(model, params, runs, "")
+    runs["spec self-draft"] = run_serve(short, model, params,
+                                        draft=(model, params))
+    step = check_draft_step(model, params, short, runs["spec self-draft"])
+    twin, twin_params, _ = build_logged(short, "qwen3 twin draft", times,
+                                        n_layers=2, seed=7)
+    runs["spec twin-draft"] = run_serve(short, model, params,
+                                        draft=(twin, twin_params))
+    del twin, twin_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    own, other = (runs["spec self-draft"]["accepted_share"],
+                  runs["spec twin-draft"]["accepted_share"])
+    log(f"draft acceptance: self {own:.4f}, twin {other:.6f} (1/vocab "
+        f"{1 / cfg.vocab_size:.2e})")
+    t0 = _phase("qwen3 spec serves", t0, times)
+    off = runs["short ragged/layered"]
+    out = {"ngram": compare_streams(model, params, runs["spec ngram"],
+                                    runs["spec off, ngram trace"],
+                                    ("ngram", "off")),
+           "self-draft": compare_streams(model, params,
+                                         runs["spec self-draft"], off,
+                                         ("self-draft", "off")),
+           "twin-draft": compare_streams(model, params,
+                                         runs["spec twin-draft"], off,
+                                         ("twin-draft", "off"))}
+    _phase("qwen3 spec stream comparison", t0, times)
+    return {**out, "self-draft step": step}
 
 
 def serve_gpt_oss(times: dict) -> dict:
@@ -1044,6 +1361,71 @@ def serve_gpt_oss(times: dict) -> dict:
     del model, params
     torch.cuda.empty_cache()
     return {"runs": runs}
+
+
+def dense_param_bytes(cfg, n_layers=None) -> int:
+    """bf16 bytes of a dense GQA decoder's weights: attention, SwiGLU and
+    two norms per layer, the embedding (and an untied head)."""
+    d, hd, f = cfg.d_model, cfg.head_dim_, cfg.d_ff
+    per_layer = (d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+                 + cfg.n_heads * hd * d + 3 * d * f + 2 * d)
+    head = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2) + d
+    return 2 * ((n_layers or cfg.n_layers) * per_layer + head)
+
+
+def serve_dense(times: dict) -> dict:
+    """Phase 6: the dense GQA decoders at full width, after the MoE
+    models are freed.  phi4-mini-3.8b (32 layers, 24/8 heads of 128: K2
+    and K3 at g 3) serves the short trace layered and chunked and the
+    n-gram serves of ``ngram_serves``; then yi-34b (56/8 heads of
+    128: g 7; 68.8 GB of bf16 weights) serves the short trace layered, at
+    full depth where the card's free memory holds it, else at the depth
+    it holds (the cut is logged)."""
+    import torch
+    from repro_torch.configs import get_config
+    runs = {}
+    _, short = serve_configs("phi4-mini-3.8b")
+    model, params, t0 = build_logged(short, "phi4-mini", times)
+    for sched in ("layered", "chunked"):
+        runs[f"phi4-mini short/{sched}"] = run_serve(
+            dataclasses.replace(short, scheduler=sched), model, params)
+    ngram_serves(model, params, runs, "phi4-mini ")
+    lay, chk = runs["phi4-mini short/layered"], runs["phi4-mini short/chunked"]
+    log(f"phi4-mini layered / chunked: {_same_streams(lay, chk)}")
+    spec = compare_streams(model, params, runs["phi4-mini spec ngram"],
+                           runs["phi4-mini spec off, ngram trace"],
+                           ("ngram", "off"))
+    t0 = _phase("phi4-mini serves", t0, times)
+    del model, params, lay, chk
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _, short = serve_configs("yi-34b")
+    cfg = get_config("yi-34b")
+    free, total = torch.cuda.mem_get_info()
+    # the KV cache of 8 slots of max_len, and 3 GB for activations
+    kv = (2 * 2 * cfg.n_layers * short.slots * short.max_len
+          * cfg.n_kv_heads * cfg.head_dim_)
+    need = dense_param_bytes(cfg) + kv + 3e9
+    depth = cfg.n_layers
+    while depth > 1 and (dense_param_bytes(cfg, depth) + kv * depth
+                         / cfg.n_layers + 3e9) > free:
+        depth -= 1
+    log(f"yi-34b: weights {dense_param_bytes(cfg) / 1e9:.2f} GB in bf16, KV "
+        f"cache {kv / 1e9:.2f} GB, with 3 GB for activations "
+        f"{need / 1e9:.2f} GB; the card has {free / 1e9:.2f} of "
+        f"{total / 1e9:.2f} GB free: depth {depth} of {cfg.n_layers}"
+        + ("" if depth == cfg.n_layers else " (cut)"))
+    model, params, t0 = build_logged(
+        short, "yi-34b", times,
+        n_layers=None if depth == cfg.n_layers else depth)
+    runs["yi-34b short/layered"] = run_serve(
+        dataclasses.replace(short, scheduler="layered"), model, params)
+    _phase("yi-34b serve", t0, times)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": runs, "yi_depth": depth, "spec": spec}
 
 
 def profile_serve(a, model, params) -> None:
@@ -1080,6 +1462,15 @@ def profile_serve(a, model, params) -> None:
             log(f"  {us / 1e3:10.1f} ms {n:7d} x  {name[:100]}")
 
 
+def model_of(row: str) -> str:
+    """The model whose serves a kernel row's shapes come from."""
+    for key, arch in (("gpt-oss", "gpt-oss-20b"), ("phi4", "phi4-mini-3.8b"),
+                      ("yi-34b", "yi-34b")):
+        if key in row:
+            return arch
+    return "qwen3-30b-a3b"
+
+
 def _leaves(t):
     if isinstance(t, dict):
         for v in t.values():
@@ -1092,6 +1483,7 @@ def _leaves(t):
 
 
 def main() -> None:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("[chip_smoke] CUDA is not available")
@@ -1175,6 +1567,29 @@ def main() -> None:
                 check_moe_gmm_dense("gpt-oss prefill", 1024, gen,
                                     GPT_OSS_MOE)]
     torch.cuda.empty_cache()
+    # K2 at group sizes that do not divide its 128 rows: the layered first
+    # group of phi4-mini (g 3) and yi-34b (g 7); K2 at the verify window
+    # (spec_k 4 plus the bonus token) of 8 qwen3 rows deep in their cache;
+    # K3 at g 3 and g 7; and K2 at g 8 bit for bit the kernel before
+    # its repair
+    offsets = [int(o) for o in np.linspace(700, 2000, 8)]
+    kernels += [check_prefill_attention("phi4-mini layered", gen,
+                                        heads=PHI4_MINI_ATTN),
+                check_prefill_attention("yi-34b layered", gen,
+                                        heads=YI_34B_ATTN),
+                check_prefill_attention("verify window", gen, b=8, p=5,
+                                        offsets=offsets, cold=True),
+                check_decode_attention(gen, "phi4-mini long",
+                                       heads=PHI4_MINI_ATTN),
+                check_decode_attention(gen, "yi-34b long",
+                                       heads=YI_34B_ATTN)]
+    torch.cuda.empty_cache()
+    digest = k2_g8_digest()
+    log(f"prefill_attention at g 8: outputs sha256 {digest} (the kernel "
+        f"before its repair: {K2_G8_SHA256})")
+    if digest != K2_G8_SHA256:
+        raise AssertionError("prefill_attention at g 8 no longer gives the "
+                             "bits it gave before it took every group size")
     for k in kernels:
         k["bound_share"] = k["bound_ms"] / k["ms"]
     check_small_model_end_to_end()
@@ -1190,23 +1605,29 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     oss = serve_gpt_oss(times)
-    runs = {**qwen["runs"], **oss["runs"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = serve_dense(times)
+    runs = {**qwen["runs"], **oss["runs"], **dense["runs"]}
     # each kernel row's launches: the sum over its own model's serves,
     # each counted from 0 just before it and read just after
-    launches = {arch: {k: sum(r["launches"][k] for r in m["runs"].values())
-                       for k in ops.LAUNCHES}
-                for arch, m in (("qwen3-30b-a3b", qwen),
-                                ("gpt-oss-20b", oss))}
+    launches, iters = {}, collections.Counter()
+    for r in runs.values():
+        per = launches.setdefault(r["arch"], collections.Counter())
+        per.update(r["launches"])
+        iters[r["arch"]] += r["iterations"]
     for k in kernels:
-        k["launches_of"] = ("gpt-oss-20b" if "gpt-oss" in k["name"]
-                            else "qwen3-30b-a3b")
+        k["launches_of"] = model_of(k["name"])
         k["launches"] = launches[k["launches_of"]][k["name"].split("[")[0]]
+        k["iterations_of"] = iters[k["launches_of"]]
     drop = ("outputs", "prompts", "max_new")
     log("serve summary " + json.dumps(
         {k: {kk: vv for kk, vv in v.items() if kk not in drop}
          for k, v in runs.items()}))
     if qwen["divergence"] is not None:
         log("bf16 divergence " + json.dumps(qwen["divergence"]))
+    log("spec streams against spec off " + json.dumps(
+        {**qwen["spec"], "phi4-mini ngram": dense["spec"]}))
     log("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in times.items()}))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,7 +1,7 @@
-"""Architecture registry of the port: only the configurations the port
-runs (the paper's two evaluation models).  Access via
-``get_config(name)`` / ``list_configs()``; smoke variants via
-``get_smoke_config(name)``."""
+"""Architecture registry of the port: the configurations the port runs
+(the paper's two evaluation models and the four dense GQA decoders of the
+JAX registry).  Access via ``get_config(name)`` / ``list_configs()``;
+smoke variants via ``get_smoke_config(name)``."""
 
 from __future__ import annotations
 
@@ -15,6 +15,12 @@ _MODULES = {
     "qwen3-30b-a3b": "qwen3_30b_a3b",
     # the paper's second evaluation model
     "gpt-oss-20b": "gpt_oss_20b",
+    # dense GQA decoders of the JAX registry (layernorm and partial RoPE,
+    # tied embeddings; group sizes 1, 3 and 7)
+    "minicpm-2b": "minicpm_2b",
+    "stablelm-1.6b": "stablelm_1_6b",
+    "yi-34b": "yi_34b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
 }
 
 

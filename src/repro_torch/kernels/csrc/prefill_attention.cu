@@ -20,9 +20,12 @@
 //
 // Design.  One CTA per (q tile, kv head, row b), 3 warpgroups:
 //  * 128 query rows per CTA, as (position, head-of-group) pairs of one kv
-//    head: 128 / g positions x g heads (16 x 8 at qwen3), so each K/V tile
-//    is read once for all g heads.  Q (B, P, H, hd) is described to TMA as
-//    (hd, Hkv, g, P, B): one box lands in exactly that row order.
+//    head: qt = 128 / g positions (rounded down) x g heads (16 x 8 at
+//    qwen3, 42 x 3 at phi4-mini, 18 x 7 at yi-34b), so each K/V tile is
+//    read once for all g heads.  Q (B, P, H, hd) is described to TMA as
+//    (hd, Hkv, g, P, B): one box lands in exactly that row order.  Where g
+//    does not divide 128, rows qt * g .. 127 are padding: zeroed once
+//    before the Q load, masked from every key and never stored.
 //  * Warpgroup 2 is the producer: after setmaxnreg gives its registers
 //    away, one thread loads Q once and keeps a two-stage ring of 128-key
 //    K/V tiles full with TMA (4-D maps over (hd, Hkv, S_max, B): keys past
@@ -57,7 +60,7 @@ struct Tile {
   static constexpr int EB = HD < 64 ? HD : 64;       // elements per box row
   static constexpr int SWZ = EB * 2;                 // row bytes = swizzle span
   static constexpr int NBOX = HD / EB;               // boxes across hd
-  static constexpr int Q_BYTES = ROWS * HD * 2;
+  static constexpr int Q_BYTES = ROWS * HD * 2;       // the Q tile's room
   static constexpr int KV_BYTES = KT * HD * 2;       // one of K or V, one stage
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 64;
 };
@@ -72,6 +75,7 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap qmap,
   using T = Tile<HD>;
   const int g = H / Hkv;
   const int qt = ROWS / g;                              // positions per CTA
+  const int rows_q = qt * g;                            // rows TMA fills
   const int q0 = (n_qtiles - 1 - blockIdx.x) * qt;      // most expensive first
   const int kh = blockIdx.y;
   const int b = blockIdx.z;
@@ -92,6 +96,17 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap qmap,
   uint64_t* empty = bars + STAGES;
   uint64_t* qbar = bars + 2 * STAGES;
 
+  if (rows_q < ROWS) {
+    // padding rows of every Q box: zero once, then order these generic
+    // stores before wgmma's (async-proxy) reads of the tile
+    constexpr int kChunksPerRow = T::EB * 2 / 16;
+    const int pad_chunks = (ROWS - rows_q) * kChunksPerRow;
+    for (int i = threadIdx.x; i < T::NBOX * pad_chunks; i += kThreads) {
+      const int bx = i / pad_chunks, c = i % pad_chunks;
+      reinterpret_cast<uint4*>(qs + (bx * ROWS + rows_q) * T::EB)[c] = make_uint4(0, 0, 0, 0);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
@@ -109,7 +124,7 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap qmap,
       tma_prefetch_map(&qmap);
       tma_prefetch_map(&kmap);
       tma_prefetch_map(&vmap);
-      mbar_expect_tx(qbar, T::Q_BYTES);
+      mbar_expect_tx(qbar, rows_q * HD * 2);            // what the boxes bring
       for (int bx = 0; bx < T::NBOX; ++bx)
         tma_load_5d(qs + bx * ROWS * T::EB, &qmap, qbar, bx * T::EB, kh, 0, q0, b);
       for (int t = 0; t < n_tiles; ++t) {
@@ -131,7 +146,9 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap qmap,
     const int wg = threadIdx.x / 128;
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     const int r0 = wg * 64 + warp * 16 + lane / 4;       // rows r0 and r0 + 8
-    const int qp[2] = {off + q0 + r0 / g, off + q0 + (r0 + 8) / g};
+    // query positions; a padding row's -1 sees no key of a masked tile
+    const int qp[2] = {r0 < rows_q ? off + q0 + r0 / g : -1,
+                       r0 + 8 < rows_q ? off + q0 + (r0 + 8) / g : -1};
 
     float o[T::NBOX][T::EB / 2];
 #pragma unroll
@@ -236,7 +253,7 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap qmap,
       const float inv = l > 0.0f ? 1.0f / l : 0.0f;
       const int row = r0 + 8 * r;
       const int pos = q0 + row / g;
-      if (pos >= P) continue;
+      if (row >= rows_q || pos >= P) continue;
       const int h = (row % g) * Hkv + kh;
       bf16* dst = out + ((static_cast<long>(b) * P + pos) * H + h) * HD + (lane % 4) * 2;
 #pragma unroll
@@ -288,13 +305,13 @@ int launch(const void* q, const void* k, const void* v, const int* offset, bf16*
 
 }  // namespace
 
-// hd 32, 64 or 128; g = H / Hkv must divide 128; q, k, v 16-byte aligned.
+// hd 32, 64 or 128; any g = H / Hkv up to 128; q, k, v 16-byte aligned.
 extern "C" int prefill_attention_bf16(const void* q, const void* k, const void* v,
                                       const void* offset, void* out, int B, int P,
                                       int H, int Hkv, int S_max, int hd, int window,
                                       float scale, void* stream) {
   if (B == 0 || P == 0) return 0;
-  if (Hkv <= 0 || H % Hkv != 0 || ROWS % (H / Hkv) != 0 || B > 65535 || Hkv > 65535 ||
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > ROWS || B > 65535 || Hkv > 65535 ||
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -159,8 +159,9 @@ def _check_aligned(name: str, *tensors: Tensor) -> None:
 
 # --------------------------------------------------------------------- K2
 
-# query rows per CTA of the prefill kernel ((position, head-of-group)
-# pairs; the group size must divide it) and the head dims it is built for
+# query rows per CTA of the prefill kernel: PREFILL_ROWS // g positions x
+# g heads of one group, the rows past them padding; and the head dims it
+# is built for
 PREFILL_ROWS = 128
 PREFILL_HEAD_DIMS = (32, 64, 128)
 
@@ -193,9 +194,9 @@ def prefill_attention(q: Tensor, k: Tensor, v: Tensor, offset: Tensor, *,
         return ref.prefill_attention_ref(q, k, v, offset, window=window)
     _check_attention("prefill_attention", q, k, v, offset)
     g = h // k.shape[2]
-    if PREFILL_ROWS % g or hd not in PREFILL_HEAD_DIMS:
+    if g > PREFILL_ROWS or hd not in PREFILL_HEAD_DIMS:
         raise ValueError(f"prefill_attention: kernel needs the group size "
-                         f"to divide {PREFILL_ROWS} and hd in "
+                         f"at most {PREFILL_ROWS} and hd in "
                          f"{PREFILL_HEAD_DIMS} (g={g}, hd={hd})")
     _check_aligned("prefill_attention", q, k, v)
     out = torch.empty_like(q)

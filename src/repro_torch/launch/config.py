@@ -11,10 +11,11 @@ port runs, plus the port's own ``dtype``, ``device``, ``prompt_len`` and
   * ``engine_trace`` — builds the open-loop trace (the traffic module's
     generators with a length model shrunk to the engine's max_len).
 
-Not here: the simulator, disaggregated pools, speculative decode, the HTTP
-front-end, fault injection and the per-slice ``packed=False`` path (none
-of them is ported).  Everything here is declarative: no model
-construction, no torch import.
+Not here: the simulator (and ``spec_acceptance``, which only the
+simulator reads), disaggregated pools, the HTTP front-end, fault
+injection and the per-slice ``packed=False`` path (none of them is
+ported).  Everything here is declarative: no model construction, no torch
+import.
 """
 
 from __future__ import annotations
@@ -64,8 +65,12 @@ class ServeConfig:
     # prefix cache
     prefix_cache: bool = True
     prefix_lru_pages: Optional[int] = None
-    # MoE / SLO
+    # MoE / speculation
     moe_dispatch: str = "ragged"
+    spec: str = "off"                   # off|ngram|draft
+    spec_k: int = 4
+    draft_config: Optional[str] = None
+    # SLO
     ttft_slo: float = 10.0
     tbt_slo: float = 0.125
     # the port's own: dtype override (None: the config's own), device
@@ -86,6 +91,7 @@ class ServeConfig:
             "arrival": tuple(sorted(ARRIVAL_PROCESSES)),
             "preemption": ("on", "off", "recompute", "swap", "auto"),
             "moe_dispatch": ("ragged", "dense"),
+            "spec": ("off", "ngram", "draft"),
             "dtype": (None, "float32", "bfloat16"),
         }
         for name, opts in choices.items():
@@ -93,7 +99,8 @@ class ServeConfig:
                 raise ValueError(f"{name}={getattr(self, name)!r} "
                                  f"not one of {opts}")
         positive = ["rate", "requests", "slots", "quantum", "token_budget",
-                    "max_len", "page_size", "ttft_slo", "tbt_slo"]
+                    "max_len", "page_size", "spec_k", "ttft_slo",
+                    "tbt_slo"]
         for name in positive:
             if getattr(self, name) <= 0:
                 raise ValueError(f"{name} must be positive "
@@ -110,6 +117,8 @@ class ServeConfig:
         if self.class_headroom < 0 or self.decode_reserve is not None \
                 and self.decode_reserve < 0:
             raise ValueError("class_headroom/decode_reserve must be >= 0")
+        if self.spec == "draft" and not self.draft_config:
+            raise ValueError("spec='draft' needs draft_config")
         for name in ("prompt_len", "new_tokens"):
             v = getattr(self, name)
             if v is not None and not 0 < v[0] < v[1]:
@@ -190,6 +199,17 @@ class ServeConfig:
         ap.add_argument("--moe-dispatch", default=d.moe_dispatch,
                         choices=["ragged", "dense"],
                         help="dropless MoE data path")
+        ap.add_argument("--spec", default=d.spec,
+                        choices=["off", "ngram", "draft"],
+                        help="speculative verify-k decoding; greedy "
+                             "output streams are spec off's (in bf16 "
+                             "they may part at near-ties)")
+        ap.add_argument("--spec-k", type=int, default=d.spec_k,
+                        help="max drafted tokens verified per request "
+                             "per iteration")
+        ap.add_argument("--draft-config", default=d.draft_config,
+                        help="config whose smoke variant drafts for "
+                             "--spec draft")
         ap.add_argument("--ttft-slo", type=float, default=d.ttft_slo)
         ap.add_argument("--tbt-slo", type=float, default=d.tbt_slo)
         ap.add_argument("--seed", type=int, default=d.seed)
@@ -236,7 +256,9 @@ class ServeConfig:
                     decode_reserve=self.decode_reserve,
                     class_headroom=self.class_headroom_opt(),
                     prefix_cache=self.prefix_cache,
-                    prefix_lru_pages=self.prefix_lru_pages)
+                    prefix_lru_pages=self.prefix_lru_pages,
+                    spec_mode=self.spec, spec_k=self.spec_k,
+                    draft_config=self.draft_config)
 
     def slo(self) -> SLOConfig:
         return SLOConfig(self.ttft_slo, self.tbt_slo)

@@ -19,6 +19,10 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --open-loop \\
       --clock wall --requests 8 --max-len 2048
 
+  # speculative verify-k decoding with the n-gram drafter (or a draft
+  # model: --spec draft --draft-config qwen3-30b-a3b, its smoke variant):
+  PYTHONPATH=src python -m repro_torch.launch.serve --spec ngram --spec-k 4
+
   # gpt-oss-20b, swap preemption in an oversubscribed page pool:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-oss-20b \\
       --preemption swap --pages 64 --slots 8
@@ -104,14 +108,18 @@ def _print_per_class(requests, slo=None) -> None:
 
 
 def serve_real(a: ServeConfig, model=None, params=None, trace=None) -> dict:
-    """Build an engine and serve: closed loop (``a.requests`` random
-    requests submitted up front, drained on the iteration clock) or, with
+    """Build an engine and serve (``run_engine``)."""
+    return run_engine(build_engine(a, model, params), a, trace)
+
+
+def run_engine(eng: Engine, a: ServeConfig, trace=None) -> dict:
+    """Serve on ``eng``: closed loop (``a.requests`` random requests
+    submitted up front, drained on the iteration clock) or, with
     ``a.open_loop``, a timed replay of ``trace`` (default
     ``a.engine_trace``) on the iteration clock or, with ``a.clock ==
     "wall"``, on the wall clock.  Prints the report and returns its
-    numbers; TTFT/TBT are in the clock's unit (seconds on the wall
-    clock, iterations otherwise)."""
-    eng = build_engine(a, model, params)
+    numbers; TTFT/TBT are in the clock's unit (seconds on the wall clock,
+    iterations otherwise).  Speculation is the engine's own."""
 
     def _stream(rid, tok, t):
         print(f"[stream] t={t:8.2f} req={rid:<4} tok={tok}")
@@ -159,6 +167,18 @@ def serve_real(a: ServeConfig, model=None, params=None, trace=None) -> dict:
           f"({eng.n_dispatches / max(eng.iteration, 1):.1f}/iter), "
           f"{eng.n_prefill_dispatches} prefill batches; "
           f"{wall * 1e3 / max(eng.iteration, 1):.1f} ms/iter wall")
+    if eng.spec_mode != "off":
+        acc = m["spec_acceptance_rate"]
+        tpd = (sum(r.n_generated for r in reqs)
+               / max(eng.n_dispatches, 1))
+        print(f"[serve] spec({eng.spec_mode}, k={eng.spec_k}): "
+              f"{eng.n_spec_proposed} drafted, {eng.n_spec_accepted} "
+              f"accepted (rate {_f(acc)}); accepted len "
+              f"p50={_f(m['accepted_len_p50'], '.1f')} "
+              f"p90={_f(m['accepted_len_p90'], '.1f')}; "
+              f"{eng.n_verify_dispatches} verify + "
+              f"{eng.n_draft_dispatches} draft launches; "
+              f"{tpd:.2f} generated tokens/launch")
     if a.prefix_cache:
         print(f"[serve] prefix cache: hit rate "
               f"{m['prefix_hit_rate']:.2f} "
@@ -192,6 +212,11 @@ def serve_real(a: ServeConfig, model=None, params=None, trace=None) -> dict:
             "n_prefix_hits": eng.alloc.n_prefix_hits,
             "n_prefix_tokens": eng.alloc.n_prefix_tokens,
             "n_prefix_restores": eng.n_prefix_restores,
+            "spec": eng.spec_mode, "spec_k": eng.spec_k,
+            "n_verify_dispatches": eng.n_verify_dispatches,
+            "n_draft_dispatches": eng.n_draft_dispatches,
+            "n_spec_proposed": eng.n_spec_proposed,
+            "n_spec_accepted": eng.n_spec_accepted,
             "clock_unit": unit,
             **{k: m[k] for k in ("ttft_p50", "ttft_p99", "tbt_p50",
                                  "tbt_p99")}}

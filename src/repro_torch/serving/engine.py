@@ -14,7 +14,13 @@ Execution model per iteration (the JAX engine's, main path only):
      prefill's carry state).  The final slice computes the request's
      FIRST token.
   3. decode — ONE fixed-shape step over the whole slot pool; non-decoding
-     slots are masked (their KV writes are dropped).
+     slots are masked (their KV writes are dropped).  With speculation on
+     (``spec_mode`` "ngram" or "draft"), the scheduler's drafting rows
+     instead run ONE verify window over their slot rows: [last token,
+     d_1..d_k] at positions offset..offset+k through the whole stack; the
+     host accepts the prefix of drafts that match the target's own argmax
+     and emits it plus the target's next token.  Rows the drafter skipped
+     fall back to the plain decode step.
 
 Expert-load accounting (paper §5.4): each forward returns per-block expert
 activation counts from the real router; per (iteration, block) the engine
@@ -33,7 +39,16 @@ Hot-path contract:
     through pinned memory without blocking.  A swap victim's row is
     copied into pinned host memory with a ``non_blocking`` copy that the
     same ``.cpu()`` completes; a swap-in copies it back without blocking.
-  * PyTorch runs eagerly: there is no executable cache.
+  * PyTorch runs eagerly: there is no executable cache, so the JAX
+    engine's bounded LRU of prefill, verify and draft executables and its
+    ``n_prefill_compiles`` / ``n_verify_compiles`` counters have no
+    counterpart here.
+  * Speculation adds no sync: proposals, the verify window's tokens and
+    its expert masks stay device tensors until the iteration's one
+    ``.cpu()``; the draft model's proposals are written into the verify
+    window's token tensor on the device.  Rollback needs no code: KV
+    written past the committed offset is never read (attention masks keys
+    past ``offset + i``) and a later window overwrites it.
 
 Snapshots are COPIES.  The JAX engine's row slices are immutable device
 arrays; here the cache is written in place, so a view of a slot row would
@@ -46,10 +61,14 @@ read, so restores are identical to the JAX engine's whole-row ones.
 MoE runs dropless under either ``moe_dispatch``: "ragged" (the default)
 or "dense" (the (E, C, d) capacity buffer with C = the batch's token
 count).  Routing is the same under both, so are the expert-load counters.
+The stateless draft model runs as the JAX engine's does, ``forward`` with
+its defaults: the capacity-limited dense dispatch over the whole padded
+batch, padding routed as tokens.  So an MoE draft's proposals for a row
+depend on the other rows and on the padding, which fill the capacity of
+the experts they route to (ROADMAP §3); a dense draft's do not.
 
-Not ported: ``spec_mode`` other than "off" and encoder inputs
-(``enc_frames``) raise; the per-slice ``packed=False`` reference path and
-the disaggregated handoff are absent.
+Not ported: encoder inputs (``enc_frames``) raise; the per-slice
+``packed=False`` reference path and the disaggregated handoff are absent.
 """
 
 from __future__ import annotations
@@ -73,6 +92,8 @@ from repro_torch.serving.kvcache import PagedKVAllocator
 from repro_torch.serving.runtime import (EngineExecutor, RunResult,
                                          ServingRuntime, TokenEvent,
                                          timestamp_events)
+from repro_torch.serving.spec import (NgramDrafter, accepted_prefix,
+                                      build_draft_model)
 
 Tensor = torch.Tensor
 
@@ -85,6 +106,27 @@ def _bucket(n: int, minimum: int = 16, cap: Optional[int] = None) -> int:
     if cap is not None:
         b = min(b, max(cap, n))
     return b
+
+
+def _fetch(groups):
+    """ONE ``.cpu()`` for every tensor of ``groups`` (a list of tuples of
+    device tensors, or None): the same structure of numpy arrays."""
+    flat = [t for g in groups if g is not None for t in g]
+    if not flat:
+        return groups
+    host = torch.cat([t.reshape(-1).to(torch.int32) for t in flat]) \
+        .cpu().numpy()
+    out, i = [], 0
+    for g in groups:
+        if g is None:
+            out.append(None)
+            continue
+        arrays = []
+        for t in g:
+            arrays.append(host[i:i + t.numel()].reshape(tuple(t.shape)))
+            i += t.numel()
+        out.append(tuple(arrays))
+    return out
 
 
 def _snapshot(c: Tensor, slot: int, n: int, host: bool) -> Tensor:
@@ -116,7 +158,10 @@ class Engine:
                  moe_dispatch: str = "ragged",
                  prefix_cache: bool = True,
                  prefix_lru_pages: Optional[int] = None,
-                 spec_mode: str = "off"):
+                 spec_mode: str = "off", spec_k: int = 4,
+                 spec_adaptive: bool = True, spec_ngram_n: int = 3,
+                 draft_model: Optional[DecoderModel] = None,
+                 draft_params=None, draft_config: Optional[str] = None):
         """``pages``/``page_size`` size the paged KV pool shared with the
         scheduler (default: enough pages to fill every slot row).
         ``preemption`` enables memory-pressure eviction;
@@ -132,9 +177,17 @@ class Engine:
         cached row and skips the matched tokens.  ``prefix_lru_pages`` caps
         the reclaimable cached pages kept resident.  ``moe_dispatch``
         selects the dropless MoE data path: "ragged" or "dense".
-        Speculative decode is not ported and raises."""
-        if spec_mode != "off":
-            raise NotImplementedError("speculative decode is not ported yet")
+
+        ``spec_mode`` enables speculative verify-k decoding ("ngram" =
+        draft-free prompt/self-lookup; "draft" = a tiny stateless draft
+        model — pass ``draft_model``/``draft_params`` directly or name a
+        registered config via ``draft_config``, whose smoke variant is
+        built on this engine's device in this model's dtype).
+        ``spec_k`` caps the per-request draft budget; ``spec_adaptive``
+        lets a per-request acceptance EMA shrink the draft-model budget;
+        ``spec_ngram_n`` is the n-gram drafter's longest suffix.  Greedy token streams are those of
+        ``spec_mode="off"``: speculation only changes how many tokens
+        each launch commits."""
         if moe_dispatch not in ("dense", "ragged"):
             raise ValueError(f"unknown moe_dispatch {moe_dispatch!r}")
         self.model = model
@@ -177,6 +230,33 @@ class Engine:
         self.max_len = max_len
         self.eos_token = eos_token
 
+        # speculative verify-k decoding
+        if spec_mode not in ("off", "ngram", "draft"):
+            raise ValueError(f"unknown spec_mode {spec_mode!r}")
+        self.spec_mode = spec_mode
+        self.spec_k = spec_k
+        self.drafter = NgramDrafter(spec_ngram_n) \
+            if spec_mode == "ngram" else None
+        self.draft_model: Optional[DecoderModel] = None
+        self.draft_params = None
+        if spec_mode == "draft":
+            if draft_model is not None:
+                self.draft_model, self.draft_params = draft_model, \
+                    draft_params
+            elif draft_config is not None:
+                self.draft_model, self.draft_params = build_draft_model(
+                    draft_config, self.cfg.vocab_size, device=self.device,
+                    dtype=self.cfg.dtype)
+            else:
+                raise ValueError(
+                    "spec_mode='draft' needs draft_model/draft_params or a "
+                    "draft_config name")
+            if self.draft_model.cfg.vocab_size != self.cfg.vocab_size:
+                raise ValueError("draft model must share the target vocab")
+        if spec_mode != "off":
+            self.scheduler.configure_speculation(spec_mode, spec_k,
+                                                 adaptive=spec_adaptive)
+
         # physical slot rows (the contiguous per-request realization of the
         # allocator's logical block tables)
         self._free_slots = list(range(n_slots))[::-1]
@@ -213,6 +293,14 @@ class Engine:
         # slot row from a cached prefix (the allocator counts hits/tokens)
         self.n_prefix_restores = 0
         self._prefix_seen = (0, 0)          # (n_prefix_hits, n_prefix_tokens)
+        # speculative-decode accounting
+        self.n_verify_dispatches = 0
+        self.n_draft_dispatches = 0
+        self.n_spec_proposed = 0
+        self.n_spec_accepted = 0
+        # per-iteration record of what was ACTUALLY verified (rid -> k_eff;
+        # may be smaller than plan.verify_len when a drafter found nothing)
+        self.last_verify_executed: Dict[int, int] = {}
 
     # ------------------------------------------------------------------ API
 
@@ -308,15 +396,67 @@ class Engine:
                                 device=self.device)
         return x, loads, tokens
 
+    def _verify_impl(self, tokens: Tensor, valid: Tensor, slots: np.ndarray,
+                     offset: Tensor):
+        """Verify-k window for a cohort of drafting slots in ONE pass:
+        ``tokens`` (B, P) holds per row [last_tok, d_1..d_k, pad...] fed at
+        positions offset..offset+P-1 through the FULL stack, over the
+        gathered slot rows (as ``_prefill_impl``).  Row j of the returned
+        argmax grid is the target's greedy token AFTER window position j
+        — the host accepts the matching draft prefix.  The window's KV is
+        written in place; what lies past the offset the host commits is
+        never read and is overwritten by a later window.  Padding rows
+        (slot id == n_slots, valid all-False) are no-ops end to end."""
+        rows = gather_slot_rows(self.cache, slots)
+        positions = offset.long()[:, None] + torch.arange(
+            tokens.shape[1], device=self.device)[None]
+        hidden = self.model.embed(self.params, tokens)
+        x, rows, auxes = self.model.run_blocks(
+            self.params, hidden, 0, self.model.n_blocks, positions=positions,
+            offset=offset, cache=rows, valid=valid, dropless=True,
+            moe_dispatch=self.moe_dispatch)
+        scatter_slot_rows(self.cache, rows, slots)
+        loads = torch.stack([a["expert_counts"] > 0 for a in auxes])
+        toks = torch.argmax(self.model.logits(self.params, x), dim=-1)
+        return loads, toks                                    # (B, P)
+
+    def _draft_impl(self, k: int, tokens: Tensor, lengths: Tensor) -> Tensor:
+        """Greedy k-step extension by the STATELESS draft model: each step
+        re-runs the draft over the (padded) full history — no draft KV
+        cache exists, so preemption/fold/swap need zero draft-side
+        bookkeeping.  Each step is the JAX draft's ``forward`` with its
+        defaults (capacity-limited dense MoE dispatch, no padding mask),
+        with logits computed only at each row's last token (the JAX engine
+        takes the argmax of the same row of its full (B, P, V) logits).
+        Returns the (B, k) proposals as a device tensor."""
+        dm, dp = self.draft_model, self.draft_params
+        b, n_pos = tokens.shape
+        arange = torch.arange(n_pos, device=self.device)
+        positions = arange[None].expand(b, n_pos)
+        rows = torch.arange(b, device=self.device)
+        toks, lens = tokens, lengths.long()
+        props = []
+        for _ in range(k):
+            x, _, _ = dm.run_blocks(dp, dm.embed(dp, toks), 0, dm.n_blocks,
+                                    positions=positions, dropless=False,
+                                    moe_dispatch="dense")
+            tok = torch.argmax(dm.logits(dp, x[rows, lens - 1]), dim=-1)
+            toks = torch.where(arange[None] == lens[:, None], tok[:, None],
+                               toks)
+            lens = lens + 1
+            props.append(tok)
+        return torch.stack(props, dim=1)
+
     # -------------------------------------------------------------- stepping
 
     def execute_plan(self, plan: IterationPlan) -> List[TokenEvent]:
         """Execute one scheduler-produced plan and return the tokens it
-        emitted.  Prefill groups and the decode step are LAUNCHED first
-        (device tensors only), then ONE ``.cpu()`` fetches every emitted
-        token and expert-activation mask (and completes this iteration's
-        swap-out copies), and all bookkeeping (offsets, EOS, token events,
-        expert union) runs on the fetched values."""
+        emitted.  Prefill groups, the verify window (with its draft) and
+        the decode step are LAUNCHED first (device tensors only), then ONE
+        ``.cpu()`` fetches every emitted token, proposal and expert-
+        activation mask (and completes this iteration's swap-out copies),
+        and all bookkeeping (offsets, EOS, token events, expert union,
+        acceptance) runs on the fetched values."""
         self._step_events = []
         dispatches0 = self.n_dispatches
         prefix_hits0, prefix_toks0 = self._prefix_seen
@@ -338,30 +478,37 @@ class Engine:
         launched = [self._launch_prefill_group(*g) for g in groups]
         prefill_tokens = sum(sl.n_tokens for sl in plan.prefill)
 
+        # speculative verify-k: draft + verify are LAUNCHED here (device
+        # tensors only); rows the drafter skipped fall through to the plain
+        # decode step below
+        spec_rows, spec_skipped, spec_fetch = [], [], None
+        if plan.verify_len and self.spec_mode != "off":
+            spec_rows, spec_skipped, spec_fetch = self._launch_verify(plan)
+        spec_rids = {rid for rid, _, _, _, _ in spec_rows}
+
         decode_slot_req = decode_out = None
-        if plan.decode_ids:
-            decode_slot_req, decode_out = self._launch_decode(plan.decode_ids)
+        plain_ids = [rid for rid in plan.decode_ids if rid not in spec_rids]
+        if plain_ids:
+            decode_slot_req, decode_out = self._launch_decode(plain_ids)
 
         # ---- the ONE host sync per iteration ----
-        parts = [t for pair in launched for t in pair]
-        if decode_out is not None:
-            parts += list(decode_out)
-        fetched = []
-        if parts:
-            flat = torch.cat([t.reshape(-1).to(torch.int32) for t in parts])
-            host = flat.cpu().numpy()
-            i = 0
-            for t in parts:
-                fetched.append(host[i:i + t.numel()].reshape(tuple(t.shape)))
-                i += t.numel()
+        *launched, spec_fetch, decode_out = _fetch(
+            launched + [spec_fetch, decode_out])
 
-        for gi, (start, end, emit, slices) in enumerate(groups):
-            loads, toks = fetched[2 * gi], fetched[2 * gi + 1]
+        for (start, end, emit, slices), (loads, toks) in zip(groups,
+                                                             launched):
             block_expert_union[start:end] |= loads.astype(bool)
             for i, sl in enumerate(slices):
                 self._finish_prefill_slice(sl, int(toks[i]))
+        n_verify_tokens = n_spec_accepted = 0
+        self.last_verify_executed = {}
+        if spec_fetch is not None:
+            loads, toks, *props = spec_fetch
+            block_expert_union |= loads.astype(bool)
+            n_verify_tokens, n_spec_accepted = self._finish_verify(
+                spec_rows, toks, props[0] if props else None)
         if decode_out is not None:
-            next_tok, loads = fetched[-2], fetched[-1]
+            next_tok, loads = decode_out
             block_expert_union |= loads.astype(bool)
             for slot, rid in decode_slot_req.items():
                 tok = int(next_tok[slot])
@@ -369,6 +516,11 @@ class Engine:
                 self.last_tok[slot] = tok
                 self._record_token(rid, tok, first=False)
                 self._maybe_finish(rid, tok)
+        for rid in spec_skipped:
+            # a 0-proposal commit releases the scheduler's page pre-charge
+            self.last_verify_executed[rid] = 0
+            self.scheduler.commit_speculation(rid, proposed=0, accepted=0,
+                                              extra=0)
 
         loaded = int(block_expert_union.sum()) if self.cfg.moe.enabled else 0
         self.expert_load_bytes += loaded * self._expert_bytes
@@ -383,6 +535,9 @@ class Engine:
             "n_swapped_out": len(plan.swapped_out_ids),
             "n_swapped_in": len(plan.swapped_in_ids),
             "n_dispatches": self.n_dispatches - dispatches0,
+            "n_verify_tokens": n_verify_tokens,
+            "n_spec_accepted": n_spec_accepted,
+            "n_spec_rows": len(spec_rows),
             "n_prefix_hits": self.alloc.n_prefix_hits - prefix_hits0,
             "prefix_cached_tokens": (self.alloc.n_prefix_tokens
                                      - prefix_toks0),
@@ -591,6 +746,122 @@ class Engine:
         row = self._copy_row(slot, max(depth for _, depth in missing) * ps)
         for d, depth in missing:
             self._prefix_rows[d] = (row, depth * ps)
+
+    def _history(self, rid: int) -> np.ndarray:
+        """Full token sequence so far (recompute prompt + the generated
+        tail not yet folded into it); its last element is last_tok and its
+        length is offsets[slot] + 1."""
+        req = self.requests[rid]
+        tail = self.outputs[rid][req.n_folded:]
+        return np.concatenate([self.prompts[rid],
+                               np.asarray(tail, np.int32)])
+
+    def _launch_verify(self, plan: IterationPlan):
+        """Launch the drafting cohort's verify window (plus, in draft mode,
+        the draft model's k steps that feed it); returns host row metadata
+        (rid, slot, offset, k_eff, host proposals or None), the ids that
+        fell back to plain decode this iteration, and the device tensors
+        for the one fetch.
+
+        Window safety: per-row KV writes cover offset..offset+P-1 (the
+        BUCKETED window — ``_write_cache`` drops out-of-range token writes,
+        but a window that would spill past max_len has nowhere to store
+        accepted tokens, so it must not launch).  Rows where the worst-case
+        bucket does not fit fall back to plain decode."""
+        budgets = sorted(plan.verify_len.items())
+        p_worst = _bucket(self.spec_k + 1, minimum=2, cap=self.spec_k + 1)
+        rows: List[Tuple[int, int, int, int, Optional[np.ndarray]]] = []
+        skipped: List[int] = []
+        for rid, k in budgets:
+            slot = self._slot_of[rid]
+            off = int(self.offsets[slot])
+            if off + p_worst > self.max_len:
+                skipped.append(rid)
+                continue
+            if self.spec_mode == "ngram":
+                prop = self.drafter.propose(self._history(rid), k)
+                if len(prop) == 0:
+                    skipped.append(rid)
+                    continue
+                rows.append((rid, slot, off, len(prop),
+                             prop.astype(np.int32)))
+            else:
+                rows.append((rid, slot, off, k, None))
+        if not rows:
+            return [], skipped, None
+
+        k_max = max(k_eff for _, _, _, k_eff, _ in rows)
+        p = _bucket(k_max + 1, minimum=2, cap=self.spec_k + 1)
+        b_pad = _bucket(len(rows), minimum=1, cap=self.n_slots)
+        tokens = np.zeros((b_pad, p), np.int64)
+        valid = np.zeros((b_pad, p), bool)
+        slots = np.full(b_pad, self.n_slots, np.int64)   # OOB: writes dropped
+        offs = np.zeros(b_pad, np.int32)
+        for i, (rid, slot, off, k_eff, prop) in enumerate(rows):
+            tokens[i, 0] = self.last_tok[slot]
+            if prop is not None:
+                tokens[i, 1:1 + k_eff] = prop
+            valid[i, :k_eff + 1] = True
+            slots[i] = slot
+            offs[i] = off
+        tok_dev = self._h2d(tokens)
+
+        props_dev = None
+        if self.spec_mode == "draft":
+            hists = [self._history(rid) for rid, _, _, _, _ in rows]
+            p_hist = _bucket(max(len(h) for h in hists) + k_max,
+                             cap=self.max_len + self.spec_k)
+            hist_toks = np.zeros((b_pad, p_hist), np.int64)
+            hist_lens = np.ones(b_pad, np.int32)
+            for i, h in enumerate(hists):
+                hist_toks[i, :len(h)] = h
+                hist_lens[i] = len(h)
+            props_dev = self._draft_impl(k_max, self._h2d(hist_toks),
+                                         self._h2d(hist_lens))
+            self.n_dispatches += 1
+            self.n_draft_dispatches += 1
+            # the proposals go into the window on the device: no sync
+            tok_dev[:, 1:1 + k_max] = props_dev
+
+        loads, toks = self._verify_impl(tok_dev, self._h2d(valid), slots,
+                                        self._h2d(offs))
+        self.n_dispatches += 1
+        self.n_verify_dispatches += 1
+        fetch = (loads, toks) if props_dev is None else (loads, toks,
+                                                         props_dev)
+        return rows, skipped, fetch
+
+    def _finish_verify(self, rows, toks, props) -> Tuple[int, int]:
+        """Host bookkeeping for the fetched verify grid: accept the
+        matching draft prefix, emit accepted drafts plus the target's own
+        next token, advance the committed offset (the rollback — stale KV
+        past it is dead), and feed acceptance back to the scheduler."""
+        n_proposed = n_accepted = 0
+        for i, (rid, slot, off, k_eff, prop) in enumerate(rows):
+            if prop is None:
+                prop = np.asarray(props[i, :k_eff])
+            tgt = np.asarray(toks[i])
+            a = accepted_prefix(prop[:k_eff], tgt[:k_eff])
+            emitted = [int(t) for t in prop[:a]] + [int(tgt[a])]
+            if self.eos_token is not None:
+                for j, t in enumerate(emitted):
+                    if t == self.eos_token:
+                        emitted = emitted[:j + 1]
+                        break
+            self.offsets[slot] = off + len(emitted)
+            self.last_tok[slot] = emitted[-1]
+            for t in emitted:
+                self._record_token(rid, t, first=False)
+            n_proposed += k_eff
+            n_accepted += a
+            self.n_spec_proposed += k_eff
+            self.n_spec_accepted += a
+            self.last_verify_executed[rid] = k_eff
+            self.scheduler.commit_speculation(
+                rid, proposed=k_eff, accepted=a, extra=len(emitted) - 1,
+                committed_len=int(self.offsets[slot]))
+            self._maybe_finish(rid, emitted[-1])
+        return n_proposed, n_accepted
 
     def _launch_decode(self, decode_ids: List[int]):
         """Launch the full-pool decode step; returns the slot -> request map

@@ -35,13 +35,19 @@ def as_jax_trace(trace):
                             prompt_tokens=r.prompt_tokens) for r in trace]
 
 
-def build(framework: str, cfg, sched: str, sched_kw=None, **engine_kw):
+def build(framework: str, cfg, sched: str, sched_kw=None, draft=None,
+          **engine_kw):
     """An engine of ``framework`` ("jax" or "torch") over the shared
-    weights of ``cfg`` (seed 0)."""
+    weights of ``cfg`` (seed 0); ``draft`` = (config, seed) gives it a
+    draft model on that config's shared weights of that seed."""
     jm, jp, tm, tp = models(cfg)
     skw = dict(SCHED_KW, **(sched_kw or {}))
     engine_kw.setdefault("n_slots", skw["n_slots"])
     engine_kw.setdefault("max_len", 64)
+    if draft is not None:
+        djm, djp, dtm, dtp = models(*draft)
+        engine_kw.update(draft_model=djm if framework == "jax" else dtm,
+                         draft_params=djp if framework == "jax" else dtp)
     if framework == "jax":
         return JaxEngine(jm, jp, jax_make_scheduler(sched, jm.n_blocks, **skw),
                          **engine_kw)
@@ -49,8 +55,9 @@ def build(framework: str, cfg, sched: str, sched_kw=None, **engine_kw):
                   **engine_kw)
 
 
-def record(eng, runtime, res) -> dict:
+def record(eng, runtime, res, verified=()) -> dict:
     reqs = sorted(res.requests, key=lambda r: r.req_id)
+    spec = ("n_verify_tokens", "n_spec_accepted", "n_spec_rows")
     return {
         "plans": [plan_key(p) for p in runtime.plans],
         "outputs": {rid: [int(x) for x in t] for rid, t in eng.outputs.items()},
@@ -67,6 +74,12 @@ def record(eng, runtime, res) -> dict:
         "pages_left": eng.alloc.pages_in_use(),
         "host_pages_left": eng.alloc.host_pages_in_use(),
         "iterations": eng.iteration,
+        "n_spec_proposed": eng.n_spec_proposed,
+        "n_spec_accepted": eng.n_spec_accepted,
+        "n_verify_dispatches": eng.n_verify_dispatches,
+        "n_draft_dispatches": eng.n_draft_dispatches,
+        "spec_log": [tuple(e[k] for k in spec) for e in eng.iter_log],
+        "last_verify_executed": list(verified),
     }
 
 
@@ -78,6 +91,14 @@ def run(framework: str, cfg, sched: str, *, jobs=(), trace=(),
     eng = build(framework, cfg, sched, sched_kw, **engine_kw)
     for prompt, max_new in jobs:
         eng.submit(list(prompt), max_new)
+    # what each iteration verified (the engine keeps the last one only)
+    verified, execute = [], eng.execute_plan
+
+    def execute_plan(plan):
+        events = execute(plan)
+        verified.append(dict(eng.last_verify_executed))
+        return events
+    eng.execute_plan = execute_plan
     if framework == "jax":
         runtime = JaxRuntime(JaxExecutor(eng), clock="iteration",
                              record_plans=True)
@@ -86,7 +107,7 @@ def run(framework: str, cfg, sched: str, *, jobs=(), trace=(),
         runtime = ServingRuntime(EngineExecutor(eng), clock="iteration",
                                  record_plans=True)
     res = runtime.run(list(trace), max_iterations=100_000)
-    return record(eng, runtime, res)
+    return record(eng, runtime, res, verified)
 
 
 def assert_same(got: dict, want: dict, keys=None) -> None:

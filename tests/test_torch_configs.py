@@ -1,7 +1,9 @@
 """The port's registered configurations against the JAX package's: the
-paper's two models field for field (full and smoke variants), and the
-smoke gpt-oss-20b engine trace through both packages (identical plans,
-tokens, TTFTs and expert bytes, layered and chunked)."""
+paper's two models and the four dense GQA decoders field for field (full
+and smoke variants), and the smoke gpt-oss-20b engine trace through both
+packages (identical plans, tokens, TTFTs and expert bytes, layered and
+chunked).  The dense configs' forwards and engine traces are held against
+JAX in tests/test_torch_arch.py."""
 
 from __future__ import annotations
 
@@ -16,13 +18,15 @@ from repro.configs import get_smoke_config as jax_get_smoke_config
 from repro_torch.configs import get_config, get_smoke_config, list_configs
 
 ARCHS = ["qwen3-30b-a3b", "gpt-oss-20b"]
+DENSE_ARCHS = ["minicpm-2b", "stablelm-1.6b", "yi-34b", "phi4-mini-3.8b"]
 
 
 def test_port_registers_the_papers_two_models():
-    assert list_configs() == ARCHS
+    """The paper's two models first, then the dense GQA decoders."""
+    assert list_configs() == ARCHS + DENSE_ARCHS
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + DENSE_ARCHS)
 def test_config_matches_jax(arch):
     assert dataclasses.asdict(get_config(arch)) == \
         dataclasses.asdict(jax_get_config(arch))

@@ -223,21 +223,100 @@ def test_prefill_attention_kernel_long_rows_and_no_cache_call(cuda, hd, h,
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
+# (hd, H, Hkv): group sizes that do not divide the kernel's 128 query
+# rows (phi4-mini's 3, yi-34b's 7, and 5, 6), at hd 64 and 128
+GROUP_SHAPES = [(64, 3, 1), (128, 24, 8), (64, 10, 2), (128, 5, 1),
+                (64, 12, 2), (128, 6, 1), (64, 7, 1), (128, 56, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,h,hkv", GROUP_SHAPES)
+@pytest.mark.parametrize("window", [None, 20])
+@pytest.mark.parametrize("p,offsets", [(40, (0, 50, 101, 260)),
+                                       (5, (7, 127, 128, 295)),
+                                       (130, (0, 3, 60, 170))])
+def test_prefill_attention_kernel_at_any_group_size(cuda, hd, h, hkv, window,
+                                                    p, offsets):
+    """K2 where g does not divide 128: 128 // g positions per CTA, the
+    rows past them padding.  P 40 and 130 span one and several q tiles;
+    P 5 is the verify window (spec_k 4 plus the bonus token) at non-zero
+    offsets, one across the 128-key tile edge; two launches agree."""
+    rng = np.random.default_rng(13)
+    b, s_max = 4, 300
+    q = _bf16(rng, (b, p, h, hd), cuda)
+    k, v = _bf16(rng, (b, s_max, hkv, hd), cuda), _bf16(rng, (b, s_max, hkv, hd), cuda)
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    got = ops.prefill_attention(q, k, v, off, window=window)
+    again = ops.prefill_attention(q, k, v, off, window=window)
+    want = ref.prefill_attention_ref(q, k, v, off, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(got, again)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_prefill_attention_at_g8_keeps_its_bits(cuda):
+    """At a group size that divides 128 the repaired K2 gives the bits the
+    kernel gave before it took every group size (a digest of its outputs
+    on hashed inputs, taken from the earlier kernel)."""
+    smoke = _chip_smoke()
+    assert smoke.k2_g8_digest() == smoke.K2_G8_SHA256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,h,hkv", [(128, 24, 8), (128, 56, 8),
+                                      (64, 3, 1), (64, 14, 2)])
+@pytest.mark.parametrize("window", [None, 70])
+def test_decode_attention_kernel_at_groups_3_and_7(cuda, hd, h, hkv, window):
+    """K3 at phi4-mini's (g 3) and yi-34b's (g 7) group sizes."""
+    rng = np.random.default_rng(14)
+    b, s_max = 8, 320
+    q = _bf16(rng, (b, h, hd), cuda)
+    k, v = _bf16(rng, (b, s_max, hkv, hd), cuda), _bf16(rng, (b, s_max, hkv, hd), cuda)
+    lengths = torch.tensor([1, s_max + 1, 64, 17, s_max, 129, 200, 300],
+                           dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, lengths, window=window)
+    want = ref.decode_attention_ref(q, k, v, lengths, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(got, ops.decode_attention(q, k, v, lengths,
+                                                 window=window))
+
+
 @pytest.mark.cuda
 def test_attention_kernels_refuse_what_they_do_not_take(cuda):
     """A CUDA tensor the kernel does not take raises ValueError, never
-    falls back: prefill needs hd in (32, 64, 128) and a group size that
-    divides 128; decode takes at most 16 query heads per kv head."""
+    falls back: prefill needs hd in (32, 64, 128) and a group size of at
+    most 128 (any other group size it takes: g 3 runs); decode takes hd a
+    multiple of 16 up to 128 and at most 16 query heads per kv head."""
     z = torch.zeros(1, dtype=torch.int32, device=cuda)
     bf = dict(dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="hd"):
-        ops.prefill_attention(torch.zeros(1, 4, 8, 48, **bf),
-                              torch.zeros(1, 8, 2, 48, **bf),
-                              torch.zeros(1, 8, 2, 48, **bf), z)
+    for hd in (48, 24, 256):
+        with pytest.raises(ValueError, match="hd"):
+            ops.prefill_attention(torch.zeros(1, 4, 8, hd, **bf),
+                                  torch.zeros(1, 8, 2, hd, **bf),
+                                  torch.zeros(1, 8, 2, hd, **bf), z)
+    for hd in (24, 256):
+        with pytest.raises(ValueError, match="hd"):
+            ops.decode_attention(torch.zeros(1, 8, hd, **bf),
+                                 torch.zeros(1, 8, 2, hd, **bf),
+                                 torch.zeros(1, 8, 2, hd, **bf), z)
     with pytest.raises(ValueError, match="group size"):
-        ops.prefill_attention(torch.zeros(1, 4, 12, 64, **bf),
+        ops.prefill_attention(torch.zeros(1, 4, 256, 64, **bf),
                               torch.zeros(1, 8, 1, 64, **bf),
                               torch.zeros(1, 8, 1, 64, **bf), z)
+    out = ops.prefill_attention(torch.zeros(1, 4, 3, 64, **bf),
+                                torch.zeros(1, 8, 1, 64, **bf),
+                                torch.zeros(1, 8, 1, 64, **bf), z)
+    assert out.shape == (1, 4, 3, 64)
     with pytest.raises(ValueError, match="16 query heads"):
         ops.decode_attention(torch.zeros(1, 32, 64, **bf),
                              torch.zeros(1, 8, 1, 64, **bf),
@@ -578,3 +657,52 @@ def test_engine_prefix_hits_on_the_card(cuda):
     assert r["n_prefix_hits"] > 0 and r["n_prefix_restores"] > 0
     assert r["completed"] == r["requests"] == 8
     assert all(len(t) == 4 for t in r["outputs"].values())
+
+
+def _serve_counting_syncs(run):
+    """``run()`` with torch's sync debug mode on: (its result, the
+    synchronizing calls it made, as "file:line" sites)."""
+    import warnings
+    from pathlib import Path
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                 if "synchroniz" in str(w.message)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["ngram", "draft"])
+def test_engine_speculates_on_the_card(cuda, spec):
+    """Speculative verify-k decoding on the card, through the launcher:
+    the n-gram drafter on repetitive prompts, or the smoke qwen3 drafting
+    for itself (built by name, in bf16); every request completes, verify
+    windows launch K2, and each iteration makes at most one host sync."""
+    from repro_torch.launch.serve import (ServeConfig, build_engine,
+                                          build_model)
+    sc = ServeConfig(smoke=True, dtype="bfloat16", slots=4, max_len=128,
+                     quantum=32, token_budget=32, spec=spec, spec_k=4,
+                     draft_config="qwen3-30b-a3b", seed=1)
+    model, params = build_model(sc)
+    eng = build_engine(sc, model, params)
+    for p in ([7, 8, 9, 10] * 6, [3, 4] * 9, [5, 6, 7, 5, 6, 7, 5, 6] * 2):
+        eng.submit(p, 12)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    _, syncs = _serve_counting_syncs(lambda: eng.run(max_iterations=1000))
+    assert all(len(toks) == 12 for toks in eng.outputs.values())
+    assert eng.n_verify_dispatches > 0 and eng.n_spec_proposed > 0
+    assert ops.LAUNCHES["prefill_attention"] > 0
+    # one .cpu() per iteration, plus at most one that torch makes once in
+    # a process (its first serve under the sync debug mode)
+    assert len(syncs) <= eng.iteration + 1, (syncs, eng.iteration)
+    assert sum(s.startswith("engine.py") for s in syncs) <= eng.iteration, \
+        syncs
+    if spec == "draft":
+        assert eng.draft_model.cfg.dtype == "bfloat16"
+        assert eng.n_draft_dispatches > 0
+        assert eng.n_spec_accepted > 0

@@ -133,12 +133,15 @@ def test_engine_eos_early_exit():
 
 
 def test_unported_options_raise():
-    """Speculation and encoder inputs are not ported and raise; swap
-    preemption without a host pool and an unknown preemption mode raise
-    ``ValueError`` as the JAX engine does (through ``attach_kv``)."""
+    """Encoder inputs are not ported and raise; an unknown speculation
+    mode, a draft mode without a draft, swap preemption without a host
+    pool and an unknown preemption mode raise ``ValueError`` as the JAX
+    engine does (the last two through ``attach_kv``)."""
     _, _, tm, tp = models(CFG)
-    with pytest.raises(NotImplementedError):
-        Engine(tm, tp, "layered", n_slots=2, max_len=64, spec_mode="ngram")
+    with pytest.raises(ValueError, match="spec_mode"):
+        Engine(tm, tp, "layered", n_slots=2, max_len=64, spec_mode="warp")
+    with pytest.raises(ValueError, match="draft"):
+        Engine(tm, tp, "layered", n_slots=2, max_len=64, spec_mode="draft")
     with pytest.raises(ValueError, match="host pool"):
         Engine(tm, tp, "layered", n_slots=2, max_len=64,
                preemption_mode="swap", host_pages=0)

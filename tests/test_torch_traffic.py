@@ -113,14 +113,15 @@ def test_defaults_and_derived_kwargs_match():
     for kw in ({}, dict(preemption="swap", host_pages=40, pages=10),
                dict(preemption="auto", class_headroom=4),
                dict(preemption="off", prefix_cache=False,
-                    prefix_lru_pages=8, swap_in_budget=32)):
+                    prefix_lru_pages=8, swap_in_budget=32),
+               dict(spec="ngram", spec_k=3),
+               dict(spec="draft", draft_config="qwen3-30b-a3b")):
         p, j = ServeConfig(**kw), JaxServeConfig(**kw)
         assert p.preemption_opts() == j.preemption_opts()
         assert p.scheduler_kwargs() == j.scheduler_kwargs()
         pe, je = p.engine_kwargs(), j.engine_kwargs()
         assert pe == {k: je[k] for k in pe}
-        assert set(je) - set(pe) == {"packed", "spec_mode", "spec_k",
-                                     "draft_config"}
+        assert set(je) - set(pe) == {"packed"}
 
 
 BAD = [dict(scheduler="fcfs"), dict(clock="sundial"), dict(arrival="gamma"),
@@ -130,7 +131,8 @@ BAD = [dict(scheduler="fcfs"), dict(clock="sundial"), dict(arrival="gamma"),
        dict(tbt_slo=-1.0), dict(pages=0), dict(host_pages=-2),
        dict(swap_in_budget=0), dict(prefix_lru_pages=0),
        dict(batch_fraction=1.5), dict(batch_fraction=-0.1),
-       dict(class_headroom=-1), dict(decode_reserve=-1)]
+       dict(class_headroom=-1), dict(decode_reserve=-1),
+       dict(spec="eagle"), dict(spec_k=0), dict(spec="draft")]
 
 
 @pytest.mark.parametrize("kw", BAD, ids=[next(iter(k)) + "=" + str(
@@ -144,7 +146,7 @@ def test_validate_rejects_what_jax_rejects(kw):
 
 def test_validate_checks_the_ports_own_fields():
     for kw in (dict(dtype="float16"), dict(prompt_len=(10, 5)),
-               dict(new_tokens=(0, 4)), dict(arch="yi-34b")):
+               dict(new_tokens=(0, 4)), dict(arch="deepseek-v2-236b")):
         with pytest.raises(ValueError):
             ServeConfig(**kw).validate()
     ServeConfig(arch="gpt-oss-20b", dtype="float32", prompt_len=(4, 9),
