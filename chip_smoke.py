@@ -66,7 +66,28 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    its operands; layered expert-load <= chunked; on the short trace the
    dense and the ragged layered serves give the same expert-load bytes
    and the same token streams (each serve's record carries a digest of
-   its token streams, to compare trees).  Then profile the ragged layered
+   its token streams, to compare trees).  Then disaggregated serving:
+   two pools (a prefill engine and a decode engine) over the one copy of
+   the weights, on the launcher's closed-loop generator (8 requests of
+   16-1023 prompt tokens and 4-15 new ones, max_len 2048, 8 slots a pool,
+   ragged): layered with streaming handoff (each layer group's K/V copied
+   to pinned host memory as it completes) and with whole-prompt handoff,
+   chunked with streaming, and the monolithic layered engine on the same
+   requests as the yardstick; then chaos: the two pools layered/stream
+   under two link drops, a link delay and a crash of each pool, and the
+   swap serve under a seeded plan of crashes, pressure spikes, swap-DMA
+   failures and client disconnects (retry budget 50).  Each two-pool
+   serve must run no prefill slice on the decode pool; its prefill pool
+   must launch exactly K1 and K2 and its decode pool K1 and K3; every
+   export must move the prompt's K/V (98 304 B a token at qwen3's
+   widths) and nothing else; it must sync the host once per iteration of
+   each pool plus once per whole-prompt export; stream and whole must
+   give the same streams.  Chaos serves must inject every planned fault,
+   complete or shed (with a reason) every request, and leave no page in
+   use on any allocator.  Where two-pool streams part from the
+   monolithic ones, and chaos survivors from their fault-free serve, the
+   first parting position and its logit gap in bf16 ulps are reported,
+   not asserted.  Then profile the ragged layered
    and the dense layered serve once more (device time by kernel, the
    device's busy share).
 5. free qwen3 and serve gpt-oss-20b at full width (d_model 2880, 64/8
@@ -811,6 +832,34 @@ def draft_engine(a, model, params, draft, spec_k=4):
         draft_model=draft[0], draft_params=draft[1]))
 
 
+def traced(fn):
+    """``fn()`` with the kernel launch counts set to 0 just before it (the
+    comparison launches of phase 2 do not count) and read just after, and
+    the host syncs it makes counted by site (torch reports each
+    synchronizing call as a warning in its sync debug mode): (result,
+    launches, syncs by site)."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            r = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return r, dict(ops.LAUNCHES), sites
+
+
+def streams_sha256(outputs: dict) -> str:
+    """A digest of a serve's token streams, to compare trees."""
+    return hashlib.sha256(json.dumps(outputs, sort_keys=True, default=int)
+                          .encode()).hexdigest()[:16]
+
+
 def run_serve(a, model, params, trace=None, draft=None) -> dict:
     """One serve through the port's launcher (closed loop, or open loop
     over ``trace`` / ``a.engine_trace``; ``draft`` = (model, params)
@@ -831,44 +880,21 @@ def run_serve(a, model, params, trace=None, draft=None) -> dict:
     spec = eng.spec_mode
     tag = f"{a.arch} {a.moe_dispatch}/{a.scheduler}" + (
         f" spec {spec}" if spec != "off" else "")
-    # counts start at 0 just before the main path (the comparison
-    # launches of phase 2 do not count) and are read just after
-    ops.reset_launches()
-    # count the host syncs the serve makes: torch reports each
-    # synchronizing call as a warning in its sync debug mode
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            r = run_engine(eng, a, trace)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    counts = dict(ops.LAUNCHES)
-    sites = collections.Counter(
-        f"{Path(w.filename).name}:{w.lineno}" for w in caught
-        if "synchroniz" in str(w.message))
-    r["streams_sha256"] = hashlib.sha256(json.dumps(
-        r["outputs"], sort_keys=True, default=int).encode()).hexdigest()[:16]
+    r, counts, sites = traced(lambda: run_engine(eng, a, trace))
+    r["streams_sha256"] = streams_sha256(r["outputs"])
     r["host_syncs"] = sum(sites.values())
     r["host_sync_sites"] = dict(sites)
     r["launches"] = counts
     r["pad_copies"] = dict(ops.PAD_COPIES)
     r["arch"] = a.arch
     need, may = path_kernels(eng)
+    if a.fault_plan is not None:
+        tag += " chaos"
+        eng.alloc.check_invariants()
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    vocab = model.cfg.vocab_size
-    if r["completed"] != r["requests"]:
-        raise AssertionError(f"{tag}: {r['completed']}/{r['requests']} "
-                             "requests completed")
-    short = [rid for rid, t in r["outputs"].items()
-             if len(t) != r["max_new"][rid]]
-    if short:
-        raise AssertionError(f"{tag}: requests {short} did not get all "
-                             "their tokens")
-    if any(not 0 <= x < vocab for t in r["outputs"].values() for x in t):
-        raise AssertionError(f"{tag}: token id out of range")
+    check_served(tag, a, r, model.cfg.vocab_size)
     missing = [k for k in need if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{tag}: kernels never launched: {missing}")
@@ -911,6 +937,9 @@ def run_serve(a, model, params, trace=None, draft=None) -> dict:
                   f"{r['n_spec_accepted']} accepted (share "
                   f"{r['accepted_share']:.4f}), {r['n_verify_dispatches']} "
                   f"verify + {r['n_draft_dispatches']} draft launches")
+    if a.fault_plan is not None:
+        extra += (f", faults injected {r['fault_counters']}, shed "
+                  f"{r['shed']}, retries {r['fault_stats']['n_fault_retries']}")
     log(f"{tag}{' open-loop ' + a.clock if a.open_loop else ''}: "
         f"{r['requests']} requests, {r['iterations']} iterations, "
         f"{r['ms_per_iter']:.1f} ms/iter, {lat}expert-load "
@@ -919,6 +948,44 @@ def run_serve(a, model, params, trace=None, draft=None) -> dict:
         f"{r['host_sync_sites']}, launches {counts}, padded MoE copies "
         f"{r['pad_copies']}, token streams sha256 {r['streams_sha256']}")
     return r
+
+
+def plan_kinds(a) -> collections.Counter:
+    """The events of ``a.fault_plan`` by kind (empty without one)."""
+    from repro_torch.serving.faults import FaultPlan
+    if a.fault_plan is None:
+        return collections.Counter()
+    return collections.Counter(e.kind for e in
+                               FaultPlan.load(a.fault_plan).events)
+
+
+def check_served(tag: str, a, r: dict, vocab: int) -> None:
+    """Every request completed with all its ``max_new_tokens`` in-vocabulary
+    tokens or, in a chaos serve, was shed with a reason and a stream no
+    longer than that; a chaos serve injected every event of its plan and
+    left no page in use on the device or the host."""
+    shed = r.get("shed", {})
+    if r["completed"] + len(shed) != r["requests"]:
+        raise AssertionError(f"{tag}: {r['completed']} completed + "
+                             f"{len(shed)} shed of {r['requests']} requests")
+    short = [rid for rid, t in r["outputs"].items()
+             if rid not in shed and len(t) != r["max_new"][rid]
+             or len(t) > r["max_new"][rid]]
+    if short:
+        raise AssertionError(f"{tag}: requests {short} did not get all "
+                             "their tokens")
+    if any(not 0 <= x < vocab for t in r["outputs"].values() for x in t):
+        raise AssertionError(f"{tag}: token id out of range")
+    injected = collections.Counter({k[2:]: v for k, v in
+                                    r["fault_counters"].items() if v})
+    if injected != plan_kinds(a):
+        raise AssertionError(f"{tag}: injected {dict(injected)}, planned "
+                             f"{dict(plan_kinds(a))}")
+    if a.fault_plan is not None and (r["pages_left"]
+                                     or r["host_pages_left"]):
+        raise AssertionError(f"{tag}: {r['pages_left']} device and "
+                             f"{r['host_pages_left']} host pages in use "
+                             "at drain")
 
 
 def _same_streams(x: dict, y: dict) -> str:
@@ -1163,14 +1230,17 @@ def serve_qwen3(times: dict, explain: bool = False) -> dict:
     t0 = _phase("qwen3 other schedulers", t0, times)
 
     spec = serve_spec(model, params, short, runs, times, t0)
+    disagg = serve_disagg(model, params, runs, times, time.perf_counter())
 
+    t0 = time.perf_counter()
     profile_serve(dataclasses.replace(base, scheduler="layered"), model,
                   params)
     profile_serve(dataclasses.replace(short, scheduler="layered",
                                       moe_dispatch="dense"), model, params)
     _phase("qwen3 profiles", t0, times)
     del model, params
-    return {"runs": runs, "divergence": divergence, "spec": spec}
+    return {"runs": runs, "divergence": divergence, "spec": spec,
+            "disagg": disagg}
 
 
 def repetitive_trace(vocab: int, seed: int = 0) -> list:
@@ -1334,6 +1404,207 @@ def serve_spec(model, params, short, runs: dict, times: dict, t0) -> dict:
                                          ("twin-draft", "off"))}
     _phase("qwen3 spec stream comparison", t0, times)
     return {**out, "self-draft step": step}
+
+
+# the kernels each pool of a two-pool serve launches: the prefill pool
+# never decodes (completed prefills migrate in the iteration that ends
+# them), the decode pool never prefills
+POOL_KERNELS = {"prefill": {"moe_gmm_ragged", "prefill_attention"},
+                "decode": {"moe_gmm_ragged", "decode_attention"}}
+# the two-pool chaos schedule of tests/test_faults.py: two link drops, a
+# link delay and a crash of each pool (target 0: prefill, 1: decode)
+LINK_FAULTS = [dict(iteration=2, kind="link_drop"),
+               dict(iteration=6, kind="link_delay", magnitude=3.0),
+               dict(iteration=10, kind="link_drop", target=1),
+               dict(iteration=8, kind="executor_crash", target=0),
+               dict(iteration=20, kind="executor_crash", target=1)]
+# the monolithic chaos schedule: a seeded plan over the swap serve's
+# oversubscribed pool, every event of which comes due in that serve
+CHAOS_SEED = dict(seed=8, horizon=30, n_events=6,
+                  kinds=["executor_crash", "pressure_spike",
+                         "swap_dma_fail", "client_disconnect"])
+
+
+def disagg_config(arch: str):
+    """The two-pool serves' config: the launcher's closed-loop generator
+    (8 requests, prompts of 16-1023 tokens, 4-15 new), max_len 2048, 8
+    slots on each pool, ragged dispatch, the prefix cache on."""
+    from repro_torch.launch.serve import ServeConfig
+    return ServeConfig(arch=arch, disagg=True, requests=8, max_len=2048,
+                       slots=8, quantum=512, token_budget=512, seed=0)
+
+
+def kv_bytes_per_token(cfg) -> int:
+    """bf16 K and V bytes of one token over every layer."""
+    return cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim_ * 2
+
+
+def run_disagg_serve(a, model, params) -> dict:
+    """One two-pool serve through the port's launcher (``run_disagg`` on
+    engines from ``build_disagg_engines``), with each pool's kernel
+    launches read around its every ``execute_plan`` and each export's
+    prompt length and bytes recorded; raises unless the decode pool ran no
+    prefill slice, every request completed (or, in a chaos serve, was shed
+    with a reason) with in-vocabulary tokens, no page is in use on either
+    pool's device or host pool and both allocators' invariants hold, the
+    plan's every fault was injected, each pool launched exactly its
+    kernels (``POOL_KERNELS``), every export moved the prompt's K/V and
+    nothing else, and the serve synced the host once per iteration of
+    each pool plus once per whole-prompt export."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_disagg_engines, run_disagg
+    ep, ed = build_disagg_engines(a, model, params)
+    tag = (f"{a.arch} two-pool {a.scheduler}/{a.handoff}"
+           + (" chaos" if a.fault_plan is not None else ""))
+    per_pool = {"prefill": collections.Counter(),
+                "decode": collections.Counter()}
+    for pool, eng in (("prefill", ep), ("decode", ed)):
+        def execute_plan(plan, _execute=eng.execute_plan,
+                         _counts=per_pool[pool]):
+            before = dict(ops.LAUNCHES)
+            events = _execute(plan)
+            _counts.update({k: v - before[k] for k, v in ops.LAUNCHES.items()})
+            return events
+        eng.execute_plan = execute_plan
+    exports = []
+
+    def export_request(rid, _export=ep.export_request):
+        p = _export(rid)
+        blob = [rows for _, _, rows in p["chunks"]] if p["row"] is None \
+            else p["row"]
+        exports.append((p["offset"], len(p["chunks"]), sum(
+            t.numel() * t.element_size() for t in _leaves(blob))))
+        return p
+    ep.export_request = export_request
+    r, launches, sites = traced(lambda: run_disagg(ep, ed, a))
+    r["launches"] = launches
+    r["streams_sha256"] = streams_sha256(r["outputs"])
+    r["launches_by_pool"] = {k: dict(v) for k, v in per_pool.items()}
+    r["arch"] = a.arch
+    for eng in (ep, ed):
+        eng.alloc.check_invariants()
+    del ep, ed
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_served(tag, a, r, model.cfg.vocab_size)
+    if r["decode_prefill_slices"] != 0:
+        raise AssertionError(f"{tag}: {r['decode_prefill_slices']} prefill "
+                             "slices on the decode pool")
+    if r["pages_left"] or r["host_pages_left"]:
+        raise AssertionError(f"{tag}: {r['pages_left']} device and "
+                             f"{r['host_pages_left']} host pages in use at "
+                             "drain")
+    for pool, want in POOL_KERNELS.items():
+        got = {k for k, v in per_pool[pool].items() if v}
+        if got != want:
+            raise AssertionError(f"{tag}: the {pool} pool launched "
+                                 f"{dict(per_pool[pool])}, not {sorted(want)}")
+    per_token = kv_bytes_per_token(model.cfg)
+    moved = sum(b for _, _, b in exports)
+    if moved != sum(n for n, _, _ in exports) * per_token \
+            or moved != r["handoff_bytes"]:
+        raise AssertionError(f"{tag}: handoff bytes {r['handoff_bytes']}, "
+                             f"exports moved {moved} for "
+                             f"{sum(n for n, _, _ in exports)} prompt tokens "
+                             f"x {per_token} B")
+    whole = sum(1 for _, n_chunks, _ in exports if n_chunks == 0)
+    if a.handoff == "whole" and whole != len(exports):
+        raise AssertionError(f"{tag}: {len(exports) - whole} exports "
+                             "streamed under whole handoff")
+    # the two synchronize() calls that bound the timing are torch's own
+    # (torch/cuda/__init__.py) or the launcher's; the rest are the serve's
+    timing = sum(v for k, v in sites.items()
+                 if k.startswith(("serve.py:", "__init__.py:")))
+    r["host_syncs"] = sum(sites.values()) - timing
+    r["host_sync_sites"] = dict(sites)
+    r["whole_exports"] = whole
+    if r["host_syncs"] != r["iterations"] + whole:
+        raise AssertionError(f"{tag}: {r['host_syncs']} host syncs in "
+                             f"{r['iterations']} iterations and {whole} "
+                             f"whole-prompt exports: {dict(sites)}")
+    r["n_exports"] = len(exports)
+    log(f"{tag}: {r['requests']} requests, {r['n_prefill_iterations']} "
+        f"prefill + {r['n_decode_iterations']} decode iterations, "
+        f"{r['ms_per_iter']:.1f} ms/iter, expert-load prefill / decode "
+        f"{r['expert_load_bytes_prefill'] / 1e6:.1f} / "
+        f"{r['expert_load_bytes_decode'] / 1e6:.1f} MB, "
+        f"{r['n_migrations']} migrations of {len(exports)} exports "
+        f"({whole} whole-prompt), {r['n_returns']} returns, handoff "
+        f"{r['handoff_bytes'] / 1e6:.1f} MB "
+        f"(= {sum(n for n, _, _ in exports)} prompt tokens x {per_token} B), "
+        f"{r['host_syncs']} host syncs {dict(sites)}, launches by pool "
+        f"{r['launches_by_pool']}"
+        + (f", faults injected {r['fault_counters']}, shed {r['shed']}, "
+           f"retries {r['fault_stats']['n_fault_retries']}"
+           if a.fault_plan is not None else "")
+        + f", token streams sha256 {r['streams_sha256']}")
+    return r
+
+
+def serve_disagg(model, params, runs: dict, times: dict, t0) -> dict:
+    """Phase 4, disaggregated serving at qwen3-30b-a3b width: two pools
+    over the one copy of the weights (``disagg_config``), layered with
+    streaming and with whole-prompt handoff, chunked with streaming, the
+    same requests through the monolithic layered engine as the yardstick;
+    then chaos: the two-pool layered/stream serve under ``LINK_FAULTS``,
+    and the monolithic swap serve under the seeded ``CHAOS_SEED`` plan
+    (retry budget 50 each).  Streaming and whole-prompt handoff must give
+    the same streams; where the two-pool streams part from the monolithic
+    ones, and a chaos serve's from its fault-free serve, is reported."""
+    from repro_torch.serving.faults import FaultEvent, FaultPlan
+    _, short = serve_configs(model.cfg.name)
+    a = disagg_config(model.cfg.name)
+    for sched, handoff in (("layered", "stream"), ("layered", "whole"),
+                           ("chunked", "stream")):
+        runs[f"two-pool {sched}/{handoff}"] = run_disagg_serve(
+            dataclasses.replace(a, scheduler=sched, handoff=handoff), model,
+            params)
+    mono = runs["two-pool yardstick, layered"] = run_serve(
+        dataclasses.replace(a, disagg=False), model, params)
+    st, wh = runs["two-pool layered/stream"], runs["two-pool layered/whole"]
+    if st["outputs"] != wh["outputs"]:
+        raise AssertionError(f"two-pool layered: stream and whole handoff "
+                             f"give other streams: {_same_streams(st, wh)}")
+    if wh["handoff_bytes"] != st["handoff_bytes"]:
+        raise AssertionError(f"handoff bytes stream {st['handoff_bytes']}, "
+                             f"whole {wh['handoff_bytes']}")
+    ch = runs["two-pool chunked/stream"]
+    log(f"two-pool / monolithic layered expert-load "
+        f"{st['expert_load_bytes'] / 1e6:.1f} (prefill "
+        f"{st['expert_load_bytes_prefill'] / 1e6:.1f} + decode "
+        f"{st['expert_load_bytes_decode'] / 1e6:.1f}) / "
+        f"{mono['expert_load_bytes'] / 1e6:.1f} MB, chunked two-pool "
+        f"{ch['expert_load_bytes'] / 1e6:.1f} MB; ms/iter two-pool "
+        f"{st['ms_per_iter']:.1f} / {wh['ms_per_iter']:.1f} (stream / whole) "
+        f"over {st['iterations']} pool iterations, monolithic "
+        f"{mono['ms_per_iter']:.1f} over {mono['iterations']}")
+    t0 = _phase("qwen3 two-pool serves", t0, times)
+
+    plan = FaultPlan(events=[FaultEvent(**e) for e in LINK_FAULTS])
+    runs["two-pool chaos"] = run_disagg_serve(
+        dataclasses.replace(a, fault_plan=plan.to_json(), retry_budget=50),
+        model, params)
+    swap = dataclasses.replace(short, requests=8, new_tokens=(48, 49),
+                               pages=80, preemption="swap")
+    seeded = FaultPlan.from_seed(CHAOS_SEED["seed"],
+                                 horizon=CHAOS_SEED["horizon"],
+                                 n_events=CHAOS_SEED["n_events"],
+                                 kinds=CHAOS_SEED["kinds"])
+    runs["swap layered chaos"] = run_serve(
+        dataclasses.replace(swap, fault_plan=seeded.to_json(),
+                            retry_budget=50), model, params)
+    t0 = _phase("qwen3 chaos serves", t0, times)
+    out = {"two-pool vs monolithic": compare_streams(
+               model, params, st, mono, ("two-pool", "monolithic")),
+           "two-pool chaos vs fault-free": compare_streams(
+               model, params, runs["two-pool chaos"], st,
+               ("chaos", "fault-free")),
+           "swap chaos vs fault-free": compare_streams(
+               model, params, runs["swap layered chaos"],
+               runs["swap layered"], ("chaos", "fault-free"))}
+    _phase("qwen3 two-pool stream comparison", t0, times)
+    return out
 
 
 def serve_gpt_oss(times: dict) -> dict:
@@ -1628,6 +1899,7 @@ def main() -> None:
         log("bf16 divergence " + json.dumps(qwen["divergence"]))
     log("spec streams against spec off " + json.dumps(
         {**qwen["spec"], "phi4-mini ngram": dense["spec"]}))
+    log("two-pool and chaos streams " + json.dumps(qwen["disagg"]))
     log("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in times.items()}))
     log(f"total {time.perf_counter() - t_start:.1f} s")

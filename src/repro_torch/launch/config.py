@@ -1,7 +1,7 @@
 """ServeConfig: the one typed configuration behind the port's serving
 launcher — the JAX package's ``ServeConfig`` restricted to the fields the
-port runs, plus the port's own ``dtype``, ``device``, ``prompt_len`` and
-``new_tokens``.
+port runs (disaggregated pools and chaos mode included), plus the port's
+own ``dtype``, ``device``, ``prompt_len`` and ``new_tokens``.
 
   * ``add_arguments`` / ``from_args`` — the single argparse definition,
   * ``validate`` — cross-field checks, raising ``ValueError`` with the
@@ -12,8 +12,8 @@ port runs, plus the port's own ``dtype``, ``device``, ``prompt_len`` and
     generators with a length model shrunk to the engine's max_len).
 
 Not here: the simulator (and ``spec_acceptance``, which only the
-simulator reads), disaggregated pools, the HTTP front-end, fault
-injection and the per-slice ``packed=False`` path (none of them is
+simulator reads), the HTTP front-end (and ``deadline_ms``, which only its
+server reads) and the per-slice ``packed=False`` path (none of them is
 ported).  Everything here is declarative: no model construction, no torch
 import.
 """
@@ -65,6 +65,11 @@ class ServeConfig:
     # prefix cache
     prefix_cache: bool = True
     prefix_lru_pages: Optional[int] = None
+    # disaggregated prefill/decode pools
+    disagg: bool = False
+    handoff: str = "stream"             # stream | whole
+    decode_pages: Optional[int] = None
+    decode_watermark: int = 0
     # MoE / speculation
     moe_dispatch: str = "ragged"
     spec: str = "off"                   # off|ngram|draft
@@ -73,6 +78,9 @@ class ServeConfig:
     # SLO
     ttft_slo: float = 10.0
     tbt_slo: float = 0.125
+    # fault tolerance / chaos (serving/faults.py)
+    fault_plan: Optional[str] = None    # "@file.json" | "seed:N" | inline JSON
+    retry_budget: int = 3
     # the port's own: dtype override (None: the config's own), device
     # (None: cuda), and the closed loop's prompt and new-token ranges
     # [lo, hi) (None: the JAX launcher's (16, max_len // 2) and (4, 16))
@@ -93,6 +101,7 @@ class ServeConfig:
             "moe_dispatch": ("ragged", "dense"),
             "spec": ("off", "ngram", "draft"),
             "dtype": (None, "float32", "bfloat16"),
+            "handoff": ("stream", "whole"),
         }
         for name, opts in choices.items():
             if getattr(self, name) not in opts:
@@ -106,7 +115,7 @@ class ServeConfig:
                 raise ValueError(f"{name} must be positive "
                                  f"(got {getattr(self, name)})")
         for name in ("pages", "host_pages", "swap_in_budget",
-                     "prefix_lru_pages"):
+                     "prefix_lru_pages", "decode_pages"):
             v = getattr(self, name)
             if v is not None and v <= 0:
                 raise ValueError(f"{name} must be positive or None "
@@ -117,6 +126,12 @@ class ServeConfig:
         if self.class_headroom < 0 or self.decode_reserve is not None \
                 and self.decode_reserve < 0:
             raise ValueError("class_headroom/decode_reserve must be >= 0")
+        if self.decode_watermark < 0:
+            raise ValueError(f"decode_watermark must be >= 0 "
+                             f"(got {self.decode_watermark})")
+        if self.retry_budget < 0:
+            raise ValueError(f"retry_budget must be >= 0 "
+                             f"(got {self.retry_budget})")
         if self.spec == "draft" and not self.draft_config:
             raise ValueError("spec='draft' needs draft_config")
         for name in ("prompt_len", "new_tokens"):
@@ -196,6 +211,23 @@ class ServeConfig:
                         default=d.prefix_lru_pages,
                         help="cap on retained refcount-0 cached pages "
                              "(default: unbounded)")
+        ap.add_argument("--disagg", action="store_true",
+                        help="disaggregated serving: a prefill pool and a "
+                             "decode pool under one clock, over one copy "
+                             "of the weights, with KV handed off through "
+                             "pinned host memory")
+        ap.add_argument("--handoff", default=d.handoff,
+                        choices=["stream", "whole"],
+                        help="KV handoff granularity: stream each layer "
+                             "group's KV as its prefill completes, or copy "
+                             "the whole prompt after the last group")
+        ap.add_argument("--decode-pages", type=int, default=d.decode_pages,
+                        help="decode-pool KV pages (default: same as the "
+                             "prefill pool)")
+        ap.add_argument("--decode-watermark", type=int,
+                        default=d.decode_watermark,
+                        help="hold new arrivals while decode-pool free "
+                             "pages are below this watermark")
         ap.add_argument("--moe-dispatch", default=d.moe_dispatch,
                         choices=["ragged", "dense"],
                         help="dropless MoE data path")
@@ -213,6 +245,14 @@ class ServeConfig:
         ap.add_argument("--ttft-slo", type=float, default=d.ttft_slo)
         ap.add_argument("--tbt-slo", type=float, default=d.tbt_slo)
         ap.add_argument("--seed", type=int, default=d.seed)
+        ap.add_argument("--fault-plan", default=d.fault_plan,
+                        help="chaos mode: a FaultPlan spec — '@plan.json' "
+                             "loads a file, 'seed:N' draws a deterministic "
+                             "random schedule, anything else parses as "
+                             "inline JSON (default: no fault injection)")
+        ap.add_argument("--retry-budget", type=int, default=d.retry_budget,
+                        help="fault recoveries (crash/link-drop "
+                             "recomputes) per request before it is shed")
         ap.add_argument("--dtype", default=None,
                         choices=["float32", "bfloat16"],
                         help="override the config's activation/param dtype")

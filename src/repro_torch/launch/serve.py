@@ -10,6 +10,17 @@ or on the wall clock with ``--clock wall``).  Every flag lives on
 ``ServeConfig`` (launch/config.py).  The report prints the JAX launcher's
 ``[serve]`` lines plus each kernel's launch count.
 
+``--disagg`` serves two pools under one ``DisaggRuntime`` clock: a
+prefill pool running ``--scheduler`` and a decode pool running the
+decode-only scheduler, two engines over ONE copy of the weights, each
+prompt's KV handed off through pinned host memory per layer group
+(``--handoff stream``) or whole (``--handoff whole``); it prints the JAX
+launcher's ``[serve-disagg]`` lines.  ``--fault-plan`` turns on chaos mode
+(injected executor crashes, link drops and delays, swap-DMA failures,
+pressure spikes and client disconnects, recovered within
+``--retry-budget`` retries per request) for either loop and prints the
+``chaos:`` line.
+
 Usage:
   # on the card, full qwen3-30b-a3b, layered prefill, closed loop:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-30b-a3b \\
@@ -27,6 +38,10 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-oss-20b \\
       --preemption swap --pages 64 --slots 8
 
+  # two pools, layered prefill pool, streaming KV handoff, chaos mode:
+  PYTHONPATH=src python -m repro_torch.launch.serve --disagg \\
+      --handoff stream --fault-plan seed:7 --max-len 2048 --slots 8
+
   # on the CPU, reduced model (the kernels' plain versions run):
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --requests 2
@@ -38,6 +53,7 @@ import argparse
 import dataclasses
 import math
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -48,9 +64,11 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.launch.config import ServeConfig
 from repro_torch.models.model import DecoderModel
-from repro_torch.serving.engine import Engine
+from repro_torch.serving.engine import Engine, EngineHandoff
+from repro_torch.serving.faults import FaultInjector, FaultPlan
 from repro_torch.serving.metrics import per_class_metrics, request_metrics
-from repro_torch.serving.runtime import EngineExecutor, ServingRuntime
+from repro_torch.serving.runtime import (DisaggRuntime, EngineExecutor,
+                                         ServingRuntime)
 
 
 def model_config(a: ServeConfig):
@@ -77,6 +95,33 @@ def build_engine(a: ServeConfig, model=None, params=None) -> Engine:
     return Engine(model, params, sched, **a.engine_kwargs())
 
 
+def _print_token(rid, tok, t) -> None:
+    print(f"[stream] t={t:8.2f} req={rid:<4} tok={tok}")
+
+
+def _arrivals(eng: Engine, a: ServeConfig, trace):
+    """The run's trace: ``trace`` (default ``a.engine_trace``) in the open
+    loop; in the closed loop the requests are submitted to ``eng`` now and
+    the trace is empty."""
+    if a.open_loop:
+        return a.engine_trace(eng.cfg.vocab_size) if trace is None else trace
+    submit_closed_loop(eng, a)
+    return ()
+
+
+def _timed_run(runtime, trace, device):
+    """``runtime.run(trace)`` and its wall seconds on the host clock,
+    synchronized with the card at both ends."""
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = runtime.run(trace, max_iterations=100_000)
+    if cuda:
+        torch.cuda.synchronize()
+    return result, time.perf_counter() - t0
+
+
 def submit_closed_loop(eng: Engine, a: ServeConfig) -> None:
     """Closed-loop requests with random prompts drawn from ``a.seed``."""
     rng = np.random.default_rng(a.seed)
@@ -94,17 +139,52 @@ def _f(v, spec: str = ".2f") -> str:
     return format(v, spec)
 
 
-def _print_per_class(requests, slo=None) -> None:
+def _print_per_class(tag: str, requests, slo=None) -> None:
     per = per_class_metrics(requests, slo)
     if len(per) < 2:
         return
     for cls, m in per.items():
         att = f" slo={_f(m['slo_attainment'])}" if "slo_attainment" in m \
             else ""
-        print(f"[serve]   class {cls:<12} n={m['n_requests']:.0f} "
+        print(f"[{tag}]   class {cls:<12} n={m['n_requests']:.0f} "
               f"ttft mean={_f(m['ttft_mean'])} p99={_f(m['ttft_p99'])}; "
               f"preempt rate {_f(m['preemption_rate'])}/req; "
               f"swap rate {_f(m['swap_rate'])}/req{att}")
+
+
+def build_faults(a: ServeConfig) -> Optional[FaultInjector]:
+    """Chaos mode: a deterministic ``FaultInjector`` from ``--fault-plan``
+    ('@file.json' | 'seed:N' | inline JSON), or None when off."""
+    if a.fault_plan is None:
+        return None
+    return FaultInjector(FaultPlan.load(a.fault_plan))
+
+
+def _print_faults(tag: str, fi: Optional[FaultInjector], requests) -> None:
+    """Chaos-run report line: what was injected and what got shed (a
+    DONE request with ``shed_reason`` set never completed)."""
+    if fi is None:
+        return
+    shed: dict = {}
+    for r in requests:
+        if r.shed_reason is not None:
+            shed[r.shed_reason] = shed.get(r.shed_reason, 0) + 1
+    inj = ", ".join(f"{k[2:]}={v}" for k, v in sorted(fi.counters.items())
+                    if v)
+    sheds = ", ".join(f"{k}={v}" for k, v in sorted(shed.items()))
+    print(f"[{tag}] chaos: {sum(fi.counters.values())} faults injected"
+          + (f" ({inj})" if inj else "")
+          + (f"; shed {sheds}" if sheds else "; no requests shed"))
+
+
+def _fault_report(fi: Optional[FaultInjector], runtime, reqs) -> dict:
+    """The chaos run's numbers for the caller: injected-fault counters by
+    kind, the runtime's ``fault_stats()`` and each shed request's
+    reason."""
+    return {"fault_counters": dict(fi.counters) if fi is not None else {},
+            "fault_stats": runtime.fault_stats(),
+            "shed": {r.req_id: r.shed_reason for r in reqs
+                     if r.shed_reason is not None}}
 
 
 def serve_real(a: ServeConfig, model=None, params=None, trace=None) -> dict:
@@ -119,32 +199,19 @@ def run_engine(eng: Engine, a: ServeConfig, trace=None) -> dict:
     ``a.engine_trace``) on the iteration clock or, with ``a.clock ==
     "wall"``, on the wall clock.  Prints the report and returns its
     numbers; TTFT/TBT are in the clock's unit (seconds on the wall clock,
-    iterations otherwise).  Speculation is the engine's own."""
+    iterations otherwise).  Speculation is the engine's own; with
+    ``a.fault_plan`` the runtime injects its faults (chaos mode)."""
 
-    def _stream(rid, tok, t):
-        print(f"[stream] t={t:8.2f} req={rid:<4} tok={tok}")
-    on_token = _stream if a.stream else None
+    faults = build_faults(a)
     wall_clock = a.open_loop and a.clock == "wall"
-    if a.open_loop:
-        if trace is None:
-            trace = a.engine_trace(eng.cfg.vocab_size)
-        runtime = ServingRuntime(
-            EngineExecutor(eng, wall=wall_clock), on_token=on_token,
-            clock="executor" if wall_clock else "iteration")
-    else:
-        trace = ()
-        submit_closed_loop(eng, a)
-        runtime = ServingRuntime(EngineExecutor(eng), on_token=on_token,
-                                 clock="iteration")
+    trace = _arrivals(eng, a, trace)
+    runtime = ServingRuntime(
+        EngineExecutor(eng, wall=wall_clock),
+        on_token=_print_token if a.stream else None,
+        clock="executor" if wall_clock else "iteration", faults=faults,
+        retry_budget=a.retry_budget)
     unit = "s" if wall_clock else "iters"
-    cuda = eng.device.type == "cuda"
-    if cuda:
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    runtime.run(trace, max_iterations=100_000)
-    if cuda:
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    _, wall = _timed_run(runtime, trace, eng.device)
     reqs = list(eng.requests.values())
     m = request_metrics(reqs)
     cfg = eng.cfg
@@ -195,8 +262,10 @@ def run_engine(eng: Engine, a: ServeConfig, trace=None) -> dict:
               f"{_f(m['restore_latency_mean'], '.3g')} {unit}")
     print("[serve] kernel launches: " + ", ".join(
         f"{k} {v}" for k, v in ops.LAUNCHES.items()))
-    _print_per_class(reqs, a.slo())
-    done = sum(r.finish_time is not None for r in reqs)
+    _print_faults("serve", faults, reqs)
+    _print_per_class("serve", reqs, a.slo())
+    done = sum(r.finish_time is not None and r.shed_reason is None
+               for r in reqs)
     return {"iterations": eng.iteration, "wall_s": wall,
             "ms_per_iter": wall * 1e3 / max(eng.iteration, 1),
             "expert_load_bytes": eng.expert_load_bytes,
@@ -217,7 +286,109 @@ def run_engine(eng: Engine, a: ServeConfig, trace=None) -> dict:
             "n_draft_dispatches": eng.n_draft_dispatches,
             "n_spec_proposed": eng.n_spec_proposed,
             "n_spec_accepted": eng.n_spec_accepted,
-            "clock_unit": unit,
+            "clock_unit": unit, "pages_left": eng.alloc.pages_in_use(),
+            "host_pages_left": eng.alloc.host_pages_in_use(),
+            **_fault_report(faults, runtime, reqs),
+            **{k: m[k] for k in ("ttft_p50", "ttft_p99", "tbt_p50",
+                                 "tbt_p99")}}
+
+
+def build_disagg_engines(a: ServeConfig, model=None, params=None):
+    """(prefill, decode) Engine pair over ONE model and ONE set of weights
+    (two copies of a full-size model would not fit on one card): the
+    prefill pool runs ``a.scheduler``, the decode pool the internal
+    decode-only scheduler (residents arrive via ``adopt``), with
+    ``a.decode_pages`` pages (default: the prefill pool's)."""
+    if model is None:
+        model, params = build_model(a)
+    sp = make_scheduler(a.scheduler, model.n_blocks, **a.scheduler_kwargs())
+    sd = make_scheduler("decode", model.n_blocks, **a.scheduler_kwargs())
+    ekw = a.engine_kwargs()
+    dkw = dict(ekw, pages=a.decode_pages if a.decode_pages is not None
+               else ekw["pages"])
+    return (Engine(model, params, sp, **ekw),
+            Engine(model, params, sd, **dkw))
+
+
+def serve_disagg_real(a: ServeConfig, model=None, params=None,
+                      trace=None) -> dict:
+    """Build the two pools and serve (``run_disagg``)."""
+    return run_disagg(*build_disagg_engines(a, model, params), a, trace)
+
+
+def run_disagg(ep: Engine, ed: Engine, a: ServeConfig, trace=None) -> dict:
+    """Two-pool serve on the iteration clock: the prefill engine ``ep``
+    and the decode engine ``ed`` under one ``DisaggRuntime``, the KV
+    handed off through ``EngineHandoff`` (``a.handoff``: stream or
+    whole).  Closed loop (``a.requests`` random requests submitted to the
+    prefill pool up front) or, with ``a.open_loop``, a replay of ``trace``
+    (default ``a.engine_trace``) with arrival times in iterations.  Prints
+    the JAX launcher's ``[serve-disagg]`` lines (plus each pool's expert
+    bytes, ms/iter and kernel launches) and returns its numbers."""
+
+    bridge = EngineHandoff(ep, ed, streaming=a.handoff == "stream")
+    faults = build_faults(a)
+    runtime = DisaggRuntime(
+        EngineExecutor(ep), EngineExecutor(ed), bridge,
+        on_token=_print_token if a.stream else None, clock="iteration",
+        decode_watermark_pages=a.decode_watermark,
+        faults=faults, retry_budget=a.retry_budget)
+    rr, wall = _timed_run(runtime, _arrivals(ep, a, trace), ep.device)
+    reqs = sorted(rr.requests, key=lambda r: r.req_id)
+    m = request_metrics(reqs)
+    cfg = ep.cfg
+    loop = "open-loop" if a.open_loop else "closed-loop"
+    print(f"[serve-disagg] {cfg.name} x {a.scheduler}+decode ({loop}, "
+          f"{a.handoff} handoff): {a.requests} requests in "
+          f"{rr.n_prefill_iterations} prefill + "
+          f"{rr.n_decode_iterations} decode iterations")
+    print(f"[serve-disagg] ttft(iters) mean={_f(m['ttft_mean'], '.1f')} "
+          f"p99={_f(m['ttft_p99'], '.1f')}; "
+          f"{rr.n_migrations} migrations ({rr.n_returns} returns), "
+          f"{rr.handoff_bytes / 1e6:.1f} MB handed off, "
+          f"queue peak {rr.migration_queue_peak}")
+    print(f"[serve-disagg] handoff chunks/req "
+          f"{_f(m['handoff_chunks_mean'], '.1f')}; link ratio "
+          f"{_f(m['handoff_link_ratio'])}; decode-pool prefill slices "
+          f"{rr.decode_prefill_slices} (must stay 0)")
+    print(f"[serve-disagg] kv high-water prefill "
+          f"{ep.alloc.pages_high_water}/{ep.alloc.n_pages}, decode "
+          f"{ed.alloc.pages_high_water}/{ed.alloc.n_pages}; "
+          f"preemptions {ep.n_preempted}+{ed.n_preempted}")
+    print(f"[serve-disagg] expert-load prefill "
+          f"{ep.expert_load_bytes / 1e6:.1f} MB + decode "
+          f"{ed.expert_load_bytes / 1e6:.1f} MB; "
+          f"{wall * 1e3 / max(rr.n_iterations, 1):.1f} ms/iter wall; "
+          "kernel launches: " + ", ".join(
+              f"{k} {v}" for k, v in ops.LAUNCHES.items()))
+    _print_faults("serve-disagg", faults, reqs)
+    _print_per_class("serve-disagg", reqs)
+    outputs = {**ep.outputs, **ed.outputs}
+    return {"iterations": rr.n_iterations,
+            "n_prefill_iterations": rr.n_prefill_iterations,
+            "n_decode_iterations": rr.n_decode_iterations,
+            "wall_s": wall,
+            "ms_per_iter": wall * 1e3 / max(rr.n_iterations, 1),
+            "expert_load_bytes": ep.expert_load_bytes + ed.expert_load_bytes,
+            "expert_load_bytes_prefill": ep.expert_load_bytes,
+            "expert_load_bytes_decode": ed.expert_load_bytes,
+            "completed": sum(r.finish_time is not None
+                             and r.shed_reason is None for r in reqs),
+            "requests": len(reqs),
+            "outputs": {rid: [int(x) for x in t]
+                        for rid, t in sorted(outputs.items())},
+            "prompts": {r.req_id: list(r.prompt_tokens) for r in reqs},
+            "max_new": {r.req_id: r.max_new_tokens for r in reqs},
+            "n_migrations": rr.n_migrations, "n_returns": rr.n_returns,
+            "handoff_bytes": rr.handoff_bytes,
+            "migration_queue_peak": rr.migration_queue_peak,
+            "decode_prefill_slices": rr.decode_prefill_slices,
+            "n_preempted": ep.n_preempted + ed.n_preempted,
+            "n_swapped_out": ep.n_swapped_out + ed.n_swapped_out,
+            "pages_left": ep.alloc.pages_in_use() + ed.alloc.pages_in_use(),
+            "host_pages_left": (ep.alloc.host_pages_in_use()
+                                + ed.alloc.host_pages_in_use()),
+            **_fault_report(faults, runtime, reqs),
             **{k: m[k] for k in ("ttft_p50", "ttft_p99", "tbt_p50",
                                  "tbt_p99")}}
 
@@ -229,7 +400,11 @@ def parse_args(argv=None) -> ServeConfig:
 
 
 def main(argv=None) -> None:
-    serve_real(parse_args(argv))
+    a = parse_args(argv)
+    if a.disagg:
+        serve_disagg_real(a)
+    else:
+        serve_real(a)
 
 
 if __name__ == "__main__":

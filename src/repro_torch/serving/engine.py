@@ -67,8 +67,22 @@ batch, padding routed as tokens.  So an MoE draft's proposals for a row
 depend on the other rows and on the padding, which fill the capacity of
 the experts they route to (ROADMAP §3); a dense draft's do not.
 
+Disaggregated serving (``EngineHandoff``, driven by ``DisaggRuntime``):
+two engines over one model and one set of weights, a prefill pool and a
+decode pool.  With ``handoff_staging`` on, the prefill pool copies each
+layer group's KV into pinned host memory as soon as the group's last
+token range completes (positions ``[0, prompt_len)`` of the group's
+blocks, queued right after the group's launch); the iteration's one
+``.cpu()`` completes the copies, so at export the chunks ARE the transfer.
+Without staging, or after a preemption voided the chunks, the export
+copies every layer's ``[0, offset)`` and syncs once.  The decode pool
+scatters the chunks into a fresh slot with ``non_blocking`` copies from
+pinned memory.  Only the prompt's positions move, as in a swap; the JAX
+engine moves each block's whole ``max_len`` slot row, so per migration
+``handoff bytes x max_len`` here equals the JAX engine's ``x prompt_len``.
+
 Not ported: encoder inputs (``enc_frames``) raise; the per-slice
-``packed=False`` reference path and the disaggregated handoff are absent.
+``packed=False`` reference path is absent.
 """
 
 from __future__ import annotations
@@ -89,9 +103,9 @@ from repro_torch.kernels.ops import (gather_slot_rows, scatter_slot_rows,
 from repro_torch.models.config import dtype_bytes
 from repro_torch.models.model import DecoderModel
 from repro_torch.serving.kvcache import PagedKVAllocator
-from repro_torch.serving.runtime import (EngineExecutor, RunResult,
-                                         ServingRuntime, TokenEvent,
-                                         timestamp_events)
+from repro_torch.serving.runtime import (EngineExecutor, Migration,
+                                         RunResult, ServingRuntime,
+                                         TokenEvent, timestamp_events)
 from repro_torch.serving.spec import (NgramDrafter, accepted_prefix,
                                       build_draft_model)
 
@@ -127,6 +141,24 @@ def _fetch(groups):
             i += t.numel()
         out.append(tuple(arrays))
     return out
+
+
+def _chunks_cover(chunks, n_blocks: int) -> bool:
+    """True iff the staged handoff chunks tile every block [0, n_blocks)
+    — the export can then be assembled without touching the device."""
+    nxt = 0
+    for b0, b1 in sorted((b0, b1) for b0, b1, _ in chunks):
+        if b0 > nxt:
+            return False
+        nxt = max(nxt, b1)
+    return nxt >= n_blocks
+
+
+def _nbytes(tree) -> int:
+    """Bytes of every tensor of a (nested list / tuple / dict) tree."""
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel() * t.element_size()), tree)
+    return sum(sizes)
 
 
 def _snapshot(c: Tensor, slot: int, n: int, host: bool) -> Tensor:
@@ -274,6 +306,16 @@ class Engine:
         self.stash: Dict[int, Tuple[Tensor, int, int]] = {}
         # swapped-out requests: req -> (host row copy, offset, last_tok)
         self.host_kv: Dict[int, Tuple[object, int, int]] = {}
+        # disaggregated handoff: with staging on (this engine is a prefill
+        # pool), each layer group whose KV completes is copied per block
+        # into pinned host memory, completed by the iteration's one
+        # ``.cpu()``; at export the chunks ARE the transfer.
+        # req -> [(block_start, block_end, host rows per block)]
+        self.handoff_staging = False
+        self._handoff_chunks: Dict[int, List[Tuple[int, int, list]]] = {}
+        self.n_handoffs_out = 0
+        self.n_handoffs_in = 0
+        self.handoff_bytes = 0
 
         # metrics
         self.iteration = 0
@@ -456,7 +498,10 @@ class Engine:
         ``.cpu()`` fetches every emitted token, proposal and expert-
         activation mask (and completes this iteration's swap-out copies),
         and all bookkeeping (offsets, EOS, token events, expert union,
-        acceptance) runs on the fetched values."""
+        acceptance) runs on the fetched values.  With ``handoff_staging``
+        on, the copies of every layer group that completes a prompt are
+        queued right after the group's launch and completed by the same
+        ``.cpu()``."""
         self._step_events = []
         dispatches0 = self.n_dispatches
         prefix_hits0, prefix_toks0 = self._prefix_seen
@@ -475,7 +520,11 @@ class Engine:
             self._admit(rid)
 
         groups = self._pack_slices(plan.prefill)
-        launched = [self._launch_prefill_group(*g) for g in groups]
+        launched = []
+        for g in groups:
+            launched.append(self._launch_prefill_group(*g))
+            if self.handoff_staging:
+                self._stage_handoff(g[3])
         prefill_tokens = sum(sl.n_tokens for sl in plan.prefill)
 
         # speculative verify-k: draft + verify are LAUNCHED here (device
@@ -547,15 +596,113 @@ class Engine:
         self.iteration += 1
         return self._step_events
 
+    # ------------------------------------------------ disaggregated handoff
+
+    def _stage_handoff(self, slices: List[PrefillSlice]) -> None:
+        """Group-granular streaming: a slice whose token range ends at the
+        prompt completes its blocks' KV in this launch — queue the copies
+        of those blocks' rows now, before any later write to the slot."""
+        for sl in slices:
+            if sl.token_end == self.requests[sl.req_id].prompt_len:
+                rows = self._slice_block_rows(sl.req_id, sl.block_start,
+                                              sl.block_end)
+                self._handoff_chunks.setdefault(sl.req_id, []).append(
+                    (sl.block_start, sl.block_end, rows))
+                self.handoff_bytes += _nbytes(rows)
+
+    def _slice_block_rows(self, rid: int, b0: int, b1: int) -> list:
+        """Copies of one slot's positions ``[0, prompt_len)`` for blocks
+        ``[b0, b1)``, each ``(1, prompt_len, ...)`` per leaf — the group-
+        granular handoff chunk, in pinned host memory on the card (no
+        host sync: the iteration's ``.cpu()`` completes it)."""
+        slot = self._slot_of[rid]
+        n = self.requests[rid].prompt_len
+        rows = []
+        for b in range(b0, b1):
+            s, r, p_idx = self.model.index_map[b]
+            rows.append(tree_map(
+                lambda c: _snapshot(c[r:r + 1], slot, n, host=True),
+                self.cache[s][p_idx]))
+        return rows
+
+    def _scatter_block_rows(self, slot: int, b0: int, b1: int,
+                            rows: list) -> None:
+        """Install imported per-block chunk rows into ``slot`` (the decode-
+        side half of the streaming handoff; no host sync)."""
+        for b, row in zip(range(b0, b1), rows):
+            s, r, p_idx = self.model.index_map[b]
+
+            def put(c: Tensor, x: Tensor) -> None:
+                c[r:r + 1, slot, :x.shape[1]].copy_(x, non_blocking=True)
+            tree_zip(put, self.cache[s][p_idx], row)
+
+    def export_request(self, rid: int) -> dict:
+        """Pull a migrating request's state off this engine (the prefill
+        pool): the staged KV chunks (or, when they do not tile the stack
+        — staging off, or a preemption dropped them — a one-off copy of
+        every layer's ``[0, offset)``), the token buffers, and the
+        allocator-level page export (shared-prefix pages stay warm in THIS
+        pool's LRU).  The caller has already ``pop_request``-ed the id
+        from the scheduler."""
+        req = self.requests.pop(rid)
+        slot = self._slot_of.pop(rid)
+        offset = int(self.offsets[slot])
+        last = int(self.last_tok[slot])
+        chunks = self._handoff_chunks.pop(rid, [])
+        row = None
+        if not _chunks_cover(chunks, self.model.n_blocks):
+            # whole-prompt fallback: the only host sync outside the
+            # per-iteration fetch (the payload is complete on the host
+            # before it leaves the pool), taken exactly when streaming
+            # was off
+            row = self._copy_row(slot, offset, host=True)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            chunks = []
+        self._free_slots.append(slot)
+        self.stash.pop(rid, None)
+        self.n_handoffs_out += 1
+        return {"req": req, "prompt": self.prompts.pop(rid),
+                "outputs": self.outputs.pop(rid),
+                "offset": offset, "last_tok": last,
+                "chunks": chunks, "row": row,
+                "kv": self.alloc.export_pages(rid)}
+
+    def import_request(self, payload: dict):
+        """Install an exported request on this engine (the decode pool):
+        land its pages (warm shared chains link for free), copy the staged
+        chunks — or the fallback row — into a fresh slot without blocking,
+        and resume decode where the prefill pool left off.  Returns the
+        allocator's ``KVImport``.  The caller adopts the request into this
+        engine's scheduler AFTER this lands."""
+        req = payload["req"]
+        rid = req.req_id
+        imp = self.alloc.import_pages(payload["kv"])
+        slot = self._free_slots.pop()
+        self._slot_of[rid] = slot
+        if payload["row"] is not None:
+            self._restore_row(slot, payload["row"])
+        else:
+            for b0, b1, rows in payload["chunks"]:
+                self._scatter_block_rows(slot, b0, b1, rows)
+        self.offsets[slot] = payload["offset"]
+        self.last_tok[slot] = payload["last_tok"]
+        self.requests[rid] = req
+        self.prompts[rid] = payload["prompt"]
+        self.outputs[rid] = payload["outputs"]
+        self.n_handoffs_in += 1
+        return imp
+
     def release_request(self, rid: int) -> None:
         """Drop every physical resource a SHED request still holds (slot
-        row, boundary stash, host copy) without touching its token
-        buffers."""
+        row, boundary stash, host copy, staged handoff chunks) without
+        touching its token buffers."""
         slot = self._slot_of.pop(rid, None)
         if slot is not None:
             self._free_slots.append(slot)
         self.host_kv.pop(rid, None)
         self.stash.pop(rid, None)
+        self._handoff_chunks.pop(rid, None)
 
     # -------------------------------------------------------------- helpers
 
@@ -570,6 +717,7 @@ class Engine:
         else:
             self.host_kv.pop(rid, None)
         self.stash.pop(rid, None)
+        self._handoff_chunks.pop(rid, None)   # staged KV is void post-fold
         # append only the tokens generated since the last fold
         tail = self.requests[rid].prompt_len - len(self.prompts[rid])
         if tail:
@@ -899,3 +1047,76 @@ class Engine:
             if self.alloc.owns(rid):        # EOS path frees via scheduler
                 self.alloc.free(rid)
             self.stash.pop(rid, None)
+            self._handoff_chunks.pop(rid, None)
+
+
+class EngineHandoff:
+    """``HandoffBridge`` over two Engines sharing one model + params.
+    With ``streaming=True`` the source engine stages each completed layer
+    group through its per-iteration fetch, so exports assemble from
+    chunks with zero extra host syncs; ``streaming=False`` is the whole-
+    prompt baseline (one copy and one sync per migration).  The transfer
+    is host-to-host, so ``ready_time == export_time``."""
+
+    def __init__(self, src: Engine, dst: Engine, *,
+                 streaming: bool = True):
+        if src.cfg is not dst.cfg and src.cfg != dst.cfg:
+            raise ValueError("prefill/decode engines must share the model "
+                             "config (KV layouts must match)")
+        src.handoff_staging = streaming
+        self.src = src
+        self.dst = dst
+
+    def decode_free_pages(self) -> int:
+        return self.dst.alloc.n_free_pages
+
+    def stage(self, plan, requests, t_end, duration) -> None:
+        pass            # the engine stages inside execute_plan
+
+    def export(self, req, now) -> Migration:
+        payload = self.src.export_request(req.req_id)
+        blob = [rows for _, _, rows in payload["chunks"]] \
+            if payload["row"] is None else payload["row"]
+        return Migration(req=req, payload=payload, export_time=now,
+                         ready_time=now, n_chunks=len(payload["chunks"]),
+                         bytes_total=float(_nbytes(blob)))
+
+    def can_import(self, m: Migration) -> bool:
+        return bool(self.dst._free_slots) \
+            and self.dst.alloc.can_import(m.payload["kv"])
+
+    def do_import(self, m: Migration, now) -> Dict[str, int]:
+        imp = self.dst.import_request(m.payload)
+        return {"linked_tokens": imp.linked_tokens,
+                "moved_tokens": imp.moved_tokens}
+
+    def drop(self, req_id: int) -> None:
+        self.src._handoff_chunks.pop(req_id, None)
+
+    def abort_export(self, m: Migration) -> None:
+        """A link failure lost migration ``m``'s payload in flight.
+        Reinstall its token buffers on the prefill engine — the generated
+        tail folds into the prompt array (the runtime already folded the
+        Request itself to PREEMPTED) — so the whole-prompt retry re-
+        prefills bit-identically.  The exported KV pages died with the
+        link: ``export_pages`` already freed them from this pool."""
+        req = m.req
+        rid = req.req_id
+        p = m.payload
+        prompt = np.asarray(p["prompt"], np.int32)
+        tail = req.prompt_len - len(prompt)
+        if tail:
+            prompt = np.concatenate(
+                [prompt, np.asarray(p["outputs"][-tail:], np.int32)])
+        assert len(prompt) == req.prompt_len, \
+            (rid, len(prompt), req.prompt_len)
+        self.src.requests[rid] = req
+        self.src.prompts[rid] = prompt
+        self.src.outputs[rid] = p["outputs"]
+
+    def return_to_prefill(self, req) -> None:
+        rid = req.req_id
+        for src_d, dst_d in ((self.dst.requests, self.src.requests),
+                             (self.dst.prompts, self.src.prompts),
+                             (self.dst.outputs, self.src.outputs)):
+            dst_d[rid] = src_d.pop(rid)

@@ -11,13 +11,16 @@ both delegate here, so the two loops cannot drift and the equivalence
 tests compare one loop driving two backends, not two reimplementations.
 
 This is the PyTorch package's copy of the loop.  It keeps the monolithic
-``ServingRuntime`` and its one backend, ``EngineExecutor``, which wraps
-``repro_torch.serving.engine.Engine``: plans execute on a REAL torch
-model, token events carry actual token ids, and the clock is either the
-iteration index (deterministic replay — the default) or real wall time
-(``wall=True``: arrivals in seconds, the runtime sleeps through idle
-gaps — open-loop serving).  The two-pool runtime and the simulator
-backend are not part of this package yet.
+``ServingRuntime``, the two-pool ``DisaggRuntime`` (a prefill pool and a
+decode pool under one clock, the KV handed off through a
+``HandoffBridge``: ``repro_torch.serving.engine.EngineHandoff``), the
+fault supervision both share, and one backend, ``EngineExecutor``, which
+wraps ``repro_torch.serving.engine.Engine``: plans execute on a REAL
+torch model, token events carry actual token ids, and the clock is either
+the iteration index (deterministic replay — the default) or real wall
+time (``wall=True``: arrivals in seconds, the runtime sleeps through idle
+gaps — open-loop serving).  The simulator backend is not part of this
+package yet.
 
 Arrival clock semantics: the runtime keeps ONE clock ``t``.  With
 ``clock="executor"`` (simulator default, engine wall mode) ``t`` advances
@@ -654,6 +657,504 @@ class ServingRuntime(_Supervised):
         if self.faults is not None:
             self.faults.release_pressure(None)   # zero-leak: no phantom
         res.clock = t                            # reservation survives a run
+        return res
+
+
+@dataclass
+class Migration:
+    """One prefill→decode handoff in flight: the migrating Request, a
+    backend-opaque payload (KV export + physical state), and the link
+    timeline — ``ready_time`` is when the last KV byte lands on the decode
+    side (== ``export_time`` plus the residual transfer the remaining
+    prefill compute could not hide; equal to ``export_time`` on the engine,
+    whose chunks were host-staged through the per-iteration fetch)."""
+    req: Request
+    payload: object
+    export_time: float
+    ready_time: float
+    n_chunks: int = 0
+    bytes_total: float = 0.0
+
+
+class HandoffBridge(Protocol):
+    """Backend-specific mechanics of the prefill→decode KV handoff; the
+    ``DisaggRuntime`` decides WHEN to stage/export/import, the bridge knows
+    HOW (engine: host-staged cache rows; simulator: priced link FIFO)."""
+
+    def decode_free_pages(self) -> int:
+        """Free pages on the decode pool's allocator (watermark signal)."""
+        ...
+
+    def stage(self, plan: IterationPlan, requests: Dict[int, Request],
+              t_end: float, duration: float) -> None:
+        """Observe one executed prefill-pool plan: layer groups whose KV
+        completed this iteration enter the per-request handoff stream
+        (simulator link model; the engine stages inside execute_plan)."""
+        ...
+
+    def export(self, req: Request, now: float) -> Migration:
+        """Pull the migrating request's KV/state off the prefill backend
+        (the scheduler has already ``pop_request``-ed it)."""
+        ...
+
+    def can_import(self, m: Migration) -> bool:
+        """True iff the decode backend can take the payload right now."""
+        ...
+
+    def do_import(self, m: Migration, now: float) -> Dict[str, int]:
+        """Install the payload on the decode backend; returns the
+        ``{"linked_tokens", "moved_tokens"}`` split (pages already warm on
+        the decode pool link for free — KV-locality routing's win)."""
+        ...
+
+    def drop(self, req_id: int) -> None:
+        """A prefill-pool preemption voided any staged chunks."""
+        ...
+
+    def abort_export(self, m: Migration) -> None:
+        """A link failure lost migration ``m`` in flight: reinstall the
+        victim's backend state on the prefill side so a whole-prompt
+        recompute retry can run (the KV payload itself died with the
+        link — export's move semantics already freed it, nothing
+        leaks)."""
+        ...
+
+    def return_to_prefill(self, req: Request) -> None:
+        """Move a decode-pool recompute victim's backend state (prompt /
+        output buffers) back to the prefill backend before readmission."""
+        ...
+
+
+@dataclass
+class DisaggRunResult(RunResult):
+    """``RunResult`` plus the two-pool accounting: per-pool iteration
+    counts, migration/handoff traffic, and the link-stall totals.
+    ``decode_prefill_slices`` MUST stay 0 — the decode pool's iteration
+    clock never contains prefill work (its TBT is prefill-free by
+    construction; the CI gate asserts the counter)."""
+    n_prefill_iterations: int = 0
+    n_decode_iterations: int = 0
+    n_migrations: int = 0
+    n_returns: int = 0             # recompute victims routed back to prefill
+    handoff_bytes: float = 0.0     # payload bytes that crossed the link
+    link_stall_time: float = 0.0   # export→ready residual (unhidden) time
+    handoff_wait_time: float = 0.0  # export→import total (stall + capacity)
+    migration_queue_peak: int = 0
+    held_peak: int = 0             # watermark-backpressured arrivals
+    decode_prefill_slices: int = 0
+
+
+class DisaggRuntime(_Supervised):
+    """Two-pool disaggregated serving loop (DESIGN.md §Disaggregated
+    serving): a prefill executor and a decode executor advance under ONE
+    runtime clock.  Requests are admitted and prefilled on the prefill
+    pool; as each layer group's KV completes it streams toward the decode
+    pool (bridge-managed), and when the final group emits the first token
+    the request is exported, crosses the link, and is ``adopt``-ed by the
+    decode pool, which runs decode-only iterations forever after.  Decode-
+    pool recompute victims fold and route BACK to the prefill pool (the
+    decode pool cannot prefill); swap victims restore locally.
+
+    Clock semantics mirror ``ServingRuntime``: ``clock="iteration"``
+    advances both pools in lockstep 1.0 per iteration (deterministic
+    engine replay — token streams bit-identical to monolithic serving);
+    ``clock="executor"`` gives each pool its own event-driven ready time,
+    so decode-pool timestamps contain ONLY decode durations — the
+    prefill-free-TBT property the paper's disaggregation argument needs.
+
+    ``decode_watermark_pages`` backpressures admission: new arrivals are
+    HELD (not submitted to the prefill pool) while the decode pool's free
+    pages sit below the watermark, so prefill work whose handoff would
+    have nowhere to land is never started."""
+
+    def __init__(self, prefill: Executor, decode: Executor,
+                 bridge: HandoffBridge, *,
+                 on_token: Optional[TokenCallback] = None,
+                 clock: str = "executor",
+                 decode_watermark_pages: int = 0,
+                 record_plans: bool = False,
+                 faults: Optional[FaultInjector] = None,
+                 retry_budget: int = 3,
+                 ladder: Optional[DegradationLadder] = None,
+                 on_shed: Optional[Callable[[Request, str], None]] = None):
+        if clock not in ("executor", "iteration"):
+            raise ValueError(f"unknown clock {clock!r}")
+        self.prefill = prefill
+        self.decode = decode
+        self.bridge = bridge
+        self.on_token = on_token
+        self.clock = clock
+        self.decode_watermark_pages = decode_watermark_pages
+        self.record_plans = record_plans
+        self.plans: List = []          # (pool_tag, IterationPlan)
+        self._init_supervision([prefill.scheduler, decode.scheduler],
+                               faults=faults, retry_budget=retry_budget,
+                               ladder=ladder, on_shed=on_shed)
+
+    # -- disagg-specific supervision ----------------------------------------
+
+    def _shed_request(self, sched, x, rid: int, reason: str,
+                      iteration: int) -> None:
+        _Supervised._shed_request(self, sched, x, rid, reason, iteration)
+        self.bridge.drop(rid)      # staged handoff chunks die with it
+
+    def _shed_migration(self, m: Migration, reason: str,
+                        iteration: int) -> None:
+        """Shed a request caught mid-migration: its KV pages were already
+        freed from the prefill pool by the export's move semantics and
+        never landed on the decode pool, so discarding the payload leaks
+        nothing — only the control record needs retiring."""
+        r = m.req
+        r.state = RequestState.DONE
+        r.shed_reason = reason
+        self._count_shed(reason)
+        if reason in ("deadline", "retries"):
+            self.ladder.record_pressure(iteration)
+        if self.on_shed is not None:
+            self.on_shed(r, reason)
+
+    def _drop_migration(self, m: Migration, res, iteration: int) -> None:
+        """link_drop recovery: the payload is lost in flight, but the
+        request is NEVER lost — it folds for recompute and re-enters the
+        prefill pool's queue at the head (whole-prompt retry).  Victims
+        over their retry budget are shed instead."""
+        req = m.req
+        if req.n_fault_retries >= self.retry_budget:
+            self._shed_migration(m, "retries", iteration)
+            return
+        req.n_fault_retries += 1
+        self.n_fault_retries += 1
+        fold_for_recompute(req)
+        abort = getattr(self.bridge, "abort_export", None)
+        if abort is not None:
+            abort(m)
+        sp = self.prefill.scheduler
+        sp.readmit(req)
+        sp.n_preemptions += 1
+        res.n_preemptions += 1
+        res.recompute_tokens += req.prompt_len
+        self.ladder.record_pressure(iteration)
+
+    def _recover_decode_crash(self, res, iteration: int) -> None:
+        """Decode-pool executor crash: recompute victims cannot re-prefill
+        locally (the decode pool never plans prefill), so each one folds
+        and routes BACK to the prefill pool — exactly the plan-level
+        recompute-victim return path.  SWAPPED residents keep their host
+        copy and restore locally."""
+        sp, sd = self.prefill.scheduler, self.decode.scheduler
+        xd, bridge = self.decode, self.bridge
+        victims = sorted((r for r in sd.requests.values()
+                          if r.state == RequestState.DECODE),
+                         key=lambda r: (r.arrival_time, r.req_id),
+                         reverse=True)
+        evict = getattr(xd, "evict", None)
+        for r in victims:
+            rid = r.req_id
+            if r.n_fault_retries >= self.retry_budget:
+                self._shed_request(sd, xd, rid, "retries", iteration)
+                continue
+            r.n_fault_retries += 1
+            self.n_fault_retries += 1
+            sd.preempt(rid)
+            if evict is not None:
+                evict(rid)
+            req = sd.pop_request(rid)
+            bridge.return_to_prefill(req)
+            sp.readmit(req)
+            res.n_returns += 1
+            res.n_preemptions += 1
+            res.recompute_tokens += req.prompt_len
+        self.ladder.record_pressure(iteration)
+
+    def _supervise(self, migr: deque, held: deque, res, t: float,
+                   it: int) -> bool:
+        """Pre-step supervision over BOTH pools, the link queue, and the
+        backpressure-held arrivals.  Returns True when it changed pool
+        state (the caller resets the stall latches)."""
+        sp, sd = self.prefill.scheduler, self.decode.scheduler
+        xp, xd = self.prefill, self.decode
+        acted = False
+        # queued client cancels: the victim may live on either pool or be
+        # mid-migration on the link
+        for rid, reason in self._drain_cancel_queue():
+            shed = False
+            for sched, x in ((sp, xp), (sd, xd)):
+                r = sched.requests.get(rid)
+                if r is not None and r.state != RequestState.DONE:
+                    self._shed_request(sched, x, rid, reason, it)
+                    shed = acted = True
+                    break
+            if not shed:
+                for m in list(migr):
+                    if m.req.req_id == rid:
+                        migr.remove(m)
+                        self._shed_migration(m, reason, it)
+                        acted = True
+                        break
+        # deadlines: both pools, in-flight migrations, held arrivals
+        for sched, x in ((sp, xp), (sd, xd)):
+            acted |= self._check_deadlines(sched, x, t, it)
+        scale = self._deadline_scale(xp)
+        for m in [m for m in migr if self._expired(m.req, t, scale)]:
+            migr.remove(m)
+            self._shed_migration(m, "deadline", it)
+            acted = True
+        for item in [h for h in held
+                     if getattr(h[0], "deadline_ms", None) is not None
+                     and getattr(h[0], "arrival_time", None) is not None
+                     and t >= h[0].arrival_time
+                     + h[0].deadline_ms * scale]:
+            held.remove(item)
+            _, ticket = item
+            self.n_deadline_sheds += 1
+            self.ladder.record_pressure(it)
+            if ticket is not None:
+                ticket._fail(TimeoutError(
+                    "deadline expired before admission"))
+            acted = True
+        f = self.faults
+        if f is not None:
+            f.release_pressure(it)
+            f.apply_pressure([sp.kv, sd.kv], it)
+            if migr:
+                # latency spike: queued payloads land late — the import
+                # gate re-reads ready_time, token values never change
+                for ev in f.due("link_delay", it):
+                    for m in migr:
+                        m.ready_time += ev.magnitude
+                for ev in f.due("link_drop", it):
+                    if not migr:
+                        break
+                    m = migr[ev.target % len(migr)]
+                    migr.remove(m)
+                    self._drop_migration(m, res, it)
+                    acted = True
+            try:
+                f.maybe_crash(it, pool=0, active=sp.n_active > 0)
+            except ExecutorCrash:
+                self._recover_crash(sp, xp, res, it)
+                for rid, r in sp.requests.items():
+                    if r.state == RequestState.PREEMPTED:
+                        self.bridge.drop(rid)   # staged KV is void
+                acted = True
+            try:
+                f.maybe_crash(it, pool=1, active=sd.n_active > 0)
+            except ExecutorCrash:
+                self._recover_decode_crash(res, it)
+                acted = True
+            acted |= self._inject_disconnects([(sp, xp), (sd, xd)], it)
+        self.ladder.step(it)
+        before = self.n_degrade_sheds
+        self._shed_batch_class([(sp, xp), (sd, xd)], it)
+        acted |= self.n_degrade_sheds != before
+        return acted
+
+    def run(self, trace: Sequence[Union["TraceRequest", SubmitSpec]] = (),
+            max_iterations: int = 10_000, *,
+            feed: Optional[SubmitQueue] = None,
+            idle_poll: float = 0.05) -> DisaggRunResult:
+        xp, xd, bridge = self.prefill, self.decode, self.bridge
+        sp, sd = xp.scheduler, xd.scheduler
+        step = self.clock == "iteration"
+        res = DisaggRunResult(
+            requests=[sp.requests[k] for k in sorted(sp.requests)])
+        pending = sorted(trace, key=lambda tr: tr.arrival_time)
+        i_arr = 0
+        t = max(float(xp.initial_clock()), float(xd.initial_clock()))
+        rp = rd = t                    # per-pool next-ready clocks
+        held: deque = deque()          # (spec, ticket|None) backpressured
+        migr: deque = deque()          # Migration FIFO (link order)
+        # a pool whose last attempt produced an empty plan is stalled until
+        # some OTHER event (arrival, import, return, other-pool iteration)
+        # can change its state — re-planning the same state would spin
+        stall_p = stall_d = False
+
+        def live() -> bool:
+            return feed is not None and not feed.exhausted
+
+        def inject(now: float) -> bool:
+            nonlocal i_arr
+            n0 = len(held)
+            while i_arr < len(pending) \
+                    and pending[i_arr].arrival_time <= now:
+                held.append((pending[i_arr], None))
+                i_arr += 1
+            if feed is not None:
+                for ticket in feed.drain():
+                    held.append((ticket.spec, ticket))
+            res.held_peak = max(res.held_peak, len(held))
+            return len(held) > n0
+
+        def admit_held(now: float) -> bool:
+            n = 0
+            while held:
+                if self.decode_watermark_pages > 0 \
+                        and bridge.decode_free_pages() \
+                        < self.decode_watermark_pages:
+                    break              # decode pool must drain first
+                item, ticket = held.popleft()
+                spec = item.to_spec() if hasattr(item, "to_spec") else item
+                try:
+                    req = xp.submit(spec, now)
+                except Exception as e:
+                    if ticket is None:
+                        raise
+                    ticket._fail(e)
+                    continue
+                res.requests.append(req)
+                if ticket is not None:
+                    ticket._resolve(req)
+                n += 1
+            return n > 0
+
+        def attempt_imports(now: float) -> bool:
+            n = 0
+            while migr and migr[0].ready_time <= now:
+                m = migr[0]
+                if not (sd.can_adopt(m.req) and bridge.can_import(m)):
+                    if not sd.has_work():
+                        raise RuntimeError(diagnose_stall(
+                            f"decode pool can never import request "
+                            f"{m.req.req_id} — enlarge the decode pool",
+                            [("prefill", sp), ("decode", sd)],
+                            pending=len(pending) - i_arr,
+                            held=len(held), migrations=len(migr)))
+                    break              # FIFO: wait for the decode pool
+                migr.popleft()
+                info = bridge.do_import(m, now)
+                sd.adopt(m.req)
+                m.req.n_handoffs += 1
+                m.req.handoff_linked_tokens += info.get("linked_tokens", 0)
+                m.req.handoff_moved_tokens += info.get("moved_tokens", 0)
+                m.req.handoff_time = now
+                res.handoff_wait_time += now - m.export_time
+                res.n_migrations += 1
+                n += 1
+            return n > 0
+
+        while i_arr < len(pending) or held or migr \
+                or sp.has_work() or sd.has_work() or live():
+            acted = inject(t)
+            acted |= admit_held(t)
+            acted |= attempt_imports(t)
+            acted |= self._supervise(migr, held, res, t, res.n_iterations)
+            if acted:
+                stall_p = stall_d = False
+
+            executed = False
+            if sp.has_work() and rp <= t and not stall_p:
+                plan = sp.next_plan(now=t)
+                self._fail_swap_dma(sp, plan, res.n_iterations)
+                if plan.empty:
+                    stall_p = True
+                else:
+                    if self.record_plans:
+                        self.plans.append(("prefill", plan))
+                    for rid in plan.preempted_ids:
+                        bridge.drop(rid)
+                    res.n_preemptions += len(plan.preempted_ids)
+                    res.recompute_tokens += sum(
+                        sp.requests[rid].prompt_len
+                        for rid in plan.preempted_ids)
+                    res.n_swap_outs += len(plan.swapped_out_ids)
+                    res.n_swap_ins += len(plan.swapped_in_ids)
+                    outcome = xp.execute(plan, t)
+                    dur = 1.0 if step else outcome.duration
+                    t_end = t + dur
+                    bridge.stage(plan, sp.requests, t_end, dur)
+                    timestamp_events(sp, outcome.events, t_end,
+                                     self.on_token)
+                    res.n_iterations += 1
+                    res.n_prefill_iterations += 1
+                    res.n_dispatches += outcome.n_dispatches
+                    rp = t_end
+                    # completed prefills migrate NOW: the pool is pure
+                    # prefill — first-token emitters leave for the decode
+                    # pool the moment their last layer group finishes
+                    for rid in sorted(
+                            r.req_id for r in sp.requests.values()
+                            if r.state == RequestState.DECODE):
+                        req = sp.pop_request(rid)
+                        m = bridge.export(req, t_end)
+                        req.n_handoff_chunks += m.n_chunks
+                        res.handoff_bytes += m.bytes_total
+                        res.link_stall_time += max(
+                            0.0, m.ready_time - m.export_time)
+                        migr.append(m)
+                    res.migration_queue_peak = max(
+                        res.migration_queue_peak, len(migr))
+                    executed = True
+                    stall_d = False
+
+            if sd.has_work() and rd <= t and not stall_d:
+                plan = sd.next_plan(now=t)
+                self._fail_swap_dma(sd, plan, res.n_iterations)
+                if plan.empty:
+                    stall_d = True
+                else:
+                    if self.record_plans:
+                        self.plans.append(("decode", plan))
+                    res.decode_prefill_slices += len(plan.prefill)
+                    res.n_swap_outs += len(plan.swapped_out_ids)
+                    res.n_swap_ins += len(plan.swapped_in_ids)
+                    outcome = xd.execute(plan, t)
+                    dur = 1.0 if step else outcome.duration
+                    t_end = t + dur
+                    timestamp_events(sd, outcome.events, t_end,
+                                     self.on_token)
+                    res.n_iterations += 1
+                    res.n_decode_iterations += 1
+                    res.n_dispatches += outcome.n_dispatches
+                    res.decode_batch_sizes.append(len(plan.decode_ids))
+                    rd = t_end
+                    # fold-to-recompute victims route back to the prefill
+                    # pool (this pool cannot prefill); swap victims stay —
+                    # they restore locally via _readmit_swapped
+                    for rid in plan.preempted_ids:
+                        req = sd.pop_request(rid)
+                        bridge.return_to_prefill(req)
+                        sp.readmit(req)
+                        res.n_returns += 1
+                        res.n_preemptions += 1
+                        res.recompute_tokens += req.prompt_len
+                    executed = True
+                    stall_p = False
+
+            if res.n_iterations > max_iterations:
+                raise RuntimeError(diagnose_stall(
+                    f"did not drain within {max_iterations} iterations; "
+                    "scheduler stuck?", [("prefill", sp), ("decode", sd)],
+                    pending=len(pending) - i_arr, held=len(held),
+                    migrations=len(migr)))
+            if executed or acted:
+                continue
+            # nothing ran at t: advance to the next event
+            if live():
+                feed.wait(idle_poll)
+                t = max(t, xp.poll_clock(t))
+                continue
+            nxt = []
+            if sp.has_work() and not stall_p:
+                nxt.append(rp)
+            if sd.has_work() and not stall_d:
+                nxt.append(rd)
+            if i_arr < len(pending):
+                nxt.append(pending[i_arr].arrival_time)
+            if migr:
+                nxt.append(migr[0].ready_time)
+            nxt = [x for x in nxt if x > t]
+            if not nxt:
+                raise RuntimeError(diagnose_stall(
+                    f"disaggregated loop made no progress at t={t}: "
+                    "no pool can step and no future event exists",
+                    [("prefill", sp), ("decode", sd)],
+                    pending=len(pending) - i_arr, held=len(held),
+                    migrations=len(migr)))
+            t = min(nxt)
+
+        if self.faults is not None:
+            self.faults.release_pressure(None)   # zero-leak at drain
+        res.clock = max(t, rp, rd)
         return res
 
 

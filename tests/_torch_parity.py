@@ -1,19 +1,25 @@
 """One harness for the port-vs-JAX engine parity tests: the same trace
 through ``repro.serving.engine.Engine`` and ``repro_torch.serving.engine.
 Engine`` on the same weights (fp32, CPU), driven by each package's own
-``ServingRuntime`` on the iteration clock, recorded as plain values that
-compare with ``==``."""
+``ServingRuntime`` (or, for two pools, ``DisaggRuntime``) on the iteration
+clock, recorded as plain values that compare with ``==``."""
 
 from __future__ import annotations
 
 from repro.core.base import make_scheduler as jax_make_scheduler
 from repro.serving.engine import Engine as JaxEngine
+from repro.serving.engine import EngineHandoff as JaxHandoff
+from repro.serving.faults import FaultInjector as JaxFaultInjector
+from repro.serving.faults import FaultPlan as JaxFaultPlan
+from repro.serving.runtime import DisaggRuntime as JaxDisaggRuntime
 from repro.serving.runtime import EngineExecutor as JaxExecutor
 from repro.serving.runtime import ServingRuntime as JaxRuntime
 from repro.serving.traffic import TraceRequest as JaxTraceRequest
 from repro_torch.core.base import make_scheduler
-from repro_torch.serving.engine import Engine
-from repro_torch.serving.runtime import EngineExecutor, ServingRuntime
+from repro_torch.serving.engine import Engine, EngineHandoff
+from repro_torch.serving.faults import FaultInjector, FaultPlan
+from repro_torch.serving.runtime import (DisaggRuntime, EngineExecutor,
+                                         ServingRuntime)
 from repro_torch.serving.traffic import TraceRequest
 from test_torch_model import models
 
@@ -113,3 +119,72 @@ def run(framework: str, cfg, sched: str, *, jobs=(), trace=(),
 def assert_same(got: dict, want: dict, keys=None) -> None:
     for key in keys or want:
         assert got[key] == want[key], key
+
+
+def build_pair(framework: str, cfg, sched: str = "layered", sched_kw=None,
+               **engine_kw):
+    """(prefill, decode) engines of ``framework`` over ONE model and its
+    shared weights: the prefill pool runs ``sched``, the decode pool the
+    decode-only scheduler."""
+    ep = build(framework, cfg, sched, sched_kw, **engine_kw)
+    skw = dict(SCHED_KW, **(sched_kw or {}))
+    make = jax_make_scheduler if framework == "jax" else make_scheduler
+    kw = dict(engine_kw, n_slots=engine_kw.get("n_slots", skw["n_slots"]),
+              max_len=engine_kw.get("max_len", 64))
+    return ep, type(ep)(ep.model, ep.params,
+                        make("decode", ep.model.n_blocks, **skw), **kw)
+
+
+def run_disagg(framework: str, cfg, trace, *, streaming: bool = True,
+               fault_plan=None, retry_budget: int = 3, sched="layered",
+               sched_kw=None, **engine_kw) -> dict:
+    """The port's TraceRequests replayed through ``framework``'s
+    ``DisaggRuntime`` (iteration clock, plans recorded), with an optional
+    ``FaultPlan`` (a JSON string) injected; returns the per-pool plans,
+    the merged token streams, per-request and per-pool counters, and each
+    migration's (request, prompt length, bytes)."""
+    ep, ed = build_pair(framework, cfg, sched, sched_kw, **engine_kw)
+    jax_side = framework == "jax"
+    bridge = (JaxHandoff if jax_side else EngineHandoff)(
+        ep, ed, streaming=streaming)
+    migrations, export = [], bridge.export
+
+    def recorded_export(req, now):
+        m = export(req, now)
+        migrations.append((req.req_id, m.payload["offset"], m.n_chunks,
+                           m.bytes_total))
+        return m
+    bridge.export = recorded_export
+    fi = None
+    if fault_plan is not None:
+        fi = (JaxFaultInjector(JaxFaultPlan.from_json(fault_plan))
+              if jax_side else FaultInjector(FaultPlan.from_json(fault_plan)))
+    ex = JaxExecutor if jax_side else EngineExecutor
+    rt = (JaxDisaggRuntime if jax_side else DisaggRuntime)(
+        ex(ep), ex(ed), bridge, clock="iteration", record_plans=True,
+        faults=fi, retry_budget=retry_budget)
+    res = rt.run(as_jax_trace(trace) if jax_side else list(trace),
+                 max_iterations=100_000)
+    reqs = sorted(res.requests, key=lambda r: r.req_id)
+    return {
+        "plans": [(tag, plan_key(p)) for tag, p in rt.plans],
+        "outputs": {rid: [int(x) for x in t]
+                    for rid, t in {**ep.outputs, **ed.outputs}.items()},
+        "per_request": {r.req_id: (r.n_handoffs, r.n_handoff_chunks,
+                                   r.n_preemptions, r.n_swaps,
+                                   r.first_token_time, list(r.token_times),
+                                   r.shed_reason) for r in reqs},
+        "run": {k: getattr(res, k) for k in (
+            "n_iterations", "n_prefill_iterations", "n_decode_iterations",
+            "n_migrations", "n_returns", "n_preemptions", "n_swap_outs",
+            "n_swap_ins", "n_dispatches", "recompute_tokens",
+            "migration_queue_peak", "held_peak", "decode_prefill_slices")},
+        "expert_load_bytes": (ep.expert_load_bytes, ed.expert_load_bytes),
+        "handoffs": (ep.n_handoffs_out, ed.n_handoffs_in),
+        "pages_left": (ep.alloc.pages_in_use(), ed.alloc.pages_in_use(),
+                       ep.alloc.host_pages_in_use(),
+                       ed.alloc.host_pages_in_use()),
+        "fault_stats": rt.fault_stats(),
+        "migrations": migrations,
+        "max_len": ep.max_len,
+    }

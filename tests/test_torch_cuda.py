@@ -14,6 +14,9 @@ kernels round H to bf16 between their two phases)."""
 
 from __future__ import annotations
 
+import collections
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -581,6 +584,44 @@ def test_engine_preempts_on_the_card(cuda):
     assert eng.n_preempted > 0
     assert all(len(t) == 8 for t in eng.outputs.values())
     assert eng.alloc.pages_in_use() == 0
+
+
+@pytest.mark.cuda
+def test_disagg_pools_serve_on_the_card(cuda):
+    """The reduced qwen3 model in bf16 as two pools over one copy of the
+    weights on the card: streaming and whole-prompt handoff give the same
+    token streams; the prefill pool launches K1 and K2 and no K3, the
+    decode pool K1 and K3 and no K2, and neither launches anything else."""
+    from repro_torch.launch.serve import (ServeConfig, build_disagg_engines,
+                                          build_model, run_disagg)
+    a = ServeConfig(smoke=True, dtype="bfloat16", requests=4, slots=8,
+                    max_len=128, quantum=32, token_budget=32, disagg=True)
+    model, params = build_model(a)
+    streams = {}
+    for handoff in ("stream", "whole"):
+        a = dataclasses.replace(a, handoff=handoff)
+        ep, ed = build_disagg_engines(a, model, params)
+        per_pool = {}
+        for tag, eng in (("prefill", ep), ("decode", ed)):
+            counts = per_pool[tag] = collections.Counter()
+
+            def execute_plan(plan, _execute=eng.execute_plan, _counts=counts):
+                before = dict(ops.LAUNCHES)
+                events = _execute(plan)
+                _counts.update({k: v - before[k]
+                                for k, v in ops.LAUNCHES.items()})
+                return events
+            eng.execute_plan = execute_plan
+        r = run_disagg(ep, ed, a)
+        assert r["completed"] == r["requests"] == 4
+        assert r["decode_prefill_slices"] == 0 and r["n_migrations"] == 4
+        assert r["pages_left"] == r["host_pages_left"] == 0
+        for tag, want in (("prefill", {"moe_gmm_ragged", "prefill_attention"}),
+                          ("decode", {"moe_gmm_ragged", "decode_attention"})):
+            launched = {k for k, v in per_pool[tag].items() if v}
+            assert launched == want, (tag, per_pool[tag])
+        streams[handoff] = r["outputs"]
+    assert streams["stream"] == streams["whole"]
 
 
 # gpt-oss-20b's expert widths: E 32, d = F = 2880 (45 tiles of 64

@@ -34,6 +34,13 @@ from repro_torch.models.model import DecoderModel as TorchModel
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
+# These tests run tiny tensors, and the suite runs in several worker
+# processes on one host, each of which imports every test module: torch's
+# default of one intra-op thread per core oversubscribes the host and
+# makes the port's tests several times slower, with nothing to gain from
+# threads at these sizes.  One thread per process.
+torch.set_num_threads(1)
+
 
 # ------------------------------------------------------------- helpers
 

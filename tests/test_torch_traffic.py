@@ -132,7 +132,9 @@ BAD = [dict(scheduler="fcfs"), dict(clock="sundial"), dict(arrival="gamma"),
        dict(swap_in_budget=0), dict(prefix_lru_pages=0),
        dict(batch_fraction=1.5), dict(batch_fraction=-0.1),
        dict(class_headroom=-1), dict(decode_reserve=-1),
-       dict(spec="eagle"), dict(spec_k=0), dict(spec="draft")]
+       dict(spec="eagle"), dict(spec_k=0), dict(spec="draft"),
+       dict(handoff="carrier"), dict(decode_pages=0),
+       dict(decode_watermark=-1), dict(retry_budget=-1)]
 
 
 @pytest.mark.parametrize("kw", BAD, ids=[next(iter(k)) + "=" + str(
@@ -151,3 +153,28 @@ def test_validate_checks_the_ports_own_fields():
             ServeConfig(**kw).validate()
     ServeConfig(arch="gpt-oss-20b", dtype="float32", prompt_len=(4, 9),
                 scheduler="static").validate()
+
+
+DISAGG_ARGV = ["--disagg", "--handoff", "whole", "--decode-pages", "40",
+               "--decode-watermark", "3", "--fault-plan", "seed:7",
+               "--retry-budget", "5"]
+
+
+def test_disagg_and_chaos_flags_parse_as_jax():
+    """``--disagg``/``--handoff``/``--decode-pages``/``--decode-watermark``
+    and ``--fault-plan``/``--retry-budget``: JAX's defaults, and the same
+    values from the same command line."""
+    import argparse
+    got, want = {}, {}
+    for cls, out in ((ServeConfig, got), (JaxServeConfig, want)):
+        ap = argparse.ArgumentParser()
+        cls.add_arguments(ap)
+        for argv in ([], DISAGG_ARGV):
+            sc = cls.from_args(ap.parse_args(argv))
+            out[bool(argv)] = {k: getattr(sc, k) for k in (
+                "disagg", "handoff", "decode_pages", "decode_watermark",
+                "fault_plan", "retry_budget")}
+    assert got == want
+    assert got[True] == dict(disagg=True, handoff="whole", decode_pages=40,
+                             decode_watermark=3, fault_plan="seed:7",
+                             retry_budget=5)
