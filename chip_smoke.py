@@ -87,9 +87,33 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    use on any allocator.  Where two-pool streams part from the
    monolithic ones, and chaos survivors from their fault-free serve, the
    first parting position and its logit gap in bf16 ulps are reported,
-   not asserted.  Then profile the ragged layered
-   and the dense layered serve once more (device time by kernel, the
-   device's busy share).
+   not asserted.  Then the JAX launcher's remaining serving modes: the
+   live HTTP/SSE serve (an in-process ``ServingServer`` on port 0 over a
+   fresh engine, driven by ``load_gen.run_load`` with 4 clients over the
+   open-loop trace's 8 requests, layered, while /metrics is scraped from
+   the asyncio thread): every response 200, every request its
+   ``max_new_tokens``, SSE order equal to the server's ``token_log`` and
+   the engine's outputs, /metrics parsed with TTFT/TBT and the HTTP
+   counters, /healthz and /readyz 200, one host sync per iteration, K1,
+   K2 and K3 and no other kernel, no page in use after the stop; a replay
+   of its admission log (each request arriving at the engine iteration at
+   which it entered the live scheduler) must plan what the live serve
+   planned and give its bf16 streams bit for bit; ``load_gen``'s offline
+   replay is compared and reported, not asserted; ms/iter, TTFT/TBT,
+   client latency and time to first byte are printed beside the
+   wall-clock replay of the same trace.  Then the same 8 requests from 8
+   clients under a rate limit of 2 req/s (burst 2): a 429 with a
+   Retry-After, every request completed; then drained: a POST is answered
+   503 and /readyz fails while a 64-token stream in flight completes.
+   Then the short trace per slice (``packed=False``): the packed serve's
+   plans, more launches, K1/K2/K3 only (streams against packed reported).
+   Then the simulator (host only): ``serve_sim`` on the arXiv and ShareGPT
+   length models, layered and chunked (modelled layered expert bytes below
+   chunked), and the open-loop trace on the iteration clock through the
+   card's engine and through ``SimExecutor``: the same plans, the modelled
+   ms/iter (h100x2 preset) printed beside the measured one.  Then profile
+   the ragged layered and the dense layered serve once more (device time
+   by kernel, the device's busy share).
 5. free qwen3 and serve gpt-oss-20b at full width (d_model 2880, 64/8
    heads of 64, 32 experts top-4 of d_ff 2880, 24 layers): the long trace
    layered and chunked (layered expert-load <= chunked), and the short
@@ -875,12 +899,24 @@ def run_serve(a, model, params, trace=None, draft=None) -> dict:
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_engine, run_engine
+    from repro_torch.launch.load_gen import plan_key
     eng = (build_engine(a, model, params) if draft is None
            else draft_engine(a, model, params, draft))
     spec = eng.spec_mode
     tag = f"{a.arch} {a.moe_dispatch}/{a.scheduler}" + (
-        f" spec {spec}" if spec != "off" else "")
+        f" spec {spec}" if spec != "off" else "") + (
+        "" if a.packed else " per-slice")
+    plans, execute = [], eng.execute_plan
+
+    def execute_plan(plan):
+        plans.append(plan_key(plan))
+        return execute(plan)
+    eng.execute_plan = execute_plan
     r, counts, sites = traced(lambda: run_engine(eng, a, trace))
+    r["plans"] = plans
+    r["n_dispatches"] = eng.n_dispatches
+    r["n_prefill_dispatches"] = eng.n_prefill_dispatches
+    r["n_pages"] = eng.alloc.n_pages
     r["streams_sha256"] = streams_sha256(r["outputs"])
     r["host_syncs"] = sum(sites.values())
     r["host_sync_sites"] = dict(sites)
@@ -895,13 +931,7 @@ def run_serve(a, model, params, trace=None, draft=None) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     check_served(tag, a, r, model.cfg.vocab_size)
-    missing = [k for k in need if counts[k] <= 0]
-    if missing:
-        raise AssertionError(f"{tag}: kernels never launched: {missing}")
-    stray = {k: v for k, v in counts.items() if k not in may and v}
-    if stray:
-        raise AssertionError(f"{tag}: kernels of another path launched: "
-                             f"{stray}")
+    check_launches(tag, counts, need, may)
     if any(r["pad_copies"].values()):
         raise AssertionError(f"{tag}: the MoE kernel padded its operands "
                              f"{r['pad_copies']}: the models' widths never "
@@ -948,6 +978,17 @@ def run_serve(a, model, params, trace=None, draft=None) -> dict:
         f"{r['host_sync_sites']}, launches {counts}, padded MoE copies "
         f"{r['pad_copies']}, token streams sha256 {r['streams_sha256']}")
     return r
+
+
+def check_launches(tag: str, counts: dict, need, may) -> None:
+    """Every kernel of ``need`` launched, and none outside ``may``."""
+    missing = [k for k in need if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels never launched: {missing}")
+    stray = {k: v for k, v in counts.items() if k not in may and v}
+    if stray:
+        raise AssertionError(f"{tag}: kernels of another path launched: "
+                             f"{stray}")
 
 
 def plan_kinds(a) -> collections.Counter:
@@ -1231,6 +1272,7 @@ def serve_qwen3(times: dict, explain: bool = False) -> dict:
 
     spec = serve_spec(model, params, short, runs, times, t0)
     disagg = serve_disagg(model, params, runs, times, time.perf_counter())
+    live = serve_live(model, params, runs, times, time.perf_counter())
 
     t0 = time.perf_counter()
     profile_serve(dataclasses.replace(base, scheduler="layered"), model,
@@ -1240,7 +1282,7 @@ def serve_qwen3(times: dict, explain: bool = False) -> dict:
     _phase("qwen3 profiles", t0, times)
     del model, params
     return {"runs": runs, "divergence": divergence, "spec": spec,
-            "disagg": disagg}
+            "disagg": disagg, "live": live}
 
 
 def repetitive_trace(vocab: int, seed: int = 0) -> list:
@@ -1607,6 +1649,379 @@ def serve_disagg(model, params, runs: dict, times: dict, t0) -> dict:
     return out
 
 
+# ------------------------------------------------------ phase 4, live serve
+
+
+# the kernels a serve on the ragged dispatch launches, and no other
+RAGGED_PATH = ("moe_gmm_ragged", "prefill_attention", "decode_attention")
+# the simulator's times are the cost model's, for its preset: never a time
+# of this card
+MODELLED = "modelled, h100x2 preset (two GPUs, TP)"
+
+
+def parse_metrics(text: str) -> dict:
+    """A /metrics body (Prometheus text) as {sample: value}; raises unless
+    every sample line is a name and a float."""
+    flat = {}
+    for ln in text.splitlines():
+        if ln.startswith("#") or not ln.strip():
+            continue
+        name, _, val = ln.rpartition(" ")
+        flat[name] = float(val)
+    return flat
+
+
+def live_serve(a, model, params, trace, n_clients: int, drain: bool = False,
+               **server_kw) -> dict:
+    """One live serve through the port's HTTP/SSE front-end: an in-process
+    ``ServingServer`` on port 0 over a fresh engine on ``model``/``params``
+    (its kernels built before the socket binds), driven by
+    ``load_gen.run_load`` with ``n_clients`` closed-loop clients over
+    ``trace`` while a task on the same asyncio thread scrapes /metrics
+    every 0.2 s; /healthz and /readyz after the load.  ``drain``: a
+    64-token stream is put in flight, ``drain()`` called, and a POST and
+    /readyz sent while it drains; else ``stop()``.  The launch counts are
+    set to 0 before the server starts and read after it stopped; the host
+    syncs of both threads are counted; every POST's status and
+    Retry-After is recorded.  Raises unless every request got its
+    ``max_new_tokens`` in-vocabulary tokens in SSE order equal to the
+    server's ``token_log`` and the engine's outputs, every /metrics
+    scrape parsed with TTFT/TBT and the HTTP counters, /healthz and
+    /readyz answered 200, the serve launched K1, K2 and K3 and nothing
+    else with one host sync per iteration, and no page is left in use."""
+    import asyncio
+    import torch
+    from repro_torch.launch import load_gen
+    from repro_torch.launch.load_gen import plan_key
+    from repro_torch.launch.serve import build_server
+    from repro_torch.serving.metrics import request_metrics
+    srv = build_server(dataclasses.replace(a, http=":0"), model, params,
+                       record_plans=True, **server_kw)
+    seen = []                         # (status, Retry-After) of each POST
+    post = load_gen._post_generate
+
+    async def recorded(*args, **kw):
+        status, headers, events = await post(*args, **kw)
+        seen.append((status, headers.get("retry-after")))
+        return status, headers, events
+
+    async def go():
+        await srv.start()
+        host, port = srv.host, srv.port
+        scrapes, stop = [], asyncio.Event()
+
+        async def scrape():
+            while not stop.is_set():
+                scrapes.append(await load_gen._fetch(host, port, "/metrics"))
+                await asyncio.sleep(0.2)
+        task = asyncio.ensure_future(scrape())
+        t0 = time.perf_counter()
+        report = await load_gen.run_load(host, port, trace, n_clients)
+        elapsed = time.perf_counter() - t0
+        iterations = srv.engine.iteration     # a host int: no sync
+        stop.set()
+        await task
+        scrapes.append(await load_gen._fetch(host, port, "/metrics"))
+        health = [(await load_gen._fetch(host, port, path))[0]
+                  for path in ("/healthz", "/readyz")]
+        out = {"report": report, "elapsed": elapsed, "scrapes": scrapes,
+               "health": health, "iterations": iterations}
+        if not drain:
+            await srv.stop()
+            return out
+        inflight = asyncio.ensure_future(recorded(host, port, {
+            "prompt_tokens": list(trace[0].prompt_tokens),
+            "max_new_tokens": 64, "tenant": "drain"}))
+        while not srv._streams:
+            await asyncio.sleep(0.01)
+        draining = asyncio.ensure_future(srv.drain(timeout=120.0))
+        await asyncio.sleep(0)
+        out["refused"] = (await recorded(host, port, {
+            "prompt_tokens": [1, 2, 3], "max_new_tokens": 4,
+            "tenant": "late"}))[0]
+        out["readyz_draining"] = (await load_gen._fetch(host, port,
+                                                        "/readyz"))[0]
+        out["inflight"] = await inflight
+        await draining
+        try:
+            await asyncio.open_connection(host, port)
+            out["closed"] = False
+        except OSError:
+            out["closed"] = True
+        return out
+
+    load_gen._post_generate = recorded
+    try:
+        out, counts, sites = traced(lambda: asyncio.run(go()))
+    finally:
+        load_gen._post_generate = post
+    eng = srv.engine
+    reqs = sorted(eng.requests.values(), key=lambda r: r.req_id)
+    report = out["report"]
+    rid_of = {tuple(spec.prompt_tokens): rid      # the clients' requests
+              for rid, _, spec in srv.admission_log if spec.tenant != "drain"}
+    tag = f"{a.arch} live {a.scheduler}, {n_clients} clients" + (
+        ", rate-limited, drained" if drain else "")
+    for res in report.results:
+        rid = rid_of.get(tuple(trace[res.index].prompt_tokens))
+        mine = [t for r, t in srv.token_log if r == rid]
+        if not (res.status == 200 and res.tokens == mine
+                == list(eng.outputs[rid])):
+            raise AssertionError(f"{tag}: request {res.index} (id {rid}): "
+                                 f"status {res.status}, SSE {res.tokens}, "
+                                 f"token_log {mine}")
+    scraped = [parse_metrics(body.decode()) for status, body
+               in out["scrapes"] if status == 200]
+    if len(scraped) != len(out["scrapes"]) or not all(
+            any(k.startswith(f"repro_{f}") for k in m)
+            for m in scraped[-1:] for f in ("ttft", "tbt",
+                                            "http_responses_total")):
+        raise AssertionError(f"{tag}: /metrics: {len(scraped)} of "
+                             f"{len(out['scrapes'])} scrapes parsed")
+    if out["health"] != [200, 200]:
+        raise AssertionError(f"{tag}: /healthz, /readyz {out['health']}")
+    m = request_metrics(reqs)
+    s = report.summary()
+    # ms/iter over the clients' load (a drain's in-flight stream after it
+    # is not timed)
+    r = {"iterations": eng.iteration, "wall_s": out["elapsed"],
+         "iterations_timed": out["iterations"],
+         "ms_per_iter": out["elapsed"] * 1e3 / max(out["iterations"], 1),
+         "expert_load_bytes": eng.expert_load_bytes,
+         "completed": sum(q.finish_time is not None
+                          and q.shed_reason is None for q in reqs),
+         "requests": len(reqs),
+         "outputs": {q.req_id: list(eng.outputs[q.req_id]) for q in reqs},
+         "prompts": {q.req_id: list(q.prompt_tokens) for q in reqs},
+         "max_new": {q.req_id: q.max_new_tokens for q in reqs},
+         "plans": [plan_key(p) for p in srv.runtime.plans],
+         "admission_log": list(srv.admission_log),
+         "fault_counters": {}, "shed": {}, "arch": a.arch,
+         "pages_left": eng.alloc.pages_in_use(),
+         "host_pages_left": eng.alloc.host_pages_in_use(),
+         "launches": counts, "host_syncs": sum(sites.values()),
+         "host_sync_sites": dict(sites), "client": s,
+         "n_429": report.n_429, "scrapes": len(scraped),
+         "posts": collections.Counter(st for st, _ in seen),
+         "retry_after_429": sorted({int(ra) for st, ra in seen
+                                    if st == 429 and ra is not None}),
+         **{k: m[k] for k in ("ttft_p50", "ttft_p99", "tbt_p50",
+                              "tbt_p99")}}
+    r["streams_sha256"] = streams_sha256(r["outputs"])
+    for key in ("refused", "readyz_draining", "closed"):
+        if key in out:
+            r[key] = out[key]
+    if drain:
+        status, _, events = out["inflight"]
+        done = [d for k, d in events if k == "done"]
+        r["inflight"] = (status, done[0]["n_generated"] if done else None,
+                         done[0].get("shed_reason") if done else None)
+    del srv, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_served(tag, a, r, model.cfg.vocab_size)
+    check_launches(tag, counts, RAGGED_PATH, RAGGED_PATH)
+    if r["host_syncs"] > r["iterations"] + 2:
+        raise AssertionError(f"{tag}: {r['host_syncs']} host syncs in "
+                             f"{r['iterations']} iterations")
+    if r["pages_left"]:
+        raise AssertionError(f"{tag}: {r['pages_left']} pages in use after "
+                             "the stop")
+    ms = 1e3
+    log(f"{tag}: {r['requests']} requests, {r['iterations']} iterations, "
+        f"{r['ms_per_iter']:.1f} ms/iter over the load's "
+        f"{r['iterations_timed']} in {r['wall_s']:.2f} s; TTFT "
+        f"p50/p99 {r['ttft_p50'] * ms:.1f}/{r['ttft_p99'] * ms:.1f} ms, TBT "
+        f"p50/p99 {r['tbt_p50'] * ms:.1f}/{r['tbt_p99'] * ms:.1f} ms; client "
+        f"latency p50/p99 {s['latency_p50'] * ms:.1f}/"
+        f"{s['latency_p99'] * ms:.1f} ms, time to first byte p50/p99 "
+        f"{s['ttfb_p50'] * ms:.1f}/{s['ttfb_p99'] * ms:.1f} ms; POSTs by "
+        f"status {dict(r['posts'])}, 429 Retry-After {r['retry_after_429']}"
+        f"; {r['scrapes']} /metrics scrapes; expert-load "
+        f"{r['expert_load_bytes'] / 1e6:.1f} MB, {r['host_syncs']} host "
+        f"syncs {r['host_sync_sites']}, launches {counts}, token streams "
+        f"sha256 {r['streams_sha256']}")
+    return r
+
+
+def replay_live(a, model, params, live: dict) -> dict:
+    """The admission-log replay of a live serve (``load_gen.
+    replay_admissions``: the same specs, each arriving at the engine
+    iteration at which it entered the live scheduler, through a fresh
+    engine on the same weights, on the iteration clock), its launches
+    counted as a serve's.  Raises unless its plans are the live plans and
+    its bf16 streams the live streams bit for bit."""
+    import torch
+    from repro_torch.launch.load_gen import (check_admission_replay,
+                                             replay_admissions)
+    rep, counts, sites = traced(lambda: replay_admissions(
+        a, live["admission_log"], model, params))
+    gc.collect()
+    torch.cuda.empty_cache()
+    parted = check_admission_replay(live["plans"], live["outputs"], rep)
+    n = len(live["outputs"])
+    log(f"admission-log replay: {len(rep['plans'])} plans, identical to the "
+        f"live serve's; {n - parted}/{n} streams bit-identical; launches "
+        f"{counts}, {sum(sites.values())} host syncs")
+    if parted:
+        raise AssertionError(f"admission-log replay: {parted} of {n} "
+                             "streams parted from the live serve's")
+    check_launches("admission-log replay", counts, RAGGED_PATH, RAGGED_PATH)
+    return {"iterations": len(rep["plans"]), "launches": counts,
+            "arch": a.arch, "streams_identical": n - parted,
+            "host_syncs": sum(sites.values())}
+
+
+def simulate(model, a, card: dict) -> dict:
+    """Phase 4, the simulator (host only): ``serve_sim`` for qwen3-30b-a3b
+    on the arXiv and ShareGPT length models at 1.3 req/s, 30 requests,
+    layered and chunked (modelled layered expert bytes must be below
+    chunked's on both); then the card's open-loop serve ``card`` (the
+    trace of ``a`` on the iteration clock) replayed through
+    ``SimExecutor`` with the engine's scheduler and page pool: its plan
+    stream must be the card's, and its modelled ms/iter is printed beside
+    the card's measured one."""
+    import contextlib
+    import io
+    from repro_torch.launch.load_gen import plan_key
+    from repro_torch.launch.serve import serve_sim
+    from repro_torch.serving.cost_model import H100X2
+    from repro_torch.serving.runtime import ServingRuntime, SimExecutor
+    from repro_torch.serving.simulator import Simulator
+    out = {}
+    for ds in ("arxiv", "sharegpt"):
+        for sched in ("layered", "chunked"):
+            sc = dataclasses.replace(a, simulate=True, dataset=ds, rate=1.3,
+                                     requests=30, scheduler=sched,
+                                     open_loop=False)
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                res = serve_sim(sc)
+            for line in text.getvalue().splitlines():
+                log(f"  {line}")
+            out[f"{ds} {sched}"] = {
+                "expert_bytes": res.total_expert_bytes,
+                "iterations": res.n_iterations,
+                "energy_per_token_mj": res.energy_per_token * 1e3}
+        lay, chk = out[f"{ds} layered"], out[f"{ds} chunked"]
+        log(f"simulator ({MODELLED}), {ds} at 1.3 req/s: layered / chunked "
+            f"expert traffic {lay['expert_bytes'] / 1e12:.2f} / "
+            f"{chk['expert_bytes'] / 1e12:.2f} TB")
+        if not lay["expert_bytes"] < chk["expert_bytes"]:
+            raise AssertionError(f"simulator, {ds}: layered expert bytes "
+                                 "not below chunked")
+    sim = Simulator(model.cfg, a.scheduler, H100X2,
+                    **dict(a.sim_kwargs(), n_pages=card["n_pages"]))
+    ex = SimExecutor(sim)
+    durations, execute = [], ex.execute
+
+    def priced(plan, now):
+        outcome = execute(plan, now)
+        durations.append(outcome.duration)
+        return outcome
+    ex.execute = priced
+    rt = ServingRuntime(ex, clock="iteration", record_plans=True)
+    rt.run(a.engine_trace(model.cfg.vocab_size), max_iterations=100_000)
+    plans = [plan_key(p) for p in rt.plans]
+    modelled = sum(durations) * 1e3 / max(len(durations), 1)
+    log(f"cross-backend, open-loop trace on the iteration clock: "
+        f"{len(plans)} SimExecutor plans, identical to the card engine's "
+        f"{len(card['plans'])}: {plans == card['plans']}; ms/iter "
+        f"{modelled:.2f} ({MODELLED}) beside {card['ms_per_iter']:.1f} "
+        "measured on this card")
+    if plans != card["plans"]:
+        raise AssertionError("SimExecutor planned otherwise than the card's "
+                             "engine on the same trace")
+    out["cross-backend"] = {"plans": len(plans), "modelled_ms_per_iter":
+                            modelled, "measured_ms_per_iter":
+                            card["ms_per_iter"]}
+    return out
+
+
+def serve_live(model, params, runs: dict, times: dict, t0) -> dict:
+    """Phase 4, the JAX launcher's remaining serving modes at
+    qwen3-30b-a3b width: the live HTTP/SSE serve (4 clients over
+    ``ServeConfig.engine_trace``: 8 Poisson arrivals at 1.3 req/s,
+    layered) held against the replay of its admission log, bit for bit,
+    and reported against ``load_gen``'s offline replay; the same 8
+    requests from 8 clients under a rate limit of 2 req/s (burst 2), then
+    drained; the short trace per slice (``packed=False``) beside the
+    packed serve; and the simulator."""
+    from repro_torch.launch import load_gen
+    from repro_torch.launch.serve import ServeConfig
+    _, short = serve_configs(model.cfg.name)
+    wall = ServeConfig(arch=model.cfg.name, open_loop=True, clock="wall",
+                       requests=8, rate=1.3, max_len=2048, slots=8,
+                       quantum=512, token_budget=512, seed=0)
+    trace = wall.engine_trace(model.cfg.vocab_size)
+    live = runs["live layered"] = live_serve(wall, model, params, trace, 4)
+    rep = runs["live layered, admission-log replay"] = replay_live(
+        wall, model, params, live)
+    offline_toks = load_gen.offline_tokens(wall, trace, model, params)
+    by_index = {tuple(spec.prompt_tokens): rid
+                for rid, _, spec in live["admission_log"]}
+    rids = [by_index[tuple(tr.prompt_tokens)] for tr in trace]
+    offline = {"outputs": {rid: offline_toks[i]
+                           for i, rid in enumerate(rids)},
+               "prompts": live["prompts"]}
+    offline["streams_sha256"] = streams_sha256(offline["outputs"])
+    out = {"live vs offline": compare_streams(
+        model, params, live, offline, ("live", "offline"))}
+    ol = runs.get("open-loop layered")
+    log(f"live serve {live['ms_per_iter']:.1f} ms/iter over "
+        f"{live['iterations']} iterations, beside the wall-clock open-loop "
+        f"replay of the same trace: "
+        + (f"{ol['ms_per_iter']:.1f} ms/iter over {ol['iterations']}"
+           if ol else "not run"))
+    t0 = _phase("qwen3 live serve", t0, times)
+
+    bp = runs["live layered, rate-limited"] = live_serve(
+        wall, model, params, trace, 8, drain=True, ratelimit_rate=2.0,
+        ratelimit_burst=2.0)
+    if not bp["retry_after_429"] or min(bp["retry_after_429"]) < 1:
+        raise AssertionError(f"rate-limited serve: no 429 with a "
+                             f"Retry-After: POSTs {dict(bp['posts'])}")
+    if not (bp["refused"] == 503 and bp["readyz_draining"] == 503
+            and bp["closed"]):
+        raise AssertionError(f"drain: POST {bp['refused']}, /readyz "
+                             f"{bp['readyz_draining']}, listener closed "
+                             f"{bp['closed']}")
+    if bp["inflight"] != (200, 64, None):
+        raise AssertionError(f"drain: the in-flight stream ended "
+                             f"{bp['inflight']}")
+    log(f"backpressure: {bp['n_429']} rate-limit retries, 429 Retry-After "
+        f"{bp['retry_after_429']} s; every request completed; while "
+        f"draining a POST got {bp['refused']} and /readyz "
+        f"{bp['readyz_draining']}, the in-flight stream ended "
+        f"{bp['inflight']}, then the listener closed")
+    t0 = _phase("qwen3 backpressure and drain", t0, times)
+
+    ps = runs["short ragged/layered, per-slice"] = run_serve(
+        dataclasses.replace(short, scheduler="layered", packed=False),
+        model, params)
+    pk = runs["short ragged/layered"]
+    if ps["plans"] != pk["plans"]:
+        raise AssertionError("per-slice serve planned otherwise than the "
+                             "packed serve")
+    if not ps["n_dispatches"] > pk["n_dispatches"]:
+        raise AssertionError(f"per-slice dispatches {ps['n_dispatches']}, "
+                             f"packed {pk['n_dispatches']}")
+    log(f"per-slice / packed (short trace, layered): {ps['n_dispatches']} / "
+        f"{pk['n_dispatches']} launches, {ps['n_prefill_dispatches']} / "
+        f"{pk['n_prefill_dispatches']} prefill batches, plans identical; "
+        f"{ps['ms_per_iter']:.1f} / {pk['ms_per_iter']:.1f} ms/iter")
+    out["per-slice vs packed"] = compare_streams(
+        model, params, ps, pk, ("per-slice", "packed"))
+    t0 = _phase("qwen3 per-slice serve", t0, times)
+
+    virt = dataclasses.replace(wall, clock="virtual")
+    card = runs["open-loop layered, iteration clock"] = run_serve(
+        virt, model, params)
+    out["simulator"] = simulate(model, virt, card)
+    _phase("qwen3 simulator", t0, times)
+    return out
+
+
 def serve_gpt_oss(times: dict) -> dict:
     """Phase 4b: gpt-oss-20b at full width (after qwen3 is freed: the two
     do not fit on one 80 GB card together)."""
@@ -1891,7 +2306,7 @@ def main() -> None:
         k["launches_of"] = model_of(k["name"])
         k["launches"] = launches[k["launches_of"]][k["name"].split("[")[0]]
         k["iterations_of"] = iters[k["launches_of"]]
-    drop = ("outputs", "prompts", "max_new")
+    drop = ("outputs", "prompts", "max_new", "plans", "admission_log")
     log("serve summary " + json.dumps(
         {k: {kk: vv for kk, vv in v.items() if kk not in drop}
          for k, v in runs.items()}))
@@ -1900,6 +2315,7 @@ def main() -> None:
     log("spec streams against spec off " + json.dumps(
         {**qwen["spec"], "phi4-mini ngram": dense["spec"]}))
     log("two-pool and chaos streams " + json.dumps(qwen["disagg"]))
+    log("live, per-slice and simulator " + json.dumps(qwen["live"]))
     log("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in times.items()}))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,5 +1,6 @@
 """Serving launcher of the port: the real-execution engine, on the card by
-default, in a closed loop or replaying a timed open-loop trace.
+default, in a closed loop, replaying a timed open-loop trace, or behind
+the live HTTP/SSE front-end — or the discrete-event simulator.
 
 The model runs at its full configured width (``--smoke`` selects the
 reduced variant); weights are random, drawn from ``--seed``.  The same
@@ -20,6 +21,17 @@ launcher's ``[serve-disagg]`` lines.  ``--fault-plan`` turns on chaos mode
 pressure spikes and client disconnects, recovered within
 ``--retry-budget`` retries per request) for either loop and prints the
 ``chaos:`` line.
+
+``--http HOST:PORT`` serves the engine live (``serving/server.py``): the
+engine loop runs on a background thread on the wall clock while asyncio
+ingests ``POST /v1/generate`` and streams tokens back as server-sent
+events; on the card the kernels are built before the socket binds.
+``--simulate`` runs the analytic simulator (``serving/simulator.py``) at
+the config's full scale on ``--dataset``'s length model and prints the JAX
+launcher's ``[serve-sim]`` lines (``--disagg``: two pools); it launches
+nothing on a device, and its times are modelled for the ``--hw`` preset.
+``--no-packed`` launches every prefill slice on its own (the per-slice
+reference path).
 
 Usage:
   # on the card, full qwen3-30b-a3b, layered prefill, closed loop:
@@ -45,6 +57,16 @@ Usage:
   # on the CPU, reduced model (the kernels' plain versions run):
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --requests 2
+
+  # live HTTP/SSE service on port 8000 (per-tenant rate limit 4 req/s):
+  PYTHONPATH=src python -m repro_torch.launch.serve --http :8000 \\
+      --max-len 2048 --slots 8 --ratelimit-rate 4
+  curl -N localhost:8000/v1/generate \\
+      -d '{"prompt_tokens": [1,2,3], "max_new_tokens": 8}'
+
+  # the simulator at full scale (modelled times, h100x2 preset):
+  PYTHONPATH=src python -m repro_torch.launch.serve --simulate \\
+      --dataset arxiv --rate 1.3 --requests 100
 """
 
 from __future__ import annotations
@@ -64,11 +86,16 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.launch.config import ServeConfig
 from repro_torch.models.model import DecoderModel
+from repro_torch.serving.cost_model import H100X2, TPU_V5E
 from repro_torch.serving.engine import Engine, EngineHandoff
 from repro_torch.serving.faults import FaultInjector, FaultPlan
 from repro_torch.serving.metrics import per_class_metrics, request_metrics
 from repro_torch.serving.runtime import (DisaggRuntime, EngineExecutor,
                                          ServingRuntime)
+from repro_torch.serving.server import ServingServer
+from repro_torch.serving.simulator import DisaggSimulator, Simulator
+from repro_torch.serving.traffic import (ARRIVAL_PROCESSES, DATASETS,
+                                         ClassSpec, multi_class_trace)
 
 
 def model_config(a: ServeConfig):
@@ -230,7 +257,8 @@ def run_engine(eng: Engine, a: ServeConfig, trace=None) -> dict:
           f"{_f(m['queue_delay_mean'], '.3g')} {unit}; "
           f"preemptions {eng.n_preempted} "
           f"(rate {_f(m['preemption_rate'])}/req)")
-    print(f"[serve] hot path: packed; {eng.n_dispatches} device launches "
+    print(f"[serve] hot path: {'packed' if eng.packed else 'per-slice'}; "
+          f"{eng.n_dispatches} device launches "
           f"({eng.n_dispatches / max(eng.iteration, 1):.1f}/iter), "
           f"{eng.n_prefill_dispatches} prefill batches; "
           f"{wall * 1e3 / max(eng.iteration, 1):.1f} ms/iter wall")
@@ -393,6 +421,152 @@ def run_disagg(ep: Engine, ed: Engine, a: ServeConfig, trace=None) -> dict:
                                  "tbt_p99")}}
 
 
+def prepare_kernels(device: torch.device) -> None:
+    """On the card, build and load every kernel now, so that no request
+    waits out a build at its first launch (a no-op on the CPU)."""
+    if device.type != "cuda":
+        return
+    from repro_torch.kernels import build
+    build.build_all()
+    for name in build.KERNELS:
+        build.load(name)
+
+
+def build_server(a: ServeConfig, model=None, params=None,
+                 **server_kw) -> ServingServer:
+    """The live HTTP/SSE front-end over a fresh engine (over ``model`` and
+    ``params`` when given), its kernels built before the socket binds;
+    ``server_kw`` overrides ``a.server_kwargs()``."""
+    eng = build_engine(a, model, params)
+    prepare_kernels(eng.device)
+    return ServingServer(eng, faults=build_faults(a),
+                         **dict(a.server_kwargs(), **server_kw))
+
+
+def serve_http(a: ServeConfig, model=None, params=None) -> None:
+    """Live HTTP/SSE service: the engine iteration loop runs on a
+    background thread on the wall clock while asyncio ingests requests
+    concurrently (serving/server.py)."""
+    build_server(a, model, params).serve_forever()
+
+
+def serve_sim(a: ServeConfig):
+    """The discrete-event simulator at the config's full scale: prints the
+    JAX launcher's ``[serve-sim]`` lines and returns the ``SimResult``
+    (``DisaggSimResult`` with ``--disagg``).  Every time it prints is
+    modelled for the ``--hw`` preset; nothing runs on a device."""
+    cfg = get_config(a.arch)
+    hw = H100X2 if a.hw == "h100x2" else TPU_V5E
+    if a.host_bw is not None:
+        hw = dataclasses.replace(hw, host_bw=a.host_bw * 1e9)
+    if a.batch_fraction > 0:
+        # multi-tenant mix: interactive foreground on the chosen dataset,
+        # batch-class arXiv background on the selected arrival process
+        n_batch = int(round(a.requests * a.batch_fraction))
+        trace = multi_class_trace([
+            ClassSpec("interactive", DATASETS[a.dataset],
+                      a.rate * (1 - a.batch_fraction),
+                      a.requests - n_batch),
+            ClassSpec("batch", DATASETS["arxiv"],
+                      a.rate * a.batch_fraction, n_batch,
+                      process=a.arrival),
+        ], seed=a.seed)
+    else:
+        trace = ARRIVAL_PROCESSES[a.arrival](
+            DATASETS[a.dataset], a.rate, a.requests, seed=a.seed)
+    if a.disagg:
+        return _serve_sim_disagg(a, cfg, hw, trace)
+    sim = Simulator(cfg, a.scheduler, hw, **a.sim_kwargs())
+    faults = build_faults(a)
+    res = sim.run(trace, faults=faults, retry_budget=a.retry_budget)
+    slo = a.slo()
+    m = request_metrics(res.requests, slo)
+    print(f"[serve-sim] {cfg.name} x {a.scheduler} on {a.dataset} "
+          f"@{a.rate} req/s ({hw.name}; "
+          f"{sim.kv.n_pages} x {sim.kv.page_size}-token pages)")
+    for k in ("ttft_mean", "ttft_p99", "tbt_mean", "tbt_p99",
+              "slo_attainment", "e2e_mean", "queue_delay_mean",
+              "queue_delay_p99", "preemption_rate"):
+        print(f"[serve-sim]   {k:<16} {_f(m[k], '.3f')}")
+    print(f"[serve-sim]   energy/token     "
+          f"{res.energy_per_token * 1e3:.1f} mJ")
+    print(f"[serve-sim]   expert traffic   "
+          f"{res.total_expert_bytes / 1e12:.2f} TB")
+    print(f"[serve-sim]   kv pages         "
+          f"high-water {res.pages_high_water}/{res.n_pool_pages}; "
+          f"{res.n_preemptions} preemptions, "
+          f"{res.recompute_tokens} recomputed tokens")
+    if a.prefix_cache:
+        print(f"[serve-sim]   prefix cache     "
+              f"hit rate {res.prefix_hit_rate:.2f} "
+              f"({res.n_prefix_hits} hits, "
+              f"{res.prefix_cached_tokens} cached tokens)")
+    if a.spec != "off":
+        print(f"[serve-sim]   spec({a.spec})      "
+              f"{res.total_drafted} drafted / {res.total_accepted} "
+              f"accepted (rate {_f(res.acceptance_rate)}); accepted len "
+              f"p50={_f(m['accepted_len_p50'], '.1f')} "
+              f"p90={_f(m['accepted_len_p90'], '.1f')}")
+    if res.n_host_pages:
+        print(f"[serve-sim]   swap             "
+              f"{res.n_swap_outs} out / {res.n_swap_ins} in; "
+              f"{res.swap_bytes / 1e9:.2f} GB over host link, "
+              f"{res.swap_dma_time:.3f} s DMA ({res.swap_stall_time:.3f} s"
+              f" unhidden stall); host pages "
+              f"high-water {res.host_pages_high_water}/{res.n_host_pages};"
+              f" restore latency mean "
+              f"{_f(m['restore_latency_mean'], '.3f')} s")
+    _print_faults("serve-sim", faults, res.requests)
+    _print_per_class("serve-sim", res.requests, slo)
+    return res
+
+
+def _serve_sim_disagg(a: ServeConfig, cfg, hw, trace):
+    """Two-pool analytic serving report: per-pool rollups plus the link
+    accounting the monolithic report has no column for."""
+    sim = DisaggSimulator(cfg, a.scheduler, hw, handoff=a.handoff,
+                          decode_pages=a.decode_pages,
+                          decode_watermark=a.decode_watermark,
+                          **a.sim_kwargs())
+    faults = build_faults(a)
+    res = sim.run(trace, faults=faults, retry_budget=a.retry_budget)
+    slo = a.slo()
+    m = request_metrics(res.requests, slo)
+    print(f"[serve-sim] {cfg.name} x {a.scheduler}+decode on "
+          f"{a.dataset} @{a.rate} req/s ({hw.name}; {a.handoff} "
+          f"handoff; decode pool "
+          f"{sim.decode.kv.n_pages} x {sim.decode.kv.page_size}-token "
+          f"pages)")
+    for k in ("ttft_mean", "ttft_p99", "tbt_mean", "tbt_p99",
+              "slo_attainment", "e2e_mean", "queue_delay_mean",
+              "preemption_rate"):
+        print(f"[serve-sim]   {k:<16} {_f(m[k], '.3f')}")
+    n_tok = sum(r.n_generated for r in res.requests) or 1
+    print(f"[serve-sim]   energy/token     "
+          f"{res.total_energy / n_tok * 1e3:.1f} mJ "
+          f"(link {res.link_energy * 1e3:.1f} mJ total)")
+    print(f"[serve-sim]   handoff          "
+          f"{res.n_migrations} migrations ({res.n_returns} returns); "
+          f"{res.link_bytes / 1e9:.2f} GB over link, "
+          f"{res.link_stall_time:.4f} s unhidden stall, "
+          f"{res.handoff_wait_time:.4f} s watermark wait; "
+          f"queue peak {res.migration_queue_peak}")
+    print(f"[serve-sim]   decode pool      "
+          f"tbt mean {_f(res.decode_pool_tbt_mean, '.4f')} s over "
+          f"{res.decode.n_iterations} iterations; prefill slices "
+          f"{res.decode_prefill_slices} (must stay 0)")
+    print(f"[serve-sim]   kv pages         "
+          f"prefill high-water "
+          f"{res.prefill.pages_high_water}/{res.prefill.n_pool_pages}, "
+          f"decode {res.decode.pages_high_water}"
+          f"/{res.decode.n_pool_pages}; "
+          f"{res.prefill.n_preemptions + res.decode.n_preemptions} "
+          f"preemptions")
+    _print_faults("serve-sim", faults, res.requests)
+    _print_per_class("serve-sim", res.requests, slo)
+    return res
+
+
 def parse_args(argv=None) -> ServeConfig:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ServeConfig.add_arguments(ap)
@@ -401,7 +575,11 @@ def parse_args(argv=None) -> ServeConfig:
 
 def main(argv=None) -> None:
     a = parse_args(argv)
-    if a.disagg:
+    if a.simulate:
+        serve_sim(a)
+    elif a.http is not None:
+        serve_http(a)
+    elif a.disagg:
         serve_disagg_real(a)
     else:
         serve_real(a)

@@ -9,7 +9,9 @@ Execution model per iteration (the JAX engine's, main path only):
   2. prefill slices — each slice is a (token-range x block-range)
      rectangle.  All slices of a plan sharing (block_start, block_end,
      emits_first_token) run as ONE packed batch over a slot vector; token
-     ranges pad to power-of-two buckets with a validity mask.  Boundary
+     ranges pad to power-of-two buckets with a validity mask.  With
+     ``packed=False`` (the per-slice reference path) every slice runs as
+     its own batch of one, at its own offset.  Boundary
      activations between layer groups are stashed on the engine (layered
      prefill's carry state).  The final slice computes the request's
      FIRST token.
@@ -81,8 +83,7 @@ pinned memory.  Only the prompt's positions move, as in a swap; the JAX
 engine moves each block's whole ``max_len`` slot row, so per migration
 ``handoff bytes x max_len`` here equals the JAX engine's ``x prompt_len``.
 
-Not ported: encoder inputs (``enc_frames``) raise; the per-slice
-``packed=False`` reference path is absent.
+Not ported: encoder inputs (``enc_frames``) raise.
 """
 
 from __future__ import annotations
@@ -187,7 +188,7 @@ class Engine:
                  decode_reserve: Optional[int] = None,
                  class_headroom: Optional[Dict[str, int]] = None,
                  eos_token: Optional[int] = None,
-                 moe_dispatch: str = "ragged",
+                 moe_dispatch: str = "ragged", packed: bool = True,
                  prefix_cache: bool = True,
                  prefix_lru_pages: Optional[int] = None,
                  spec_mode: str = "off", spec_k: int = 4,
@@ -209,6 +210,10 @@ class Engine:
         cached row and skips the matched tokens.  ``prefix_lru_pages`` caps
         the reclaimable cached pages kept resident.  ``moe_dispatch``
         selects the dropless MoE data path: "ragged" or "dense".
+        ``packed`` enables packed layer-group execution (one batch per
+        layer-group rectangle of the plan's prefill slices);
+        ``packed=False`` launches every prefill slice on its own (the
+        per-slice reference path: same tokens, more launches).
 
         ``spec_mode`` enables speculative verify-k decoding ("ngram" =
         draft-free prompt/self-lookup; "draft" = a tiny stateless draft
@@ -227,6 +232,7 @@ class Engine:
         self.device = model.device
         self.params = params
         self.moe_dispatch = moe_dispatch
+        self.packed = packed
         if isinstance(scheduler, str):
             scheduler = make_scheduler(scheduler, model.n_blocks,
                                        n_slots=n_slots)
@@ -373,11 +379,15 @@ class Engine:
         self.scheduler.submit(req)
         return req
 
-    def submit(self, prompt_tokens, max_new_tokens: int) -> int:
-        """Positional convenience wrapper over ``submit_spec``; returns the
-        request id."""
+    def submit(self, prompt_tokens, max_new_tokens: int,
+               enc_frames=None, *, slo_class: str = "interactive",
+               arrival_time: Optional[float] = None) -> int:
+        """Positional convenience wrapper over ``submit_spec`` (the JAX
+        engine's signature); returns the request id."""
         return self.submit_spec(SubmitSpec(
-            max_new_tokens=max_new_tokens, prompt_tokens=prompt_tokens)).req_id
+            max_new_tokens=max_new_tokens, prompt_tokens=prompt_tokens,
+            slo_class=slo_class, arrival_time=arrival_time,
+            enc_frames=enc_frames)).req_id
 
     def run(self, max_iterations: int = 10_000) -> RunResult:
         """Closed-loop drain of everything already submitted, through the
@@ -783,7 +793,11 @@ class Engine:
         """Group the plan's prefill slices by layer-group rectangle: every
         (block_start, block_end, emits_first_token) group runs as ONE batch
         over a slot vector (a request appears at most once per plan, so
-        rows are independent)."""
+        rows are independent).  With packing disabled each slice is its
+        own group of one (the per-slice reference path)."""
+        if not self.packed:
+            return [(sl.block_start, sl.block_end, sl.emits_first_token,
+                     [sl]) for sl in slices]
         grouped: OrderedDict = OrderedDict()
         for sl in slices:
             key = (sl.block_start, sl.block_end, sl.emits_first_token)

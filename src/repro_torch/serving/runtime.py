@@ -10,17 +10,23 @@ no-progress / iteration-cap guards.  ``Engine.run`` and ``Simulator.run``
 both delegate here, so the two loops cannot drift and the equivalence
 tests compare one loop driving two backends, not two reimplementations.
 
-This is the PyTorch package's copy of the loop.  It keeps the monolithic
+This is the PyTorch package's copy of the loop: the monolithic
 ``ServingRuntime``, the two-pool ``DisaggRuntime`` (a prefill pool and a
 decode pool under one clock, the KV handed off through a
-``HandoffBridge``: ``repro_torch.serving.engine.EngineHandoff``), the
-fault supervision both share, and one backend, ``EngineExecutor``, which
-wraps ``repro_torch.serving.engine.Engine``: plans execute on a REAL
-torch model, token events carry actual token ids, and the clock is either
-the iteration index (deterministic replay — the default) or real wall
-time (``wall=True``: arrivals in seconds, the runtime sleeps through idle
-gaps — open-loop serving).  The simulator backend is not part of this
-package yet.
+``HandoffBridge``: ``repro_torch.serving.engine.EngineHandoff`` or the
+simulator's ``SimHandoff``), the fault supervision both share, and the
+two backends:
+
+  * ``EngineExecutor`` — wraps ``repro_torch.serving.engine.Engine``:
+    plans execute on a REAL torch model, token events carry actual token
+    ids, and the clock is either the iteration index (deterministic
+    replay — the default) or real wall time (``wall=True``: arrivals in
+    seconds, the runtime sleeps through idle gaps — open-loop serving and
+    the HTTP front-end).
+  * ``SimExecutor`` — wraps ``repro_torch.serving.simulator.Simulator``:
+    plans are priced by the analytic cost model, token events carry
+    ``None`` (there is no model), and the clock advances by modelled
+    iteration durations.
 
 Arrival clock semantics: the runtime keeps ONE clock ``t``.  With
 ``clock="executor"`` (simulator default, engine wall mode) ``t`` advances
@@ -1225,3 +1231,98 @@ class EngineExecutor:
             return 0.0
         return float(self.engine.iteration)
 
+
+class SimExecutor:
+    """Analytic backend: wraps ``serving.simulator.Simulator``. Iteration
+    durations come from the cost model; swap DMA is charged as overlappable
+    with the iteration's compute (``stall = max(0, dma - compute)``) unless
+    the simulator was built with ``swap_overlap=False`` (the PR-3 serial
+    model, kept for comparison).  Accumulates the energy/traffic totals
+    that ``Simulator.run`` folds into its ``SimResult``."""
+
+    def __init__(self, sim):
+        self.sim = sim
+        self.scheduler = sim.scheduler
+        self._next_id = 0
+        self.total_energy = 0.0
+        self.total_expert_bytes = 0.0
+        self.total_hbm_bytes = 0.0
+        self.total_flops = 0.0
+        self.swap_bytes = 0.0
+        self.swap_dma_time = 0.0       # host-link busy time, both directions
+        self.swap_stall_time = 0.0     # the part compute could not hide
+        self.total_drafted = 0         # speculative decode accounting
+        self.total_accepted = 0
+
+    def submit(self, spec: SubmitSpec, now: float) -> Request:
+        # prompt_tokens (when the spec carries them) make the analytic
+        # backend prefix-cache-aware: the shared scheduler code hashes and
+        # matches exactly as it does under the engine, so cross-backend
+        # plan streams stay identical with caching enabled
+        req = Request.from_spec(
+            spec, self._next_id,
+            arrival_time=now if spec.arrival_time is None
+            else spec.arrival_time,
+            prompt_tokens=None if spec.prompt_tokens is None
+            else np.asarray(spec.prompt_tokens, np.int32))
+        self._next_id += 1
+        self.scheduler.submit(req)
+        return req
+
+    def execute(self, plan: IterationPlan, now: float) -> StepOutcome:
+        sim = self.sim
+        dma = 0.0
+        if plan.swapped_out_ids or plan.swapped_in_ids:
+            # swap DMA: tokens that actually crossed the host link (shared
+            # prefix pages stay pinned in HBM and move in neither direction)
+            moved = sum(sim.kv.last_swap_tokens(rid) for rid in
+                        plan.swapped_out_ids + plan.swapped_in_ids)
+            xfer = sim.cost.swap_transfer(moved)
+            dma = xfer["duration"]
+            self.swap_dma_time += dma
+            self.swap_bytes += xfer["bytes"]
+            self.total_energy += xfer["energy"]
+        cost = sim.cost.iteration_cost(plan, self.scheduler.requests)
+        self.total_energy += cost["energy"]
+        self.total_expert_bytes += cost["expert_bytes"]
+        self.total_hbm_bytes += cost["hbm_bytes"]
+        self.total_flops += cost["flops"]
+        # the DMA engines run asynchronously to compute: only the excess
+        # past the iteration's compute stalls the clock (serial flag
+        # charges the whole transfer, the PR-3 model)
+        stall = dma if not sim.swap_overlap \
+            else max(0.0, dma - cost["duration"])
+        self.swap_stall_time += stall
+        events = [TokenEvent(sl.req_id, None, first=True)
+                  for sl in plan.prefill if sl.emits_first_token]
+        events += [TokenEvent(rid, None) for rid in plan.decode_ids]
+        # speculative verify-k: analytic acceptance — a run of consecutive
+        # Bernoulli(spec_acceptance) successes capped at the budget (the
+        # simulator has no tokens to verify); deterministic given the
+        # simulator's seed and the sorted commit order.  Priced above via
+        # plan.verify_len; committed here AFTER pricing so the cost sees
+        # pre-commit context lengths, like the engine.
+        for rid in sorted(plan.verify_len):
+            k = plan.verify_len[rid]
+            a = sim.draw_accepted(k)
+            self.total_drafted += k
+            self.total_accepted += a
+            self.scheduler.commit_speculation(rid, proposed=k, accepted=a,
+                                              extra=a)
+            events += [TokenEvent(rid, None)] * a
+        return StepOutcome(duration=cost["duration"] + stall, events=events)
+
+    def idle(self, t: float, until: float) -> float:
+        return until
+
+    def evict(self, req_id: int) -> None:
+        pass    # analytic backend: no per-request physical state to drop
+
+    def release(self, req_id: int) -> None:
+        pass
+
+    def poll_clock(self, t: float) -> float:
+        return t
+
+    def initial_clock(self) -> float:
+        return 0.0

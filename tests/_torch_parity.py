@@ -6,6 +6,8 @@ clock, recorded as plain values that compare with ``==``."""
 
 from __future__ import annotations
 
+import numpy as np
+
 from repro.core.base import make_scheduler as jax_make_scheduler
 from repro.serving.engine import Engine as JaxEngine
 from repro.serving.engine import EngineHandoff as JaxHandoff
@@ -16,6 +18,7 @@ from repro.serving.runtime import EngineExecutor as JaxExecutor
 from repro.serving.runtime import ServingRuntime as JaxRuntime
 from repro.serving.traffic import TraceRequest as JaxTraceRequest
 from repro_torch.core.base import make_scheduler
+from repro_torch.launch.load_gen import plan_key
 from repro_torch.serving.engine import Engine, EngineHandoff
 from repro_torch.serving.faults import FaultInjector, FaultPlan
 from repro_torch.serving.runtime import (DisaggRuntime, EngineExecutor,
@@ -26,12 +29,22 @@ from test_torch_model import models
 SCHED_KW = dict(n_slots=4, quantum=8, token_budget=16)
 
 
-def plan_key(plan):
-    return (tuple(plan.admitted_ids), tuple(plan.preempted_ids),
-            tuple(plan.swapped_out_ids), tuple(plan.swapped_in_ids),
-            tuple(plan.decode_ids),
-            tuple((s.req_id, s.token_start, s.token_end, s.block_start,
-                   s.block_end, s.emits_first_token) for s in plan.prefill))
+def mixed_trace(n=32, seed=0, spread=40):
+    """``tests/test_runtime.py``'s multi-class oversubscribed trace as the
+    port's TraceRequests: iteration-indexed arrivals, real token ids,
+    interactive and batch interleaved."""
+    rng = np.random.default_rng(seed)
+    arrivals = np.sort(rng.integers(0, spread, n)).astype(float)
+    trace = []
+    for i, t in enumerate(arrivals):
+        n_tok = int(rng.integers(4, 10))
+        trace.append(TraceRequest(
+            arrival_time=float(t), prompt_len=n_tok,
+            output_len=int(rng.integers(8, 13)),
+            slo_class="batch" if i % 3 == 0 else "interactive",
+            prompt_tokens=tuple(int(x)
+                                for x in rng.integers(1, 200, n_tok))))
+    return trace
 
 
 def as_jax_trace(trace):

@@ -747,3 +747,69 @@ def test_engine_speculates_on_the_card(cuda, spec):
         assert eng.draft_model.cfg.dtype == "bfloat16"
         assert eng.n_draft_dispatches > 0
         assert eng.n_spec_accepted > 0
+
+
+@pytest.mark.cuda
+def test_live_server_on_the_card(cuda):
+    """The reduced qwen3 model in bf16 behind the port's HTTP/SSE server on
+    the card, the engine on its own thread: every request is answered 200
+    with all its tokens, the serve launches K1, K2 and K3 and nothing else,
+    and a replay of the server's admission log plans what the live run
+    planned and gives its bf16 streams bit for bit."""
+    import asyncio
+    from repro_torch.launch import load_gen
+    from repro_torch.launch.serve import ServeConfig, build_model, build_server
+    a = ServeConfig(smoke=True, dtype="bfloat16", requests=6, slots=8,
+                    max_len=128, quantum=32, token_budget=32, http=":0")
+    model, params = build_model(a)
+    srv = build_server(a, model, params, record_plans=True)
+    trace = a.engine_trace(model.cfg.vocab_size)
+
+    async def go():
+        await srv.start()
+        try:
+            return await load_gen.run_load(srv.host, srv.port, trace, 3)
+        finally:
+            await srv.stop()
+    ops.reset_launches()
+    report = asyncio.run(go())
+    launched = {k for k, v in ops.LAUNCHES.items() if v}
+    assert all(r.status == 200 for r in report.results)
+    assert all(len(r.tokens) == trace[r.index].output_len
+               for r in report.results)
+    assert launched == set(PATH_KERNELS["ragged"]), ops.LAUNCHES
+    assert srv.engine.alloc.pages_in_use() == 0
+    replay = load_gen.replay_admissions(a, srv.admission_log, model, params)
+    live_plans = [load_gen.plan_key(p) for p in srv.runtime.plans]
+    assert load_gen.check_admission_replay(live_plans, srv.engine.outputs,
+                                           replay) == 0
+
+
+@pytest.mark.cuda
+def test_per_slice_prefill_on_the_card(cuda):
+    """``packed=False`` on the card: the same plans as the packed path,
+    more launches, every request complete, K1/K2/K3 only."""
+    from repro_torch.launch.load_gen import plan_key
+    from repro_torch.launch.serve import (ServeConfig, build_engine,
+                                          build_model, run_engine)
+    a = ServeConfig(smoke=True, dtype="bfloat16", requests=4, slots=8,
+                    max_len=128, quantum=32, token_budget=32)
+    model, params = build_model(a)
+    out = {}
+    for packed in (True, False):
+        eng = build_engine(dataclasses.replace(a, packed=packed), model,
+                           params)
+        plans, execute = [], eng.execute_plan
+
+        def execute_plan(plan, _execute=execute, _plans=plans):
+            _plans.append(plan_key(plan))
+            return _execute(plan)
+        eng.execute_plan = execute_plan
+        ops.reset_launches()
+        r = run_engine(eng, a)
+        assert r["completed"] == r["requests"] == 4
+        assert {k for k, v in ops.LAUNCHES.items() if v} \
+            == set(PATH_KERNELS["ragged"]), ops.LAUNCHES
+        out[packed] = (plans, eng.n_dispatches)
+    assert out[True][0] == out[False][0]
+    assert out[False][1] > out[True][1]

@@ -102,9 +102,9 @@ def test_engine_trace_matches(arrival, batch_fraction):
 
 
 def test_defaults_and_derived_kwargs_match():
-    """The fields the port keeps have the JAX defaults (prefix caching on,
-    recompute preemption), and the derived kwargs agree on every key the
-    port's engine takes."""
+    """The port's fields have the JAX defaults (prefix caching on,
+    recompute preemption, packed prefill), and the derived kwargs agree,
+    key for key."""
     port, jax_ = ServeConfig(), JaxServeConfig()
     for f in dataclasses.fields(ServeConfig):
         if hasattr(jax_, f.name):
@@ -120,8 +120,7 @@ def test_defaults_and_derived_kwargs_match():
         assert p.preemption_opts() == j.preemption_opts()
         assert p.scheduler_kwargs() == j.scheduler_kwargs()
         pe, je = p.engine_kwargs(), j.engine_kwargs()
-        assert pe == {k: je[k] for k in pe}
-        assert set(je) - set(pe) == {"packed"}
+        assert pe == je
 
 
 BAD = [dict(scheduler="fcfs"), dict(clock="sundial"), dict(arrival="gamma"),
