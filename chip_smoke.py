@@ -33,10 +33,19 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    exists, the SASS opcodes that show K2, K1 and K4 on wgmma (HGMMA) and
    TMA (UTMALDG), and K3 and K5/K6 on mma.sync (HMMA) fed by cp.async
    (LDGSTS), are printed (none in K1 or K4, or no HMMA in K5/K6, fails
-   the run).
+   the run).  The large MoE models' shapes too: K2 and K3 at multi-head
+   latent attention's query/key width 192 against value width 128
+   (deepseek-v2-236b, H = Hkv = 128; two launches bit for bit; SDPA at
+   the same widths beside them, with the backends that take them) and at
+   g 16 (qwen3-moe-235b-a22b), K1 at both models' widths and K4 at
+   deepseek's.
 3. check the kernel path end to end against the CPU fp32 plain path on a
    small model, under the ragged and the dense MoE dispatch (finite
-   logits that agree within a stated tolerance).
+   logits that agree within a stated tolerance); and a small MLA model
+   (block 0 dense, block 1 MoE with a shared expert, MLA's full head
+   widths: K2 and K3 at (192, 128)) the same way, each token's expert set
+   recorded on both sides: tokens routed alike within the tolerance, any
+   other token at a router near-tie.
 4. serve qwen3-30b-a3b at full width (d_model 2048, 32/4 heads, 128
    experts top-8, 48 layers, random weights from a seed) through the
    port's launcher: the ragged dispatch with layered and then chunked
@@ -119,7 +128,15 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    layered and chunked (layered expert-load <= chunked), and the short
    trace under the dense dispatch.  Phase 2 holds K1-K4 at its shapes
    too (K2 and K3 at hd 64; K1 and K4 at d = F = 2880, off the
-   128-column d-tile).
+   128-column d-tile).  Then free gpt-oss and serve the registry's two
+   large MoE models at full width, each at the depth the card's free
+   memory holds (the reckoning is logged): deepseek-v2-236b (d_model
+   5120, 128 MLA heads with a 512 + 64 latent cache, 160 experts top-6
+   of d_ff 1536 plus 2 shared, block 0 dense) on the long trace layered
+   and chunked and on the short trace layered under the dense and the
+   ragged dispatch (the same expert bytes and streams); then
+   qwen3-moe-235b-a22b (d_model 4096, 64/4 heads: g 16, 128 experts
+   top-8 of d_ff 1536) on the long trace layered and chunked.
 6. free gpt-oss and serve the dense decoders at full width, which launch
    K2 and K3 and no MoE kernel: phi4-mini-3.8b (32 layers, 24/8 heads:
    g 3) on the short trace layered and chunked and the n-gram serves of
@@ -206,12 +223,16 @@ def bound_ms(nbytes: float, flops: float):
 
 QWEN3_MOE = (128, 8, 2048, 768)        # E, top-k, d, F
 GPT_OSS_MOE = (32, 4, 2880, 2880)
+DEEPSEEK_MOE = (160, 6, 5120, 1536)
+QWEN3_235B_MOE = (128, 8, 4096, 1536)
 
 
 def check_moe_gmm(tag: str, n_tokens: int, gen, widths=QWEN3_MOE) -> dict:
     """K1 at the ragged layout the model builds for ``n_tokens`` routed
-    tokens at qwen3-30b-a3b widths (E 128, top-8, d 2048, F 768) or
-    gpt-oss-20b's (E 32, top-4, d = F = 2880)."""
+    tokens at qwen3-30b-a3b widths (E 128, top-8, d 2048, F 768),
+    gpt-oss-20b's (E 32, top-4, d = F = 2880), deepseek-v2-236b's (E 160,
+    top-6, d 5120, F 1536) or qwen3-moe-235b-a22b's (E 128, top-8, d 4096,
+    F 1536)."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.models import moe
@@ -290,30 +311,63 @@ def _sdpa_gmajor(q, k, v, mask):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
-QWEN3_ATTN = (32, 4, 128)              # H, Hkv, hd
+QWEN3_ATTN = (32, 4, 128)              # H, Hkv, hd (and hd_v = hd)
 GPT_OSS_ATTN = (64, 8, 64)
 PHI4_MINI_ATTN = (24, 8, 128)          # g 3
 YI_34B_ATTN = (56, 8, 128)             # g 7
+QWEN3_235B_ATTN = (64, 4, 128)         # g 16
+# deepseek-v2-236b's decompressed MLA keys and values: H = Hkv = 128, hd
+# 192 (128 nope + 64 rope), hd_v 128
+DEEPSEEK_ATTN = (128, 128, 192, 128)
+
+
+def _heads(heads):
+    """(H, Hkv, hd, hd_v) of an attention shape (hd_v = hd unless given)."""
+    return tuple(heads) if len(heads) == 4 else tuple(heads) + (heads[2],)
+
+
+def sdpa_backends(q, k, v, mask) -> list:
+    """The SDPA backends that take these inputs (each tried alone), in
+    torch's order: which one the dispatcher picked for ``library_ms``."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    ok = []
+    for name in ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                 "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                _sdpa_gmajor(q, k, v, mask)
+            torch.cuda.synchronize()
+            ok.append(name)
+        except RuntimeError:
+            pass
+    return ok
 
 
 def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
                             offsets=None, heads=QWEN3_ATTN,
                             cold: bool = False) -> dict:
-    """K2 against its plain version, timed beside SDPA.  With ``cold`` (a
+    """K2 against its plain version, timed beside SDPA; ``heads`` is (H,
+    Hkv, hd) or, for MLA, (H, Hkv, hd, hd_v).  With ``cold`` (a
     verify window: tens of microseconds, less than its launch from
     Python) kernel, plain version and SDPA are timed as K3 is, in CUDA
     graphs over cache copies larger than L2; ``ms_eager`` keeps the time
     of launches from Python."""
     import torch
     from repro_torch.kernels import ops, ref
-    h, hkv, hd = heads
+    h, hkv, hd, hd_v = _heads(heads)
     dev = torch.device("cuda")
     q = torch.randn((b, p, h, hd), device=dev, generator=gen).to(torch.bfloat16)
     kc = torch.randn((b, s_max, hkv, hd), device=dev, generator=gen).to(torch.bfloat16)
-    vc = torch.randn((b, s_max, hkv, hd), device=dev, generator=gen).to(torch.bfloat16)
+    vc = torch.randn((b, s_max, hkv, hd_v), device=dev, generator=gen).to(torch.bfloat16)
     off = torch.tensor(offsets or [0] * b, dtype=torch.int32, device=dev)
     got = ops.prefill_attention(q, kc, vc, off)
     want = ref.prefill_attention_ref(q, kc, vc, off)
+    again = ops.prefill_attention(q, kc, vc, off)
     torch.cuda.synchronize()
     max_abs = (got.float() - want.float()).abs().max().item()
     ok = torch.allclose(got.float(), want.float(), **ATTN_TOL)
@@ -321,13 +375,17 @@ def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
         f"max abs {max_abs:.3e} (tol {ATTN_TOL})")
     if not ok:
         raise AssertionError(f"prefill_attention[{tag}] disagrees")
+    if not torch.equal(got, again):
+        raise AssertionError(f"prefill_attention[{tag}]: two launches differ")
+    del want, again
 
     # visible (query, key) pairs and the K/V rows that must be read
     offl = [int(o) for o in off.tolist()]
     pairs = sum(min(o + i + 1, s_max) for o in offl for i in range(p))
     kv_rows = sum(min(o + p, s_max) for o in offl)
-    nbytes = 2 * q.numel() * 2 + kv_rows * 2 * hkv * hd * 2 + b * 4
-    flops = 4 * hd * h * pairs
+    nbytes = (q.numel() * 2 + got.numel() * 2
+              + kv_rows * hkv * (hd + hd_v) * 2 + b * 4)
+    flops = 2 * (hd + hd_v) * h * pairs
     b_ms, b_by = bound_ms(nbytes, flops)
     ms = ms_eager = cuda_time(lambda: ops.prefill_attention(q, kc, vc, off),
                               iters=5)
@@ -359,6 +417,12 @@ def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
         kt = kc.transpose(1, 2).repeat(1, g, 1, 1)
         vt = vc.transpose(1, 2).repeat(1, g, 1, 1)
         lib = cuda_time(lambda: _sdpa_gmajor(qt, kt, vt, mask), iters=5)
+        if hd_v != hd:
+            extra = {"sdpa_backends": sdpa_backends(qt, kt, vt, mask)}
+            log(f"prefill_attention[{tag}]: SDPA at hd {hd} / hd_v {hd_v}: "
+                f"{lib:.4f} ms; backends that take it "
+                f"{extra['sdpa_backends']} (the first is torch's pick)")
+        del kt, vt
     ctas = -(-p // (ops.PREFILL_ROWS // g)) * hkv * b
     return {"name": f"prefill_attention[{tag}]", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/prefill_attention.cu",
@@ -367,7 +431,7 @@ def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "ctas": ctas, "achieved_tflops": flops / ms / 1e9, **extra,
             "shape": {"B": b, "P": p, "S_max": s_max, "offsets": offl,
-                      "H": h, "Hkv": hkv, "hd": hd}}
+                      "H": h, "Hkv": hkv, "hd": hd, "hd_v": hd_v}}
 
 
 # K2 at g 8 on inputs built by integer hashing (exact in bf16, the same on
@@ -454,16 +518,18 @@ def check_decode_attention(gen, tag: str, b=8, s_max=2048,
     version and SDPA each rotate over copies of the cache that together
     exceed 4 x the 50 MB L2.  ``ms_hot`` repeats one copy and
     ``ms_eager`` launches from Python: how K3 was timed before it became
-    faster than its own launch."""
+    faster than its own launch.  ``heads`` as for
+    ``check_prefill_attention``."""
     import torch
     from repro_torch.kernels import ops, ref
-    h, hkv, hd = heads
+    h, hkv, hd, hd_v = _heads(heads)
     dev = torch.device("cuda")
     q = torch.randn((b, h, hd), device=dev, generator=gen).to(torch.bfloat16)
-    cache_bytes = 2 * b * s_max * hkv * hd * 2
+    cache_bytes = b * s_max * hkv * (hd + hd_v) * 2
     n_copies = max(2, int(-(-4 * L2_BYTES // cache_bytes)))
-    caches = [tuple(torch.randn((b, s_max, hkv, hd), device=dev, generator=gen)
-                    .to(torch.bfloat16) for _ in range(2)) for _ in range(n_copies)]
+    caches = [tuple(torch.randn((b, s_max, hkv, w), device=dev, generator=gen)
+                    .to(torch.bfloat16) for w in (hd, hd_v))
+              for _ in range(n_copies)]
     kc, vc = caches[0]
     lens = torch.randint(*len_range, (b,), device=dev, generator=gen,
                          dtype=torch.int32)
@@ -483,8 +549,9 @@ def check_decode_attention(gen, tag: str, b=8, s_max=2048,
     if not torch.equal(got, again):
         raise AssertionError(f"decode_attention[{tag}]: two launches differ")
     used = [min(int(n), s_max) for n in lens.tolist()]
-    nbytes = 2 * q.numel() * 2 + sum(used) * 2 * hkv * hd * 2 + b * 4
-    flops = 4 * hd * h * sum(used)
+    nbytes = (q.numel() * 2 + got.numel() * 2
+              + sum(used) * hkv * (hd + hd_v) * 2 + b * 4)
+    flops = 2 * (hd + hd_v) * h * sum(used)
     b_ms, b_by = bound_ms(nbytes, flops)
     ms = cuda_time_cold(lambda i: ops.decode_attention(q, *caches[i], lens),
                         n_copies, rounds=8)
@@ -503,6 +570,12 @@ def check_decode_attention(gen, tag: str, b=8, s_max=2048,
             < lens.clamp(max=s_max).long()[:, None])[:, None, None, :]
     lib = cuda_time_cold(lambda i: _sdpa_gmajor(q[:, :, None], *rep[i], mask),
                          n_copies, rounds=8)
+    extra = {}
+    if hd_v != hd:
+        extra["sdpa_backends"] = sdpa_backends(q[:, :, None], *rep[0], mask)
+        log(f"decode_attention[{tag}]: SDPA at hd {hd} / hd_v {hd_v}: "
+            f"{lib:.4f} ms cold; backends that take it "
+            f"{extra['sdpa_backends']} (the first is torch's pick)")
     del caches, rep
     return {"name": f"decode_attention[{tag}]", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -513,14 +586,14 @@ def check_decode_attention(gen, tag: str, b=8, s_max=2048,
             "library_ms": lib, "split": split, "ctas": split * hkv * b,
             "timing": f"CUDA graph replay, cold: {n_copies} cache copies "
                       f"of {cache_bytes / 1e6:.1f} MB rotated; ms_hot: one "
-                      "copy; ms_eager: cold, launched from Python",
+                      "copy; ms_eager: cold, launched from Python", **extra,
             "shape": {"B": b, "S_max": s_max, "lengths": lens.tolist(),
-                      "H": h, "Hkv": hkv, "hd": hd}}
+                      "H": h, "Hkv": hkv, "hd": hd, "hd_v": hd_v}}
 
 
 def check_moe_gmm_dense(tag: str, c: int, gen, widths=QWEN3_MOE) -> dict:
-    """K4 over the dense (E, C, d) buffer at qwen3-30b-a3b widths or
-    gpt-oss-20b's: C = 8 is the engine's full-pool decode step (dropless,
+    """K4 over the dense (E, C, d) buffer at qwen3-30b-a3b widths,
+    gpt-oss-20b's or deepseek-v2-236b's: C = 8 is the engine's full-pool decode step (dropless,
     C = n_slots), C = 1024 the short trace's packed prefill (4 prompts of
     201-242 tokens in the 256-token bucket)."""
     import torch
@@ -816,6 +889,119 @@ def check_small_model_end_to_end() -> None:
             if not rel <= E2E_REL_FRO:
                 raise AssertionError(f"end-to-end {name} ({moe_dispatch}) "
                                      f"disagrees: rel {rel}")
+
+
+def small_mla_config():
+    """A small MLA + MoE model at MLA's full head widths, so that its
+    attention runs K2 and K3 at the (192, 128) pair deepseek-v2-236b
+    gives them: deepseek-v2-236b's smoke variant (2 layers, d_model 512,
+    block 0 dense, block 1 MoE with one shared expert) with MLA's nope
+    128, rope 64, v 128, kv_lora 512 (q_lora 64), 4 heads, 8 experts
+    top-2, in bf16."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.config import MLAConfig
+    cfg = get_smoke_config("deepseek-v2-236b")
+    return dataclasses.replace(
+        cfg, name="deepseek-mla-small", n_heads=4, n_kv_heads=4,
+        head_dim=128,
+        mla=MLAConfig(kv_lora_rank=512, q_lora_rank=64, qk_rope_dim=64,
+                      qk_nope_dim=128, v_head_dim=128),
+        moe=dataclasses.replace(cfg.moe, n_experts=8, top_k=2),
+        dtype="bfloat16", param_dtype="bfloat16").validate()
+
+
+# an fp32 router margin (k-th minus (k+1)-th expert probability) below
+# which a token's expert set may flip under bf16: the bf16 model's hidden
+# states carry ~1e-2 relative error into router probabilities of ~1/8
+ROUTER_TIE = 2e-3
+
+
+def check_small_mla_end_to_end() -> None:
+    """``small_mla_config`` in bf16 on the card (K2 and K3 at (192, 128),
+    K1 or K4) vs the same weights in fp32 on the CPU (plain versions): a
+    48-token prefill into the latent cache at per-row offsets, then one
+    decode step, under the ragged and the dense dispatch.  Every token's
+    expert set is recorded on both sides: the logits of tokens routed
+    alike must agree within ``E2E_REL_FRO``; a token whose set differs
+    (its MoE output then differs wholly: the expert weights' fan-in is E)
+    must sit at a router near-tie (fp32 margin below ``ROUTER_TIE``), and
+    at most one token in 16 (or one) may."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.model import DecoderModel
+    cfg = small_mla_config()
+    gpu = DecoderModel(cfg, device="cuda")
+    params = gpu.init_params(torch.Generator(device="cuda").manual_seed(1))
+    cpu = DecoderModel(dataclasses.replace(cfg, dtype="float32",
+                                           param_dtype="float32"), device="cpu")
+    p_cpu = ops.tree_map(lambda a: a.float().cpu(), params)
+    g = torch.Generator().manual_seed(3)
+    toks = torch.randint(1, cfg.vocab_size, (2, 49), generator=g)
+    off = torch.tensor([0, 5], dtype=torch.int32)
+    route, routes = moe.route, []
+
+    def recorded(*args):
+        out = route(*args)
+        routes.append(out)
+        return out
+
+    def run(model, p_, dev, moe_dispatch):
+        """(prefill logits, decode logits) and each one's routes: one
+        (expert ids (T, k), probabilities (T, E)) per MoE block."""
+        cache = model.init_cache(2, 128)
+        kw = dict(cache=cache, dropless=True, moe_dispatch=moe_dispatch)
+        out = []
+        moe.route = recorded
+        try:
+            for sl, o in ((slice(0, 48), off), (slice(48, 49), off + 48)):
+                routes.clear()
+                lg, cache, _ = model.forward(p_, toks[:, sl].to(dev),
+                                             offset=o.to(dev), **kw)
+                out.append((lg.float().cpu(),
+                            [(i.cpu(), pr.float().cpu()) for i, _, pr in routes]))
+        finally:
+            moe.route = route
+        return out
+    want = run(cpu, p_cpu, "cpu", "ragged")
+    k = cfg.moe.top_k
+    for moe_dispatch in ("ragged", "dense"):
+        ops.reset_launches()
+        got = run(gpu, params, "cuda", moe_dispatch)
+        need = ("prefill_attention", "decode_attention",
+                MOE_KERNEL[moe_dispatch])
+        check_launches(f"small MLA model ({moe_dispatch})",
+                       dict(ops.LAUNCHES), need, need)
+        for name, (a, ra), (b_, rb) in zip(("prefill", "decode"), got, want):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"MLA end-to-end {name}: non-finite "
+                                     "logits")
+            alike = torch.ones(a.shape[0] * a.shape[1], dtype=torch.bool)
+            margin = torch.full_like(alike, float("inf"), dtype=torch.float32)
+            for (ia, _), (ib, pb) in zip(ra, rb):
+                alike &= (ia.sort(-1).values == ib.sort(-1).values).all(-1)
+                top = pb.sort(-1, descending=True).values
+                margin = torch.minimum(margin, top[:, k - 1] - top[:, k])
+            a2, b2 = a.reshape(alike.numel(), -1), b_.reshape(alike.numel(), -1)
+            rel = ((a2[alike] - b2[alike]).norm() / b2[alike].norm()).item()
+            agree = (a2.argmax(-1) == b2.argmax(-1)).float().mean().item()
+            flipped = (~alike).nonzero().flatten().tolist()
+            log(f"small MLA model {name} logits, {moe_dispatch} dispatch, "
+                f"bf16 kernels vs fp32 CPU: rel Frobenius {rel:.3e} over the "
+                f"{int(alike.sum())} of {alike.numel()} tokens routed alike "
+                f"(tol {E2E_REL_FRO}), argmax agreement {agree:.3f}; tokens "
+                f"routed otherwise {flipped}, fp32 router margins "
+                f"{[round(float(margin[i]), 6) for i in flipped]} (near-tie "
+                f"below {ROUTER_TIE}; all tokens rel Frobenius "
+                f"{((a - b_).norm() / b_.norm()).item():.3e})")
+            if not rel <= E2E_REL_FRO:
+                raise AssertionError(f"MLA end-to-end {name} "
+                                     f"({moe_dispatch}) disagrees: rel {rel}")
+            if (len(flipped) > max(1, alike.numel() // 16)
+                    or any(margin[i] >= ROUTER_TIE for i in flipped)):
+                raise AssertionError(f"MLA end-to-end {name} ({moe_dispatch}):"
+                                     f" tokens {flipped} routed otherwise, "
+                                     f"not at router near-ties")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1477,8 +1663,9 @@ def disagg_config(arch: str):
 
 
 def kv_bytes_per_token(cfg) -> int:
-    """bf16 K and V bytes of one token over every layer."""
-    return cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim_ * 2
+    """bf16 cache bytes of one token over every layer (K and V for GQA,
+    the latent and the rope key for MLA)."""
+    return cfg.kv_bytes_per_token(2)
 
 
 def run_disagg_serve(a, model, params) -> dict:
@@ -2049,6 +2236,99 @@ def serve_gpt_oss(times: dict) -> dict:
     return {"runs": runs}
 
 
+def large_moe_depth(arch: str, a) -> int:
+    """The depth of ``arch`` (at full width, bf16) that the card's free
+    memory holds beside the serve's cache (``a.slots`` rows of
+    ``a.max_len``), the decode step's transients (MLA: the decompressed
+    keys and values of every slot row, one layer at a time) and 6 GB for
+    the prefill's activations; the reckoning is logged."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    free, total = torch.cuda.mem_get_info()
+    kv_layer = cfg.kv_bytes_per_token(2) / cfg.n_layers * a.slots * a.max_len
+    m = cfg.mla
+    transient = (a.slots * a.max_len * cfg.n_heads * 2
+                 * (2 * m.qk_nope_dim + m.qk_rope_dim + m.v_head_dim)
+                 if m.enabled else 0)
+
+    def weights(n):
+        return 2 * dataclasses.replace(cfg, n_layers=n).param_count()
+
+    def need(n):
+        return weights(n) + kv_layer * n + transient + 6e9
+    depth = cfg.n_layers
+    while depth > 2 and need(depth) > free:
+        depth -= 1
+    specs = cfg.block_specs()
+    per = {sp.ffn: 2 * (cfg.attn_param_count(sp) + cfg.ffn_param_count(sp))
+           for sp in specs}
+    log(f"{arch}: bf16 weights {weights(cfg.n_layers) / 1e9:.2f} GB at "
+        f"{cfg.n_layers} layers (a layer: "
+        + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in per.items())
+        + f"; embeddings and head {weights(0) / 1e9:.2f} GB), cache "
+        f"{kv_layer / 1e6:.1f} MB a layer, decode transients "
+        f"{transient / 1e9:.2f} GB, 6 GB for activations; the card has "
+        f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free: depth {depth} of "
+        f"{cfg.n_layers} (cut: {need(depth) / 1e9:.2f} GB needed)")
+    return depth
+
+
+def serve_large_moe(times: dict) -> dict:
+    """Phase 5b: the registry's two large MoE models at full width, at the
+    depth the card holds (after gpt-oss is freed).  deepseek-v2-236b
+    (MLA: K2 and K3 at (192, 128); 160 experts top-6 and 2 shared; a
+    dense block 0) serves the long trace layered and chunked on the ragged
+    dispatch, and the short trace layered on the dense and on the ragged
+    dispatch (the same expert bytes and streams); qwen3-moe-235b-a22b
+    (64/4 heads: g 16) the long trace layered and chunked.  Layered
+    expert-load <= chunked on each."""
+    import torch
+    runs, depths = {}, {}
+    for arch, label in (("deepseek-v2-236b", "deepseek"),
+                        ("qwen3-moe-235b-a22b", "qwen3-235b")):
+        base, short = serve_configs(arch)
+        depth = depths[arch] = large_moe_depth(arch, base)
+        model, params, t0 = build_logged(base, label, times, n_layers=depth)
+        for sched in ("layered", "chunked"):
+            runs[f"{label} ragged/{sched}"] = run_serve(
+                dataclasses.replace(base, scheduler=sched), model, params)
+        lay, chk = runs[f"{label} ragged/layered"], runs[f"{label} ragged/chunked"]
+        if not lay["expert_load_bytes"] <= chk["expert_load_bytes"]:
+            raise AssertionError(f"{label}: layered expert-load exceeds "
+                                 "chunked")
+        log(f"{label} ({depth} layers) layered / chunked expert-load "
+            f"{lay['expert_load_bytes'] / 1e6:.1f} / "
+            f"{chk['expert_load_bytes'] / 1e6:.1f} MB "
+            f"({lay['expert_load_bytes'] / chk['expert_load_bytes']:.3f}; "
+            f"{model.cfg.expert_bytes(2) / 1e6:.2f} MB an expert); "
+            f"{_same_streams(lay, chk)} (bf16 streams may part at router "
+            "near-ties: reported, not asserted)")
+        if label == "deepseek":
+            for disp in ("dense", "ragged"):
+                runs[f"{label} short {disp}/layered"] = run_serve(
+                    dataclasses.replace(short, scheduler="layered",
+                                        moe_dispatch=disp), model, params)
+            dl = runs[f"{label} short dense/layered"]
+            rl = runs[f"{label} short ragged/layered"]
+            if (dl["expert_load_bytes"] != rl["expert_load_bytes"]
+                    or dl["outputs"] != rl["outputs"]):
+                raise AssertionError(
+                    f"{label} short trace, layered: dense and ragged differ: "
+                    f"{_same_streams(dl, rl)}, expert-load "
+                    f"{dl['expert_load_bytes']} / {rl['expert_load_bytes']} B")
+            log(f"{label} short trace, layered: dense / ragged expert-load "
+                f"{dl['expert_load_bytes'] / 1e6:.1f} / "
+                f"{rl['expert_load_bytes'] / 1e6:.1f} MB, "
+                f"{_same_streams(dl, rl)}; {dl['ms_per_iter']:.1f} / "
+                f"{rl['ms_per_iter']:.1f} ms/iter")
+        _phase(f"{label} serves", t0, times)
+        del model, params, lay, chk
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"runs": runs, "depths": depths}
+
+
 def dense_param_bytes(cfg, n_layers=None) -> int:
     """bf16 bytes of a dense GQA decoder's weights: attention, SwiGLU and
     two norms per layer, the embedding (and an untied head)."""
@@ -2151,7 +2431,8 @@ def profile_serve(a, model, params) -> None:
 def model_of(row: str) -> str:
     """The model whose serves a kernel row's shapes come from."""
     for key, arch in (("gpt-oss", "gpt-oss-20b"), ("phi4", "phi4-mini-3.8b"),
-                      ("yi-34b", "yi-34b")):
+                      ("yi-34b", "yi-34b"), ("deepseek", "deepseek-v2-236b"),
+                      ("qwen3-235b", "qwen3-moe-235b-a22b")):
         if key in row:
             return arch
     return "qwen3-30b-a3b"
@@ -2270,6 +2551,30 @@ def main() -> None:
                 check_decode_attention(gen, "yi-34b long",
                                        heads=YI_34B_ATTN)]
     torch.cuda.empty_cache()
+    # the large MoE models' shapes: K2 and K3 at MLA's (192, 128) widths
+    # (deepseek-v2-236b: H = Hkv = 128) at a layered first group and the
+    # long trace's decode step, and at g 16 (qwen3-moe-235b-a22b); K1 at
+    # both models' widths and K4 at deepseek's, as at gpt-oss
+    kernels += [check_prefill_attention("deepseek layered", gen,
+                                        heads=DEEPSEEK_ATTN),
+                check_decode_attention(gen, "deepseek long",
+                                       len_range=(600, 2050),
+                                       heads=DEEPSEEK_ATTN)]
+    torch.cuda.empty_cache()
+    kernels += [check_prefill_attention("qwen3-235b layered", gen,
+                                        heads=QWEN3_235B_ATTN),
+                check_decode_attention(gen, "qwen3-235b long",
+                                       heads=QWEN3_235B_ATTN)]
+    torch.cuda.empty_cache()
+    for tag, widths in (("deepseek", DEEPSEEK_MOE),
+                        ("qwen3-235b", QWEN3_235B_MOE)):
+        kernels += [check_moe_gmm(f"{tag} decode", 8, gen, widths),
+                    check_moe_gmm(f"{tag} prefill", 2048, gen, widths)]
+        torch.cuda.empty_cache()
+    kernels += [check_moe_gmm_dense("deepseek decode", 8, gen, DEEPSEEK_MOE),
+                check_moe_gmm_dense("deepseek prefill", 1024, gen,
+                                    DEEPSEEK_MOE)]
+    torch.cuda.empty_cache()
     digest = k2_g8_digest()
     log(f"prefill_attention at g 8: outputs sha256 {digest} (the kernel "
         f"before its repair: {K2_G8_SHA256})")
@@ -2279,6 +2584,7 @@ def main() -> None:
     for k in kernels:
         k["bound_share"] = k["bound_ms"] / k["ms"]
     check_small_model_end_to_end()
+    check_small_mla_end_to_end()
     torch.cuda.empty_cache()
     times: dict = {}
     _phase("build and kernel checks", t_start, times)
@@ -2293,8 +2599,11 @@ def main() -> None:
     oss = serve_gpt_oss(times)
     gc.collect()
     torch.cuda.empty_cache()
+    large = serve_large_moe(times)
+    gc.collect()
+    torch.cuda.empty_cache()
     dense = serve_dense(times)
-    runs = {**qwen["runs"], **oss["runs"], **dense["runs"]}
+    runs = {**qwen["runs"], **oss["runs"], **large["runs"], **dense["runs"]}
     # each kernel row's launches: the sum over its own model's serves,
     # each counted from 0 just before it and read just after
     launches, iters = {}, collections.Counter()
@@ -2316,6 +2625,7 @@ def main() -> None:
         {**qwen["spec"], "phi4-mini ngram": dense["spec"]}))
     log("two-pool and chaos streams " + json.dumps(qwen["disagg"]))
     log("live, per-slice and simulator " + json.dumps(qwen["live"]))
+    log("large MoE depths " + json.dumps(large["depths"]))
     log("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in times.items()}))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,7 +1,8 @@
 """Architecture registry of the port: the configurations the port runs
-(the paper's two evaluation models and the four dense GQA decoders of the
-JAX registry).  Access via ``get_config(name)`` / ``list_configs()``;
-smoke variants via ``get_smoke_config(name)``."""
+(the paper's two evaluation models, the four dense GQA decoders and the
+two large MoE models of the JAX registry).  Access via
+``get_config(name)`` / ``list_configs()``; smoke variants via
+``get_smoke_config(name)``."""
 
 from __future__ import annotations
 
@@ -21,6 +22,10 @@ _MODULES = {
     "stablelm-1.6b": "stablelm_1_6b",
     "yi-34b": "yi_34b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
+    # the large MoE models: multi-head latent attention with shared experts
+    # and a dense first block; GQA at group size 16
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
 }
 
 

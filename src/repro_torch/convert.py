@@ -5,8 +5,9 @@ DecoderModel(cfg).init(key)`` returns, with its leaves already turned into
 numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``), and returns
 the same structure with torch tensors: the stacked ``(reps, ...)`` segment
 leaves stay stacked, and every layout is unchanged (``x @ W`` with ``W`` of
-shape ``(d_in, d_out)``).  JAX's PRNG cannot be reproduced in torch, so
-every test that holds the port against the JAX package goes through here.
+shape ``(d_in, d_out)``; MLA's leaves are such matrices and norm dicts).
+JAX's PRNG cannot be reproduced in torch, so every test that holds the
+port against the JAX package goes through here.
 This module imports numpy and torch only.
 """
 
@@ -32,8 +33,9 @@ def from_jax_params(cfg: ModelConfig, tree, device=None):
     """numpy pytree (dicts / lists of arrays) -> the same tree of tensors
     on ``device`` (``cuda`` unless the caller asks for the CPU)."""
     dev = resolve_device(device)
-    if cfg.encoder.enabled or cfg.mla.enabled:
-        raise NotImplementedError(f"{cfg.name}: the port runs GQA decoders only")
+    if cfg.encoder.enabled:
+        raise NotImplementedError(f"{cfg.name}: the port runs GQA and MLA "
+                                  "decoders only")
 
     def conv(x):
         if isinstance(x, dict):

@@ -51,9 +51,9 @@ _SIGNATURES = {
     "moe_gmm_ragged": ("moe_gmm_ragged", "moe_gmm_ragged_bf16",
                        [_P] * 7 + [_I] * 5 + [_P]),
     "prefill_attention": ("prefill_attention", "prefill_attention_bf16",
-                          [_P] * 5 + [_I] * 7 + [_F, _P]),
+                          [_P] * 5 + [_I] * 8 + [_F, _P]),
     "decode_attention": ("decode_attention", "decode_attention_bf16",
-                         [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
+                         [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
     "moe_gmm": ("moe_gmm", "moe_gmm_bf16", [_P] * 6 + [_I] * 5 + [_P]),
     # one kernel: paged decode is the verify window W = 1
     "paged_decode_attention": ("paged_attention", "paged_attention_bf16",
@@ -160,10 +160,15 @@ def _check_aligned(name: str, *tensors: Tensor) -> None:
 # --------------------------------------------------------------------- K2
 
 # query rows per CTA of the prefill kernel: PREFILL_ROWS // g positions x
-# g heads of one group, the rows past them padding; and the head dims it
-# is built for
+# g heads of one group, the rows past them padding; and the (query/key,
+# value) head widths it is built for: GQA's equal pairs and multi-head
+# latent attention's 128 nope + 64 rope query/key dims against 128 value
+# dims
 PREFILL_ROWS = 128
-PREFILL_HEAD_DIMS = (32, 64, 128)
+PREFILL_HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
+# the unequal pairs the decode kernel is built for (it takes every equal
+# pair of a multiple of 16 up to 128)
+DECODE_WIDE_DIMS = ((192, 128),)
 
 
 def _check_attention(name: str, q: Tensor, k: Tensor, v: Tensor,
@@ -171,38 +176,46 @@ def _check_attention(name: str, q: Tensor, k: Tensor, v: Tensor,
     _check_bf16(name, q, k, v)
     if idx.dtype != torch.int32:
         raise TypeError(f"{name}: offsets/lengths must be int32")
-    h, hd = q.shape[-2], q.shape[-1]
-    hkv = k.shape[2]
-    if h % hkv or hd % 16 or hd > 128:
-        raise ValueError(f"{name}: kernel needs H % Hkv == 0 and hd a "
-                         f"multiple of 16 up to 128 (H={h}, Hkv={hkv}, "
-                         f"hd={hd})")
+    h, hkv = q.shape[-2], k.shape[2]
+    if h % hkv:
+        raise ValueError(f"{name}: kernel needs H % Hkv == 0 (H={h}, "
+                         f"Hkv={hkv})")
+
+
+def _check_kv(name: str, q: Tensor, k: Tensor, v: Tensor) -> None:
+    """k (B, S_max, Hkv, dk) and v (B, S_max, Hkv, dv) beside q (B, ...,
+    H, dk)."""
+    if (k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[-1]):
+        raise ValueError(f"{name}: bad shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
 
 
 def prefill_attention(q: Tensor, k: Tensor, v: Tensor, offset: Tensor, *,
                       window: Optional[int] = None) -> Tensor:
     """Causal GQA attention of P new tokens over the slot-row cache:
-    q (B, P, H, hd) at positions ``offset[b] + i``, k/v (B, S_max, Hkv, hd)
-    already holding the new keys, offset (B,) -> (B, P, H, hd).  See
+    q (B, P, H, dk) at positions ``offset[b] + i``, k (B, S_max, Hkv, dk)
+    and v (B, S_max, Hkv, dv) already holding the new keys, offset (B,)
+    -> (B, P, H, dv), scaled by 1/sqrt(dk).  See
     ``ref.prefill_attention_ref`` for the masks."""
-    b, p, h, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd \
-            or offset.shape != (b,):
-        raise ValueError(f"prefill_attention: bad shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} offset {tuple(offset.shape)}")
+    b, p, h, dk = q.shape
+    _check_kv("prefill_attention", q, k, v)
+    if offset.shape != (b,):
+        raise ValueError(f"prefill_attention: bad offset shape "
+                         f"{tuple(offset.shape)}")
     if not _on_card("prefill_attention", q, k, v, offset):
         return ref.prefill_attention_ref(q, k, v, offset, window=window)
     _check_attention("prefill_attention", q, k, v, offset)
-    g = h // k.shape[2]
-    if g > PREFILL_ROWS or hd not in PREFILL_HEAD_DIMS:
+    g, dv = h // k.shape[2], v.shape[3]
+    if g > PREFILL_ROWS or (dk, dv) not in PREFILL_HEAD_DIMS:
         raise ValueError(f"prefill_attention: kernel needs the group size "
-                         f"at most {PREFILL_ROWS} and hd in "
-                         f"{PREFILL_HEAD_DIMS} (g={g}, hd={hd})")
+                         f"at most {PREFILL_ROWS} and (hd, hd_v) in "
+                         f"{PREFILL_HEAD_DIMS} (g={g}, hd={dk}, hd_v={dv})")
     _check_aligned("prefill_attention", q, k, v)
-    out = torch.empty_like(q)
+    out = q.new_empty((b, p, h, dv))
     _launch("prefill_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             offset.data_ptr(), out.data_ptr(), b, p, h, k.shape[2],
-            k.shape[1], hd, window or 0, 1.0 / math.sqrt(hd))
+            k.shape[1], dk, dv, window or 0, 1.0 / math.sqrt(dk))
     return out
 
 
@@ -228,33 +241,40 @@ def decode_split(b: int, hkv: int, s_max: int) -> int:
 def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
                      lengths: Tensor, *,
                      window: Optional[int] = None) -> Tensor:
-    """One query token per row over the contiguous cache: q (B, H, hd),
-    caches (B, S_max, Hkv, hd), lengths (B,) valid entries including the
-    new token's K/V -> (B, H, hd)."""
-    b, h, hd = q.shape
-    if k_cache.shape != v_cache.shape or k_cache.shape[0] != b \
-            or k_cache.shape[3] != hd or lengths.shape != (b,):
-        raise ValueError(f"decode_attention: bad shapes q {tuple(q.shape)} "
-                         f"k {tuple(k_cache.shape)} lengths "
+    """One query token per row over the contiguous cache: q (B, H, dk),
+    caches k (B, S_max, Hkv, dk) and v (B, S_max, Hkv, dv), lengths (B,)
+    valid entries including the new token's K/V -> (B, H, dv), scaled by
+    1/sqrt(dk).  On the card dk = dv a multiple of 16 up to 128, or a pair
+    of ``DECODE_WIDE_DIMS``."""
+    b, h, dk = q.shape
+    _check_kv("decode_attention", q, k_cache, v_cache)
+    if lengths.shape != (b,):
+        raise ValueError(f"decode_attention: bad lengths shape "
                          f"{tuple(lengths.shape)}")
     if not _on_card("decode_attention", q, k_cache, v_cache, lengths):
         return ref.decode_attention_ref(q, k_cache, v_cache, lengths,
                                         window=window)
     _check_attention("decode_attention", q, k_cache, v_cache, lengths)
+    dv = v_cache.shape[3]
+    if not ((dk == dv and dk % 16 == 0 and dk <= 128)
+            or (dk, dv) in DECODE_WIDE_DIMS):
+        raise ValueError(f"decode_attention: kernel needs hd = hd_v a "
+                         f"multiple of 16 up to 128, or (hd, hd_v) in "
+                         f"{DECODE_WIDE_DIMS} (hd={dk}, hd_v={dv})")
     if h // k_cache.shape[2] > 16:
         raise ValueError("decode_attention: kernel takes at most 16 query "
                          "heads per kv head")
     _check_aligned("decode_attention", q, k_cache, v_cache)
     hkv, s_max = k_cache.shape[2], k_cache.shape[1]
     split = decode_split(b, hkv, s_max)
-    out = torch.empty_like(q)
+    out = q.new_empty((b, h, dv))
     # fp32 partials (O, then m and l) of every (slot, head, split)
-    scratch = (torch.empty(b * h * split * (hd + 2), dtype=torch.float32,
+    scratch = (torch.empty(b * h * split * (dv + 2), dtype=torch.float32,
                            device=q.device) if split > 1 else None)
     _launch("decode_attention", q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             scratch.data_ptr() if scratch is not None else None, b, h, hkv,
-            s_max, hd, window or 0, 1.0 / math.sqrt(hd), split)
+            s_max, dk, dv, window or 0, 1.0 / math.sqrt(dk), split)
     return out
 
 

@@ -39,9 +39,11 @@ _Q_CHUNK = 512
 def masked_attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                      kv_pos: Tensor, kv_valid: Tensor, *,
                      window: Optional[int] = None) -> Tensor:
-    """Causal attention.  q: (B,Sq,H,hd); k/v: (B,Skv,Hkv,hd'); q_pos:
-    (B,Sq); kv_pos: (B,Skv) or (Skv,); kv_valid: (B,Skv) bool ->
-    (B,Sq,H,hd') in q's dtype, scaled by 1/sqrt(hd).
+    """Causal attention.  q: (B,Sq,H,hd); k: (B,Skv,Hkv,hd); v:
+    (B,Skv,Hkv,hd_v); q_pos: (B,Sq); kv_pos: (B,Skv) or (Skv,); kv_valid:
+    (B,Skv) bool -> (B,Sq,H,hd_v) in q's dtype, scaled by 1/sqrt(hd) (GQA
+    has hd_v = hd; multi-head latent attention hd 192 = 128 nope + 64
+    rope against hd_v 128).
 
     GQA uses g-major head grouping: query head h reads kv head ``h % Hkv``
     (SDPA's ``enable_gqa`` and ``repeat_interleave`` use ``h // g``, a
@@ -80,8 +82,9 @@ def prefill_attention_ref(q: Tensor, k: Tensor, v: Tensor, offset: Tensor,
                           *, window: Optional[int] = None) -> Tensor:
     """The prefill kernel's contract over the slot-row cache.
 
-    q: (B, P, H, hd) at positions ``offset[b] + i``; k/v: (B, S_max, Hkv,
-    hd), already holding this call's keys.  Key j is visible to query i
+    q: (B, P, H, hd) at positions ``offset[b] + i``; k: (B, S_max, Hkv,
+    hd) and v: (B, S_max, Hkv, hd_v), already holding this call's keys ->
+    (B, P, H, hd_v).  Key j is visible to query i
     when ``j < offset + P``, ``j <= offset + i`` and, with a window,
     ``j > offset + i - window`` — the masks ``apply_gqa`` builds."""
     p = q.shape[1]
@@ -96,8 +99,9 @@ def prefill_attention_ref(q: Tensor, k: Tensor, v: Tensor, offset: Tensor,
 def decode_attention_ref(q: Tensor, k_cache: Tensor, v_cache: Tensor,
                          lengths: Tensor, *,
                          window: Optional[int] = None) -> Tensor:
-    """The decode kernel's contract: q (B, H, hd), caches (B, S_max, Hkv,
-    hd), lengths (B,) valid entries INCLUDING the new token's K/V.  The
+    """The decode kernel's contract: q (B, H, hd), caches k (B, S_max,
+    Hkv, hd) and v (B, S_max, Hkv, hd_v), lengths (B,) valid entries
+    INCLUDING the new token's K/V -> (B, H, hd_v).  The
     query sits at position ``length - 1``; with a window it sees keys
     ``>= length - window``."""
     s_max = k_cache.shape[1]

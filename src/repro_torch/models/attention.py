@@ -1,14 +1,17 @@
-"""GQA attention mixer with the slot-row KV-cache protocol.
+"""Attention mixers with the slot-row KV-cache protocol: GQA (full or
+sliding-window) and DeepSeek-V2 multi-head latent attention (MLA).
 
-Cache per attention block: ``{"k": (B, S_max, Hkv, hd), "v": ...}``.  The
-caller tracks the filled length as ``offset`` (B,): the S new tokens are
-written at ``[offset, offset + S)`` of each row and attention covers
+Cache per attention block:
+  GQA: ``{"k": (B, S_max, Hkv, hd), "v": (B, S_max, Hkv, hd)}``
+  MLA: ``{"ckv": (B, S_max, kv_lora), "kr": (B, S_max, rope_dim)}``
+The caller tracks the filled length as ``offset`` (B,): the S new tokens
+are written at ``[offset, offset + S)`` of each row and attention covers
 positions ``< offset + S`` under the causal (and window) mask.
 
-Unlike the JAX package, cache updates happen IN PLACE: ``apply_gqa``
-writes the new K/V into the tensors it is given (views into the engine's
-preallocated pool) and returns the same dict.  This stands in for the
-JAX engine's donated buffers.
+Unlike the JAX package, cache updates happen IN PLACE: ``apply_gqa`` and
+``apply_mla`` write the new entries into the tensors they are given (views
+into the engine's preallocated pool) and return the same dict.  This
+stands in for the JAX engine's donated buffers.
 
 Attention runs through ``kernels.ops``: ``decode_attention`` when S == 1,
 ``prefill_attention`` otherwise — hand-written kernels for CUDA tensors,
@@ -26,7 +29,8 @@ import torch
 from repro_torch.device import torch_dtype
 from repro_torch.kernels import ops
 from repro_torch.models import layers
-from repro_torch.models.config import MIXER_GQA, MIXER_LOCAL, BlockSpec, ModelConfig
+from repro_torch.models.config import (MIXER_GQA, MIXER_LOCAL, MIXER_MLA,
+                                       BlockSpec, ModelConfig)
 
 Tensor = torch.Tensor
 
@@ -39,6 +43,25 @@ def init_attn(cfg: ModelConfig, spec: BlockSpec, device, generator,
 
     def w(shape):
         return layers.dense_init(shape, dt, device, generator, reps=reps)
+    if spec.mixer == MIXER_MLA:
+        m, h = cfg.mla, cfg.n_heads
+        qdim = h * (m.qk_nope_dim + m.qk_rope_dim)
+        p = {}
+        if m.q_lora_rank:
+            p["w_dq"] = w((d, m.q_lora_rank))
+            p["q_norm"] = layers.init_norm(cfg, device, dim=m.q_lora_rank,
+                                           reps=reps)
+            p["w_uq"] = w((m.q_lora_rank, qdim))
+        else:
+            p["w_q"] = w((d, qdim))
+        p["w_dkv"] = w((d, m.kv_lora_rank))
+        p["kv_norm"] = layers.init_norm(cfg, device, dim=m.kv_lora_rank,
+                                        reps=reps)
+        p["w_kr"] = w((d, m.qk_rope_dim))
+        p["w_uk"] = w((m.kv_lora_rank, h * m.qk_nope_dim))
+        p["w_uv"] = w((m.kv_lora_rank, h * m.v_head_dim))
+        p["w_o"] = w((h * m.v_head_dim, d))
+        return p
     return {"w_q": w((d, cfg.n_heads * hd)), "w_k": w((d, cfg.n_kv_heads * hd)),
             "w_v": w((d, cfg.n_kv_heads * hd)), "w_o": w((cfg.n_heads * hd, d))}
 
@@ -47,16 +70,23 @@ def init_cache_attn(cfg: ModelConfig, spec: BlockSpec, batch: int,
                     max_len: int, device, dtype=None) -> dict:
     _check_spec(spec)
     dt = dtype or torch_dtype(cfg.dtype)
+    if spec.mixer == MIXER_MLA:
+        m = cfg.mla
+        return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                                   dtype=dt, device=device),
+                "kr": torch.zeros((batch, max_len, m.qk_rope_dim),
+                                  dtype=dt, device=device)}
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
 def _check_spec(spec: BlockSpec) -> None:
-    if spec.mixer not in (MIXER_GQA, MIXER_LOCAL) or spec.cross_attn:
+    if spec.mixer not in (MIXER_GQA, MIXER_LOCAL, MIXER_MLA) \
+            or spec.cross_attn:
         raise NotImplementedError(
-            f"the torch port runs GQA attention only (mixer {spec.mixer!r}, "
-            f"cross_attn={spec.cross_attn})")
+            f"the torch port runs GQA and MLA attention only (mixer "
+            f"{spec.mixer!r}, cross_attn={spec.cross_attn})")
 
 
 def _write_cache(buf: Tensor, new: Tensor, offset: Tensor,
@@ -109,20 +139,69 @@ def apply_gqa(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
         raise NotImplementedError(f"pos_emb {cfg.pos_emb!r} is not ported")
 
     if cache is not None:
-        kbuf = _write_cache(cache["k"], k, offset, valid)
-        vbuf = _write_cache(cache["v"], v, offset, valid)
-        off32 = offset.to(torch.int32)
-        if s == 1:
-            out = ops.decode_attention(q[:, 0].contiguous(), kbuf, vbuf,
-                                       off32 + 1, window=spec.window)[:, None]
-        else:
-            out = ops.prefill_attention(q.contiguous(), kbuf, vbuf, off32,
-                                        window=spec.window)
-        new_cache = cache
+        k = _write_cache(cache["k"], k, offset, valid)
+        v = _write_cache(cache["v"], v, offset, valid)
+    out = _attend(q, k, v, offset, cache is not None, spec.window)
+    return out.reshape(b, s, -1) @ p["w_o"], cache
+
+
+def _attend(q: Tensor, k: Tensor, v: Tensor, offset: Optional[Tensor],
+            cached: bool, window: Optional[int]) -> Tensor:
+    """q (B, S, H, dk) over k (B, S_kv, Hkv, dk) / v (B, S_kv, Hkv, dv) ->
+    (B, S, H, dv) through the kernels: decode attention for one token over
+    the cache, prefill attention otherwise (over the cache at ``offset``,
+    or, without one, causally over the S keys of this call)."""
+    b, s = q.shape[:2]
+    if not cached:
+        zeros = torch.zeros((b,), dtype=torch.int32, device=q.device)
+        return ops.prefill_attention(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), zeros, window=window)
+    off32 = offset.to(torch.int32)
+    if s == 1:
+        return ops.decode_attention(q[:, 0].contiguous(), k, v, off32 + 1,
+                                    window=window)[:, None]
+    return ops.prefill_attention(q.contiguous(), k, v, off32, window=window)
+
+
+def apply_mla(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
+              positions: Tensor, offset: Optional[Tensor] = None,
+              cache: Optional[dict] = None,
+              valid: Optional[Tensor] = None) -> Tuple[Tensor, Optional[dict]]:
+    """DeepSeek-V2 multi-head latent attention.  x: (B, S, D).  The cache
+    keeps the compressed latent ``ckv`` (kv_lora) and the one shared rope
+    key ``kr`` per token, written IN PLACE at ``offset``; attention
+    decompresses the whole row (the JAX package's naive path): k = [ckv
+    W_uk, kr] of width nope + rope per head, v = ckv W_uv, H = Hkv, scaled
+    by 1/sqrt(nope + rope).  The decompressed K/V are transients of this
+    call."""
+    _check_spec(spec)
+    m = cfg.mla
+    b, s, _ = x.shape
+    h, nope = cfg.n_heads, m.qk_nope_dim
+    if m.q_lora_rank:
+        cq = layers.apply_norm(cfg, p["q_norm"], x @ p["w_dq"])
+        q = (cq @ p["w_uq"]).reshape(b, s, h, nope + m.qk_rope_dim)
     else:
-        zeros = torch.zeros((b,), dtype=torch.int32, device=x.device)
-        out = ops.prefill_attention(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), zeros,
-                                    window=spec.window)
-        new_cache = None
-    return out.reshape(b, s, -1) @ p["w_o"], new_cache
+        q = (x @ p["w_q"]).reshape(b, s, h, nope + m.qk_rope_dim)
+    q = torch.cat([q[..., :nope],
+                   layers.apply_rope(q[..., nope:], positions,
+                                     cfg.rope_theta)], dim=-1)
+    ckv = layers.apply_norm(cfg, p["kv_norm"], x @ p["w_dkv"])     # (B,S,r)
+    kr = layers.apply_rope((x @ p["w_kr"])[:, :, None], positions,
+                           cfg.rope_theta)[:, :, 0]                  # (B,S,rope)
+    if cache is not None:
+        ckv = _write_cache(cache["ckv"], ckv, offset, valid)
+        kr = _write_cache(cache["kr"], kr, offset, valid)
+    s_kv = ckv.shape[1]
+    k = torch.cat([(ckv @ p["w_uk"]).reshape(b, s_kv, h, nope),
+                   kr[:, :, None].expand(b, s_kv, h, m.qk_rope_dim)], dim=-1)
+    v = (ckv @ p["w_uv"]).reshape(b, s_kv, h, m.v_head_dim)
+    out = _attend(q, k, v, offset, cache is not None, spec.window)
+    return out.reshape(b, s, -1) @ p["w_o"], cache
+
+
+def apply_mixer_attn(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, **kw):
+    """The attention mixer of ``spec``: MLA or GQA."""
+    if spec.mixer == MIXER_MLA:
+        return apply_mla(cfg, spec, p, x, **kw)
+    return apply_gqa(cfg, spec, p, x, **kw)

@@ -1,8 +1,8 @@
-"""Block-level dispatch: one decoder block = GQA mixer + FFN (dense or
-MoE), pre-norm residual style.  ``apply_block`` is the single entry point
-of both execution paths: the full forward and the engine's
-``run_blocks(start, n)`` partial vertical execution (layered prefill).
-Other mixers (MLA, RG-LRU, xLSTM, cross-attention) raise
+"""Block-level dispatch: one decoder block = attention mixer (GQA or MLA)
++ FFN (dense or MoE), pre-norm residual style.  ``apply_block`` is the
+single entry point of both execution paths: the full forward and the
+engine's ``run_blocks(start, n)`` partial vertical execution (layered
+prefill).  The recurrent mixers (RG-LRU, xLSTM) and cross-attention raise
 ``NotImplementedError``."""
 
 from __future__ import annotations
@@ -45,9 +45,9 @@ def apply_block(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
                 ) -> Tuple[Tensor, Optional[dict], dict]:
     """x: (B,S,D) -> (x', cache (updated in place), aux)."""
     h = layers.apply_norm(cfg, p["ln1"], x)
-    out, new_cache = attention.apply_gqa(cfg, spec, p["attn"], h,
-                                         positions=positions, offset=offset,
-                                         cache=cache, valid=valid)
+    out, new_cache = attention.apply_mixer_attn(
+        cfg, spec, p["attn"], h, positions=positions, offset=offset,
+        cache=cache, valid=valid)
     x = x + out
     aux = moe.empty_moe_aux(cfg, x.device)
     if spec.ffn != FFN_NONE:

@@ -11,7 +11,10 @@ Parameters are a plain dict with the JAX package's structure and layouts:
 ``params["segments"][s]["pattern"][p]`` holds one block's parameters
 stacked over the segment's repeats (leading axis ``reps``).  Caches mirror
 it: ``cache[s][p]`` is ``{"k", "v"}`` of shape (reps, batch, S_max, Hkv,
-hd).  Cache updates happen in place (see models/attention.py).
+hd), or MLA's ``{"ckv", "kr"}`` of shape (reps, batch, S_max, width).  A
+stack with a dense first block has two segments once it is deeper than
+the 16-block period search (deepseek-v2-236b at full depth: 1 + 59).
+Cache updates happen in place (see models/attention.py).
 """
 
 from __future__ import annotations
@@ -43,10 +46,10 @@ class DecoderModel:
         self.segments = cfg.scan_segments()
         self.index_map = cfg.block_index_map()
         self.n_blocks = cfg.n_layers
-        if cfg.encoder.enabled or cfg.vision.enabled or cfg.mla.enabled \
+        if cfg.encoder.enabled or cfg.vision.enabled \
                 or cfg.pos_emb == "learned":
             raise NotImplementedError(
-                f"{cfg.name}: the torch port runs GQA decoders only")
+                f"{cfg.name}: the torch port runs GQA and MLA decoders only")
 
     # -- init ---------------------------------------------------------------
 

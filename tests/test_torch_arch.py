@@ -1,7 +1,8 @@
 """The four dense GQA configs of the port (minicpm-2b, stablelm-1.6b,
-yi-34b, phi4-mini-3.8b) against the JAX package on the CPU, in fp32: the
-smoke variants' forwards with a cache and one decode step, on the same
-weights (the JAX init converted through ``repro_torch.convert``);
+yi-34b, phi4-mini-3.8b) and the two large MoE configs (deepseek-v2-236b:
+MLA, shared experts, a dense first block; qwen3-moe-235b-a22b: g 16)
+against the JAX package on the CPU, in fp32: the smoke variants' forwards
+with a cache and one decode step, on the same weights (the JAX init converted through ``repro_torch.convert``);
 layered and chunked engine traces per family feature (stablelm's
 layernorm and partial RoPE, phi4-mini's tied embeddings and group size);
 and the launcher serving phi4-mini with speculation.  Tolerance as in
@@ -18,12 +19,14 @@ from repro.configs import get_smoke_config as jax_get_smoke_config
 from test_torch_model import close, jit, models, t
 
 DENSE_ARCHS = ["minicpm-2b", "stablelm-1.6b", "yi-34b", "phi4-mini-3.8b"]
+MOE_ARCHS = ["deepseek-v2-236b", "qwen3-moe-235b-a22b"]
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS)
 def test_smoke_forward_matches_jax(arch):
     """A 16-token prefill into the cache at per-row offsets, then one
-    decode step: logits and caches; then the no-cache forward."""
+    decode step: logits and every cache leaf (GQA's ``k``/``v``, MLA's
+    ``ckv``/``kr``); then the no-cache forward."""
     cfg = jax_get_smoke_config(arch)
     jm, jp, tm, tp = models(cfg)
     rng = np.random.default_rng(21)
@@ -36,8 +39,11 @@ def test_smoke_forward_matches_jax(arch):
         lt, tc, _ = tm.forward(tp, t(toks[:, sl]).long(), offset=t(o),
                                cache=tc)
         close(lt, lj)
-    for leaf in ("k", "v"):
-        close(tc[0][0][leaf], jc[0][0][leaf])
+    for seg_t, seg_j in zip(tc, jc):
+        for ct, cj in zip(seg_t, seg_j):
+            assert sorted(ct) == sorted(cj)
+            for leaf in ct:
+                close(ct[leaf], cj[leaf])
     lj, _, _ = fwd(jp, toks)
     lt, _, _ = tm.forward(tp, t(toks).long())
     close(lt, lj)

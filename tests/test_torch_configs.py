@@ -1,6 +1,7 @@
 """The port's registered configurations against the JAX package's: the
-paper's two models and the four dense GQA decoders field for field (full
-and smoke variants), and the smoke gpt-oss-20b engine trace through both
+paper's two models, the four dense GQA decoders and the two large MoE
+models (deepseek-v2-236b, qwen3-moe-235b-a22b) field for field (full and
+smoke variants), and the smoke gpt-oss-20b engine trace through both
 packages (identical plans, tokens, TTFTs and expert bytes, layered and
 chunked).  The dense configs' forwards and engine traces are held against
 JAX in tests/test_torch_arch.py."""
@@ -19,14 +20,16 @@ from repro_torch.configs import get_config, get_smoke_config, list_configs
 
 ARCHS = ["qwen3-30b-a3b", "gpt-oss-20b"]
 DENSE_ARCHS = ["minicpm-2b", "stablelm-1.6b", "yi-34b", "phi4-mini-3.8b"]
+MOE_ARCHS = ["deepseek-v2-236b", "qwen3-moe-235b-a22b"]
 
 
 def test_port_registers_the_papers_two_models():
-    """The paper's two models first, then the dense GQA decoders."""
-    assert list_configs() == ARCHS + DENSE_ARCHS
+    """The paper's two models first, then the dense GQA decoders, then the
+    large MoE models."""
+    assert list_configs() == ARCHS + DENSE_ARCHS + MOE_ARCHS
 
 
-@pytest.mark.parametrize("arch", ARCHS + DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + DENSE_ARCHS + MOE_ARCHS)
 def test_config_matches_jax(arch):
     assert dataclasses.asdict(get_config(arch)) == \
         dataclasses.asdict(jax_get_config(arch))
@@ -63,3 +66,17 @@ def test_smoke_gpt_oss_engine_trace_matches_jax(sched, pages):
     parity.assert_same(got, want)
     assert got["n_preempted"] > 0
     assert all(len(t) == 6 for t in got["outputs"].values())
+
+
+def test_large_moe_widths():
+    """deepseek-v2-236b: MLA (kv_lora 512 + 64 rope dims: 1152 B a token
+    and layer in bf16), 2 shared + 160 routed experts top-6, a dense first
+    block (two segments); qwen3-moe-235b-a22b: 64/4 heads (g 16)."""
+    ds = get_config("deepseek-v2-236b")
+    assert (ds.n_layers, ds.d_model, ds.n_heads) == (60, 5120, 128)
+    assert ds.kv_bytes_per_token(2) == 60 * 1152
+    assert [reps for _, reps in ds.scan_segments()] == [1, 59]
+    assert ds.expert_bytes(2) == 3 * 5120 * 1536 * 2
+    qw = get_config("qwen3-moe-235b-a22b")
+    assert (qw.n_heads // qw.n_kv_heads, qw.head_dim_) == (16, 128)
+    assert qw.expert_bytes(2) == 3 * 4096 * 1536 * 2

@@ -256,6 +256,70 @@ def test_prefill_attention_kernel_at_any_group_size(cuda, hd, h, hkv, window,
     assert torch.equal(got, again)
 
 
+# (H, P, offsets, lengths): multi-head latent attention's widths (dk 192 =
+# 128 nope + 64 rope, dv 128) at H = Hkv: 4 heads (the decode kernel
+# splits the keys), 128 heads (deepseek-v2-236b: one split); P 40 and 130
+# span one and two q tiles, offsets past the 128-key tile edge
+MLA_SHAPES = [(4, 40, (0, 50, 101, 170), (1, 301, 128, 17)),
+              (4, 130, (0, 3, 60, 170), (300, 64, 129, 2)),
+              (128, 40, (0, 77, 130, 260), (1, 300, 129, 257))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,p,offsets,lens", MLA_SHAPES)
+@pytest.mark.parametrize("window", [None, 70])
+def test_attention_kernels_at_mla_widths_match_plain(cuda, h, p, offsets,
+                                                     lens, window):
+    """K2 and K3 at (dk, dv) = (192, 128): output width dv, scale
+    1/sqrt(192), against their plain versions; two launches agree bit for
+    bit (a stale length S_max + 1 included)."""
+    rng = np.random.default_rng(15)
+    b, s_max = 4, 300
+    q = _bf16(rng, (b, p, h, 192), cuda)
+    k, v = _bf16(rng, (b, s_max, h, 192), cuda), _bf16(rng, (b, s_max, h, 128), cuda)
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    got = ops.prefill_attention(q, k, v, off, window=window)
+    want = ref.prefill_attention_ref(q, k, v, off, window=window)
+    assert got.shape == (b, p, h, 128)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(got, ops.prefill_attention(q, k, v, off, window=window))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q1 = q[:, 0].contiguous()
+    got = ops.decode_attention(q1, k, v, lengths, window=window)
+    want = ref.decode_attention_ref(q1, k, v, lengths, window=window)
+    assert got.shape == (b, h, 128)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(got, ops.decode_attention(q1, k, v, lengths,
+                                                 window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moe_dispatch", ["ragged", "dense"])
+def test_mla_engine_serves_on_the_card(cuda, moe_dispatch):
+    """``chip_smoke``'s small MLA model (a dense block 0, an MoE block 1
+    with a shared expert; MLA's full head widths) in bf16 through the
+    engine: every request completes, K2/K3 at (192, 128) and the
+    dispatch's MoE kernel launch, nothing else does."""
+    from repro_torch.core.base import make_scheduler
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.serving.engine import Engine
+    model = DecoderModel(_chip_smoke().small_mla_config(), device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(1))
+    ops.reset_launches()
+    sched = make_scheduler("layered", model.n_blocks, n_slots=4, quantum=16)
+    eng = Engine(model, params, sched, n_slots=4, max_len=96,
+                 moe_dispatch=moe_dispatch)
+    rng = np.random.default_rng(0)
+    for _ in range(5):
+        eng.submit(rng.integers(1, 500, int(rng.integers(4, 40))).tolist(), 6)
+    eng.run()
+    assert all(len(t) == 6 for t in eng.outputs.values())
+    path = PATH_KERNELS[moe_dispatch]
+    assert all(ops.LAUNCHES[k] > 0 for k in path), ops.LAUNCHES
+    assert all(n == 0 for k, n in ops.LAUNCHES.items() if k not in path), \
+        ops.LAUNCHES
+
+
 def _chip_smoke():
     import importlib.util
     from pathlib import Path
@@ -297,9 +361,11 @@ def test_decode_attention_kernel_at_groups_3_and_7(cuda, hd, h, hkv, window):
 @pytest.mark.cuda
 def test_attention_kernels_refuse_what_they_do_not_take(cuda):
     """A CUDA tensor the kernel does not take raises ValueError, never
-    falls back: prefill needs hd in (32, 64, 128) and a group size of at
-    most 128 (any other group size it takes: g 3 runs); decode takes hd a
-    multiple of 16 up to 128 and at most 16 query heads per kv head."""
+    falls back: prefill needs (hd, hd_v) in (32, 32), (64, 64), (128,
+    128), (192, 128) and a group size of at most 128 (any other group size
+    it takes: g 3 runs); decode takes hd = hd_v a multiple of 16 up to
+    128, or (192, 128), and at most 16 query heads per kv head.  A pair
+    that is not built, (192, 64), is refused by both."""
     z = torch.zeros(1, dtype=torch.int32, device=cuda)
     bf = dict(dtype=torch.bfloat16, device=cuda)
     for hd in (48, 24, 256):
@@ -312,6 +378,14 @@ def test_attention_kernels_refuse_what_they_do_not_take(cuda):
             ops.decode_attention(torch.zeros(1, 8, hd, **bf),
                                  torch.zeros(1, 8, 2, hd, **bf),
                                  torch.zeros(1, 8, 2, hd, **bf), z)
+    with pytest.raises(ValueError, match="hd"):
+        ops.prefill_attention(torch.zeros(1, 4, 2, 192, **bf),
+                              torch.zeros(1, 8, 2, 192, **bf),
+                              torch.zeros(1, 8, 2, 64, **bf), z)
+    with pytest.raises(ValueError, match="hd"):
+        ops.decode_attention(torch.zeros(1, 2, 192, **bf),
+                             torch.zeros(1, 8, 2, 192, **bf),
+                             torch.zeros(1, 8, 2, 64, **bf), z)
     with pytest.raises(ValueError, match="group size"):
         ops.prefill_attention(torch.zeros(1, 4, 256, 64, **bf),
                               torch.zeros(1, 8, 1, 64, **bf),
