@@ -38,14 +38,26 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    (deepseek-v2-236b, H = Hkv = 128; two launches bit for bit; SDPA at
    the same widths beside them, with the backends that take them) and at
    g 16 (qwen3-moe-235b-a22b), K1 at both models' widths and K4 at
-   deepseek's.
+   deepseek's.  recurrentgemma-9b's local attention: K2 at (256, 256),
+   16/1 heads (g 16), window 2048, on a layered first group (4 x 2048)
+   and a chunked step (512-token chunks at offsets 2048-3584 of a
+   4096-row cache: the window binds), K3 at the 8-slot decode step
+   (lengths 2100-4096), each beside SDPA at the same mask with the
+   backends that take hd 256.
 3. check the kernel path end to end against the CPU fp32 plain path on a
    small model, under the ragged and the dense MoE dispatch (finite
    logits that agree within a stated tolerance); and a small MLA model
    (block 0 dense, block 1 MoE with a shared expert, MLA's full head
    widths: K2 and K3 at (192, 128)) the same way, each token's expert set
    recorded on both sides: tokens routed alike within the tolerance, any
-   other token at a router near-tie.
+   other token at a router near-tie.  Then a small RG-LRU + local model
+   (one period, 16/1 heads of 256: K2 and K3 at (256, 256), a window
+   shorter than the prompt) and a small xLSTM model (7 mLSTM + 1 sLSTM;
+   48- and 256-token prefills: the stepwise and chunkwise mLSTM), each
+   one-shot and (48 tokens) in three chunks through the cache, then one
+   decode step: bf16 on the card vs fp32 on the CPU within
+   ``E2E_REL_FRO``; the RG-LRU model launches K2 and K3 only, the xLSTM
+   model none of the six.
 4. serve qwen3-30b-a3b at full width (d_model 2048, 32/4 heads, 128
    experts top-8, 48 layers, random weights from a seed) through the
    port's launcher: the ragged dispatch with layered and then chunked
@@ -143,7 +155,22 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    phase 4; then yi-34b (60 layers, 56/8 heads:
    g 7, 68.8 GB of bf16 weights, drawn on the card) on the short trace,
    layered, at the depth the card's free memory holds (the reckoning and
-   any cut are logged).  Each phase's seconds are printed.
+   any cut are logged).
+7. free them and serve the recurrent models at full width and depth:
+   recurrentgemma-9b (26 RG-LRU + 12 local attention blocks; K2 and K3
+   at (256, 256) and nothing else) on the long trace at max_len 4096 (4
+   prompts of 2100-3500 tokens, past the 2048-token window) layered and
+   chunked; 12 short-trace requests with 48 new tokens on 8 slots in 64
+   pages under recompute preemption (every slot reused), and the first
+   8 under swap preemption; each of the 12 requests served alone; every
+   stream of the reuse and the swap serve must equal the request's
+   stream alone or part at a near-tie (``NEAR_TIE_ULPS``, the gap from
+   one bf16 prefill as ``--explain-divergence`` computes it: a stale
+   state would part at the first token).  Then xlstm-1.3b (42 mLSTM + 6
+   sLSTM blocks, 5.65 GB of state at 8 slots) on the short trace,
+   layered and chunked, launching none of the six kernels.  Each serve
+   logs the recurrent state bytes a slot.  Each phase's seconds are
+   printed.
 
 It prints a JSON ``kernels`` line (each row's ``launches`` summed over
 the serves of its own model, ``launches_of``), the ``nvidia-smi`` line,
@@ -316,6 +343,7 @@ GPT_OSS_ATTN = (64, 8, 64)
 PHI4_MINI_ATTN = (24, 8, 128)          # g 3
 YI_34B_ATTN = (56, 8, 128)             # g 7
 QWEN3_235B_ATTN = (64, 4, 128)         # g 16
+RECURRENTGEMMA_ATTN = (16, 1, 256)     # g 16 at hd 256 (local, window 2048)
 # deepseek-v2-236b's decompressed MLA keys and values: H = Hkv = 128, hd
 # 192 (128 nope + 64 rope), hd_v 128
 DEEPSEEK_ATTN = (128, 128, 192, 128)
@@ -348,10 +376,18 @@ def sdpa_backends(q, k, v, mask) -> list:
     return ok
 
 
+def _visible(o: int, i: int, s_max: int, window) -> int:
+    """Keys the query at position o + i sees: causal, below S_max and,
+    with a window, within it."""
+    lo = max(0, o + i - window + 1) if window else 0
+    return max(min(o + i + 1, s_max) - lo, 0)
+
+
 def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
                             offsets=None, heads=QWEN3_ATTN,
-                            cold: bool = False) -> dict:
-    """K2 against its plain version, timed beside SDPA; ``heads`` is (H,
+                            cold: bool = False, window=None) -> dict:
+    """K2 against its plain version, timed beside SDPA at the same mask
+    (with ``window``, the sliding window's too); ``heads`` is (H,
     Hkv, hd) or, for MLA, (H, Hkv, hd, hd_v).  With ``cold`` (a
     verify window: tens of microseconds, less than its launch from
     Python) kernel, plain version and SDPA are timed as K3 is, in CUDA
@@ -365,13 +401,14 @@ def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
     kc = torch.randn((b, s_max, hkv, hd), device=dev, generator=gen).to(torch.bfloat16)
     vc = torch.randn((b, s_max, hkv, hd_v), device=dev, generator=gen).to(torch.bfloat16)
     off = torch.tensor(offsets or [0] * b, dtype=torch.int32, device=dev)
-    got = ops.prefill_attention(q, kc, vc, off)
-    want = ref.prefill_attention_ref(q, kc, vc, off)
-    again = ops.prefill_attention(q, kc, vc, off)
+    got = ops.prefill_attention(q, kc, vc, off, window=window)
+    want = ref.prefill_attention_ref(q, kc, vc, off, window=window)
+    again = ops.prefill_attention(q, kc, vc, off, window=window)
     torch.cuda.synchronize()
     max_abs = (got.float() - want.float()).abs().max().item()
     ok = torch.allclose(got.float(), want.float(), **ATTN_TOL)
-    log(f"prefill_attention[{tag}] B {b} P {p} offsets {off.tolist()}: "
+    log(f"prefill_attention[{tag}] B {b} P {p} offsets {off.tolist()}"
+        f"{f' window {window}' if window else ''}: "
         f"max abs {max_abs:.3e} (tol {ATTN_TOL})")
     if not ok:
         raise AssertionError(f"prefill_attention[{tag}] disagrees")
@@ -381,30 +418,36 @@ def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
 
     # visible (query, key) pairs and the K/V rows that must be read
     offl = [int(o) for o in off.tolist()]
-    pairs = sum(min(o + i + 1, s_max) for o in offl for i in range(p))
-    kv_rows = sum(min(o + p, s_max) for o in offl)
+    pairs = sum(_visible(o, i, s_max, window) for o in offl for i in range(p))
+    kv_rows = sum(min(o + p, s_max)
+                  - (max(0, o - window + 1) if window else 0) for o in offl)
     nbytes = (q.numel() * 2 + got.numel() * 2
               + kv_rows * hkv * (hd + hd_v) * 2 + b * 4)
     flops = 2 * (hd + hd_v) * h * pairs
     b_ms, b_by = bound_ms(nbytes, flops)
-    ms = ms_eager = cuda_time(lambda: ops.prefill_attention(q, kc, vc, off),
-                              iters=5)
+    ms = ms_eager = cuda_time(
+        lambda: ops.prefill_attention(q, kc, vc, off, window=window), iters=5)
     g = h // hkv
     qt = q.transpose(1, 2)
     pos = torch.arange(s_max, device=dev)
     qpos = off.long()[:, None] + torch.arange(p, device=dev)[None]
     mask = ((pos[None, None, :] <= qpos[:, :, None])
-            & (pos[None, None, :] < (off.long() + p)[:, None, None]))[:, None]
+            & (pos[None, None, :] < (off.long() + p)[:, None, None]))
+    if window:
+        mask &= pos[None, None, :] > qpos[:, :, None] - window
+    mask = mask[:, None]
     extra = {}
     if cold:
         n = max(2, int(-(-4 * L2_BYTES // (2 * kc.numel() * 2))))
         kv = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(n - 1)]
         rep = [tuple(t.transpose(1, 2).repeat(1, g, 1, 1) for t in c)
                for c in kv]
-        ms = cuda_time_cold(lambda i: ops.prefill_attention(q, *kv[i], off),
-                            n, rounds=8)
+        ms = cuda_time_cold(
+            lambda i: ops.prefill_attention(q, *kv[i], off, window=window),
+            n, rounds=8)
         plain = cuda_time_cold(
-            lambda i: ref.prefill_attention_ref(q, *kv[i], off), n, rounds=2)
+            lambda i: ref.prefill_attention_ref(q, *kv[i], off,
+                                                window=window), n, rounds=2)
         lib = cuda_time_cold(lambda i: _sdpa_gmajor(qt, *rep[i], mask), n,
                              rounds=8)
         extra = {"ms_eager": ms_eager,
@@ -412,12 +455,12 @@ def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
                            "rotated; ms_eager: launched from Python"}
         del kv, rep
     else:
-        plain = cuda_time(lambda: ref.prefill_attention_ref(q, kc, vc, off),
-                          iters=2)
+        plain = cuda_time(lambda: ref.prefill_attention_ref(
+            q, kc, vc, off, window=window), iters=2)
         kt = kc.transpose(1, 2).repeat(1, g, 1, 1)
         vt = vc.transpose(1, 2).repeat(1, g, 1, 1)
         lib = cuda_time(lambda: _sdpa_gmajor(qt, kt, vt, mask), iters=5)
-        if hd_v != hd:
+        if hd_v != hd or hd > 128:
             extra = {"sdpa_backends": sdpa_backends(qt, kt, vt, mask)}
             log(f"prefill_attention[{tag}]: SDPA at hd {hd} / hd_v {hd_v}: "
                 f"{lib:.4f} ms; backends that take it "
@@ -431,7 +474,8 @@ def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "ctas": ctas, "achieved_tflops": flops / ms / 1e9, **extra,
             "shape": {"B": b, "P": p, "S_max": s_max, "offsets": offl,
-                      "H": h, "Hkv": hkv, "hd": hd, "hd_v": hd_v}}
+                      "H": h, "Hkv": hkv, "hd": hd, "hd_v": hd_v,
+                      "window": window}}
 
 
 # K2 at g 8 on inputs built by integer hashing (exact in bf16, the same on
@@ -512,13 +556,14 @@ def cuda_time_cold(fn, n_copies: int, rounds: int, graph: bool = True) -> float:
 
 
 def check_decode_attention(gen, tag: str, b=8, s_max=2048,
-                           len_range=(601, 1517), heads=QWEN3_ATTN) -> dict:
+                           len_range=(601, 1517), heads=QWEN3_ATTN,
+                           window=None) -> dict:
     """K3 at the serve's decode step (8 slots, one of them idle with the
     stale length S_max + 1), timed cold in CUDA graphs: kernel, plain
     version and SDPA each rotate over copies of the cache that together
     exceed 4 x the 50 MB L2.  ``ms_hot`` repeats one copy and
     ``ms_eager`` launches from Python: how K3 was timed before it became
-    faster than its own launch.  ``heads`` as for
+    faster than its own launch.  ``heads`` and ``window`` as for
     ``check_prefill_attention``."""
     import torch
     from repro_torch.kernels import ops, ref
@@ -534,8 +579,8 @@ def check_decode_attention(gen, tag: str, b=8, s_max=2048,
     lens = torch.randint(*len_range, (b,), device=dev, generator=gen,
                          dtype=torch.int32)
     lens[-1] = s_max + 1
-    got = ops.decode_attention(q, kc, vc, lens)
-    want = ref.decode_attention_ref(q, kc, vc, lens)
+    got = ops.decode_attention(q, kc, vc, lens, window=window)
+    want = ref.decode_attention_ref(q, kc, vc, lens, window=window)
     torch.cuda.synchronize()
     max_abs = (got.float() - want.float()).abs().max().item()
     ok = torch.allclose(got.float(), want.float(), **ATTN_TOL)
@@ -545,33 +590,40 @@ def check_decode_attention(gen, tag: str, b=8, s_max=2048,
         f"{split * hkv * b} CTAs")
     if not ok:
         raise AssertionError(f"decode_attention[{tag}] disagrees")
-    again = ops.decode_attention(q, kc, vc, lens)
+    again = ops.decode_attention(q, kc, vc, lens, window=window)
     if not torch.equal(got, again):
         raise AssertionError(f"decode_attention[{tag}]: two launches differ")
-    used = [min(int(n), s_max) for n in lens.tolist()]
+    used = [min(int(n), s_max) - (max(0, int(n) - window) if window else 0)
+            for n in lens.tolist()]
     nbytes = (q.numel() * 2 + got.numel() * 2
               + sum(used) * hkv * (hd + hd_v) * 2 + b * 4)
     flops = 2 * (hd + hd_v) * h * sum(used)
     b_ms, b_by = bound_ms(nbytes, flops)
-    ms = cuda_time_cold(lambda i: ops.decode_attention(q, *caches[i], lens),
-                        n_copies, rounds=8)
+    ms = cuda_time_cold(
+        lambda i: ops.decode_attention(q, *caches[i], lens, window=window),
+        n_copies, rounds=8)
     ms_eager = cuda_time_cold(
-        lambda i: ops.decode_attention(q, *caches[i], lens), n_copies,
-        rounds=8, graph=False)
-    ms_hot = cuda_time_cold(lambda i: ops.decode_attention(q, kc, vc, lens),
-                            1, rounds=48)
+        lambda i: ops.decode_attention(q, *caches[i], lens, window=window),
+        n_copies, rounds=8, graph=False)
+    ms_hot = cuda_time_cold(
+        lambda i: ops.decode_attention(q, kc, vc, lens, window=window), 1,
+        rounds=48)
     plain = cuda_time_cold(
-        lambda i: ref.decode_attention_ref(q, *caches[i], lens), n_copies,
+        lambda i: ref.decode_attention_ref(q, *caches[i], lens,
+                                           window=window), n_copies,
         rounds=2)
     g = h // hkv
     rep = [tuple(c.transpose(1, 2).repeat(1, g, 1, 1) for c in kv)
            for kv in caches]
-    mask = (torch.arange(s_max, device=dev)[None, :]
-            < lens.clamp(max=s_max).long()[:, None])[:, None, None, :]
+    pos = torch.arange(s_max, device=dev)[None, :]
+    mask = pos < lens.clamp(max=s_max).long()[:, None]
+    if window:
+        mask &= pos >= lens.long()[:, None] - window
+    mask = mask[:, None, None, :]
     lib = cuda_time_cold(lambda i: _sdpa_gmajor(q[:, :, None], *rep[i], mask),
                          n_copies, rounds=8)
     extra = {}
-    if hd_v != hd:
+    if hd_v != hd or hd > 128:
         extra["sdpa_backends"] = sdpa_backends(q[:, :, None], *rep[0], mask)
         log(f"decode_attention[{tag}]: SDPA at hd {hd} / hd_v {hd_v}: "
             f"{lib:.4f} ms cold; backends that take it "
@@ -588,7 +640,8 @@ def check_decode_attention(gen, tag: str, b=8, s_max=2048,
                       f"of {cache_bytes / 1e6:.1f} MB rotated; ms_hot: one "
                       "copy; ms_eager: cold, launched from Python", **extra,
             "shape": {"B": b, "S_max": s_max, "lengths": lens.tolist(),
-                      "H": h, "Hkv": hkv, "hd": hd, "hd_v": hd_v}}
+                      "H": h, "Hkv": hkv, "hd": hd, "hd_v": hd_v,
+                      "window": window}}
 
 
 def check_moe_gmm_dense(tag: str, c: int, gen, widths=QWEN3_MOE) -> dict:
@@ -1004,6 +1057,87 @@ def check_small_mla_end_to_end() -> None:
                                      f"not at router near-ties")
 
 
+def small_recurrent_configs():
+    """The two small recurrent models of phase 3, in bf16: recurrentgemma-
+    9b's smoke variant (one period: RG-LRU, RG-LRU, local attention) at
+    its full head shape (16 query heads over one kv head of 256: K2 and
+    K3 at (256, 256), g 16) with a 32-token window, shorter than the
+    48-token prompt; and xlstm-1.3b's smoke variant (7 mLSTM + 1 sLSTM
+    blocks, d_model 256)."""
+    from repro_torch.configs import get_smoke_config
+    rg = dataclasses.replace(
+        get_smoke_config("recurrentgemma-9b"), name="recurrentgemma-small",
+        n_heads=16, n_kv_heads=1, head_dim=256, local_window=32,
+        dtype="bfloat16", param_dtype="bfloat16").validate()
+    xl = dataclasses.replace(get_smoke_config("xlstm-1.3b"),
+                             name="xlstm-small", dtype="bfloat16",
+                             param_dtype="bfloat16").validate()
+    return rg, xl
+
+
+def check_small_recurrent_end_to_end() -> None:
+    """Each small recurrent model in bf16 on the card vs the same weights
+    in fp32 on the CPU (plain versions): a prefill into the cache at
+    per-row offsets 0 and 5 — 48 tokens, and for xLSTM also 256 (mLSTM's
+    chunkwise form) — then one decode step; and the 48 tokens in three
+    16-token chunks through the cache (the chunked scheduler's path: the
+    recurrent state carried across calls, K2 at non-zero offsets where
+    the window binds).  Logits within ``E2E_REL_FRO``.  The RG-LRU model
+    launches K2 and K3 and nothing else; the xLSTM model none of the six
+    kernels."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import DecoderModel
+    for cfg, need in zip(small_recurrent_configs(),
+                         (("prefill_attention", "decode_attention"), ())):
+        gpu = DecoderModel(cfg, device="cuda")
+        params = gpu.init_params(torch.Generator(device="cuda").manual_seed(1))
+        cpu = DecoderModel(dataclasses.replace(cfg, dtype="float32",
+                                               param_dtype="float32"),
+                           device="cpu")
+        p_cpu = ops.tree_map(lambda a: a.float().cpu(), params)
+        g = torch.Generator().manual_seed(4)
+        off = torch.tensor([0, 5], dtype=torch.int32)
+        for n in ((48, 256) if "xlstm" in cfg.name else (48,)):
+            toks = torch.randint(1, cfg.vocab_size, (2, n + 1), generator=g)
+
+            def run(model, p_, dev, chunks=(n,)):
+                cache = model.init_cache(2, 512)
+                out, c0 = [], 0
+                for c in chunks + (1,):
+                    lg, cache, _ = model.forward(
+                        p_, toks[:, c0:c0 + c].to(dev),
+                        offset=(off + c0).to(dev), cache=cache)
+                    out.append(lg.float().cpu())
+                    c0 += c
+                return out
+            want = run(cpu, p_cpu, "cpu")
+            ops.reset_launches()
+            got = run(gpu, params, "cuda")
+            check_launches(f"small {cfg.name}", dict(ops.LAUNCHES), need,
+                           need)
+            cases = [("prefill", got[0], want[0]), ("decode", got[1], want[1])]
+            if n == 48:
+                chunked = run(gpu, params, "cuda", (16, 16, 16))
+                cases += [("prefill, last of 3 chunks", chunked[2],
+                           want[0][:, 32:]),
+                          ("decode after chunks", chunked[3], want[1])]
+            for name, a, b_ in cases:
+                if not torch.isfinite(a).all():
+                    raise AssertionError(f"{cfg.name} {name}: non-finite "
+                                         "logits")
+                rel = ((a - b_).norm() / b_.norm()).item()
+                agree = (a.argmax(-1) == b_.argmax(-1)).float().mean().item()
+                log(f"small {cfg.name} {n}-token {name} logits, bf16 on the "
+                    f"card vs fp32 CPU: rel Frobenius {rel:.3e} (tol "
+                    f"{E2E_REL_FRO}), argmax agreement {agree:.3f}")
+                if not rel <= E2E_REL_FRO:
+                    raise AssertionError(f"{cfg.name} {name} ({n} tokens) "
+                                         f"disagrees: rel {rel}")
+        del gpu, params
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -1017,13 +1151,15 @@ def path_kernels(eng):
     draft runs the capacity-limited dense dispatch, as JAX's does), and K3
     — which a speculating serve launches only for rows that fall back to
     plain decode.  No serve launches anything else (the paged kernels are
-    on no serve path)."""
-    need = ["prefill_attention"]
+    on no serve path); a stack without attention blocks (xLSTM) launches
+    none of the six."""
+    attn = any(sp.is_attention() for sp in eng.model.specs)
+    need = ["prefill_attention"] if attn else []
     if eng.cfg.moe.enabled:
         need.append(MOE_KERNEL[eng.moe_dispatch])
     if eng.draft_model is not None and eng.draft_model.cfg.moe.enabled:
         need.append(MOE_KERNEL["dense"])
-    may = ["decode_attention"]
+    may = ["decode_attention"] if attn else []
     if eng.spec_mode == "off":
         need, may = need + may, []
     return tuple(need), tuple(need) + tuple(may)
@@ -1104,6 +1240,9 @@ def run_serve(a, model, params, trace=None, draft=None) -> dict:
     r["n_prefill_dispatches"] = eng.n_prefill_dispatches
     r["n_pages"] = eng.alloc.n_pages
     r["streams_sha256"] = streams_sha256(r["outputs"])
+    r["state_bytes_per_slot"] = eng.state_bytes_per_slot
+    r["cache_bytes"] = sum(t.numel() * t.element_size()
+                           for t in _leaves(eng.cache))
     r["host_syncs"] = sum(sites.values())
     r["host_sync_sites"] = dict(sites)
     r["launches"] = counts
@@ -1153,6 +1292,9 @@ def run_serve(a, model, params, trace=None, draft=None) -> dict:
                   f"{r['n_spec_accepted']} accepted (share "
                   f"{r['accepted_share']:.4f}), {r['n_verify_dispatches']} "
                   f"verify + {r['n_draft_dispatches']} draft launches")
+    if r["state_bytes_per_slot"]:
+        extra += (f", recurrent state {r['state_bytes_per_slot'] / 1e6:.3f} "
+                  f"MB a slot (cache {r['cache_bytes'] / 1e9:.2f} GB)")
     if a.fault_plan is not None:
         extra += (f", faults injected {r['fault_counters']}, shed "
                   f"{r['shed']}, retries {r['fault_stats']['n_fault_retries']}")
@@ -1709,6 +1851,9 @@ def run_disagg_serve(a, model, params) -> dict:
     r, launches, sites = traced(lambda: run_disagg(ep, ed, a))
     r["launches"] = launches
     r["streams_sha256"] = streams_sha256(r["outputs"])
+    r["state_bytes_per_slot"] = eng.state_bytes_per_slot
+    r["cache_bytes"] = sum(t.numel() * t.element_size()
+                           for t in _leaves(eng.cache))
     r["launches_by_pool"] = {k: dict(v) for k, v in per_pool.items()}
     r["arch"] = a.arch
     for eng in (ep, ed):
@@ -1995,6 +2140,9 @@ def live_serve(a, model, params, trace, n_clients: int, drain: bool = False,
          **{k: m[k] for k in ("ttft_p50", "ttft_p99", "tbt_p50",
                               "tbt_p99")}}
     r["streams_sha256"] = streams_sha256(r["outputs"])
+    r["state_bytes_per_slot"] = eng.state_bytes_per_slot
+    r["cache_bytes"] = sum(t.numel() * t.element_size()
+                           for t in _leaves(eng.cache))
     for key in ("refused", "readyz_draining", "closed"):
         if key in out:
             r[key] = out[key]
@@ -2394,6 +2542,110 @@ def serve_dense(times: dict) -> dict:
     return {"runs": runs, "yi_depth": depth, "spec": spec}
 
 
+# a bf16 logit gap, in ulps of the top logit, below which two serves of
+# one request may choose different tokens (other batch shapes round
+# otherwise): a near-tie.  A request started from another's recurrent
+# state parts from its stream alone at its first token, by far more.
+NEAR_TIE_ULPS = 8.0
+
+
+def serve_recurrent(times: dict) -> dict:
+    """Phase 7: the recurrent models at full width and depth, after the
+    earlier models are freed.  recurrentgemma-9b (26 RG-LRU + 12 local
+    attention blocks, 16/1 heads of 256: K2 and K3 at (256, 256), g 16,
+    window 2048) serves the long trace at max_len 4096 (4 prompts of
+    2100-3500 tokens, 16 new: the window binds) layered and chunked, a
+    slot-reuse serve (12 requests of the short trace with 48 new tokens
+    on 8 slots in 64 pages: recompute preemption), a swap serve (its
+    first 8 requests, swap preemption), and each of the 12 requests alone
+    on a fresh engine: every stream of the reuse and the swap serve must
+    equal its stream alone or part at a near-tie (the gap recomputed by
+    one bf16 prefill, in ulps).  Then xlstm-1.3b (42 mLSTM + 6 sLSTM
+    blocks) serves the short trace layered and chunked, launching none of
+    the six kernels."""
+    import torch
+    from repro_torch.serving.traffic import TraceRequest
+    runs = {}
+    base, short = serve_configs("recurrentgemma-9b")
+    base = dataclasses.replace(base, max_len=4096, prompt_len=(2100, 3501))
+    model, params, t0 = build_logged(base, "recurrentgemma", times)
+    for sched in ("layered", "chunked"):
+        runs[f"recurrentgemma long/{sched}"] = run_serve(
+            dataclasses.replace(base, scheduler=sched), model, params)
+    lay, chk = (runs["recurrentgemma long/layered"],
+                runs["recurrentgemma long/chunked"])
+    log(f"recurrentgemma long trace layered / chunked: "
+        f"{_same_streams(lay, chk)}; {lay['ms_per_iter']:.1f} / "
+        f"{chk['ms_per_iter']:.1f} ms/iter")
+    t0 = _phase("recurrentgemma long serves", t0, times)
+
+    # 64 pages of 16 tokens with a decode reserve of one token: two
+    # preemptions in either mode (the schedule depends only on lengths,
+    # n_layers and the stash factor, rehearsed on a stand-in)
+    pressure = dataclasses.replace(short, scheduler="layered",
+                                   new_tokens=(48, 49), pages=64,
+                                   decode_reserve=1)
+    reuse = runs["recurrentgemma reuse/recompute"] = run_serve(
+        dataclasses.replace(pressure, requests=12, preemption="recompute"),
+        model, params)
+    swap = runs["recurrentgemma swap"] = run_serve(
+        dataclasses.replace(pressure, requests=8, preemption="swap"), model,
+        params)
+    if not reuse["n_preempted"] > 0:
+        raise AssertionError("recurrentgemma reuse serve: no preemption")
+    if not swap["n_swapped_in"] == swap["n_swapped_out"] > 0:
+        raise AssertionError(f"recurrentgemma swap serve: swapped out/in "
+                             f"{swap['n_swapped_out']}/"
+                             f"{swap['n_swapped_in']}")
+    alone = {"outputs": {}, "prompts": reuse["prompts"]}
+    for rid, prompt in reuse["prompts"].items():
+        n_new = reuse["max_new"][rid]
+        r = run_serve(dataclasses.replace(pressure, open_loop=True,
+                                          requests=1, pages=None,
+                                          decode_reserve=None),
+                      model, params,
+                      trace=[TraceRequest(0.0, len(prompt), n_new,
+                                          prompt_tokens=tuple(prompt))])
+        alone["outputs"][rid] = r["outputs"][0]
+    t0 = _phase("recurrentgemma reuse, swap and alone serves", t0, times)
+    parted = {}
+    for label, run in (("reuse", reuse), ("swap", swap)):
+        mine = {"outputs": run["outputs"], "prompts": run["prompts"]}
+        rows = explain_divergence(model, params, mine,
+                                  {"outputs": {rid: alone["outputs"][rid]
+                                               for rid in run["outputs"]}},
+                                  labels=(label, "alone"))
+        parted[label] = [(row["req"], row["position"],
+                          row["chosen_gap_ulps"]) for row in rows]
+        log(f"recurrentgemma {label} serve against each request alone: "
+            f"{_same_streams(run, {'outputs': alone['outputs']})}; partings "
+            f"(request, new-token position, chosen-token gap in bf16 ulps) "
+            f"{parted[label]} (near-tie below {NEAR_TIE_ULPS} ulps)")
+        far = [p for p in parted[label] if not p[2] <= NEAR_TIE_ULPS]
+        if far:
+            raise AssertionError(f"recurrentgemma {label} serve parts from "
+                                 f"the requests served alone away from a "
+                                 f"near-tie: {far}")
+    t0 = _phase("recurrentgemma stream comparison", t0, times)
+    del model, params, lay, chk
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _, short = serve_configs("xlstm-1.3b")
+    model, params, t0 = build_logged(short, "xlstm", times)
+    for sched in ("layered", "chunked"):
+        runs[f"xlstm short/{sched}"] = run_serve(
+            dataclasses.replace(short, scheduler=sched), model, params)
+    lay, chk = runs["xlstm short/layered"], runs["xlstm short/chunked"]
+    log(f"xlstm short trace layered / chunked: {_same_streams(lay, chk)}; "
+        f"{lay['ms_per_iter']:.1f} / {chk['ms_per_iter']:.1f} ms/iter")
+    _phase("xlstm serves", t0, times)
+    del model, params, lay, chk
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": runs, "parted": parted}
+
+
 def profile_serve(a, model, params) -> None:
     """The same serve once more under torch.profiler: device time by
     kernel and the device's busy share of the (profiled) wall time."""
@@ -2430,7 +2682,8 @@ def profile_serve(a, model, params) -> None:
 
 def model_of(row: str) -> str:
     """The model whose serves a kernel row's shapes come from."""
-    for key, arch in (("gpt-oss", "gpt-oss-20b"), ("phi4", "phi4-mini-3.8b"),
+    for key, arch in (("recurrentgemma", "recurrentgemma-9b"),
+                      ("gpt-oss", "gpt-oss-20b"), ("phi4", "phi4-mini-3.8b"),
                       ("yi-34b", "yi-34b"), ("deepseek", "deepseek-v2-236b"),
                       ("qwen3-235b", "qwen3-moe-235b-a22b")):
         if key in row:
@@ -2575,6 +2828,24 @@ def main() -> None:
                 check_moe_gmm_dense("deepseek prefill", 1024, gen,
                                     DEEPSEEK_MOE)]
     torch.cuda.empty_cache()
+    # recurrentgemma-9b's local attention: K2 and K3 at (256, 256), g 16,
+    # window 2048: a layered first group (4 prompts of 2048 tokens), a
+    # chunked step (512-token chunks at offsets 2048-3584 of a 4096-row
+    # cache, where the window binds) and the 8-slot decode step of the
+    # long trace (lengths 2100-4096, an idle slot at S_max + 1)
+    kernels += [check_prefill_attention("recurrentgemma layered", gen,
+                                        heads=RECURRENTGEMMA_ATTN,
+                                        window=2048),
+                check_prefill_attention("recurrentgemma chunked", gen, b=4,
+                                        p=512, s_max=4096,
+                                        offsets=[2048, 2560, 3072, 3584],
+                                        heads=RECURRENTGEMMA_ATTN,
+                                        window=2048),
+                check_decode_attention(gen, "recurrentgemma long", s_max=4096,
+                                       len_range=(2100, 4097),
+                                       heads=RECURRENTGEMMA_ATTN,
+                                       window=2048)]
+    torch.cuda.empty_cache()
     digest = k2_g8_digest()
     log(f"prefill_attention at g 8: outputs sha256 {digest} (the kernel "
         f"before its repair: {K2_G8_SHA256})")
@@ -2585,6 +2856,7 @@ def main() -> None:
         k["bound_share"] = k["bound_ms"] / k["ms"]
     check_small_model_end_to_end()
     check_small_mla_end_to_end()
+    check_small_recurrent_end_to_end()
     torch.cuda.empty_cache()
     times: dict = {}
     _phase("build and kernel checks", t_start, times)
@@ -2603,7 +2875,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     dense = serve_dense(times)
-    runs = {**qwen["runs"], **oss["runs"], **large["runs"], **dense["runs"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    recurrent = serve_recurrent(times)
+    runs = {**qwen["runs"], **oss["runs"], **large["runs"], **dense["runs"],
+            **recurrent["runs"]}
     # each kernel row's launches: the sum over its own model's serves,
     # each counted from 0 just before it and read just after
     launches, iters = {}, collections.Counter()
@@ -2626,6 +2902,8 @@ def main() -> None:
     log("two-pool and chaos streams " + json.dumps(qwen["disagg"]))
     log("live, per-slice and simulator " + json.dumps(qwen["live"]))
     log("large MoE depths " + json.dumps(large["depths"]))
+    log("recurrentgemma partings from the requests served alone "
+        + json.dumps(recurrent["parted"]))
     log("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in times.items()}))
     log(f"total {time.perf_counter() - t_start:.1f} s")

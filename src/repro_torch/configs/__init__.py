@@ -1,6 +1,6 @@
 """Architecture registry of the port: the configurations the port runs
-(the paper's two evaluation models, the four dense GQA decoders and the
-two large MoE models of the JAX registry).  Access via
+(the paper's two evaluation models, the four dense GQA decoders, the two
+large MoE models and the two recurrent models of the JAX registry).  Access via
 ``get_config(name)`` / ``list_configs()``; smoke variants via
 ``get_smoke_config(name)``."""
 
@@ -26,6 +26,10 @@ _MODULES = {
     # and a dense first block; GQA at group size 16
     "deepseek-v2-236b": "deepseek_v2_236b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    # the recurrent models: RG-LRU with local MQA (2:1), and xLSTM's
+    # mLSTM/sLSTM (7:1); their per-slot state has no position axis
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 

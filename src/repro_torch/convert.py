@@ -5,7 +5,8 @@ DecoderModel(cfg).init(key)`` returns, with its leaves already turned into
 numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``), and returns
 the same structure with torch tensors: the stacked ``(reps, ...)`` segment
 leaves stay stacked, and every layout is unchanged (``x @ W`` with ``W`` of
-shape ``(d_in, d_out)``; MLA's leaves are such matrices and norm dicts).
+shape ``(d_in, d_out)``; MLA's leaves are such matrices and norm dicts;
+the recurrent mixers' fp32 leaves, RG-LRU's ``a_param``, stay fp32).
 JAX's PRNG cannot be reproduced in torch, so every test that holds the
 port against the JAX package goes through here.
 This module imports numpy and torch only.
@@ -34,8 +35,8 @@ def from_jax_params(cfg: ModelConfig, tree, device=None):
     on ``device`` (``cuda`` unless the caller asks for the CPU)."""
     dev = resolve_device(device)
     if cfg.encoder.enabled:
-        raise NotImplementedError(f"{cfg.name}: the port runs GQA and MLA "
-                                  "decoders only")
+        raise NotImplementedError(f"{cfg.name}: the port runs decoder-only "
+                                  "stacks (no encoder)")
 
     def conv(x):
         if isinstance(x, dict):

@@ -5,9 +5,10 @@
 // (body _decode_kernel).  Same contract: q (B, H, dk), caches k (B, S_max,
 // Hkv, dk) and v (B, S_max, Hkv, dv), out (B, H, dv), lengths (B,) = valid
 // entries including the new token's K/V; the query/key width dk equals the
-// value width dv for GQA (any multiple of 16 up to 128) and is 192 against
-// 128 for multi-head latent attention (its decompressed keys and values,
-// H = Hkv, models/attention.py apply_mla);
+// value width dv for GQA (any multiple of 16 up to 128, or 256 at
+// recurrentgemma-9b's local attention) and is 192 against 128 for
+// multi-head latent attention (its decompressed keys and values, H = Hkv,
+// models/attention.py apply_mla);
 // with a window the query sees keys >= length - window.  Query head h reads
 // kv head h % Hkv (g-major grouping).  ``length`` is clamped to S_max: an
 // idle slot of the engine's full-pool decode step may carry a stale offset
@@ -20,7 +21,9 @@
 // ~295 the tensor cores need, so bytes bound it.  Multi-head latent
 // attention at deepseek-v2-236b reads (192 + 128) * 128 * 2 B = 80 KB of
 // decompressed K/V per token (g 1: half a flop per byte), 1.34 GB at 8 x
-// 2048 tokens, about 400 us.
+// 2048 tokens, about 400 us.  recurrentgemma-9b (one kv head of 256, g 16,
+// window 2048) reads at most 2048 * 2 * 256 * 2 B = 2 MB a slot: 8 slots
+// move 16.8 MB, about 5 us; 8 flops per byte, still bytes-bound.
 //
 // Design.
 //  * Grid (split, Hkv, B).  The host picks ``split`` from the shapes it
@@ -38,7 +41,11 @@
 //    bf16 and through movmatrix into the B fragment of O^T += V^T P^T
 //    (V^T by ldmatrix.trans), one m-tile per 16 of dv.  The
 //    query fragments are sized by the widest dk built (128, or 192), the
-//    accumulator by dv (128).  exp2f with log2(e) folded
+//    accumulator by dv (128).  The (256, 256) build keeps Q in shared
+//    memory instead (g x (dk + 8) bf16, 8.4 KB after the ring, read as B
+//    fragments per k-step without bank conflicts): at g 16 its fragments
+//    would take 64 registers a thread beside the 128 of O^T.  Its ring is
+//    2 x 64 x (264 + 264) x 2 B = 135 KB.  exp2f with log2(e) folded
 //    into the scale.  No barrier between warps inside the tile loop.
 //  * At the end the 4 warps' partials merge through shared memory; with
 //    split > 1 the CTA writes (O, m, l) for its split to fp32 scratch and a
@@ -55,20 +62,26 @@ constexpr int STAGES = 2;
 constexpr int G_MAX = 16;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__host__ __device__ inline size_t smem_bytes(int dk, int dv) {
+// the ring (later the merge area), then, with Q in shared memory, Q
+__host__ __device__ inline size_t ring_bytes(int dk, int dv) {
   const size_t ring = sizeof(bf16) * STAGES * KT * ((dk + 8) + (dv + 8));
   const size_t merge = sizeof(float) * kWarps * G_MAX * (dv + 2);
   return ring > merge ? ring : merge;
 }
+__host__ __device__ inline size_t smem_bytes(int dk, int dv, bool q_smem) {
+  return ring_bytes(dk, dv) + (q_smem ? sizeof(bf16) * G_MAX * (dk + 8) : 0);
+}
 
 // NT: n-tiles of 8 query heads (g <= 8 * NT); DK_MAX, DV_MAX: the widest
-// dk and dv this build takes (dv <= dk <= DK_MAX, dv <= DV_MAX)
+// dk and dv this build takes (dv <= dk <= DK_MAX, dv <= DV_MAX); from dk
+// 256 on, Q's B fragments are read from shared memory
 template <int NT, int DK_MAX, int DV_MAX>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ lengths,
                     bf16* __restrict__ out, float* __restrict__ part, int H, int Hkv,
                     int S_max, int dk, int dv, int window, float scale_log2, int split) {
+  constexpr bool QS = DK_MAX >= 256;
   const int s = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int g = H / Hkv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -113,16 +126,32 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // B fragments of Q^T: lane holds heads nt * 8 + gid, hd pairs tig * 2 (+8)
-  uint32_t qf[NT][DK_MAX / 16][2];
+  uint32_t qf[NT][QS ? 1 : DK_MAX / 16][2];
+  const int ldq = dk + 8;
+  bf16* qs = reinterpret_cast<bf16*>(smem + ring_bytes(dk, dv));   // [NT * 8][ldq]
+  if constexpr (QS) {
+    // Q rows of the g heads (zeros past g), in 16-byte chunks; the tile
+    // loop's first barrier publishes them
+    const int qchunks = dk / 8;
+    for (int i = threadIdx.x; i < NT * 8 * qchunks; i += kThreads) {
+      const int head = i / qchunks, c = (i - head * qchunks) * 8;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (head < g)
+        val = *reinterpret_cast<const uint4*>(
+            q + (static_cast<long>(b) * H + head * Hkv + kh) * dk + c);
+      *reinterpret_cast<uint4*>(qs + head * ldq + c) = val;
+    }
+  } else {
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int head = nt * 8 + gid;
-    const bf16* qr = q + (static_cast<long>(b) * H + head * Hkv + kh) * dk + tig * 2;
+    for (int nt = 0; nt < NT; ++nt) {
+      const int head = nt * 8 + gid;
+      const bf16* qr = q + (static_cast<long>(b) * H + head * Hkv + kh) * dk + tig * 2;
 #pragma unroll
-    for (int kk = 0; kk < DK_MAX / 16; ++kk) {
-      const bool ok = head < g && kk < dk16;
-      qf[nt][kk][0] = ok ? *reinterpret_cast<const uint32_t*>(qr + kk * 16) : 0u;
-      qf[nt][kk][1] = ok ? *reinterpret_cast<const uint32_t*>(qr + kk * 16 + 8) : 0u;
+      for (int kk = 0; kk < DK_MAX / 16; ++kk) {
+        const bool ok = head < g && kk < dk16;
+        qf[nt][kk][0] = ok ? *reinterpret_cast<const uint32_t*>(qr + kk * 16) : 0u;
+        qf[nt][kk][1] = ok ? *reinterpret_cast<const uint32_t*>(qr + kk * 16 + 8) : 0u;
+      }
     }
   }
 
@@ -165,7 +194,15 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t a[4];
         ldmatrix_x4(a, kt + ((lane % 8) + ((lane / 8) & 1) * 8) * ldk + kk * 16 + (lane / 16) * 8);
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_m16n8k16(sc[nt], a, qf[nt][kk][0], qf[nt][kk][1]);
+        for (int nt = 0; nt < NT; ++nt) {
+          if constexpr (QS) {
+            const bf16* qr = qs + (nt * 8 + gid) * ldq + kk * 16 + tig * 2;
+            mma_m16n8k16(sc[nt], a, *reinterpret_cast<const uint32_t*>(qr),
+                         *reinterpret_cast<const uint32_t*>(qr + 8));
+          } else {
+            mma_m16n8k16(sc[nt], a, qf[nt][kk][0], qf[nt][kk][1]);
+          }
+        }
       }
     }
 
@@ -296,7 +333,7 @@ template <int NT, int DK_MAX, int DV_MAX>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const int* lengths, bf16* out,
                    float* part, int B, int H, int Hkv, int S_max, int dk, int dv, int window,
                    float scale, int split, cudaStream_t stream) {
-  const size_t smem = smem_bytes(dk, dv);
+  const size_t smem = smem_bytes(dk, dv, DK_MAX >= 256);
   cudaError_t err = allow_smem(decode_split_kernel<NT, DK_MAX, DV_MAX>, smem);
   if (err != cudaSuccess) return err;
   decode_split_kernel<NT, DK_MAX, DV_MAX><<<dim3(split, Hkv, B), kThreads, smem, stream>>>(
@@ -319,7 +356,7 @@ cudaError_t launch_g(const bf16* q, const bf16* k, const bf16* v, const int* len
 
 }  // namespace
 
-// (dk, dv): dk = dv a multiple of 16 up to 128, or (192, 128).
+// (dk, dv): dk = dv a multiple of 16 up to 128, (192, 128) or (256, 256).
 // ``scratch``: split > 1 needs B * H * split * (dv + 2) fp32 (unused, and
 // may be null, at split 1).  Two CUDA launches when split > 1.
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v,
@@ -330,7 +367,8 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
   const int g = Hkv > 0 ? H / Hkv : 0;
   const bool equal = dk == dv && dk % 16 == 0 && dk > 0 && dk <= 128;
   const bool mla = dk == 192 && dv == 128;
-  if (Hkv <= 0 || H % Hkv != 0 || g > G_MAX || !(equal || mla) || split < 1 ||
+  const bool wide = dk == 256 && dv == 256;
+  if (Hkv <= 0 || H % Hkv != 0 || g > G_MAX || !(equal || mla || wide) || split < 1 ||
       split > 65535 || (split > 1 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto qq = static_cast<const bf16*>(q);
@@ -341,9 +379,11 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
   auto part = static_cast<float*>(scratch);
   auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      equal ? launch_g<128, 128>(qq, kk, vv, ln, oo, part, B, H, Hkv, S_max, dk, dv, window,
-                                 scale, split, st)
-            : launch_g<192, 128>(qq, kk, vv, ln, oo, part, B, H, Hkv, S_max, dk, dv, window,
-                                 scale, split, st);
+      equal  ? launch_g<128, 128>(qq, kk, vv, ln, oo, part, B, H, Hkv, S_max, dk, dv, window,
+                                  scale, split, st)
+      : mla  ? launch_g<192, 128>(qq, kk, vv, ln, oo, part, B, H, Hkv, S_max, dk, dv, window,
+                                  scale, split, st)
+             : launch_g<256, 256>(qq, kk, vv, ln, oo, part, B, H, Hkv, S_max, dk, dv, window,
+                                  scale, split, st);
   return static_cast<int>(err);
 }

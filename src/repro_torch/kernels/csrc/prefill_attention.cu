@@ -6,10 +6,10 @@
 // Pallas kernel's: q (B, P, H, dk) holds P new tokens per row at positions
 // offset[b] + i; k (B, S_max, Hkv, dk) and v (B, S_max, Hkv, dv) are the
 // row's whole cache with the new keys already written; out is (B, P, H, dv).
-// The query/key width dk and the value width dv are equal for GQA (32, 64
-// or 128) and differ for multi-head latent attention (dk 192 = 128 nope +
-// 64 rope, dv 128, H = Hkv: the decompressed keys and values of
-// models/attention.py apply_mla).  Key j is visible to query i when
+// The query/key width dk and the value width dv are equal for GQA (32, 64,
+// 128, or 256 at recurrentgemma-9b's local attention) and differ for
+// multi-head latent attention (dk 192 = 128 nope + 64 rope, dv 128, H =
+// Hkv: the decompressed keys and values of models/attention.py apply_mla).  Key j is visible to query i when
 // j < offset + P, j < S_max, j <= offset + i and, with a window,
 // j > offset + i - window (the masks of models/attention.py apply_gqa).
 // Query head h reads kv head h % Hkv (g-major grouping).  A query row that
@@ -23,25 +23,32 @@
 // output is 2 * 2048 * (32 + 2 * 4) * 128 * 2 B = 42 MB, about 12.5 us.
 // At deepseek-v2-236b (128 heads, dk 192, dv 128) a row is 2 * 320 * 128 *
 // 2048 * 2049 / 2 = 172 GFLOP, about 174 us, against 335 MB (100 us).
+// At recurrentgemma-9b (16 heads, one kv head, hd 256, window 2048) a
+// 2048-token row is 2 * 512 * 16 * 2048 * 2049 / 2 = 17 GFLOP, about
+// 17.4 us, against 2 * 2048 * 17 * 256 * 2 B = 35.7 MB (10.7 us).
 //
 // Design.  One CTA per (q tile, kv head, row b), 3 warpgroups:
 //  * 128 query rows per CTA, as (position, head-of-group) pairs of one kv
 //    head: qt = 128 / g positions (rounded down) x g heads (16 x 8 at
-//    qwen3, 42 x 3 at phi4-mini, 18 x 7 at yi-34b), so each K/V tile is
+//    qwen3, 42 x 3 at phi4-mini, 18 x 7 at yi-34b, 8 x 16 at
+//    recurrentgemma-9b), so each K/V tile is
 //    read once for all g heads (at g 1, multi-head latent attention's
 //    H = Hkv, 128 positions of one head).  Q (B, P, H, dk) is described
 //    to TMA as (dk, Hkv, g, P, B): one box lands in exactly that row
 //    order.  Where g does not divide 128, rows qt * g .. 127 are padding: zeroed once
 //    before the Q load, masked from every key and never stored.
 //  * Warpgroup 2 is the producer: after setmaxnreg gives its registers
-//    away, one thread loads Q once and keeps a two-stage ring of 128-key
-//    K/V tiles full with TMA (4-D maps over (width, Hkv, S_max, B): keys past
+//    away, one thread loads Q once and keeps a two-stage ring of K/V
+//    tiles full with TMA (4-D maps over (width, Hkv, S_max, B): keys past
 //    S_max arrive as zeros, never as the next row's keys), each stage
 //    signalled on a "full" mbarrier and freed on an "empty" one.  Shared
-//    memory: Q 128 x dk plus two stages of K (128 x dk) and V (128 x dv);
-//    at (192, 128) 48 + 2 x (48 + 32) KB = 208 KB of the 227 available.
+//    memory: Q 128 x dk plus two stages of K (KT x dk) and V (KT x dv);
+//    tiles of KT = 128 keys up to (192, 128), 48 + 2 x (48 + 32) KB = 208
+//    KB of the 227 available.  At (256, 256) 128-key tiles would need 64
+//    + 2 x (64 + 64) = 320 KB, so tiles there are 64 keys: 64 + 2 x (32 +
+//    32) = 192 KB.
 //  * Warpgroups 0 and 1 consume 64 rows each: S = Q K^T is a wgmma
-//    m64n128k16 with both operands in shared memory (128-byte swizzle, or
+//    m64nKTk16 with both operands in shared memory (128-byte swizzle, or
 //    64-byte at width 32; a 128-wide bf16 row is two TMA boxes, a 192-wide
 //    one three, each spanning one swizzle atom) and S stays in
 //    registers; the online softmax runs there (row max and sum by quad
@@ -50,7 +57,9 @@
 //    wgmma's A-from-registers operand; O += P V is a wgmma with V as the
 //    MN-major B operand from shared memory (one m64n64, or n32, per
 //    64-column box).  O stays in fp32 registers until one final
-//    normalisation and store.
+//    normalisation and store.  At dv 256 that accumulator is 128 fp32
+//    registers a thread; the consumers' setmaxnreg (232) leaves room for
+//    it beside the 64-key S tile's 32.
 //  * Only tiles that cross the diagonal, the window's edge or the end of
 //    the keys evaluate the mask.  blockIdx.x walks q tiles from the last
 //    (most keys) to the first, so the longest CTAs start first.
@@ -59,7 +68,6 @@
 namespace {
 
 constexpr int ROWS = 128;        // query rows per CTA (2 consumer warpgroups)
-constexpr int KT = 128;          // keys per tile
 constexpr int STAGES = 2;
 constexpr int kThreads = 384;    // consumers: warpgroups 0, 1; producer: 2
 constexpr int kConsumerWarps = 8;
@@ -72,6 +80,7 @@ struct Tile {
   static constexpr int SWZ = EB * 2;                 // row bytes = swizzle span
   static constexpr int NBOX_K = HDK / EB;            // boxes across dk (Q, K)
   static constexpr int NBOX_V = HDV / EB;            // boxes across dv (V, O)
+  static constexpr int KT = HDK + HDV > 384 ? 64 : 128;  // keys per tile
   static constexpr int Q_BYTES = ROWS * HDK * 2;     // the Q tile's room
   static constexpr int K_BYTES = KT * HDK * 2;       // K, one stage
   static constexpr int V_BYTES = KT * HDV * 2;       // V, one stage
@@ -87,6 +96,7 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap qmap,
                          const int* __restrict__ offset, bf16* __restrict__ out, int P, int H,
                          int Hkv, int S_max, int window, float scale_log2, int n_qtiles) {
   using T = Tile<HDK, HDV>;
+  constexpr int KT = T::KT;
   const int g = H / Hkv;
   const int qt = ROWS / g;                              // positions per CTA
   const int rows_q = qt * g;                            // rows TMA fills
@@ -193,7 +203,8 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap qmap,
         const int bx = kk / (T::EB / 16), within = (kk % (T::EB / 16)) * 16;
         const uint64_t da = wgmma_desc(qs + (bx * ROWS + wg * 64) * T::EB + within, T::SWZ);
         const uint64_t db = wgmma_desc(kst + bx * KT * T::EB + within, T::SWZ);
-        wgmma_ss_m64n128(sacc, da, db, kk > 0);
+        if constexpr (KT == 128) wgmma_ss_m64n128(sacc, da, db, kk > 0);
+        else wgmma_ss_m64n64(sacc, da, db, kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -289,6 +300,7 @@ template <int HDK, int HDV>
 int launch(const void* q, const void* k, const void* v, const int* offset, bf16* out, int B,
            int P, int H, int Hkv, int S_max, int window, float scale, cudaStream_t stream) {
   using T = Tile<HDK, HDV>;
+  constexpr int KT = T::KT;
   const int g = H / Hkv;
   const cuuint64_t e = 2;   // bytes per element
   CUtensorMap qmap, kmap, vmap;
@@ -325,7 +337,7 @@ int launch(const void* q, const void* k, const void* v, const int* offset, bf16*
 
 }  // namespace
 
-// (dk, dv) in (32, 32), (64, 64), (128, 128), (192, 128); any g = H / Hkv
+// (dk, dv) in (32, 32), (64, 64), (128, 128), (192, 128), (256, 256); any g = H / Hkv
 // up to 128; q, k, v 16-byte aligned.
 extern "C" int prefill_attention_bf16(const void* q, const void* k, const void* v,
                                       const void* offset, void* out, int B, int P,
@@ -347,5 +359,7 @@ extern "C" int prefill_attention_bf16(const void* q, const void* k, const void* 
     return launch<128, 128>(q, k, v, off, o, B, P, H, Hkv, S_max, window, scale, st);
   if (dk == 192 && dv == 128)
     return launch<192, 128>(q, k, v, off, o, B, P, H, Hkv, S_max, window, scale, st);
+  if (dk == 256 && dv == 256)
+    return launch<256, 256>(q, k, v, off, o, B, P, H, Hkv, S_max, window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -161,14 +161,14 @@ def _check_aligned(name: str, *tensors: Tensor) -> None:
 
 # query rows per CTA of the prefill kernel: PREFILL_ROWS // g positions x
 # g heads of one group, the rows past them padding; and the (query/key,
-# value) head widths it is built for: GQA's equal pairs and multi-head
-# latent attention's 128 nope + 64 rope query/key dims against 128 value
-# dims
+# value) head widths it is built for: GQA's equal pairs (256 at
+# recurrentgemma-9b) and multi-head latent attention's 128 nope + 64 rope
+# query/key dims against 128 value dims
 PREFILL_ROWS = 128
-PREFILL_HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
-# the unequal pairs the decode kernel is built for (it takes every equal
+PREFILL_HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128), (256, 256))
+# the pairs past 128 the decode kernel is built for (it takes every equal
 # pair of a multiple of 16 up to 128)
-DECODE_WIDE_DIMS = ((192, 128),)
+DECODE_WIDE_DIMS = ((192, 128), (256, 256))
 
 
 def _check_attention(name: str, q: Tensor, k: Tensor, v: Tensor,

@@ -26,7 +26,7 @@ import json
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
-from repro_torch.configs import list_configs
+from repro_torch.configs import get_config, list_configs
 from repro_torch.core.base import SCHEDULERS
 from repro_torch.serving.metrics import SLOConfig
 from repro_torch.serving.traffic import (ARRIVAL_PROCESSES, DATASETS,
@@ -162,6 +162,11 @@ class ServeConfig:
                              "it cannot be combined with --http")
         if self.spec == "draft" and not self.draft_config:
             raise ValueError("spec='draft' needs draft_config")
+        if self.spec != "off" and self.recurrent_mixers():
+            raise ValueError(
+                f"spec={self.spec!r}: {self.arch} has recurrent mixers "
+                f"{list(self.recurrent_mixers())} whose state cannot be "
+                "rolled back past rejected drafts")
         if self.http is not None:
             self.http_endpoint()        # raises on malformed host:port
         if self.simulate and self.http is not None:
@@ -395,6 +400,20 @@ class ServeConfig:
             else "recompute"
         return enabled, mode
 
+    def recurrent_mixers(self) -> Tuple[str, ...]:
+        """The recurrent mixer kinds of ``arch``'s stack (none for an
+        attention-only stack)."""
+        return tuple(sorted({sp.mixer for sp in
+                             get_config(self.arch).block_specs()
+                             if sp.is_recurrent()}))
+
+    def prefix_cache_on(self) -> bool:
+        """``prefix_cache``, except on a stack with recurrent mixers: the
+        engine refuses the prefix cache there (their state has no
+        position axis to restore at a page boundary), so such an arch is
+        served with it off."""
+        return self.prefix_cache and not self.recurrent_mixers()
+
     def class_headroom_opt(self) -> Optional[Dict[str, int]]:
         return {"interactive": self.class_headroom} \
             if self.class_headroom else None
@@ -415,7 +434,7 @@ class ServeConfig:
                     swap_in_budget=self.swap_in_budget,
                     decode_reserve=self.decode_reserve,
                     class_headroom=self.class_headroom_opt(),
-                    prefix_cache=self.prefix_cache,
+                    prefix_cache=self.prefix_cache_on(),
                     prefix_lru_pages=self.prefix_lru_pages,
                     packed=self.packed,
                     spec_mode=self.spec, spec_k=self.spec_k,
@@ -435,7 +454,7 @@ class ServeConfig:
                     decode_reserve=self.decode_reserve,
                     swap_overlap=not self.swap_serial,
                     class_headroom=self.class_headroom_opt(),
-                    prefix_cache=self.prefix_cache,
+                    prefix_cache=self.prefix_cache_on(),
                     prefix_lru_pages=self.prefix_lru_pages,
                     spec_mode=self.spec, spec_k=self.spec_k,
                     spec_acceptance=self.spec_acceptance)

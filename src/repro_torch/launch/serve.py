@@ -72,6 +72,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import math
 import time
@@ -247,6 +248,13 @@ def run_engine(eng: Engine, a: ServeConfig, trace=None) -> dict:
           f"{cfg.n_layers} layers, {a.moe_dispatch} MoE dispatch, "
           f"{eng.device}): {len(reqs)} requests in "
           f"{eng.iteration} iterations")
+    if a.recurrent_mixers():
+        kinds = collections.Counter(sp.mixer for sp in eng.model.specs)
+        print("[serve] mixers " + ", ".join(
+            f"{k} x{n}" for k, n in sorted(kinds.items()))
+            + f"; recurrent state {eng.state_bytes_per_slot / 1e6:.3f} MB "
+            "a slot; prefix cache off (recurrent state has no position "
+            "axis to restore at a page boundary)")
     print(f"[serve] ttft({unit}) mean={_f(m['ttft_mean'], '.3g')} "
           f"p50={_f(m['ttft_p50'], '.3g')} p99={_f(m['ttft_p99'], '.3g')}; "
           f"tbt({unit}) p50={_f(m['tbt_p50'], '.3g')} "
@@ -274,7 +282,7 @@ def run_engine(eng: Engine, a: ServeConfig, trace=None) -> dict:
               f"{eng.n_verify_dispatches} verify + "
               f"{eng.n_draft_dispatches} draft launches; "
               f"{tpd:.2f} generated tokens/launch")
-    if a.prefix_cache:
+    if eng.prefix_cache:
         print(f"[serve] prefix cache: hit rate "
               f"{m['prefix_hit_rate']:.2f} "
               f"({eng.alloc.n_prefix_hits} hits, "
@@ -496,7 +504,7 @@ def serve_sim(a: ServeConfig):
           f"high-water {res.pages_high_water}/{res.n_pool_pages}; "
           f"{res.n_preemptions} preemptions, "
           f"{res.recompute_tokens} recomputed tokens")
-    if a.prefix_cache:
+    if a.prefix_cache_on():
         print(f"[serve-sim]   prefix cache     "
               f"hit rate {res.prefix_hit_rate:.2f} "
               f"({res.n_prefix_hits} hits, "

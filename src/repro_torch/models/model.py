@@ -11,10 +11,14 @@ Parameters are a plain dict with the JAX package's structure and layouts:
 ``params["segments"][s]["pattern"][p]`` holds one block's parameters
 stacked over the segment's repeats (leading axis ``reps``).  Caches mirror
 it: ``cache[s][p]`` is ``{"k", "v"}`` of shape (reps, batch, S_max, Hkv,
-hd), or MLA's ``{"ckv", "kr"}`` of shape (reps, batch, S_max, width).  A
-stack with a dense first block has two segments once it is deeper than
-the 16-block period search (deepseek-v2-236b at full depth: 1 + 59).
-Cache updates happen in place (see models/attention.py).
+hd), or MLA's ``{"ckv", "kr"}`` of shape (reps, batch, S_max, width), or
+a recurrent mixer's state, which has no position axis: RG-LRU's
+``{"conv", "h"}``, mLSTM's ``{"C", "n", "m", "conv"}``, sLSTM's ``{"c",
+"n", "h", "m"}``, each (reps, batch, ...).  ``recurrent[s][p]`` says which
+blocks hold state rather than KV rows.  A stack with a dense first block
+has two segments once it is deeper than the 16-block period search
+(deepseek-v2-236b at full depth: 1 + 59).  Cache updates happen in place
+(see models/attention.py, models/rglru.py, models/xlstm.py).
 """
 
 from __future__ import annotations
@@ -46,16 +50,23 @@ class DecoderModel:
         self.segments = cfg.scan_segments()
         self.index_map = cfg.block_index_map()
         self.n_blocks = cfg.n_layers
+        # per segment and pattern position: True where the block's cache
+        # is recurrent state (no position axis) rather than KV rows
+        self.recurrent = [[sp.is_recurrent() for sp in pattern]
+                          for pattern, _ in self.segments]
         if cfg.encoder.enabled or cfg.vision.enabled \
                 or cfg.pos_emb == "learned":
             raise NotImplementedError(
-                f"{cfg.name}: the torch port runs GQA and MLA decoders only")
+                f"{cfg.name}: the torch port runs decoder-only stacks "
+                "without learned positions (no encoder, no vision stub)")
 
     # -- init ---------------------------------------------------------------
 
     def init_params(self, generator: Optional[torch.Generator] = None) -> dict:
         """Random parameters with the JAX package's distributions (normal x
-        1/sqrt(fan_in); 0.02 for router and embeddings), drawn directly in
+        1/sqrt(fan_in); 0.02 for router and embeddings; RG-LRU's
+        ``a_param`` and the xLSTM gate biases as in models/rglru.py and
+        models/xlstm.py), drawn directly in
         ``param_dtype`` on the model's device from ``generator`` (a
         ``torch.Generator`` on that device; seed 0 when omitted)."""
         cfg, dev = self.cfg, self.device
@@ -70,6 +81,8 @@ class DecoderModel:
         return params
 
     def init_cache(self, batch: int, max_len: int, dtype=None) -> list:
+        """Zeroed KV rows and recurrent state at its init values (the
+        stabilizers' -1e30 included), repeated over each segment's reps."""
         dt = dtype or torch_dtype(self.cfg.dtype)
         cache = []
         for pattern, reps in self.segments:

@@ -1,0 +1,154 @@
+"""RecurrentGemma's recurrent block: causal depthwise conv + RG-LRU
+(Real-Gated Linear Recurrent Unit), arXiv:2402.19427.
+
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+    a_t = exp(-c * softplus(Lambda) * sigmoid(r_t)),  c = 8
+
+The recurrence is linear in h, so prefill runs it as a log-depth scan in
+plain PyTorch: ``ceil(log2 S)`` combine steps over the whole (B, S, W)
+tensor, never a loop over S.  The JAX package's ``associative_scan``
+combines in another order, so ``h`` agrees within fp32 rounding, not bit
+for bit.  Decode (S = 1) is one step.  The JAX package has no Pallas
+kernel here; neither has the port.
+
+State per block: conv tail (B, conv_width-1, W) in the model dtype and the
+LRU hidden (B, W) in fp32.  As with the attention caches
+(models/attention.py), ``apply_rglru`` writes the new state IN PLACE into
+the dict it is given (views into the engine's pool) and returns it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import torch_dtype
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+
+Tensor = torch.Tensor
+_C = 8.0
+_N_GATE_BLOCKS = 16
+
+
+def lru_width(cfg: ModelConfig) -> int:
+    return cfg.lru_width or cfg.d_model
+
+
+def _block_diag(x: Tensor, w: Tensor) -> Tensor:
+    """x: (..., W) @ block-diagonal w: (NB, W/NB, W/NB) -> (..., W)."""
+    nb, bw, _ = w.shape
+    xb = x.reshape(x.shape[:-1] + (nb, bw))
+    return torch.einsum("...nb,nbc->...nc", xb, w).reshape(x.shape)
+
+
+def init_rglru(cfg: ModelConfig, device, generator, reps: int = 0) -> dict:
+    """The JAX package's distributions: dense weights normal x
+    1/sqrt(fan_in) (0.1 for the conv, 0.02 for the block-diagonal gates),
+    and ``a_param`` in fp32 such that a^2 ~ U[0.81, 0.999] (the paper's
+    init) through the inverse softplus."""
+    d, w = cfg.d_model, lru_width(cfg)
+    dt = torch_dtype(cfg.param_dtype)
+
+    def dense(shape, scale=None):
+        return layers.dense_init(shape, dt, device, generator, scale=scale,
+                                 reps=reps)
+    lead = (reps,) if reps else ()
+    u = torch.rand(lead + (w,), dtype=torch.float32, device=device,
+                   generator=generator) * (0.999 - 0.81) + 0.81
+    log_a = 0.5 * torch.log(u)
+    nb = _N_GATE_BLOCKS
+    return {
+        "w_x": dense((d, w)),
+        "w_gate": dense((d, w)),
+        "w_out": dense((w, d)),
+        "conv_w": dense((cfg.conv_width, w), scale=0.1),
+        "conv_b": torch.zeros(lead + (w,), dtype=dt, device=device),
+        "w_input_gate": dense((nb, w // nb, w // nb), scale=0.02),
+        "w_rec_gate": dense((nb, w // nb, w // nb), scale=0.02),
+        "a_param": torch.log(torch.expm1(-log_a / _C)),
+    }
+
+
+def init_cache_rglru(cfg: ModelConfig, batch: int, device,
+                     dtype=None) -> dict:
+    w = lru_width(cfg)
+    dt = dtype or torch_dtype(cfg.dtype)
+    return {"conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=dt,
+                                device=device),
+            "h": torch.zeros((batch, w), dtype=torch.float32, device=device)}
+
+
+def causal_conv(p, x: Tensor, conv_state: Optional[Tensor],
+                valid: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Depthwise causal conv1d (no activation).  x: (B, S, W) ->
+    (y, new tail).  With ``valid`` (B, S) the tail is taken at each row's
+    true length (the last cw-1 real inputs, gathered), so right-padding
+    never enters the decode-time state; a row with no valid token keeps
+    its tail.  Valid tokens are a prefix of each row."""
+    cw = p["conv_w"].shape[0]
+    if conv_state is None:
+        conv_state = torch.zeros((x.shape[0], cw - 1, x.shape[2]),
+                                 dtype=x.dtype, device=x.device)
+    xp = torch.cat([conv_state.to(x.dtype), x], dim=1)     # (B, S+cw-1, W)
+    s = x.shape[1]
+    y = sum(xp[:, i:i + s] * p["conv_w"][i] for i in range(cw))
+    y = y + p["conv_b"]
+    if valid is None:
+        return y, xp[:, s:]
+    lengths = valid.sum(-1).long()                          # (B,)
+    idx = lengths[:, None] + torch.arange(cw - 1, device=x.device)[None]
+    tail = torch.gather(xp, 1, idx[..., None].expand(-1, -1, xp.shape[2]))
+    return y, tail
+
+
+def lru_scan(a: Tensor, b: Tensor, h0: Tensor) -> Tensor:
+    """h_t = a_t h_{t-1} + b_t over axis 1 from ``h0`` (B, W): a log-depth
+    (Hillis-Steele) scan — step d combines each position with the one d
+    earlier.  Returns h at every t, (B, S, W)."""
+    b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    d = 1
+    while d < a.shape[1]:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return b
+
+
+def apply_rglru(cfg: ModelConfig, p, x: Tensor, *,
+                cache: Optional[dict] = None,
+                valid: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Optional[dict]]:
+    """x: (B, S, D) -> (out (B, S, D), cache written in place).  ``valid``
+    (B, S) turns masked timesteps into identity state updates (a = 1,
+    b = 0), so padding and idle rows never perturb the state: a fully
+    masked row keeps ``conv`` and ``h`` bit for bit."""
+    gate = F.gelu(x @ p["w_gate"], approximate="tanh")      # (B, S, W)
+    xin = x @ p["w_x"]
+    xc, new_tail = causal_conv(p, xin, cache["conv"] if cache is not None
+                               else None, valid)
+    xf = xc.float()
+    rg = torch.sigmoid(_block_diag(xf, p["w_rec_gate"].float()))
+    ig = torch.sigmoid(_block_diag(xf, p["w_input_gate"].float()))
+    log_a = -_C * F.softplus(p["a_param"]) * rg
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    bt = mult * (ig * xf)
+    if valid is not None:
+        v = valid[..., None]
+        a = torch.where(v, a, 1.0)
+        bt = torch.where(v, bt, 0.0)
+    h0 = cache["h"] if cache is not None else torch.zeros(
+        (x.shape[0], xin.shape[-1]), dtype=torch.float32, device=x.device)
+    h = lru_scan(a, bt, h0)
+    y = (h.to(x.dtype) * gate) @ p["w_out"]
+    if cache is not None:
+        tail = new_tail.to(cache["conv"].dtype)
+        if valid is not None:
+            tail = torch.where(valid.any(-1)[:, None, None], tail,
+                               cache["conv"])
+        cache["conv"].copy_(tail)
+        cache["h"].copy_(h[:, -1])
+    return y, cache

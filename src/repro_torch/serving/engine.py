@@ -60,6 +60,17 @@ victim's ``[0, offset)``, a prefix row's ``[0, deepest chain x
 page_size)``.  Positions past those are masked by the offset on every
 read, so restores are identical to the JAX engine's whole-row ones.
 
+Recurrent state (the RG-LRU, mLSTM and sLSTM blocks) has no position
+axis, so the copies above take a recurrent block's whole slot state: a
+swap, an export and a group-granular handoff chunk (final when the
+group's last token range ends at the prompt, where staging happens).
+Every admission puts the slot's state back to its init values: the JAX
+engine does not, and a request admitted into a used slot there starts
+from the previous occupant's state (ROADMAP §3); the port follows the
+model.  A recurrent stack refuses the prefix cache (a restore re-prefills
+from a page boundary on top of the whole prompt's state) and speculation
+(rejected drafts would stay in the state).
+
 MoE runs dropless under either ``moe_dispatch``: "ragged" (the default)
 or "dense" (the (E, C, d) capacity buffer with C = the batch's token
 count).  Routing is the same under both, so are the expert-load counters.
@@ -162,13 +173,15 @@ def _nbytes(tree) -> int:
     return sum(sizes)
 
 
-def _snapshot(c: Tensor, slot: int, n: int, host: bool) -> Tensor:
+def _snapshot(c: Tensor, slot: int, n: int, host: bool,
+              whole: bool = False) -> Tensor:
     """A COPY of positions ``[0, n)`` of one slot row of a cache leaf
-    ``(reps, n_slots, max_len, ...)`` -> ``(reps, n, ...)``.  With ``host``
-    and a CUDA leaf the copy lands in pinned host memory without blocking:
-    the caller's next sync completes it, and later writes to the slot are
-    ordered after it on the stream."""
-    src = c[:, slot, :n]
+    ``(reps, n_slots, max_len, ...)`` -> ``(reps, n, ...)`` or, with
+    ``whole`` (a recurrent state leaf, which has no position axis), of the
+    slot's whole state.  With ``host`` and a CUDA leaf the copy lands in
+    pinned host memory without blocking: the caller's next sync completes
+    it, and later writes to the slot are ordered after it on the stream."""
+    src = c[:, slot] if whole else c[:, slot, :n]
     if not (host and c.is_cuda):
         return src.clone()
     dst = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
@@ -227,6 +240,19 @@ class Engine:
         each launch commits."""
         if moe_dispatch not in ("dense", "ragged"):
             raise ValueError(f"unknown moe_dispatch {moe_dispatch!r}")
+        mixers = sorted({sp.mixer for sp in model.specs
+                         if sp.is_recurrent()})
+        if mixers and prefix_cache:
+            raise ValueError(
+                f"{model.cfg.name}: the prefix cache restores a prompt's "
+                f"rows at page boundaries, but the recurrent state of "
+                f"{mixers} has no position axis to cut there: construct "
+                "the engine with prefix_cache=False")
+        if mixers and spec_mode != "off":
+            raise ValueError(
+                f"{model.cfg.name}: speculative verify writes rejected "
+                f"drafts into the recurrent state of {mixers}, which has "
+                "no position axis to roll back: use spec_mode='off'")
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -300,6 +326,17 @@ class Engine:
         self._free_slots = list(range(n_slots))[::-1]
         self._slot_of: Dict[int, int] = {}
         self.cache = model.init_cache(n_slots, max_len)
+        # (segment, pattern position, one slot's state at its init
+        # values) of every recurrent block: each admission copies it into
+        # the slot (KV rows need no reset, the offset masks them)
+        fresh = model.init_cache(1, 1)
+        self._fresh_state = [
+            (s, p, {k: v[:, 0] for k, v in fresh[s][p].items()})
+            for s, recs in enumerate(model.recurrent)
+            for p, rec in enumerate(recs) if rec]
+        self.state_bytes_per_slot = sum(
+            v.numel() * v.element_size()
+            for _, _, state in self._fresh_state for v in state.values())
         self.offsets = np.zeros(n_slots, np.int32)       # true filled length
         self.last_tok = np.zeros(n_slots, np.int32)
 
@@ -630,8 +667,10 @@ class Engine:
         rows = []
         for b in range(b0, b1):
             s, r, p_idx = self.model.index_map[b]
+            whole = self.model.recurrent[s][p_idx]
             rows.append(tree_map(
-                lambda c: _snapshot(c[r:r + 1], slot, n, host=True),
+                lambda c: _snapshot(c[r:r + 1], slot, n, host=True,
+                                    whole=whole),
                 self.cache[s][p_idx]))
         return rows
 
@@ -641,9 +680,12 @@ class Engine:
         side half of the streaming handoff; no host sync)."""
         for b, row in zip(range(b0, b1), rows):
             s, r, p_idx = self.model.index_map[b]
+            whole = self.model.recurrent[s][p_idx]
 
             def put(c: Tensor, x: Tensor) -> None:
-                c[r:r + 1, slot, :x.shape[1]].copy_(x, non_blocking=True)
+                dst = c[r:r + 1, slot] if whole else \
+                    c[r:r + 1, slot, :x.shape[1]]
+                dst.copy_(x, non_blocking=True)
             tree_zip(put, self.cache[s][p_idx], row)
 
     def export_request(self, rid: int) -> dict:
@@ -739,15 +781,31 @@ class Engine:
         self.n_preempted += 1
 
     def _copy_row(self, slot: int, n: int, host: bool = False):
-        """A copy of positions ``[0, n)`` of one slot row, every layer."""
-        return tree_map(lambda c: _snapshot(c, slot, n, host), self.cache)
+        """A copy of positions ``[0, n)`` of one slot row, every layer (a
+        recurrent block's whole state)."""
+        return [[{k: _snapshot(v, slot, n, host, whole=rec)
+                  for k, v in c.items()} for c, rec in zip(seg, recs)]
+                for seg, recs in zip(self.cache, self.model.recurrent)]
 
     def _restore_row(self, slot: int, row) -> None:
-        """Write a row copy back into positions ``[0, n)`` of ``slot``
-        (from pinned host memory without blocking)."""
-        def put(c: Tensor, r: Tensor) -> None:
-            c[:, slot, :r.shape[1]].copy_(r, non_blocking=True)
-        tree_zip(put, self.cache, row)
+        """Write a row copy back into positions ``[0, n)`` of ``slot`` (a
+        recurrent block's whole state), from pinned host memory without
+        blocking."""
+        for seg, seg_row, recs in zip(self.cache, row, self.model.recurrent):
+            for c, c_row, rec in zip(seg, seg_row, recs):
+                for k, r in c_row.items():
+                    dst = c[k][:, slot] if rec else c[k][:, slot, :r.shape[1]]
+                    dst.copy_(r, non_blocking=True)
+
+    def _reset_state(self, slot: int) -> None:
+        """Put ``slot``'s recurrent state back to its init values (device
+        copies, no host sync).  A slot's last occupant leaves its final
+        state behind; the JAX engine never resets it, so a request
+        admitted into a used slot starts from that state.  The port
+        follows the model here: every admission starts from init."""
+        for s, p, state in self._fresh_state:
+            for k, v in state.items():
+                self.cache[s][p][k][:, slot].copy_(v, non_blocking=True)
 
     def _swap_out(self, rid: int) -> None:
         """Execute a swap-to-host eviction: copy the victim's filled
@@ -778,6 +836,7 @@ class Engine:
         slot = self._free_slots.pop()
         self._slot_of[rid] = slot
         self.offsets[slot] = 0
+        self._reset_state(slot)
         hit = self.alloc.prefix_hit(rid)
         if hit.cached_tokens:
             # seed the slot row with the cached prefix KV (positions

@@ -1,7 +1,7 @@
 """The four dense GQA configs of the port (minicpm-2b, stablelm-1.6b,
-yi-34b, phi4-mini-3.8b) and the two large MoE configs (deepseek-v2-236b:
-MLA, shared experts, a dense first block; qwen3-moe-235b-a22b: g 16)
-against the JAX package on the CPU, in fp32: the smoke variants' forwards
+yi-34b, phi4-mini-3.8b), the two large MoE configs (deepseek-v2-236b:
+MLA, shared experts, a dense first block; qwen3-moe-235b-a22b: g 16) and
+the two recurrent configs (recurrentgemma-9b, xlstm-1.3b) against the JAX package on the CPU, in fp32: the smoke variants' forwards
 with a cache and one decode step, on the same weights (the JAX init converted through ``repro_torch.convert``);
 layered and chunked engine traces per family feature (stablelm's
 layernorm and partial RoPE, phi4-mini's tied embeddings and group size);
@@ -20,13 +20,15 @@ from test_torch_model import close, jit, models, t
 
 DENSE_ARCHS = ["minicpm-2b", "stablelm-1.6b", "yi-34b", "phi4-mini-3.8b"]
 MOE_ARCHS = ["deepseek-v2-236b", "qwen3-moe-235b-a22b"]
+RECURRENT_ARCHS = ["recurrentgemma-9b", "xlstm-1.3b"]
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS + RECURRENT_ARCHS)
 def test_smoke_forward_matches_jax(arch):
     """A 16-token prefill into the cache at per-row offsets, then one
     decode step: logits and every cache leaf (GQA's ``k``/``v``, MLA's
-    ``ckv``/``kr``); then the no-cache forward."""
+    ``ckv``/``kr``, the recurrent mixers' state); then the no-cache
+    forward."""
     cfg = jax_get_smoke_config(arch)
     jm, jp, tm, tp = models(cfg)
     rng = np.random.default_rng(21)

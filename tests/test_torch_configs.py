@@ -1,7 +1,8 @@
 """The port's registered configurations against the JAX package's: the
-paper's two models, the four dense GQA decoders and the two large MoE
-models (deepseek-v2-236b, qwen3-moe-235b-a22b) field for field (full and
-smoke variants), and the smoke gpt-oss-20b engine trace through both
+paper's two models, the four dense GQA decoders, the two large MoE
+models (deepseek-v2-236b, qwen3-moe-235b-a22b) and the two recurrent
+models (recurrentgemma-9b, xlstm-1.3b) field for field (full and smoke
+variants), and the smoke gpt-oss-20b engine trace through both
 packages (identical plans, tokens, TTFTs and expert bytes, layered and
 chunked).  The dense configs' forwards and engine traces are held against
 JAX in tests/test_torch_arch.py."""
@@ -21,15 +22,17 @@ from repro_torch.configs import get_config, get_smoke_config, list_configs
 ARCHS = ["qwen3-30b-a3b", "gpt-oss-20b"]
 DENSE_ARCHS = ["minicpm-2b", "stablelm-1.6b", "yi-34b", "phi4-mini-3.8b"]
 MOE_ARCHS = ["deepseek-v2-236b", "qwen3-moe-235b-a22b"]
+RECURRENT_ARCHS = ["recurrentgemma-9b", "xlstm-1.3b"]
 
 
 def test_port_registers_the_papers_two_models():
-    """The paper's two models first, then the dense GQA decoders, then the
-    large MoE models."""
-    assert list_configs() == ARCHS + DENSE_ARCHS + MOE_ARCHS
+    """The paper's two models first, then the dense GQA decoders, the
+    large MoE models and the recurrent models."""
+    assert list_configs() == ARCHS + DENSE_ARCHS + MOE_ARCHS + RECURRENT_ARCHS
 
 
-@pytest.mark.parametrize("arch", ARCHS + DENSE_ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + DENSE_ARCHS + MOE_ARCHS
+                         + RECURRENT_ARCHS)
 def test_config_matches_jax(arch):
     assert dataclasses.asdict(get_config(arch)) == \
         dataclasses.asdict(jax_get_config(arch))

@@ -293,6 +293,70 @@ def test_attention_kernels_at_mla_widths_match_plain(cuda, h, p, offsets,
                                                  window=window))
 
 
+# recurrentgemma-9b's local attention: (dk, dv) = (256, 256); g 16 (its
+# 16/1 heads: two n-tiles in K3) and g 4; P 40 and 130 span five and
+# seventeen q tiles of 8 positions at g 16, offsets past the 64-key tile
+# edge; a stale length S_max + 1
+HD256_SHAPES = [(16, 1, 40, (0, 50, 101, 170), (1, 301, 128, 17)),
+                (16, 1, 130, (0, 3, 60, 170), (300, 64, 129, 2)),
+                (8, 2, 40, (0, 77, 130, 260), (1, 300, 129, 257))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv,p,offsets,lens", HD256_SHAPES)
+@pytest.mark.parametrize("window", [None, 70])
+def test_attention_kernels_at_head_width_256_match_plain(cuda, h, hkv, p,
+                                                         offsets, lens,
+                                                         window):
+    """K2 and K3 at (dk, dv) = (256, 256) against their plain versions;
+    two launches agree bit for bit."""
+    rng = np.random.default_rng(16)
+    b, s_max = 4, 300
+    q = _bf16(rng, (b, p, h, 256), cuda)
+    k, v = _bf16(rng, (b, s_max, hkv, 256), cuda), _bf16(rng, (b, s_max, hkv, 256), cuda)
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    got = ops.prefill_attention(q, k, v, off, window=window)
+    want = ref.prefill_attention_ref(q, k, v, off, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(got, ops.prefill_attention(q, k, v, off, window=window))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q1 = q[:, 0].contiguous()
+    got = ops.decode_attention(q1, k, v, lengths, window=window)
+    want = ref.decode_attention_ref(q1, k, v, lengths, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(got, ops.decode_attention(q1, k, v, lengths,
+                                                 window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1], ids=["rglru+local", "xlstm"])
+def test_recurrent_engine_serves_on_the_card(cuda, which):
+    """``chip_smoke``'s small recurrent models in bf16 through the engine,
+    more requests than slots (every slot reused, its state reset at
+    admission): every request completes; the RG-LRU model launches K2 and
+    K3 at (256, 256) and nothing else, the xLSTM model none of the six
+    kernels."""
+    from repro_torch.core.base import make_scheduler
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.serving.engine import Engine
+    cfg = _chip_smoke().small_recurrent_configs()[which]
+    model = DecoderModel(cfg, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(1))
+    ops.reset_launches()
+    sched = make_scheduler("layered", model.n_blocks, n_slots=2, quantum=16)
+    eng = Engine(model, params, sched, n_slots=2, max_len=96,
+                 prefix_cache=False)
+    rng = np.random.default_rng(0)
+    for _ in range(5):
+        eng.submit(rng.integers(1, 500, int(rng.integers(4, 60))).tolist(), 6)
+    eng.run()
+    assert all(len(t) == 6 for t in eng.outputs.values())
+    path = ("prefill_attention", "decode_attention") if which == 0 else ()
+    assert all(ops.LAUNCHES[k] > 0 for k in path), ops.LAUNCHES
+    assert all(n == 0 for k, n in ops.LAUNCHES.items() if k not in path), \
+        ops.LAUNCHES
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("moe_dispatch", ["ragged", "dense"])
 def test_mla_engine_serves_on_the_card(cuda, moe_dispatch):
@@ -362,18 +426,19 @@ def test_decode_attention_kernel_at_groups_3_and_7(cuda, hd, h, hkv, window):
 def test_attention_kernels_refuse_what_they_do_not_take(cuda):
     """A CUDA tensor the kernel does not take raises ValueError, never
     falls back: prefill needs (hd, hd_v) in (32, 32), (64, 64), (128,
-    128), (192, 128) and a group size of at most 128 (any other group size
-    it takes: g 3 runs); decode takes hd = hd_v a multiple of 16 up to
-    128, or (192, 128), and at most 16 query heads per kv head.  A pair
-    that is not built, (192, 64), is refused by both."""
+    128), (192, 128), (256, 256) and a group size of at most 128 (any
+    other group size it takes: g 3 runs); decode takes hd = hd_v a
+    multiple of 16 up to 128, (192, 128) or (256, 256), and at most 16
+    query heads per kv head.  Pairs that are not built, (192, 64) and
+    (256, 128), are refused by both."""
     z = torch.zeros(1, dtype=torch.int32, device=cuda)
     bf = dict(dtype=torch.bfloat16, device=cuda)
-    for hd in (48, 24, 256):
+    for hd in (48, 24, 160):
         with pytest.raises(ValueError, match="hd"):
             ops.prefill_attention(torch.zeros(1, 4, 8, hd, **bf),
                                   torch.zeros(1, 8, 2, hd, **bf),
                                   torch.zeros(1, 8, 2, hd, **bf), z)
-    for hd in (24, 256):
+    for hd in (24, 160):
         with pytest.raises(ValueError, match="hd"):
             ops.decode_attention(torch.zeros(1, 8, hd, **bf),
                                  torch.zeros(1, 8, 2, hd, **bf),
@@ -386,6 +451,14 @@ def test_attention_kernels_refuse_what_they_do_not_take(cuda):
         ops.decode_attention(torch.zeros(1, 2, 192, **bf),
                              torch.zeros(1, 8, 2, 192, **bf),
                              torch.zeros(1, 8, 2, 64, **bf), z)
+    with pytest.raises(ValueError, match="hd"):
+        ops.prefill_attention(torch.zeros(1, 4, 2, 256, **bf),
+                              torch.zeros(1, 8, 2, 256, **bf),
+                              torch.zeros(1, 8, 2, 128, **bf), z)
+    with pytest.raises(ValueError, match="hd"):
+        ops.decode_attention(torch.zeros(1, 2, 256, **bf),
+                             torch.zeros(1, 8, 2, 256, **bf),
+                             torch.zeros(1, 8, 2, 128, **bf), z)
     with pytest.raises(ValueError, match="group size"):
         ops.prefill_attention(torch.zeros(1, 4, 256, 64, **bf),
                               torch.zeros(1, 8, 1, 64, **bf),

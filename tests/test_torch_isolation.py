@@ -56,6 +56,24 @@ def test_smoke_serve_runs_with_jax_blocked():
     assert "2 requests in" in out.stdout
 
 
+def test_recurrent_smoke_serves_run_with_jax_blocked():
+    """The recurrent mixers (models/rglru.py, models/xlstm.py) serve with
+    ``jax`` and ``repro`` blocked too."""
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[m] = None\n"
+            "from repro_torch.launch import serve\n"
+            "for arch in ('recurrentgemma-9b', 'xlstm-1.3b'):\n"
+            "    serve.main(['--arch', arch, '--smoke', '--device', 'cpu',\n"
+            "                '--requests', '2', '--max-len', '64'])\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    for arch in ("recurrentgemma-9b", "xlstm-1.3b"):
+        assert f"[serve] {arch}-smoke x layered" in out.stdout
+    assert out.stdout.count("2 requests in") == 2
+
+
 def test_entry_point_without_cpu_flag_raises_without_cuda(monkeypatch):
     from repro_torch.launch import serve
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
