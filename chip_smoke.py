@@ -43,7 +43,12 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    and a chunked step (512-token chunks at offsets 2048-3584 of a
    4096-row cache: the window binds), K3 at the 8-slot decode step
    (lengths 2100-4096), each beside SDPA at the same mask with the
-   backends that take hd 256.
+   backends that take hd 256.  whisper-base: K2 without the causal mask
+   at its encoder (1 x 1500 frames over themselves, 8/8 heads of 64) and
+   at cross-attention prefill (4 x 512 prompt tokens over 1500 frames),
+   each beside SDPA without a mask; K3 at cross decode (8 slots, lengths
+   1500); K2 and K3 at its decoder's short trace; qwen2-vl-72b's K2 and
+   K3 (64/8 heads of 128) at the long trace.
 3. check the kernel path end to end against the CPU fp32 plain path on a
    small model, under the ragged and the dense MoE dispatch (finite
    logits that agree within a stated tolerance); and a small MLA model
@@ -57,7 +62,11 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    one-shot and (48 tokens) in three chunks through the cache, then one
    decode step: bf16 on the card vs fp32 on the CPU within
    ``E2E_REL_FRO``; the RG-LRU model launches K2 and K3 only, the xLSTM
-   model none of the six.
+   model none of the six.  Then a small whisper model (whisper's head
+   shape over 150 frames) and a small qwen2-vl model (hd 128, its M-RoPE
+   sections): the encoder, the cross K/V, a prefill and a decode step
+   through the cache, and the forward with the encoder output or with 8
+   patch embeddings prepended, within ``E2E_REL_FRO``; K2 and K3 only.
 4. serve qwen3-30b-a3b at full width (d_model 2048, 32/4 heads, 128
    experts top-8, 48 layers, random weights from a seed) through the
    port's launcher: the ragged dispatch with layered and then chunked
@@ -133,8 +142,8 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    chunked), and the open-loop trace on the iteration clock through the
    card's engine and through ``SimExecutor``: the same plans, the modelled
    ms/iter (h100x2 preset) printed beside the measured one.  Then profile
-   the ragged layered and the dense layered serve once more (device time
-   by kernel, the device's busy share).
+   the ragged layered serve once more (device time by kernel, the
+   device's busy share).
 5. free qwen3 and serve gpt-oss-20b at full width (d_model 2880, 64/8
    heads of 64, 32 experts top-4 of d_ff 2880, 24 layers): the long trace
    layered and chunked (layered expert-load <= chunked), and the short
@@ -169,8 +178,17 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    state would part at the first token).  Then xlstm-1.3b (42 mLSTM + 6
    sLSTM blocks, 5.65 GB of state at 8 slots) on the short trace,
    layered and chunked, launching none of the six kernels.  Each serve
-   logs the recurrent state bytes a slot.  Each phase's seconds are
-   printed.
+   logs the recurrent state bytes a slot.
+8. free them and serve whisper-base at full width and depth (6 encoder
+   + 6 decoder layers, each request's 1500 frames seeded): 12 short-trace
+   requests with 48 new tokens on 8 slots in 64 pages under recompute
+   and under swap preemption, each request alone, and two pools (layered,
+   streaming) beside the monolithic engine on the launcher's closed loop;
+   every stream equal to its yardstick's or parted at a near-tie; one
+   cross-K/V install per admission; K2 and K3 only.  Then qwen2-vl-72b
+   at full width and the depth the card holds (the reckoning logged;
+   145 GB at 80 layers), text-only, the long trace layered and chunked.
+   Each phase's seconds are printed.
 
 It prints a JSON ``kernels`` line (each row's ``launches`` summed over
 the serves of its own model, ``launches_of``), the ``nvidia-smi`` line,
@@ -347,6 +365,9 @@ RECURRENTGEMMA_ATTN = (16, 1, 256)     # g 16 at hd 256 (local, window 2048)
 # deepseek-v2-236b's decompressed MLA keys and values: H = Hkv = 128, hd
 # 192 (128 nope + 64 rope), hd_v 128
 DEEPSEEK_ATTN = (128, 128, 192, 128)
+WHISPER_ATTN = (8, 8, 64)              # g 1: encoder, decoder and cross
+QWEN2_VL_ATTN = (64, 8, 128)           # g 8
+WHISPER_FRAMES = 1500                  # 30 s of audio
 
 
 def _heads(heads):
@@ -385,9 +406,12 @@ def _visible(o: int, i: int, s_max: int, window) -> int:
 
 def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
                             offsets=None, heads=QWEN3_ATTN,
-                            cold: bool = False, window=None) -> dict:
+                            cold: bool = False, window=None,
+                            causal: bool = True) -> dict:
     """K2 against its plain version, timed beside SDPA at the same mask
-    (with ``window``, the sliding window's too); ``heads`` is (H,
+    (with ``window``, the sliding window's too; with ``causal=False``
+    every one of the S_max keys, SDPA without a mask and is_causal
+    False); ``heads`` is (H,
     Hkv, hd) or, for MLA, (H, Hkv, hd, hd_v).  With ``cold`` (a
     verify window: tens of microseconds, less than its launch from
     Python) kernel, plain version and SDPA are timed as K3 is, in CUDA
@@ -401,14 +425,16 @@ def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
     kc = torch.randn((b, s_max, hkv, hd), device=dev, generator=gen).to(torch.bfloat16)
     vc = torch.randn((b, s_max, hkv, hd_v), device=dev, generator=gen).to(torch.bfloat16)
     off = torch.tensor(offsets or [0] * b, dtype=torch.int32, device=dev)
-    got = ops.prefill_attention(q, kc, vc, off, window=window)
-    want = ref.prefill_attention_ref(q, kc, vc, off, window=window)
-    again = ops.prefill_attention(q, kc, vc, off, window=window)
+    kw = dict(window=window, causal=causal)
+    got = ops.prefill_attention(q, kc, vc, off, **kw)
+    want = ref.prefill_attention_ref(q, kc, vc, off, **kw)
+    again = ops.prefill_attention(q, kc, vc, off, **kw)
     torch.cuda.synchronize()
     max_abs = (got.float() - want.float()).abs().max().item()
     ok = torch.allclose(got.float(), want.float(), **ATTN_TOL)
-    log(f"prefill_attention[{tag}] B {b} P {p} offsets {off.tolist()}"
-        f"{f' window {window}' if window else ''}: "
+    log(f"prefill_attention[{tag}] B {b} P {p} S_max {s_max} offsets "
+        f"{off.tolist()}{f' window {window}' if window else ''}"
+        f"{'' if causal else ' non-causal'}: "
         f"max abs {max_abs:.3e} (tol {ATTN_TOL})")
     if not ok:
         raise AssertionError(f"prefill_attention[{tag}] disagrees")
@@ -418,15 +444,20 @@ def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
 
     # visible (query, key) pairs and the K/V rows that must be read
     offl = [int(o) for o in off.tolist()]
-    pairs = sum(_visible(o, i, s_max, window) for o in offl for i in range(p))
-    kv_rows = sum(min(o + p, s_max)
-                  - (max(0, o - window + 1) if window else 0) for o in offl)
+    if causal:
+        pairs = sum(_visible(o, i, s_max, window) for o in offl
+                    for i in range(p))
+        kv_rows = sum(min(o + p, s_max)
+                      - (max(0, o - window + 1) if window else 0)
+                      for o in offl)
+    else:
+        pairs, kv_rows = b * p * s_max, b * s_max
     nbytes = (q.numel() * 2 + got.numel() * 2
               + kv_rows * hkv * (hd + hd_v) * 2 + b * 4)
     flops = 2 * (hd + hd_v) * h * pairs
     b_ms, b_by = bound_ms(nbytes, flops)
     ms = ms_eager = cuda_time(
-        lambda: ops.prefill_attention(q, kc, vc, off, window=window), iters=5)
+        lambda: ops.prefill_attention(q, kc, vc, off, **kw), iters=5)
     g = h // hkv
     qt = q.transpose(1, 2)
     pos = torch.arange(s_max, device=dev)
@@ -435,7 +466,7 @@ def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
             & (pos[None, None, :] < (off.long() + p)[:, None, None]))
     if window:
         mask &= pos[None, None, :] > qpos[:, :, None] - window
-    mask = mask[:, None]
+    mask = mask[:, None] if causal else None
     extra = {}
     if cold:
         n = max(2, int(-(-4 * L2_BYTES // (2 * kc.numel() * 2))))
@@ -456,7 +487,7 @@ def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
         del kv, rep
     else:
         plain = cuda_time(lambda: ref.prefill_attention_ref(
-            q, kc, vc, off, window=window), iters=2)
+            q, kc, vc, off, **kw), iters=2)
         kt = kc.transpose(1, 2).repeat(1, g, 1, 1)
         vt = vc.transpose(1, 2).repeat(1, g, 1, 1)
         lib = cuda_time(lambda: _sdpa_gmajor(qt, kt, vt, mask), iters=5)
@@ -475,7 +506,7 @@ def check_prefill_attention(tag: str, gen, b=4, p=2048, s_max=2048,
             "ctas": ctas, "achieved_tflops": flops / ms / 1e9, **extra,
             "shape": {"B": b, "P": p, "S_max": s_max, "offsets": offl,
                       "H": h, "Hkv": hkv, "hd": hd, "hd_v": hd_v,
-                      "window": window}}
+                      "window": window, "causal": causal}}
 
 
 # K2 at g 8 on inputs built by integer hashing (exact in bf16, the same on
@@ -557,9 +588,11 @@ def cuda_time_cold(fn, n_copies: int, rounds: int, graph: bool = True) -> float:
 
 def check_decode_attention(gen, tag: str, b=8, s_max=2048,
                            len_range=(601, 1517), heads=QWEN3_ATTN,
-                           window=None) -> dict:
+                           window=None, full: bool = False) -> dict:
     """K3 at the serve's decode step (8 slots, one of them idle with the
-    stale length S_max + 1), timed cold in CUDA graphs: kernel, plain
+    stale length S_max + 1; with ``full`` every slot at length S_max, as
+    cross-attention decode reads all the encoder's frames), timed cold in
+    CUDA graphs: kernel, plain
     version and SDPA each rotate over copies of the cache that together
     exceed 4 x the 50 MB L2.  ``ms_hot`` repeats one copy and
     ``ms_eager`` launches from Python: how K3 was timed before it became
@@ -579,6 +612,8 @@ def check_decode_attention(gen, tag: str, b=8, s_max=2048,
     lens = torch.randint(*len_range, (b,), device=dev, generator=gen,
                          dtype=torch.int32)
     lens[-1] = s_max + 1
+    if full:
+        lens.fill_(s_max)
     got = ops.decode_attention(q, kc, vc, lens, window=window)
     want = ref.decode_attention_ref(q, kc, vc, lens, window=window)
     torch.cuda.synchronize()
@@ -1138,6 +1173,97 @@ def check_small_recurrent_end_to_end() -> None:
         torch.cuda.empty_cache()
 
 
+def small_encdec_configs():
+    """The two small models of phase 3 for the last two architectures, in
+    bf16: whisper-base's smoke variant (2 encoder + 2 decoder layers,
+    d_model 256) at whisper's head shape (8/8 heads of 64) over 150
+    frames, a count off K2's 128-row query tile and 128-key tile; and
+    qwen2-vl-72b's smoke variant at its head width (8/1 heads of 128: g 8)
+    with its M-RoPE sections (16, 24, 24)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.config import EncoderConfig
+    wh = dataclasses.replace(
+        get_smoke_config("whisper-base"), name="whisper-small", head_dim=64,
+        encoder=EncoderConfig(n_layers=2, n_frames=150), dtype="bfloat16",
+        param_dtype="bfloat16").validate()
+    vl = dataclasses.replace(
+        get_smoke_config("qwen2-vl-72b"), name="qwen2-vl-small",
+        head_dim=128, mrope_sections=(16, 24, 24), dtype="bfloat16",
+        param_dtype="bfloat16").validate()
+    return wh, vl
+
+
+def check_small_encdec_end_to_end() -> None:
+    """Each small model of ``small_encdec_configs`` in bf16 on the card vs
+    the same weights in fp32 on the CPU (plain versions), within
+    ``E2E_REL_FRO``: whisper's ``encode`` (K2 non-causal over the frames),
+    its cross K/V, a 48-token prefill through the cache at offsets 0 and 5
+    (cross-attention by K2 non-causal over the cached frames), one decode
+    step (K3 at lengths = n_frames), and the cache-free forward with the
+    encoder output; qwen2-vl's 48-token prefill and decode step through
+    the cache and its forward with 8 patch embeddings prepended.  Each
+    launches K2 and K3 and nothing else."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import DecoderModel
+    need = ("prefill_attention", "decode_attention")
+    for cfg in small_encdec_configs():
+        gpu = DecoderModel(cfg, device="cuda")
+        params = gpu.init_params(torch.Generator(device="cuda").manual_seed(1))
+        cpu = DecoderModel(dataclasses.replace(cfg, dtype="float32",
+                                               param_dtype="float32"),
+                           device="cpu")
+        p_cpu = ops.tree_map(lambda a: a.float().cpu(), params)
+        g = torch.Generator().manual_seed(5)
+        toks = torch.randint(1, cfg.vocab_size, (2, 49), generator=g)
+        off = torch.tensor([0, 5], dtype=torch.int32)
+        frames = torch.randn((2, cfg.encoder.n_frames, cfg.d_model),
+                             generator=g) * 0.01
+        extra = torch.randn((2, 8, cfg.d_model), generator=g) * 0.02
+
+        def run(model, p_, dev):
+            out = {}
+            enc = None
+            cache = model.init_cache(2, 128)
+            if cfg.encoder.enabled:
+                enc = model.encode(p_, frames.to(dev))
+                out["encode"] = enc
+                for seg, seg_kv in zip(cache, model.precompute_cross_kv(p_,
+                                                                        enc)):
+                    for c, kv in zip(seg, seg_kv):
+                        c["xk"].copy_(kv["xk"])
+                        c["xv"].copy_(kv["xv"])
+                out["cross K"] = cache[0][0]["xk"]
+            out["prefill"], cache, _ = model.forward(
+                p_, toks[:, :48].to(dev), offset=off.to(dev), cache=cache)
+            out["decode"], cache, _ = model.forward(
+                p_, toks[:, 48:].to(dev), offset=(off + 48).to(dev),
+                cache=cache)
+            if enc is not None:
+                out["forward with enc_out"], _, _ = model.forward(
+                    p_, toks[:, :48].to(dev), enc_out=enc)
+            else:
+                out["forward with 8 patches"], _, _ = model.forward(
+                    p_, toks[:, :48].to(dev), extra_embeds=extra.to(dev))
+            return {k: v.float().cpu() for k, v in out.items()}
+        want = run(cpu, p_cpu, "cpu")
+        ops.reset_launches()
+        got = run(gpu, params, "cuda")
+        check_launches(f"small {cfg.name}", dict(ops.LAUNCHES), need, need)
+        for name, a in got.items():
+            b_ = want[name]
+            if not torch.isfinite(a).all() or a.shape != b_.shape:
+                raise AssertionError(f"{cfg.name} {name}: non-finite or "
+                                     f"misshapen {tuple(a.shape)}")
+            rel = ((a - b_).norm() / b_.norm()).item()
+            log(f"small {cfg.name} {name} {tuple(a.shape)}, bf16 on the card "
+                f"vs fp32 CPU: rel Frobenius {rel:.3e} (tol {E2E_REL_FRO})")
+            if not rel <= E2E_REL_FRO:
+                raise AssertionError(f"{cfg.name} {name} disagrees: rel {rel}")
+        del gpu, params
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -1206,10 +1332,14 @@ def streams_sha256(outputs: dict) -> str:
                           .encode()).hexdigest()[:16]
 
 
-def run_serve(a, model, params, trace=None, draft=None) -> dict:
+def run_serve(a, model, params, trace=None, draft=None, frames=None,
+              jobs=None) -> dict:
     """One serve through the port's launcher (closed loop, or open loop
     over ``trace`` / ``a.engine_trace``; ``draft`` = (model, params)
-    drafts for it, spec_k 4, on ``draft_engine``), with the launch counts
+    drafts for it, spec_k 4, on ``draft_engine``; an encoder-decoder's
+    closed-loop request i carries ``frames(i)``; ``jobs``, (prompt,
+    max_new, frames) triples, are submitted up front instead of the closed
+    loop's draw and replayed on the iteration clock), with the launch counts
     set to 0 just before it and read just after, and its host syncs
     counted; raises unless every
     request completes with its ``max_new_tokens`` in-vocabulary tokens,
@@ -1234,7 +1364,13 @@ def run_serve(a, model, params, trace=None, draft=None) -> dict:
         plans.append(plan_key(plan))
         return execute(plan)
     eng.execute_plan = execute_plan
-    r, counts, sites = traced(lambda: run_engine(eng, a, trace))
+    run_a = a
+    if jobs is not None:
+        for prompt, max_new, frm in jobs:
+            eng.submit(list(prompt), max_new, frm)
+        run_a, trace = dataclasses.replace(a, open_loop=True,
+                                           clock="virtual"), []
+    r, counts, sites = traced(lambda: run_engine(eng, run_a, trace, frames))
     r["plans"] = plans
     r["n_dispatches"] = eng.n_dispatches
     r["n_prefill_dispatches"] = eng.n_prefill_dispatches
@@ -1295,6 +1431,13 @@ def run_serve(a, model, params, trace=None, draft=None) -> dict:
     if r["state_bytes_per_slot"]:
         extra += (f", recurrent state {r['state_bytes_per_slot'] / 1e6:.3f} "
                   f"MB a slot (cache {r['cache_bytes'] / 1e9:.2f} GB)")
+    if model.cfg.encoder.enabled:
+        admitted = sum(len(p[0]) for p in plans)
+        if r["n_cross_installs"] != admitted:
+            raise AssertionError(f"{tag}: {r['n_cross_installs']} cross-K/V "
+                                 f"installs for {admitted} admissions")
+        extra += (f", cross-K/V installs {r['n_cross_installs']} = "
+                  f"admissions (cache {r['cache_bytes'] / 1e9:.2f} GB)")
     if a.fault_plan is not None:
         extra += (f", faults injected {r['fault_counters']}, shed "
                   f"{r['shed']}, retries {r['fault_stats']['n_fault_retries']}")
@@ -1371,7 +1514,7 @@ def _bf16_ulp(x: float) -> float:
 
 
 def explain_divergence(model, params, lay: dict, chk: dict,
-                       labels=("layered", "chunked")) -> list:
+                       labels=("layered", "chunked"), enc=None) -> list:
     """Where a request's two bf16 streams part (layered and chunked, or
     the ``labels`` of two other serves of the same requests), recompute
     that position's logits with ONE bf16 prefill of prompt + the common
@@ -1382,7 +1525,8 @@ def explain_divergence(model, params, lay: dict, chk: dict,
     it: causal, so the same function, only other GEMM shapes): how far
     rounding alone moves the logits, and how many of the routers' top-k
     assignments it moves (the per-block expert counts of the real
-    tokens)."""
+    tokens).  An encoder-decoder's requests attend over ``enc[rid]``,
+    their encoder output (1, T, D)."""
     import torch
     out = []
     for rid, a_toks in lay["outputs"].items():
@@ -1398,12 +1542,13 @@ def explain_divergence(model, params, lay: dict, chk: dict,
                             generator=torch.Generator().manual_seed(rid))
         padded = torch.cat([toks, pad.to(model.device)], dim=1)
         valid = torch.arange(2048, device=model.device)[None] < n
+        e = {} if enc is None else {"enc_out": enc[rid]}
         with torch.no_grad():
-            logits, _, aux = model.forward(params, toks, dropless=True)
+            logits, _, aux = model.forward(params, toks, dropless=True, **e)
             lg = logits[0, -1].float()
             del logits
             logits_p, _, aux_p = model.forward(params, padded, valid=valid,
-                                               dropless=True)
+                                               dropless=True, **e)
             lp = logits_p[0, n - 1].float()
             del logits_p
         moved = int((aux["expert_counts"] - aux_p["expert_counts"]).abs()
@@ -1605,9 +1750,7 @@ def serve_qwen3(times: dict, explain: bool = False) -> dict:
     t0 = time.perf_counter()
     profile_serve(dataclasses.replace(base, scheduler="layered"), model,
                   params)
-    profile_serve(dataclasses.replace(short, scheduler="layered",
-                                      moe_dispatch="dense"), model, params)
-    _phase("qwen3 profiles", t0, times)
+    _phase("qwen3 profile", t0, times)
     del model, params
     return {"runs": runs, "divergence": divergence, "spec": spec,
             "disagg": disagg, "live": live}
@@ -1810,7 +1953,14 @@ def kv_bytes_per_token(cfg) -> int:
     return cfg.kv_bytes_per_token(2)
 
 
-def run_disagg_serve(a, model, params) -> dict:
+def cross_bytes(cfg) -> int:
+    """bf16 bytes of one slot's cross-attention K/V over every layer (an
+    encoder-decoder's; 0 for a decoder-only stack): they move whole."""
+    n = sum(sp.cross_attn for sp in cfg.block_specs())
+    return n * 2 * cfg.encoder.n_frames * cfg.n_kv_heads * cfg.head_dim_ * 2
+
+
+def run_disagg_serve(a, model, params, frames=None) -> dict:
     """One two-pool serve through the port's launcher (``run_disagg`` on
     engines from ``build_disagg_engines``), with each pool's kernel
     launches read around its every ``execute_plan`` and each export's
@@ -1819,9 +1969,11 @@ def run_disagg_serve(a, model, params) -> dict:
     with a reason) with in-vocabulary tokens, no page is in use on either
     pool's device or host pool and both allocators' invariants hold, the
     plan's every fault was injected, each pool launched exactly its
-    kernels (``POOL_KERNELS``), every export moved the prompt's K/V and
-    nothing else, and the serve synced the host once per iteration of
-    each pool plus once per whole-prompt export."""
+    kernels (``POOL_KERNELS``, without the MoE kernel on a dense model),
+    every export moved the prompt's K/V (and, for an encoder-decoder, the
+    slot's whole cross K/V) and nothing else, and the serve synced the
+    host once per iteration of each pool plus once per whole-prompt
+    export.  ``frames`` as for ``run_serve``."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import build_disagg_engines, run_disagg
@@ -1848,7 +2000,7 @@ def run_disagg_serve(a, model, params) -> dict:
             t.numel() * t.element_size() for t in _leaves(blob))))
         return p
     ep.export_request = export_request
-    r, launches, sites = traced(lambda: run_disagg(ep, ed, a))
+    r, launches, sites = traced(lambda: run_disagg(ep, ed, a, frames=frames))
     r["launches"] = launches
     r["streams_sha256"] = streams_sha256(r["outputs"])
     r["state_bytes_per_slot"] = eng.state_bytes_per_slot
@@ -1870,18 +2022,20 @@ def run_disagg_serve(a, model, params) -> dict:
                              f"{r['host_pages_left']} host pages in use at "
                              "drain")
     for pool, want in POOL_KERNELS.items():
+        if not model.cfg.moe.enabled:
+            want = want - {"moe_gmm_ragged"}
         got = {k for k, v in per_pool[pool].items() if v}
         if got != want:
             raise AssertionError(f"{tag}: the {pool} pool launched "
                                  f"{dict(per_pool[pool])}, not {sorted(want)}")
-    per_token = kv_bytes_per_token(model.cfg)
+    per_token, cross = kv_bytes_per_token(model.cfg), cross_bytes(model.cfg)
     moved = sum(b for _, _, b in exports)
-    if moved != sum(n for n, _, _ in exports) * per_token \
-            or moved != r["handoff_bytes"]:
+    if moved != (sum(n for n, _, _ in exports) * per_token
+                 + len(exports) * cross) or moved != r["handoff_bytes"]:
         raise AssertionError(f"{tag}: handoff bytes {r['handoff_bytes']}, "
                              f"exports moved {moved} for "
                              f"{sum(n for n, _, _ in exports)} prompt tokens "
-                             f"x {per_token} B")
+                             f"x {per_token} B + {len(exports)} x {cross} B")
     whole = sum(1 for _, n_chunks, _ in exports if n_chunks == 0)
     if a.handoff == "whole" and whole != len(exports):
         raise AssertionError(f"{tag}: {len(exports) - whole} exports "
@@ -1906,7 +2060,8 @@ def run_disagg_serve(a, model, params) -> dict:
         f"{r['n_migrations']} migrations of {len(exports)} exports "
         f"({whole} whole-prompt), {r['n_returns']} returns, handoff "
         f"{r['handoff_bytes'] / 1e6:.1f} MB "
-        f"(= {sum(n for n, _, _ in exports)} prompt tokens x {per_token} B), "
+        f"(= {sum(n for n, _, _ in exports)} prompt tokens x {per_token} B"
+        f"{f' + {len(exports)} x {cross} B of cross K/V' if cross else ''}), "
         f"{r['host_syncs']} host syncs {dict(sites)}, launches by pool "
         f"{r['launches_by_pool']}"
         + (f", faults injected {r['fault_counters']}, shed {r['shed']}, "
@@ -2646,6 +2801,135 @@ def serve_recurrent(times: dict) -> dict:
     return {"runs": runs, "parted": parted}
 
 
+def whisper_frames(seed: int, d_model: int):
+    """Request i's encoder frames (n_frames, d_model): normal x 0.01,
+    drawn from (seed, i)."""
+    import numpy as np
+
+    def frames(i):
+        rng = np.random.default_rng([seed, i])
+        return (rng.standard_normal((WHISPER_FRAMES, d_model))
+                * 0.01).astype(np.float32)
+    return frames
+
+
+def check_partings(model, params, label: str, run: dict, other: dict,
+                   labels, enc=None) -> list:
+    """Where ``run``'s streams part from ``other``'s, the chosen tokens'
+    logit gap by one bf16 prefill (``explain_divergence``); raises unless
+    every parting sits at a near-tie (``NEAR_TIE_ULPS``).  Returns
+    (request, new-token position, gap in ulps) per parting."""
+    rows = explain_divergence(model, params,
+                              {"outputs": run["outputs"],
+                               "prompts": run["prompts"]},
+                              {"outputs": {rid: other["outputs"][rid]
+                                           for rid in run["outputs"]}},
+                              labels=labels, enc=enc)
+    parted = [(row["req"], row["position"], row["chosen_gap_ulps"])
+              for row in rows]
+    log(f"{label}: {_same_streams(run, other)}; partings (request, new-token "
+        f"position, chosen-token gap in bf16 ulps) {parted} (near-tie below "
+        f"{NEAR_TIE_ULPS} ulps)")
+    far = [p for p in parted if not p[2] <= NEAR_TIE_ULPS]
+    if far:
+        raise AssertionError(f"{label}: streams part away from a near-tie: "
+                             f"{far}")
+    return parted
+
+
+def serve_whisper(times: dict) -> dict:
+    """Phase 8: whisper-base at full width and depth (6 encoder + 6
+    decoder layers, d_model 512, 8/8 heads of 64, 1500 frames; learned
+    positions), each request's frames seeded (``whisper_frames``): 12
+    short-trace requests with 48 new tokens on 8 slots in 64 pages under
+    recompute preemption (a victim re-encodes at re-admission) and under
+    swap preemption (the cross K/V go to host memory and come back
+    whole), each rehearsed on a 6-layer stand-in with the same stash
+    factor to preempt (3 recompute preemptions; 3 swaps); each of the 12
+    served alone; then the
+    two-pool layered/stream serve and the monolithic layered serve of the
+    same 8 requests (the cross K/V move whole with each handoff).  Every
+    stream of the reuse, swap and two-pool serves must equal its
+    yardstick's (alone; monolithic) or part at a near-tie.  Every serve
+    launches K2 and K3 only (the encoder and cross-attention prefill: K2
+    non-causal; cross decode: K3 over the 1500 frames), syncs the host
+    once per iteration and installs cross K/V once per admission."""
+    import torch
+    runs = {}
+    _, short = serve_configs("whisper-base")
+    model, params, t0 = build_logged(short, "whisper", times)
+    frames = whisper_frames(short.seed, model.cfg.d_model)
+    pressure = dataclasses.replace(short, scheduler="layered",
+                                   new_tokens=(48, 49), pages=64,
+                                   decode_reserve=1)
+    reuse = runs["whisper reuse/recompute"] = run_serve(
+        dataclasses.replace(pressure, requests=12, preemption="recompute"),
+        model, params, frames=frames)
+    swap = runs["whisper swap"] = run_serve(
+        dataclasses.replace(pressure, requests=12, preemption="swap"), model,
+        params, frames=frames)
+    if not reuse["n_preempted"] > 0:
+        raise AssertionError("whisper reuse serve: no preemption")
+    if not swap["n_swapped_in"] == swap["n_swapped_out"] > 0:
+        raise AssertionError(f"whisper swap serve: swapped out/in "
+                             f"{swap['n_swapped_out']}/{swap['n_swapped_in']}")
+    alone = {"outputs": {}}
+    for rid, prompt in reuse["prompts"].items():
+        r = run_serve(dataclasses.replace(pressure, requests=1, pages=None,
+                                          decode_reserve=None),
+                      model, params,
+                      jobs=[(prompt, reuse["max_new"][rid], frames(rid))])
+        alone["outputs"][rid] = r["outputs"][0]
+    t0 = _phase("whisper reuse, swap and alone serves", t0, times)
+
+    a = dataclasses.replace(disagg_config("whisper-base"), scheduler="layered")
+    two = runs["whisper two-pool layered/stream"] = run_disagg_serve(
+        a, model, params, frames=frames)
+    mono = runs["whisper two-pool yardstick, layered"] = run_serve(
+        dataclasses.replace(a, disagg=False), model, params, frames=frames)
+    t0 = _phase("whisper two-pool serves", t0, times)
+    with torch.no_grad():
+        enc = {rid: model.encode(params, torch.from_numpy(frames(rid))[None]
+                                 .cuda()) for rid in range(12)}
+    parted = {label: check_partings(model, params, f"whisper {label}", run,
+                                    other, labels, enc)
+              for label, run, other, labels in (
+                  ("reuse vs alone", reuse, alone, ("reuse", "alone")),
+                  ("swap vs alone", swap, alone, ("swap", "alone")),
+                  ("two-pool vs monolithic", two, mono,
+                   ("two-pool", "monolithic")))}
+    _phase("whisper stream comparison", t0, times)
+    del model, params, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": runs, "parted": parted}
+
+
+def serve_qwen2_vl(times: dict) -> dict:
+    """Phase 8b: qwen2-vl-72b at full width (d_model 8192, 64/8 heads of
+    128: g 8, M-RoPE, d_ff 29568, vocab 152064 untied), text-only as the
+    JAX engine serves it, at the depth the card's free memory holds (the
+    reckoning is logged, as for the large MoE models): the long trace
+    layered and chunked, launching K2 and K3 only."""
+    import torch
+    runs = {}
+    base, _ = serve_configs("qwen2-vl-72b")
+    depth = large_moe_depth("qwen2-vl-72b", base)
+    model, params, t0 = build_logged(base, "qwen2-vl", times, n_layers=depth)
+    for sched in ("layered", "chunked"):
+        runs[f"qwen2-vl long/{sched}"] = run_serve(
+            dataclasses.replace(base, scheduler=sched), model, params)
+    lay, chk = runs["qwen2-vl long/layered"], runs["qwen2-vl long/chunked"]
+    log(f"qwen2-vl ({depth} layers) long trace layered / chunked: "
+        f"{_same_streams(lay, chk)}; {lay['ms_per_iter']:.1f} / "
+        f"{chk['ms_per_iter']:.1f} ms/iter")
+    _phase("qwen2-vl serves", t0, times)
+    del model, params, lay, chk
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": runs, "depth": depth}
+
+
 def profile_serve(a, model, params) -> None:
     """The same serve once more under torch.profiler: device time by
     kernel and the device's busy share of the (profiled) wall time."""
@@ -2683,6 +2967,8 @@ def profile_serve(a, model, params) -> None:
 def model_of(row: str) -> str:
     """The model whose serves a kernel row's shapes come from."""
     for key, arch in (("recurrentgemma", "recurrentgemma-9b"),
+                      ("whisper", "whisper-base"),
+                      ("qwen2-vl", "qwen2-vl-72b"),
                       ("gpt-oss", "gpt-oss-20b"), ("phi4", "phi4-mini-3.8b"),
                       ("yi-34b", "yi-34b"), ("deepseek", "deepseek-v2-236b"),
                       ("qwen3-235b", "qwen3-moe-235b-a22b")):
@@ -2846,6 +3132,31 @@ def main() -> None:
                                        heads=RECURRENTGEMMA_ATTN,
                                        window=2048)]
     torch.cuda.empty_cache()
+    # whisper-base: K2 non-causal at the encoder (1 x 1500 frames over
+    # themselves) and at cross-attention prefill (4 x 512 prompt tokens
+    # over 1500 frames), K3 at cross decode (8 slots, lengths 1500: 24
+    # key tiles, the last of 28 keys), K2 and K3 causal at its decoder's
+    # short trace; qwen2-vl-72b's 64/8 heads of 128 at the long trace
+    kernels += [check_prefill_attention("whisper encoder", gen, b=1,
+                                        p=WHISPER_FRAMES,
+                                        s_max=WHISPER_FRAMES,
+                                        heads=WHISPER_ATTN, causal=False),
+                check_prefill_attention("whisper cross prefill", gen, b=4,
+                                        p=512, s_max=WHISPER_FRAMES,
+                                        heads=WHISPER_ATTN, causal=False),
+                check_decode_attention(gen, "whisper cross decode",
+                                       s_max=WHISPER_FRAMES,
+                                       heads=WHISPER_ATTN, full=True),
+                check_prefill_attention("whisper layered", gen, b=4, p=256,
+                                        s_max=512, heads=WHISPER_ATTN),
+                check_decode_attention(gen, "whisper short", s_max=512,
+                                       len_range=(65, 266),
+                                       heads=WHISPER_ATTN),
+                check_prefill_attention("qwen2-vl layered", gen,
+                                        heads=QWEN2_VL_ATTN),
+                check_decode_attention(gen, "qwen2-vl long",
+                                       heads=QWEN2_VL_ATTN)]
+    torch.cuda.empty_cache()
     digest = k2_g8_digest()
     log(f"prefill_attention at g 8: outputs sha256 {digest} (the kernel "
         f"before its repair: {K2_G8_SHA256})")
@@ -2857,6 +3168,7 @@ def main() -> None:
     check_small_model_end_to_end()
     check_small_mla_end_to_end()
     check_small_recurrent_end_to_end()
+    check_small_encdec_end_to_end()
     torch.cuda.empty_cache()
     times: dict = {}
     _phase("build and kernel checks", t_start, times)
@@ -2878,8 +3190,12 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     recurrent = serve_recurrent(times)
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper = serve_whisper(times)
+    vl = serve_qwen2_vl(times)
     runs = {**qwen["runs"], **oss["runs"], **large["runs"], **dense["runs"],
-            **recurrent["runs"]}
+            **recurrent["runs"], **whisper["runs"], **vl["runs"]}
     # each kernel row's launches: the sum over its own model's serves,
     # each counted from 0 just before it and read just after
     launches, iters = {}, collections.Counter()
@@ -2904,6 +3220,8 @@ def main() -> None:
     log("large MoE depths " + json.dumps(large["depths"]))
     log("recurrentgemma partings from the requests served alone "
         + json.dumps(recurrent["parted"]))
+    log("whisper partings " + json.dumps(whisper["parted"]))
+    log(f"qwen2-vl-72b depth {vl['depth']}")
     log("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in times.items()}))
     log(f"total {time.perf_counter() - t_start:.1f} s")

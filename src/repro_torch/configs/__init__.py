@@ -1,6 +1,7 @@
-"""Architecture registry of the port: the configurations the port runs
-(the paper's two evaluation models, the four dense GQA decoders, the two
-large MoE models and the two recurrent models of the JAX registry).  Access via
+"""Architecture registry of the port: all twelve configurations of the JAX
+registry (the paper's two evaluation models, the four dense GQA decoders,
+the two large MoE models, the two recurrent models, the encoder-decoder
+and the vision-language backbone).  Access via
 ``get_config(name)`` / ``list_configs()``; smoke variants via
 ``get_smoke_config(name)``."""
 
@@ -30,6 +31,10 @@ _MODULES = {
     # mLSTM/sLSTM (7:1); their per-slot state has no position axis
     "recurrentgemma-9b": "recurrentgemma_9b",
     "xlstm-1.3b": "xlstm_1_3b",
+    # whisper's encoder-decoder (bidirectional encoder, cross-attention,
+    # learned positions) and Qwen2-VL's backbone (M-RoPE, vision stub)
+    "whisper-base": "whisper_base",
+    "qwen2-vl-72b": "qwen2_vl_72b",
 }
 
 

@@ -6,7 +6,9 @@ numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``), and returns
 the same structure with torch tensors: the stacked ``(reps, ...)`` segment
 leaves stay stacked, and every layout is unchanged (``x @ W`` with ``W`` of
 shape ``(d_in, d_out)``; MLA's leaves are such matrices and norm dicts;
-the recurrent mixers' fp32 leaves, RG-LRU's ``a_param``, stay fp32).
+the recurrent mixers' fp32 leaves, RG-LRU's ``a_param``, stay fp32;
+whisper's ``encoder`` list of unstacked blocks and the learned position
+table ``embed["pos"]`` come across as they are).
 JAX's PRNG cannot be reproduced in torch, so every test that holds the
 port against the JAX package goes through here.
 This module imports numpy and torch only.
@@ -34,9 +36,6 @@ def from_jax_params(cfg: ModelConfig, tree, device=None):
     """numpy pytree (dicts / lists of arrays) -> the same tree of tensors
     on ``device`` (``cuda`` unless the caller asks for the CPU)."""
     dev = resolve_device(device)
-    if cfg.encoder.enabled:
-        raise NotImplementedError(f"{cfg.name}: the port runs decoder-only "
-                                  "stacks (no encoder)")
 
     def conv(x):
         if isinstance(x, dict):

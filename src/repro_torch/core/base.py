@@ -360,11 +360,12 @@ class Scheduler:
         # prefix-aware admission: matched prefix tokens are charged zero new
         # pages (can_admit links, not allocates, shared pages) and the stash
         # only ever carries the UNCACHED tail of the prompt
-        hit = self.kv.lookup_prefix(r.cacheable_prompt)
+        hit = self.kv.lookup_prefix(r.cacheable_prompt, r.prefix_root)
         stash = self.max_stash_tokens(
             r, prompt_len=r.prompt_len - hit.cached_tokens)
         return self.kv.can_admit(need, stash, headroom_pages=headroom,
-                                 prompt_tokens=r.cacheable_prompt)
+                                 prompt_tokens=r.cacheable_prompt,
+                                 root=r.prefix_root)
 
     def admit(self, now: float, limit: Optional[int] = None) -> List[int]:
         """FCFS admission, gated on BOTH a free slot and the page pool
@@ -386,11 +387,13 @@ class Scheduler:
                 break
             self.waiting.popleft()
             if self.kv is not None:
-                hit = self.kv.lookup_prefix(r.cacheable_prompt)
+                hit = self.kv.lookup_prefix(r.cacheable_prompt,
+                                            r.prefix_root)
                 stash = self.max_stash_tokens(
                     r, prompt_len=r.prompt_len - hit.cached_tokens)
                 hit = self.kv.reserve(rid, r.prompt_len + self.decode_reserve,
-                                      stash, prompt_tokens=r.cacheable_prompt)
+                                      stash, prompt_tokens=r.cacheable_prompt,
+                                      root=r.prefix_root)
                 # matched prefix tokens are already computed: this prefill
                 # epoch starts past the cached boundary (every layer group
                 # skips them uniformly — per-group KV is complete for
@@ -707,7 +710,8 @@ class Scheduler:
                     # shared-prefix index (idempotent — the engine may have
                     # registered already when snapshotting its KV row) so
                     # later admissions can link them refcounted
-                    self.kv.register_prefix(sl.req_id, r.cacheable_prompt)
+                    self.kv.register_prefix(sl.req_id, r.cacheable_prompt,
+                                            r.prefix_root)
                 r.state = RequestState.DECODE
                 r.n_generated += 1
                 if r.n_generated >= r.max_new_tokens:

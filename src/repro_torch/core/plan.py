@@ -119,6 +119,10 @@ class Request:
     tenant: str = "interactive"
     use_prefix_cache: bool = True
     use_speculation: bool = True
+    # the root of this request's shared-prefix chains: empty, or (set by
+    # the engine of an encoder-decoder) a digest of its encoder frames, so
+    # that only requests with the same frames share cached KV
+    prefix_root: bytes = b""
     # completion deadline relative to arrival (SubmitSpec.deadline_ms);
     # enforced by the serving runtime's shed scan, None = no deadline
     deadline_ms: Optional[float] = None

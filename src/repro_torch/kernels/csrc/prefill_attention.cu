@@ -1,4 +1,4 @@
-// Causal GQA prefill attention over the slot-row KV cache, by hand for
+// GQA prefill attention (causal, or bidirectional) over the slot-row KV cache, by hand for
 // Hopper (sm_90a): wgmma products on TMA-fed tiles, warp-specialised.
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention_pallas
@@ -12,6 +12,10 @@
 // Hkv: the decompressed keys and values of models/attention.py apply_mla).  Key j is visible to query i when
 // j < offset + P, j < S_max, j <= offset + i and, with a window,
 // j > offset + i - window (the masks of models/attention.py apply_gqa).
+// With causal = 0 every key j < S_max is visible to every query, and offset
+// and window are ignored: whisper's bidirectional encoder self-attention
+// and cross-attention over the encoder frames (models/attention.py
+// apply_cross_attn; JAX's flash_attention_pallas(causal=False)).
 // Query head h reads kv head h % Hkv (g-major grouping).  A query row that
 // sees no key outputs 0.
 //
@@ -26,6 +30,10 @@
 // At recurrentgemma-9b (16 heads, one kv head, hd 256, window 2048) a
 // 2048-token row is 2 * 512 * 16 * 2048 * 2049 / 2 = 17 GFLOP, about
 // 17.4 us, against 2 * 2048 * 17 * 256 * 2 B = 35.7 MB (10.7 us).
+// Non-causal at whisper-base's encoder (8 heads, hd 64, 1500 frames) is
+// 2 * 128 * 8 * 1500 * 1500 = 4.6 GFLOP, about 4.7 us, against 4 * 1500 *
+// 8 * 64 * 2 B = 6.1 MB (1.8 us): operations-bound, and its grid is 12
+// query tiles x 8 heads = 96 CTAs on 132 SMs.
 //
 // Design.  One CTA per (q tile, kv head, row b), 3 warpgroups:
 //  * 128 query rows per CTA, as (position, head-of-group) pairs of one kv
@@ -61,7 +69,8 @@
 //    registers a thread; the consumers' setmaxnreg (232) leaves room for
 //    it beside the 64-key S tile's 32.
 //  * Only tiles that cross the diagonal, the window's edge or the end of
-//    the keys evaluate the mask.  blockIdx.x walks q tiles from the last
+//    the keys evaluate the mask (non-causal: only the last tile, whose
+//    keys past S_max arrive as zeros and must score -inf, not 0).  blockIdx.x walks q tiles from the last
 //    (most keys) to the first, so the longest CTAs start first.
 #include "hopper.cuh"
 
@@ -94,7 +103,8 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap,
                          const int* __restrict__ offset, bf16* __restrict__ out, int P, int H,
-                         int Hkv, int S_max, int window, float scale_log2, int n_qtiles) {
+                         int Hkv, int S_max, int window, int causal, float scale_log2,
+                         int n_qtiles) {
   using T = Tile<HDK, HDV>;
   constexpr int KT = T::KT;
   const int g = H / Hkv;
@@ -105,8 +115,8 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap qmap,
   const int b = blockIdx.z;
   const int off = offset[b];
   const int q_last = min(q0 + qt, P) - 1;
-  const int kv_end = min(off + q_last + 1, S_max);
-  const int kv_begin = window > 0 ? max(0, off + q0 - window + 1) : 0;
+  const int kv_end = causal ? min(off + q_last + 1, S_max) : S_max;
+  const int kv_begin = causal && window > 0 ? max(0, off + q0 - window + 1) : 0;
   const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + KT - 1) / KT : 0;
 
   extern __shared__ unsigned char smem_raw[];
@@ -213,8 +223,9 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap qmap,
       // online softmax in registers: element i is row r0 + 8 * ((i >> 1) & 1),
       // key key0 + (i / 4) * 8 + (lane % 4) * 2 + (i & 1)
       const int key0 = kv_begin + t * KT;
-      const bool masked = key0 + KT > kv_end || key0 + KT - 1 > off + q0 ||
-                          (window > 0 && key0 <= off + q0 + qt - 1 - window);
+      const bool masked = causal ? key0 + KT > kv_end || key0 + KT - 1 > off + q0 ||
+                                       (window > 0 && key0 <= off + q0 + qt - 1 - window)
+                                 : key0 + KT > kv_end;
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int i = 0; i < KT / 2; ++i) {
@@ -222,7 +233,8 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap qmap,
         if (masked) {
           const int key = key0 + (i / 4) * 8 + (lane % 4) * 2 + (i & 1);
           const int p = qp[(i >> 1) & 1];
-          const bool vis = key < kv_end && key <= p && (window <= 0 || key > p - window);
+          const bool vis = key < kv_end &&
+                           (!causal || (key <= p && (window <= 0 || key > p - window)));
           s = vis ? s : -INFINITY;
         }
         sacc[i] = s;
@@ -298,7 +310,8 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap qmap,
 
 template <int HDK, int HDV>
 int launch(const void* q, const void* k, const void* v, const int* offset, bf16* out, int B,
-           int P, int H, int Hkv, int S_max, int window, float scale, cudaStream_t stream) {
+           int P, int H, int Hkv, int S_max, int window, int causal, float scale,
+           cudaStream_t stream) {
   using T = Tile<HDK, HDV>;
   constexpr int KT = T::KT;
   const int g = H / Hkv;
@@ -331,18 +344,19 @@ int launch(const void* q, const void* k, const void* v, const int* offset, bf16*
   const int qt = ROWS / g;
   const int n_qtiles = (P + qt - 1) / qt;
   prefill_attention_kernel<HDK, HDV><<<dim3(n_qtiles, Hkv, B), kThreads, T::SMEM, stream>>>(
-      qmap, kmap, vmap, offset, out, P, H, Hkv, S_max, window, scale * kLog2e, n_qtiles);
+      qmap, kmap, vmap, offset, out, P, H, Hkv, S_max, window, causal, scale * kLog2e,
+      n_qtiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // (dk, dv) in (32, 32), (64, 64), (128, 128), (192, 128), (256, 256); any g = H / Hkv
-// up to 128; q, k, v 16-byte aligned.
+// up to 128; q, k, v 16-byte aligned; causal 1, or 0 for the bidirectional mask.
 extern "C" int prefill_attention_bf16(const void* q, const void* k, const void* v,
                                       const void* offset, void* out, int B, int P,
                                       int H, int Hkv, int S_max, int dk, int dv,
-                                      int window, float scale, void* stream) {
+                                      int window, int causal, float scale, void* stream) {
   if (B == 0 || P == 0) return 0;
   if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > ROWS || B > 65535 || Hkv > 65535 ||
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -352,14 +366,14 @@ extern "C" int prefill_attention_bf16(const void* q, const void* k, const void* 
   auto o = static_cast<bf16*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   if (dk == 32 && dv == 32)
-    return launch<32, 32>(q, k, v, off, o, B, P, H, Hkv, S_max, window, scale, st);
+    return launch<32, 32>(q, k, v, off, o, B, P, H, Hkv, S_max, window, causal, scale, st);
   if (dk == 64 && dv == 64)
-    return launch<64, 64>(q, k, v, off, o, B, P, H, Hkv, S_max, window, scale, st);
+    return launch<64, 64>(q, k, v, off, o, B, P, H, Hkv, S_max, window, causal, scale, st);
   if (dk == 128 && dv == 128)
-    return launch<128, 128>(q, k, v, off, o, B, P, H, Hkv, S_max, window, scale, st);
+    return launch<128, 128>(q, k, v, off, o, B, P, H, Hkv, S_max, window, causal, scale, st);
   if (dk == 192 && dv == 128)
-    return launch<192, 128>(q, k, v, off, o, B, P, H, Hkv, S_max, window, scale, st);
+    return launch<192, 128>(q, k, v, off, o, B, P, H, Hkv, S_max, window, causal, scale, st);
   if (dk == 256 && dv == 256)
-    return launch<256, 256>(q, k, v, off, o, B, P, H, Hkv, S_max, window, scale, st);
+    return launch<256, 256>(q, k, v, off, o, B, P, H, Hkv, S_max, window, causal, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

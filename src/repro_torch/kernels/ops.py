@@ -51,7 +51,7 @@ _SIGNATURES = {
     "moe_gmm_ragged": ("moe_gmm_ragged", "moe_gmm_ragged_bf16",
                        [_P] * 7 + [_I] * 5 + [_P]),
     "prefill_attention": ("prefill_attention", "prefill_attention_bf16",
-                          [_P] * 5 + [_I] * 8 + [_F, _P]),
+                          [_P] * 5 + [_I] * 9 + [_F, _P]),
     "decode_attention": ("decode_attention", "decode_attention_bf16",
                          [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
     "moe_gmm": ("moe_gmm", "moe_gmm_bf16", [_P] * 6 + [_I] * 5 + [_P]),
@@ -192,11 +192,14 @@ def _check_kv(name: str, q: Tensor, k: Tensor, v: Tensor) -> None:
 
 
 def prefill_attention(q: Tensor, k: Tensor, v: Tensor, offset: Tensor, *,
-                      window: Optional[int] = None) -> Tensor:
+                      window: Optional[int] = None,
+                      causal: bool = True) -> Tensor:
     """Causal GQA attention of P new tokens over the slot-row cache:
     q (B, P, H, dk) at positions ``offset[b] + i``, k (B, S_max, Hkv, dk)
     and v (B, S_max, Hkv, dv) already holding the new keys, offset (B,)
-    -> (B, P, H, dv), scaled by 1/sqrt(dk).  See
+    -> (B, P, H, dv), scaled by 1/sqrt(dk).  With ``causal=False`` every
+    query sees all S_max keys (``offset`` and ``window`` are ignored): the
+    encoder's self-attention and cross-attention.  See
     ``ref.prefill_attention_ref`` for the masks."""
     b, p, h, dk = q.shape
     _check_kv("prefill_attention", q, k, v)
@@ -204,7 +207,8 @@ def prefill_attention(q: Tensor, k: Tensor, v: Tensor, offset: Tensor, *,
         raise ValueError(f"prefill_attention: bad offset shape "
                          f"{tuple(offset.shape)}")
     if not _on_card("prefill_attention", q, k, v, offset):
-        return ref.prefill_attention_ref(q, k, v, offset, window=window)
+        return ref.prefill_attention_ref(q, k, v, offset, window=window,
+                                         causal=causal)
     _check_attention("prefill_attention", q, k, v, offset)
     g, dv = h // k.shape[2], v.shape[3]
     if g > PREFILL_ROWS or (dk, dv) not in PREFILL_HEAD_DIMS:
@@ -215,7 +219,8 @@ def prefill_attention(q: Tensor, k: Tensor, v: Tensor, offset: Tensor, *,
     out = q.new_empty((b, p, h, dv))
     _launch("prefill_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             offset.data_ptr(), out.data_ptr(), b, p, h, k.shape[2],
-            k.shape[1], dk, dv, window or 0, 1.0 / math.sqrt(dk))
+            k.shape[1], dk, dv, window or 0, int(causal),
+            1.0 / math.sqrt(dk))
     return out
 
 

@@ -38,8 +38,10 @@ _Q_CHUNK = 512
 
 def masked_attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                      kv_pos: Tensor, kv_valid: Tensor, *,
+                     causal: bool = True,
                      window: Optional[int] = None) -> Tensor:
-    """Causal attention.  q: (B,Sq,H,hd); k: (B,Skv,Hkv,hd); v:
+    """Causal (or, with ``causal=False``, bidirectional: every valid key
+    is visible) attention.  q: (B,Sq,H,hd); k: (B,Skv,Hkv,hd); v:
     (B,Skv,Hkv,hd_v); q_pos: (B,Sq); kv_pos: (B,Skv) or (Skv,); kv_valid:
     (B,Skv) bool -> (B,Sq,H,hd_v) in q's dtype, scaled by 1/sqrt(hd) (GQA
     has hd_v = hd; multi-head latent attention hd 192 = 128 nope + 64
@@ -52,12 +54,14 @@ def masked_attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     if sq >= _CHUNK_THRESHOLD and sq % _Q_CHUNK == 0:
         outs = [_masked_attention_dense(
             q[:, i:i + _Q_CHUNK], k, v, q_pos[:, i:i + _Q_CHUNK], kv_pos,
-            kv_valid, window) for i in range(0, sq, _Q_CHUNK)]
+            kv_valid, causal, window) for i in range(0, sq, _Q_CHUNK)]
         return torch.cat(outs, dim=1)
-    return _masked_attention_dense(q, k, v, q_pos, kv_pos, kv_valid, window)
+    return _masked_attention_dense(q, k, v, q_pos, kv_pos, kv_valid, causal,
+                                   window)
 
 
-def _masked_attention_dense(q, k, v, q_pos, kv_pos, kv_valid, window):
+def _masked_attention_dense(q, k, v, q_pos, kv_pos, kv_valid, causal,
+                            window):
     b, sq, h, hd = q.shape
     hkv = k.shape[2]
     g = h // hkv
@@ -68,7 +72,9 @@ def _masked_attention_dense(q, k, v, q_pos, kv_pos, kv_valid, window):
         kv_pos = kv_pos[None].expand(b, kv_pos.shape[0])
     kp = kv_pos[:, None, None, None, :]
     qp = q_pos[:, None, None, :, None]
-    mask = kv_valid[:, None, None, None, :] & (kp <= qp)
+    mask = kv_valid[:, None, None, None, :]
+    if causal:
+        mask = mask & (kp <= qp)
     if window is not None:
         mask = mask & (kp > qp - window)
     scores = scores.masked_fill(~mask, NEG_INF)
@@ -79,19 +85,31 @@ def _masked_attention_dense(q, k, v, q_pos, kv_pos, kv_valid, window):
 
 
 def prefill_attention_ref(q: Tensor, k: Tensor, v: Tensor, offset: Tensor,
-                          *, window: Optional[int] = None) -> Tensor:
+                          *, window: Optional[int] = None,
+                          causal: bool = True) -> Tensor:
     """The prefill kernel's contract over the slot-row cache.
 
     q: (B, P, H, hd) at positions ``offset[b] + i``; k: (B, S_max, Hkv,
     hd) and v: (B, S_max, Hkv, hd_v), already holding this call's keys ->
     (B, P, H, hd_v).  Key j is visible to query i
     when ``j < offset + P``, ``j <= offset + i`` and, with a window,
-    ``j > offset + i - window`` — the masks ``apply_gqa`` builds."""
+    ``j > offset + i - window`` — the masks ``apply_gqa`` builds.  With
+    ``causal=False`` every key ``j < S_max`` is visible to every query and
+    ``offset`` and ``window`` are ignored: the masks of the encoder's
+    bidirectional self-attention and of cross-attention
+    (``apply_cross_attn``)."""
     p = q.shape[1]
     s_max = k.shape[1]
+    kv_pos = torch.arange(s_max, device=q.device)
+    if not causal:
+        kv_valid = torch.ones((q.shape[0], s_max), dtype=torch.bool,
+                              device=q.device)
+        q_pos = torch.zeros((q.shape[0], p), dtype=torch.int64,
+                            device=q.device)
+        return masked_attention(q, k, v, q_pos, kv_pos, kv_valid,
+                                causal=False)
     off = offset.to(device=q.device, dtype=torch.int64)
     q_pos = off[:, None] + torch.arange(p, device=q.device)[None]
-    kv_pos = torch.arange(s_max, device=q.device)
     kv_valid = kv_pos[None, :] < (off + p)[:, None]
     return masked_attention(q, k, v, q_pos, kv_pos, kv_valid, window=window)
 

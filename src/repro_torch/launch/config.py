@@ -162,6 +162,11 @@ class ServeConfig:
                              "it cannot be combined with --http")
         if self.spec == "draft" and not self.draft_config:
             raise ValueError("spec='draft' needs draft_config")
+        if self.spec == "draft" and self.draft_config in list_configs() \
+                and get_config(self.draft_config).encoder.enabled:
+            raise ValueError(f"draft_config={self.draft_config!r}: the "
+                             "stateless draft model has no encoder output "
+                             "to attend over")
         if self.spec != "off" and self.recurrent_mixers():
             raise ValueError(
                 f"spec={self.spec!r}: {self.arch} has recurrent mixers "

@@ -127,13 +127,15 @@ def _print_token(rid, tok, t) -> None:
     print(f"[stream] t={t:8.2f} req={rid:<4} tok={tok}")
 
 
-def _arrivals(eng: Engine, a: ServeConfig, trace):
-    """The run's trace: ``trace`` (default ``a.engine_trace``) in the open
-    loop; in the closed loop the requests are submitted to ``eng`` now and
-    the trace is empty."""
+def _arrivals(eng: Engine, a: ServeConfig, trace, frames=None):
+    """The run's trace: ``trace`` (default ``a.engine_trace``, whose
+    requests carry no encoder frames, as the JAX launcher's) in the open
+    loop; in the closed loop the requests are submitted to ``eng`` now
+    (with ``frames``, see ``submit_closed_loop``) and the trace is
+    empty."""
     if a.open_loop:
         return a.engine_trace(eng.cfg.vocab_size) if trace is None else trace
-    submit_closed_loop(eng, a)
+    submit_closed_loop(eng, a, frames)
     return ()
 
 
@@ -150,15 +152,22 @@ def _timed_run(runtime, trace, device):
     return result, time.perf_counter() - t0
 
 
-def submit_closed_loop(eng: Engine, a: ServeConfig) -> None:
-    """Closed-loop requests with random prompts drawn from ``a.seed``."""
+def submit_closed_loop(eng: Engine, a: ServeConfig, frames=None) -> None:
+    """Closed-loop requests with random prompts drawn from ``a.seed``.  An
+    encoder-decoder's request i carries ``frames(i)`` (n_frames, d_model)
+    as its encoder frames: by default zeros, as the JAX launcher gives."""
     rng = np.random.default_rng(a.seed)
     lo, hi = a.prompt_len or (16, a.max_len // 2)
     nlo, nhi = a.new_tokens or (4, 16)
-    for _ in range(a.requests):
+    enc = eng.cfg.encoder
+    if enc.enabled and frames is None:
+        def frames(i):
+            return np.zeros((enc.n_frames, eng.cfg.d_model), np.float32)
+    for i in range(a.requests):
         n = int(rng.integers(lo, hi))
         eng.submit(rng.integers(1, eng.cfg.vocab_size, n).tolist(),
-                   max_new_tokens=int(rng.integers(nlo, nhi)))
+                   max_new_tokens=int(rng.integers(nlo, nhi)),
+                   enc_frames=frames(i) if enc.enabled else None)
 
 
 def _f(v, spec: str = ".2f") -> str:
@@ -220,7 +229,7 @@ def serve_real(a: ServeConfig, model=None, params=None, trace=None) -> dict:
     return run_engine(build_engine(a, model, params), a, trace)
 
 
-def run_engine(eng: Engine, a: ServeConfig, trace=None) -> dict:
+def run_engine(eng: Engine, a: ServeConfig, trace=None, frames=None) -> dict:
     """Serve on ``eng``: closed loop (``a.requests`` random requests
     submitted up front, drained on the iteration clock) or, with
     ``a.open_loop``, a timed replay of ``trace`` (default
@@ -228,11 +237,13 @@ def run_engine(eng: Engine, a: ServeConfig, trace=None) -> dict:
     "wall"``, on the wall clock.  Prints the report and returns its
     numbers; TTFT/TBT are in the clock's unit (seconds on the wall clock,
     iterations otherwise).  Speculation is the engine's own; with
-    ``a.fault_plan`` the runtime injects its faults (chaos mode)."""
+    ``a.fault_plan`` the runtime injects its faults (chaos mode).
+    ``frames`` gives an encoder-decoder's closed-loop requests their
+    frames (``submit_closed_loop``)."""
 
     faults = build_faults(a)
     wall_clock = a.open_loop and a.clock == "wall"
-    trace = _arrivals(eng, a, trace)
+    trace = _arrivals(eng, a, trace, frames)
     runtime = ServingRuntime(
         EngineExecutor(eng, wall=wall_clock),
         on_token=_print_token if a.stream else None,
@@ -255,6 +266,12 @@ def run_engine(eng: Engine, a: ServeConfig, trace=None) -> dict:
             + f"; recurrent state {eng.state_bytes_per_slot / 1e6:.3f} MB "
             "a slot; prefix cache off (recurrent state has no position "
             "axis to restore at a page boundary)")
+    if cfg.encoder.enabled:
+        print(f"[serve] encoder {cfg.encoder.n_layers} layers over "
+              f"{cfg.encoder.n_frames} frames: {eng.n_cross_installs} "
+              f"cross-K/V installs (one per admission), "
+              f"{sum(sp.cross_attn for sp in cfg.block_specs())} "
+              "cross-attention blocks")
     print(f"[serve] ttft({unit}) mean={_f(m['ttft_mean'], '.3g')} "
           f"p50={_f(m['ttft_p50'], '.3g')} p99={_f(m['ttft_p99'], '.3g')}; "
           f"tbt({unit}) p50={_f(m['tbt_p50'], '.3g')} "
@@ -317,6 +334,7 @@ def run_engine(eng: Engine, a: ServeConfig, trace=None) -> dict:
             "n_prefix_hits": eng.alloc.n_prefix_hits,
             "n_prefix_tokens": eng.alloc.n_prefix_tokens,
             "n_prefix_restores": eng.n_prefix_restores,
+            "n_cross_installs": eng.n_cross_installs,
             "spec": eng.spec_mode, "spec_k": eng.spec_k,
             "n_verify_dispatches": eng.n_verify_dispatches,
             "n_draft_dispatches": eng.n_draft_dispatches,
@@ -352,7 +370,8 @@ def serve_disagg_real(a: ServeConfig, model=None, params=None,
     return run_disagg(*build_disagg_engines(a, model, params), a, trace)
 
 
-def run_disagg(ep: Engine, ed: Engine, a: ServeConfig, trace=None) -> dict:
+def run_disagg(ep: Engine, ed: Engine, a: ServeConfig, trace=None,
+               frames=None) -> dict:
     """Two-pool serve on the iteration clock: the prefill engine ``ep``
     and the decode engine ``ed`` under one ``DisaggRuntime``, the KV
     handed off through ``EngineHandoff`` (``a.handoff``: stream or
@@ -369,7 +388,8 @@ def run_disagg(ep: Engine, ed: Engine, a: ServeConfig, trace=None) -> dict:
         on_token=_print_token if a.stream else None, clock="iteration",
         decode_watermark_pages=a.decode_watermark,
         faults=faults, retry_budget=a.retry_budget)
-    rr, wall = _timed_run(runtime, _arrivals(ep, a, trace), ep.device)
+    rr, wall = _timed_run(runtime, _arrivals(ep, a, trace, frames),
+                          ep.device)
     reqs = sorted(rr.requests, key=lambda r: r.req_id)
     m = request_metrics(reqs)
     cfg = ep.cfg
@@ -421,6 +441,7 @@ def run_disagg(ep: Engine, ed: Engine, a: ServeConfig, trace=None) -> dict:
             "decode_prefill_slices": rr.decode_prefill_slices,
             "n_preempted": ep.n_preempted + ed.n_preempted,
             "n_swapped_out": ep.n_swapped_out + ed.n_swapped_out,
+            "n_cross_installs": ep.n_cross_installs + ed.n_cross_installs,
             "pages_left": ep.alloc.pages_in_use() + ed.alloc.pages_in_use(),
             "host_pages_left": (ep.alloc.host_pages_in_use()
                                 + ed.alloc.host_pages_in_use()),

@@ -1,10 +1,11 @@
 """Block-level dispatch: one decoder block = mixer (GQA or MLA attention,
-RecurrentGemma's RG-LRU, xLSTM's mLSTM or sLSTM) + FFN (dense, MoE or
-none), pre-norm residual style.  ``apply_block`` is the single entry point
-of both execution paths: the full forward and the engine's
-``run_blocks(start, n)`` partial vertical execution (layered prefill).
-Every mixer writes its cache (KV rows or recurrent state) in place.
-Cross-attention raises ``NotImplementedError``."""
+RecurrentGemma's RG-LRU, xLSTM's mLSTM or sLSTM) + optional cross-
+attention (whisper's decoder) + FFN (dense, MoE or none), pre-norm
+residual style.  ``apply_block`` is the single entry point of both
+execution paths: the full forward and the engine's ``run_blocks(start,
+n)`` partial vertical execution (layered prefill).  Every mixer writes its
+cache (KV rows or recurrent state) in place; the cross-attention K/V are
+read, never written, here."""
 
 from __future__ import annotations
 
@@ -57,10 +58,14 @@ def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
 def apply_block(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
                 positions: Tensor, offset: Optional[Tensor] = None,
                 cache: Optional[dict] = None,
-                valid: Optional[Tensor] = None, dropless: bool = False,
+                enc_out: Optional[Tensor] = None,
+                valid: Optional[Tensor] = None,
+                positions3: Optional[Tensor] = None, dropless: bool = False,
                 moe_dispatch: str = "ragged"
                 ) -> Tuple[Tensor, Optional[dict], dict]:
-    """x: (B,S,D) -> (x', cache (updated in place), aux)."""
+    """x: (B,S,D) -> (x', cache (updated in place), aux).  A cross-
+    attention block attends over ``enc_out``'s K/V when it is given, else
+    over the cache's ``xk``/``xv``."""
     h = layers.apply_norm(cfg, p["ln1"], x)
     if spec.mixer == MIXER_RGLRU:
         out, new_cache = rglru.apply_rglru(cfg, p["rglru"], h, cache=cache,
@@ -72,10 +77,22 @@ def apply_block(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
         out, new_cache = xlstm.apply_slstm(cfg, p["lstm"], h, cache=cache,
                                            valid=valid)
     else:
+        kw = {} if positions3 is None else {"positions3": positions3}
         out, new_cache = attention.apply_mixer_attn(
             cfg, spec, p["attn"], h, positions=positions, offset=offset,
-            cache=cache, valid=valid)
+            cache=cache, valid=valid, **kw)
     x = x + out
+    if spec.cross_attn:
+        hx = layers.apply_norm(cfg, p["attn"]["x_norm"], x)
+        # fresh encoder output takes precedence over the cached cross K/V
+        if enc_out is not None:
+            xk, xv = attention.encode_cross_kv(cfg, p["attn"], enc_out)
+            xc = {"xk": xk, "xv": xv}
+        elif cache is not None and "xk" in cache:
+            xc = cache
+        else:
+            raise ValueError("cross-attention needs enc_out or cached K/V")
+        x = x + attention.apply_cross_attn(cfg, p["attn"], hx, xc)
     aux = moe.empty_moe_aux(cfg, x.device)
     if spec.ffn != FFN_NONE:
         h2 = layers.apply_norm(cfg, p["ln2"], x)

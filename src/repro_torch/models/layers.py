@@ -7,8 +7,9 @@ weights are applied as ``x @ W`` with ``W`` of shape ``(d_in, d_out)``.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -66,6 +67,9 @@ def init_embed(cfg: ModelConfig, device, generator) -> dict:
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size), dt, device,
                                   generator)
+    if cfg.pos_emb == "learned":
+        p["pos"] = dense_init((cfg.max_seq_len, cfg.d_model), dt, device,
+                              generator, scale=0.02)
     return p
 
 
@@ -117,6 +121,33 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float,
     if rot == hd:
         return x_rot
     return torch.cat([x_rot, x[..., rot:]], dim=-1)
+
+
+def apply_mrope(x: Tensor, positions3: Tensor, theta: float,
+                sections: Tuple[int, ...]) -> Tensor:
+    """Qwen2-VL M-RoPE.  x: (B, S, H, hd); positions3: (3, B, S), the
+    (temporal, height, width) position ids; ``sections`` splits the hd/2
+    frequency channels among the three planes.  With three equal planes
+    (text) it is ``apply_rope``."""
+    hd = x.shape[-1]
+    assert sum(sections) == hd // 2, (sections, hd)
+    inv = rope_freqs(hd, theta, x.device)
+    # which position plane drives each frequency channel: JAX's
+    # repeat(arange(3), sections), built on the device from the sections'
+    # boundaries (no host-to-device copy)
+    chan = torch.arange(hd // 2, device=x.device)
+    sel = torch.zeros_like(chan)
+    for edge in np.cumsum(sections)[:-1]:
+        sel += chan >= int(edge)
+    ang = positions3.float().movedim(0, -1)[..., sel] * inv   # (B, S, hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    return _rotate(x.float(), cos, sin).to(x.dtype)
+
+
+def position_plane(positions: Tensor) -> Tensor:
+    """Text-only M-RoPE position ids: (B, S) -> (3, B, S), equal planes."""
+    return positions[None].expand((3,) + tuple(positions.shape))
 
 
 def apply_mlp(cfg: ModelConfig, p, x: Tensor) -> Tensor:

@@ -19,6 +19,15 @@ blocks hold state rather than KV rows.  A stack with a dense first block
 has two segments once it is deeper than the 16-block period search
 (deepseek-v2-236b at full depth: 1 + 59).  Cache updates happen in place
 (see models/attention.py, models/rglru.py, models/xlstm.py).
+
+Whisper's encoder-decoder: ``params["encoder"]`` holds the encoder's
+blocks as an unstacked list and its final norm; ``encode`` runs it
+(bidirectional self-attention) over precomputed frame embeddings, and
+``precompute_cross_kv`` projects its output to each decoder block's cross
+K/V, which the cache keeps in ``xk``/``xv`` of shape (reps, batch,
+n_frames, Hkv, hd): a frame axis, which moves whole where positions move
+in part (``whole_leaf``).  Qwen2-VL's vision stub prepends patch
+embeddings in ``embed``; its M-RoPE gets three equal position planes.
 """
 
 from __future__ import annotations
@@ -28,8 +37,8 @@ from typing import List, Optional
 import torch
 
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.models import blocks, layers
-from repro_torch.models.config import ModelConfig
+from repro_torch.models import attention, blocks, layers
+from repro_torch.models.config import BlockSpec, ModelConfig
 
 Tensor = torch.Tensor
 
@@ -38,6 +47,22 @@ def _index(tree, r: int):
     if isinstance(tree, dict):
         return {k: _index(v, r) for k, v in tree.items()}
     return tree[r]
+
+
+def sinusoidal_positions(n: int, d: int, device) -> Tensor:
+    """The encoder's fixed positions (n, d): sin at even, cos at odd
+    channels, at angles pos / 10000^(2i / d)."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, dim / d)
+    pe = torch.zeros((n, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
+
+
+# the encoder's blocks: bidirectional GQA self-attention and a dense MLP
+ENCODER_SPEC = BlockSpec(mixer="gqa", ffn="dense")
 
 
 class DecoderModel:
@@ -54,11 +79,6 @@ class DecoderModel:
         # is recurrent state (no position axis) rather than KV rows
         self.recurrent = [[sp.is_recurrent() for sp in pattern]
                           for pattern, _ in self.segments]
-        if cfg.encoder.enabled or cfg.vision.enabled \
-                or cfg.pos_emb == "learned":
-            raise NotImplementedError(
-                f"{cfg.name}: the torch port runs decoder-only stacks "
-                "without learned positions (no encoder, no vision stub)")
 
     # -- init ---------------------------------------------------------------
 
@@ -78,6 +98,11 @@ class DecoderModel:
             {"pattern": [blocks.init_block(cfg, sp, dev, generator, reps=reps)
                          for sp in pattern]}
             for pattern, reps in self.segments]
+        if cfg.encoder.enabled:
+            params["encoder"] = {
+                "blocks": [blocks.init_block(cfg, ENCODER_SPEC, dev, generator)
+                           for _ in range(cfg.encoder.n_layers)],
+                "final_norm": layers.init_norm(cfg, dev)}
         return params
 
     def init_cache(self, batch: int, max_len: int, dtype=None) -> list:
@@ -95,10 +120,65 @@ class DecoderModel:
             cache.append(seg)
         return cache
 
+    def whole_leaf(self, s: int, p: int, key: str) -> bool:
+        """Whether cache leaf ``key`` of block (segment ``s``, pattern
+        position ``p``) moves whole in a copy of a slot: recurrent state
+        and the cross K/V (a frame axis), against the positions ``[0, n)``
+        of a KV row."""
+        return self.recurrent[s][p] or key in attention.CROSS_LEAVES
+
+    # -- encoder (whisper) ---------------------------------------------------
+
+    def encode(self, params, frames: Tensor) -> Tensor:
+        """frames (B, T, D), precomputed frame embeddings (the audio
+        frontend is a stub) -> the encoder's output (B, T, D): fixed
+        sinusoidal positions, then each block's bidirectional self-
+        attention (prefill attention with ``causal=False``; the JAX
+        package gets the same mask by giving every query the last
+        position, which it passes here too) and MLP, then a final norm."""
+        cfg = self.cfg
+        dt = torch_dtype(cfg.dtype)
+        b, t, _ = frames.shape
+        x = frames.to(dt) + sinusoidal_positions(t, cfg.d_model,
+                                                 frames.device).to(dt)
+        full_pos = torch.full((b, t), t - 1, dtype=torch.long,
+                              device=frames.device)
+        for bp in params["encoder"]["blocks"]:
+            h = layers.apply_norm(cfg, bp["ln1"], x)
+            out, _ = attention.apply_gqa(cfg, ENCODER_SPEC, bp["attn"], h,
+                                         positions=full_pos, causal=False)
+            x = x + out
+            h2 = layers.apply_norm(cfg, bp["ln2"], x)
+            x = x + layers.apply_mlp(cfg, bp["mlp"], h2)
+        return layers.apply_norm(cfg, params["encoder"]["final_norm"], x)
+
+    def precompute_cross_kv(self, params, enc_out: Tensor) -> list:
+        """Every cross-attention block's encoder K/V, in segment layout:
+        ``out[s][p]`` is ``{"xk", "xv"}`` of shape (reps, B, T, Hkv, hd),
+        or None for a block without cross-attention."""
+        return [[dict(zip(attention.CROSS_LEAVES, attention.encode_cross_kv(
+                     self.cfg, pp["attn"], enc_out)))
+                 if sp.cross_attn else None
+                 for sp, pp in zip(pattern, seg["pattern"])]
+                for (pattern, _), seg in zip(self.segments,
+                                             params["segments"])]
+
     # -- embedding / head ----------------------------------------------------
 
-    def embed(self, params, tokens: Tensor) -> Tensor:
-        return layers.embed_tokens(self.cfg, params["embed"], tokens)
+    def embed(self, params, tokens: Tensor,
+              extra_embeds: Optional[Tensor] = None,
+              positions: Optional[Tensor] = None) -> Tensor:
+        """Token embeddings (B, S, D); ``extra_embeds`` (B, N, D), the
+        vision stub's patch embeddings, are prepended; with learned
+        positions the table's rows at ``positions`` (clipped to the
+        table) are added."""
+        x = layers.embed_tokens(self.cfg, params["embed"], tokens)
+        if extra_embeds is not None:
+            x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+        if self.cfg.pos_emb == "learned" and positions is not None:
+            idx = positions.long().clamp(0, self.cfg.max_seq_len - 1)
+            x = x + params["embed"]["pos"][idx].to(x.dtype)
+        return x
 
     def logits(self, params, x: Tensor) -> Tensor:
         x = layers.apply_norm(self.cfg, params["final_norm"], x)
@@ -113,6 +193,7 @@ class DecoderModel:
     def run_blocks(self, params, x: Tensor, start: int, n: int, *,
                    positions: Tensor, offset: Optional[Tensor] = None,
                    cache: Optional[list] = None,
+                   enc_out: Optional[Tensor] = None,
                    valid: Optional[Tensor] = None, dropless: bool = False,
                    moe_dispatch: str = "ragged"):
         """Run blocks [start, start+n) over x (B, S, D).  Returns (x', cache,
@@ -127,8 +208,8 @@ class DecoderModel:
             c = (_index(cache[s][p_idx], r) if cache is not None else None)
             x, _, aux = blocks.apply_block(
                 self.cfg, self.specs[b], self.block_params(params, b), x,
-                positions=positions, offset=offset, cache=c, valid=valid,
-                dropless=dropless, moe_dispatch=moe_dispatch)
+                positions=positions, offset=offset, cache=c, enc_out=enc_out,
+                valid=valid, dropless=dropless, moe_dispatch=moe_dispatch)
             auxes.append(aux)
         return x, cache, auxes
 
@@ -136,21 +217,30 @@ class DecoderModel:
                 positions: Optional[Tensor] = None,
                 offset: Optional[Tensor] = None,
                 cache: Optional[list] = None,
+                enc_out: Optional[Tensor] = None,
+                extra_embeds: Optional[Tensor] = None,
                 valid: Optional[Tensor] = None, dropless: bool = False,
                 moe_dispatch: str = "ragged"):
-        """tokens (B, S) -> (logits (B, S, V) fp32, cache, aux) with
-        ``aux["expert_counts"]`` of shape (L, E)."""
+        """tokens (B, S) -> (logits (B, S', V) fp32, cache, aux) with
+        ``aux["expert_counts"]`` of shape (L, E).  ``extra_embeds`` (B, N,
+        D) are prepended (S' = N + S, at positions offset + arange(S'),
+        whatever ``positions`` says: the JAX package's rule);
+        ``enc_out`` (B, T, D) feeds every cross-attention block."""
         b, s = tokens.shape
+        dev = tokens.device
         if offset is None and cache is not None:
-            offset = torch.zeros((b,), dtype=torch.int32, device=tokens.device)
-        if positions is None:
-            base = offset.long() if offset is not None else torch.zeros(
-                (b,), dtype=torch.long, device=tokens.device)
-            positions = base[:, None] + torch.arange(s, device=tokens.device)[None]
-        x = self.embed(params, tokens)
+            offset = torch.zeros((b,), dtype=torch.int32, device=dev)
+        base = offset.long() if offset is not None else torch.zeros(
+            (b,), dtype=torch.long, device=dev)
+        if extra_embeds is not None:
+            positions = base[:, None] + torch.arange(
+                s + extra_embeds.shape[1], device=dev)[None]
+        elif positions is None:
+            positions = base[:, None] + torch.arange(s, device=dev)[None]
+        x = self.embed(params, tokens, extra_embeds, positions)
         x, cache, auxes = self.run_blocks(
             params, x, 0, self.n_blocks, positions=positions, offset=offset,
-            cache=cache, valid=valid, dropless=dropless,
+            cache=cache, enc_out=enc_out, valid=valid, dropless=dropless,
             moe_dispatch=moe_dispatch)
         aux = {
             "expert_counts": torch.stack([a["expert_counts"] for a in auxes]),

@@ -94,11 +94,25 @@ pinned memory.  Only the prompt's positions move, as in a swap; the JAX
 engine moves each block's whole ``max_len`` slot row, so per migration
 ``handoff bytes x max_len`` here equals the JAX engine's ``x prompt_len``.
 
-Not ported: encoder inputs (``enc_frames``) raise.
+Encoder-decoder stacks (whisper).  A request's ``enc_frames`` (n_frames,
+d_model) go up with one non-blocking copy at admission, where ``encode``
+and ``precompute_cross_kv`` (batch 1) run and every cross-attention
+block's K/V are written into the slot's ``xk``/``xv``; a request without
+frames gets zeros there (which the JAX engine leaves as a fresh slot has
+them, or as the slot's last occupant left them).  The cross K/V have a
+frame axis: every copy of a slot (swap, export, handoff chunk) moves them
+whole beside the KV rows' filled positions, and a two-pool migration
+carries the frames, for a re-admission on the prefill pool.  Prefix-cache
+snapshots leave them out (each admission installs its own).  The prefix
+chains of a request with frames are rooted at a digest of them: the JAX
+engine roots every chain at the tokens alone, so a hit there reuses
+decoder K/V computed under another request's audio (ROADMAP §3).  A
+decoder-only stack refuses frames at submission.
 """
 
 from __future__ import annotations
 
+import hashlib
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
@@ -111,7 +125,8 @@ from repro_torch.core.plan import (IterationPlan, PrefillSlice, Request,
                                    RequestState, SubmitSpec)
 from repro_torch.device import to_device
 from repro_torch.kernels.ops import (gather_slot_rows, scatter_slot_rows,
-                                     tree_map, tree_zip)
+                                     tree_map)
+from repro_torch.models.attention import CROSS_LEAVES
 from repro_torch.models.config import dtype_bytes
 from repro_torch.models.model import DecoderModel
 from repro_torch.serving.kvcache import PagedKVAllocator
@@ -173,12 +188,28 @@ def _nbytes(tree) -> int:
     return sum(sizes)
 
 
+def _without_cross(cache) -> list:
+    """The cache's segment lists without the read-only cross K/V leaves
+    (what a prefill or verify batch writes back)."""
+    return [[{k: v for k, v in c.items() if k not in CROSS_LEAVES}
+             for c in seg] for seg in cache]
+
+
+def frames_digest(frames: np.ndarray) -> bytes:
+    """The prefix-chain root of a request with encoder frames: a digest
+    of their shape and values."""
+    h = hashlib.blake2b(repr(frames.shape).encode(), digest_size=16)
+    h.update(np.ascontiguousarray(frames, np.float32).tobytes())
+    return h.digest()
+
+
 def _snapshot(c: Tensor, slot: int, n: int, host: bool,
               whole: bool = False) -> Tensor:
     """A COPY of positions ``[0, n)`` of one slot row of a cache leaf
     ``(reps, n_slots, max_len, ...)`` -> ``(reps, n, ...)`` or, with
-    ``whole`` (a recurrent state leaf, which has no position axis), of the
-    slot's whole state.  With ``host`` and a CUDA leaf the copy lands in
+    ``whole`` (a recurrent state leaf, which has no position axis, or the
+    cross K/V, whose axis holds frames), of the slot's whole leaf.  With
+    ``host`` and a CUDA leaf the copy lands in
     pinned host memory without blocking: the caller's next sync completes
     it, and later writes to the slot are ordered after it on the stream."""
     src = c[:, slot] if whole else c[:, slot, :n]
@@ -315,6 +346,10 @@ class Engine:
                 raise ValueError(
                     "spec_mode='draft' needs draft_model/draft_params or a "
                     "draft_config name")
+            if self.draft_model.cfg.encoder.enabled:
+                raise ValueError(
+                    "the stateless draft model has no encoder output to "
+                    "attend over: draft with a decoder-only model")
             if self.draft_model.cfg.vocab_size != self.cfg.vocab_size:
                 raise ValueError("draft model must share the target vocab")
         if spec_mode != "off":
@@ -347,6 +382,8 @@ class Engine:
         # req -> (packed boundary batch, row index, token count): cohort
         # members share ONE (B, P, d) batch tensor
         self.stash: Dict[int, Tuple[Tensor, int, int]] = {}
+        # encoder frames (n_frames, d_model) of the requests that have them
+        self.enc_frames: Dict[int, np.ndarray] = {}
         # swapped-out requests: req -> (host row copy, offset, last_tok)
         self.host_kv: Dict[int, Tuple[object, int, int]] = {}
         # disaggregated handoff: with staging on (this engine is a prefill
@@ -378,6 +415,9 @@ class Engine:
         # slot row from a cached prefix (the allocator counts hits/tokens)
         self.n_prefix_restores = 0
         self._prefix_seen = (0, 0)          # (n_prefix_hits, n_prefix_tokens)
+        # cross-K/V installs of an encoder stack: one per admission (the
+        # encoder's K/V, or zeros for a request without frames)
+        self.n_cross_installs = 0
         # speculative-decode accounting
         self.n_verify_dispatches = 0
         self.n_draft_dispatches = 0
@@ -396,8 +436,17 @@ class Engine:
         if spec.prompt_tokens is None:
             raise ValueError("engine submission needs real token ids — build "
                              "the SubmitSpec with prompt_tokens")
+        frames = None
         if spec.enc_frames is not None:
-            raise NotImplementedError("encoder inputs are not ported")
+            enc = self.cfg.encoder
+            if not enc.enabled:
+                raise ValueError(f"{self.cfg.name} has no encoder: a "
+                                 "request cannot carry encoder frames")
+            frames = np.asarray(spec.enc_frames, np.float32)
+            if frames.shape != (enc.n_frames, self.cfg.d_model):
+                raise ValueError(f"encoder frames must be (n_frames, "
+                                 f"d_model) = ({enc.n_frames}, "
+                                 f"{self.cfg.d_model}), got {frames.shape}")
         rid = self._next_id
         self._next_id += 1
         prompt = np.asarray(spec.prompt_tokens, np.int32)
@@ -413,6 +462,9 @@ class Engine:
         self.requests[rid] = req
         self.prompts[rid] = prompt
         self.outputs[rid] = []
+        if frames is not None:
+            self.enc_frames[rid] = frames
+            req.prefix_root = frames_digest(frames)
         self.scheduler.submit(req)
         return req
 
@@ -473,7 +525,7 @@ class Engine:
             self.params, hidden, start, n, positions=positions,
             offset=offset, cache=rows, valid=valid, dropless=True,
             moe_dispatch=self.moe_dispatch)
-        scatter_slot_rows(self.cache, rows, slots)
+        scatter_slot_rows(_without_cross(self.cache), rows, slots)
         loads = torch.stack([a["expert_counts"] > 0 for a in auxes])
         if emit:
             h_last = x[torch.arange(x.shape[0], device=self.device),
@@ -499,12 +551,12 @@ class Engine:
         rows = gather_slot_rows(self.cache, slots)
         positions = offset.long()[:, None] + torch.arange(
             tokens.shape[1], device=self.device)[None]
-        hidden = self.model.embed(self.params, tokens)
+        hidden = self.model.embed(self.params, tokens, positions=positions)
         x, rows, auxes = self.model.run_blocks(
             self.params, hidden, 0, self.model.n_blocks, positions=positions,
             offset=offset, cache=rows, valid=valid, dropless=True,
             moe_dispatch=self.moe_dispatch)
-        scatter_slot_rows(self.cache, rows, slots)
+        scatter_slot_rows(_without_cross(self.cache), rows, slots)
         loads = torch.stack([a["expert_counts"] > 0 for a in auxes])
         toks = torch.argmax(self.model.logits(self.params, x), dim=-1)
         return loads, toks                                    # (B, P)
@@ -526,7 +578,8 @@ class Engine:
         toks, lens = tokens, lengths.long()
         props = []
         for _ in range(k):
-            x, _, _ = dm.run_blocks(dp, dm.embed(dp, toks), 0, dm.n_blocks,
+            hidden = dm.embed(dp, toks, positions=positions)
+            x, _, _ = dm.run_blocks(dp, hidden, 0, dm.n_blocks,
                                     positions=positions, dropless=False,
                                     moe_dispatch="dense")
             tok = torch.argmax(dm.logits(dp, x[rows, lens - 1]), dim=-1)
@@ -667,11 +720,9 @@ class Engine:
         rows = []
         for b in range(b0, b1):
             s, r, p_idx = self.model.index_map[b]
-            whole = self.model.recurrent[s][p_idx]
-            rows.append(tree_map(
-                lambda c: _snapshot(c[r:r + 1], slot, n, host=True,
-                                    whole=whole),
-                self.cache[s][p_idx]))
+            rows.append({k: _snapshot(c[r:r + 1], slot, n, host=True,
+                                      whole=self.model.whole_leaf(s, p_idx, k))
+                         for k, c in self.cache[s][p_idx].items()})
         return rows
 
     def _scatter_block_rows(self, slot: int, b0: int, b1: int,
@@ -680,13 +731,11 @@ class Engine:
         side half of the streaming handoff; no host sync)."""
         for b, row in zip(range(b0, b1), rows):
             s, r, p_idx = self.model.index_map[b]
-            whole = self.model.recurrent[s][p_idx]
-
-            def put(c: Tensor, x: Tensor) -> None:
-                dst = c[r:r + 1, slot] if whole else \
-                    c[r:r + 1, slot, :x.shape[1]]
+            for k, x in row.items():
+                c = self.cache[s][p_idx][k]
+                dst = c[r:r + 1, slot] if self.model.whole_leaf(s, p_idx, k) \
+                    else c[r:r + 1, slot, :x.shape[1]]
                 dst.copy_(x, non_blocking=True)
-            tree_zip(put, self.cache[s][p_idx], row)
 
     def export_request(self, rid: int) -> dict:
         """Pull a migrating request's state off this engine (the prefill
@@ -716,6 +765,7 @@ class Engine:
         self.n_handoffs_out += 1
         return {"req": req, "prompt": self.prompts.pop(rid),
                 "outputs": self.outputs.pop(rid),
+                "enc_frames": self.enc_frames.pop(rid, None),
                 "offset": offset, "last_tok": last,
                 "chunks": chunks, "row": row,
                 "kv": self.alloc.export_pages(rid)}
@@ -742,6 +792,8 @@ class Engine:
         self.requests[rid] = req
         self.prompts[rid] = payload["prompt"]
         self.outputs[rid] = payload["outputs"]
+        if payload["enc_frames"] is not None:
+            self.enc_frames[rid] = payload["enc_frames"]
         self.n_handoffs_in += 1
         return imp
 
@@ -755,6 +807,7 @@ class Engine:
         self.host_kv.pop(rid, None)
         self.stash.pop(rid, None)
         self._handoff_chunks.pop(rid, None)
+        self.enc_frames.pop(rid, None)
 
     # -------------------------------------------------------------- helpers
 
@@ -780,21 +833,26 @@ class Engine:
             (rid, len(self.prompts[rid]), self.requests[rid].prompt_len)
         self.n_preempted += 1
 
-    def _copy_row(self, slot: int, n: int, host: bool = False):
+    def _copy_row(self, slot: int, n: int, host: bool = False,
+                  cross: bool = True):
         """A copy of positions ``[0, n)`` of one slot row, every layer (a
-        recurrent block's whole state)."""
-        return [[{k: _snapshot(v, slot, n, host, whole=rec)
-                  for k, v in c.items()} for c, rec in zip(seg, recs)]
-                for seg, recs in zip(self.cache, self.model.recurrent)]
+        recurrent block's whole state, the whole cross K/V unless
+        ``cross`` is False)."""
+        whole = self.model.whole_leaf
+        return [[{k: _snapshot(v, slot, n, host, whole=whole(s, p, k))
+                  for k, v in c.items() if cross or k not in CROSS_LEAVES}
+                 for p, c in enumerate(seg)]
+                for s, seg in enumerate(self.cache)]
 
     def _restore_row(self, slot: int, row) -> None:
         """Write a row copy back into positions ``[0, n)`` of ``slot`` (a
-        recurrent block's whole state), from pinned host memory without
-        blocking."""
-        for seg, seg_row, recs in zip(self.cache, row, self.model.recurrent):
-            for c, c_row, rec in zip(seg, seg_row, recs):
+        recurrent block's whole state, the whole cross K/V), from pinned
+        host memory without blocking."""
+        for s, (seg, seg_row) in enumerate(zip(self.cache, row)):
+            for p, (c, c_row) in enumerate(zip(seg, seg_row)):
                 for k, r in c_row.items():
-                    dst = c[k][:, slot] if rec else c[k][:, slot, :r.shape[1]]
+                    dst = c[k][:, slot] if self.model.whole_leaf(s, p, k) \
+                        else c[k][:, slot, :r.shape[1]]
                     dst.copy_(r, non_blocking=True)
 
     def _reset_state(self, slot: int) -> None:
@@ -847,6 +905,29 @@ class Engine:
             self._restore_row(slot, row)
             self.offsets[slot] = hit.cached_tokens
             self.n_prefix_restores += 1
+        if self.cfg.encoder.enabled:
+            self._install_cross_kv(rid, slot)
+
+    def _install_cross_kv(self, rid: int, slot: int) -> None:
+        """Write ``rid``'s cross K/V into ``slot``: its frames go up with
+        one non-blocking copy, then ``encode`` and ``precompute_cross_kv``
+        at batch 1 (no host sync); a request without frames gets zeros."""
+        frames = self.enc_frames.get(rid)
+        if frames is None:
+            for seg, (pattern, _) in zip(self.cache, self.model.segments):
+                for c, sp in zip(seg, pattern):
+                    if sp.cross_attn:
+                        c["xk"][:, slot].zero_()
+                        c["xv"][:, slot].zero_()
+        else:
+            enc = self.model.encode(self.params, self._h2d(frames[None]))
+            xkv = self.model.precompute_cross_kv(self.params, enc)
+            for seg, seg_kv in zip(self.cache, xkv):
+                for c, kv in zip(seg, seg_kv):
+                    if kv is not None:
+                        c["xk"][:, slot].copy_(kv["xk"][:, 0])
+                        c["xv"][:, slot].copy_(kv["xv"][:, 0])
+        self.n_cross_installs += 1
 
     def _pack_slices(self, slices: List[PrefillSlice]):
         """Group the plan's prefill slices by layer-group rectangle: every
@@ -872,29 +953,36 @@ class Engine:
         id and an all-False valid mask), tokens to a power-of-two bucket."""
         b = len(slices)
         b_pad = _bucket(b, minimum=1, cap=self.n_slots)
+        offs = np.zeros(b_pad, np.int32)
+        for i, sl in enumerate(slices):
+            offs[i] = sl.token_start
+        offs_dev = self._h2d(offs)
         if start == 0:
             p = _bucket(max(sl.n_tokens for sl in slices), cap=self.max_len)
             toks = np.zeros((b_pad, p), np.int64)
             for i, sl in enumerate(slices):
                 toks[i, :sl.n_tokens] = \
                     self.prompts[sl.req_id][sl.token_start:sl.token_end]
-            hidden = self.model.embed(self.params, self._h2d(toks))
+            # every row's positions, padding rows' from 0 (the JAX
+            # engine's): learned positions are added at the embedding
+            positions = offs_dev.long()[:, None] + torch.arange(
+                p, device=self.device)[None]
+            hidden = self.model.embed(self.params, self._h2d(toks),
+                                      positions=positions)
             self.n_dispatches += 1
         else:
             hidden = self._stash_hidden(slices, b_pad)
             p = hidden.shape[1]
         valid = np.zeros((b_pad, p), bool)
         slots = np.full(b_pad, self.n_slots, np.int64)   # OOB: writes dropped
-        offs = np.zeros(b_pad, np.int32)
         lens = np.ones(b_pad, np.int32)
         for i, sl in enumerate(slices):
             valid[i, :sl.n_tokens] = True
             slots[i] = self._slot_of[sl.req_id]
-            offs[i] = sl.token_start
             lens[i] = sl.n_tokens
         x, loads, tokens = self._prefill_impl(
             start, end - start, emit, hidden, self._h2d(valid), slots,
-            self._h2d(offs), self._h2d(lens))
+            offs_dev, self._h2d(lens))
         self.n_dispatches += 1
         self.n_prefill_dispatches += 1
         if end < self.model.n_blocks:
@@ -957,14 +1045,16 @@ class Engine:
         shared-index chain this request's own pages serve (registration
         happened scheduler-side at plan time).  Only positions up to the
         deepest new chain are copied: no restore reads past them."""
-        chains = self.alloc.owned_chains(
-            rid, self.requests[rid].cacheable_prompt)
+        req = self.requests[rid]
+        chains = self.alloc.owned_chains(rid, req.cacheable_prompt,
+                                         req.prefix_root)
         missing = [(d, depth) for d, depth in chains
                    if d not in self._prefix_rows]
         if not missing:
             return
         ps = self.alloc.page_size
-        row = self._copy_row(slot, max(depth for _, depth in missing) * ps)
+        row = self._copy_row(slot, max(depth for _, depth in missing) * ps,
+                             cross=False)
         for d, depth in missing:
             self._prefix_rows[d] = (row, depth * ps)
 
@@ -1121,6 +1211,7 @@ class Engine:
                 self.alloc.free(rid)
             self.stash.pop(rid, None)
             self._handoff_chunks.pop(rid, None)
+            self.enc_frames.pop(rid, None)
 
 
 class EngineHandoff:
@@ -1186,6 +1277,8 @@ class EngineHandoff:
         self.src.requests[rid] = req
         self.src.prompts[rid] = prompt
         self.src.outputs[rid] = p["outputs"]
+        if p["enc_frames"] is not None:
+            self.src.enc_frames[rid] = p["enc_frames"]
 
     def return_to_prefill(self, req) -> None:
         rid = req.req_id
@@ -1193,3 +1286,5 @@ class EngineHandoff:
                              (self.dst.prompts, self.src.prompts),
                              (self.dst.outputs, self.src.outputs)):
             dst_d[rid] = src_d.pop(rid)
+        if rid in self.dst.enc_frames:
+            self.src.enc_frames[rid] = self.dst.enc_frames.pop(rid)

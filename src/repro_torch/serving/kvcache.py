@@ -38,6 +38,9 @@ page's tokens folded together with the parent page's digest, so a page's
 identity includes its entire prefix.  A later admission whose prompt
 matches a chain links the shared pages into its block table (refcounted,
 zero new pages charged) and starts prefill past the cached boundary.
+The first page's parent is the request's chain ``root``: empty unless the
+KV also depends on something besides the tokens (an encoder-decoder's
+frames: the engine roots each request's chains at a digest of them).
 Shared pages are read-only: the partial tail page of a prompt is never
 shared, and when a whole prompt is covered by cached full pages the last
 matched page is *copy-on-write* — it is dropped from the hit, the new
@@ -234,8 +237,8 @@ class PagedKVAllocator:
 
     # -- prefix matching -----------------------------------------------------
 
-    def lookup_prefix(self, prompt_tokens: Optional[Sequence[int]]) \
-            -> PrefixHit:
+    def lookup_prefix(self, prompt_tokens: Optional[Sequence[int]],
+                      root: bytes = b"") -> PrefixHit:
         """Walk the shared index along the prompt's full pages (chain
         digests, token content verified page-by-page against collisions).
         Non-mutating — safe for admissibility probes.  A fully-covered
@@ -252,7 +255,7 @@ class PagedKVAllocator:
         n = len(prompt_tokens)
         pages: List[int] = []
         digests: List[bytes] = []
-        parent = b""
+        parent = root
         for i in range(n // ps):
             toks = tuple(int(t) for t in prompt_tokens[i * ps:(i + 1) * ps])
             d = _page_digest(parent, toks)
@@ -275,8 +278,8 @@ class PagedKVAllocator:
         return self._hits.get(req_id, _NO_HIT)
 
     def register_prefix(self, req_id: int,
-                        prompt_tokens: Optional[Sequence[int]]) \
-            -> List[Tuple[bytes, int]]:
+                        prompt_tokens: Optional[Sequence[int]],
+                        root: bytes = b"") -> List[Tuple[bytes, int]]:
         """Publish the FULL pages of a completed prompt into the shared
         index (idempotent — pages already registered under the same chain
         are skipped).  Registration stops at the first page whose chain
@@ -291,7 +294,7 @@ class PagedKVAllocator:
         if table is None:
             return []
         ps = self.page_size
-        parent, new = b"", []
+        parent, new = root, []
         for i in range(min(len(prompt_tokens) // ps, len(table))):
             toks = tuple(int(t) for t in prompt_tokens[i * ps:(i + 1) * ps])
             d = _page_digest(parent, toks)
@@ -311,8 +314,8 @@ class PagedKVAllocator:
         return new
 
     def owned_chains(self, req_id: int,
-                     prompt_tokens: Optional[Sequence[int]]) \
-            -> List[Tuple[bytes, int]]:
+                     prompt_tokens: Optional[Sequence[int]],
+                     root: bytes = b"") -> List[Tuple[bytes, int]]:
         """(digest, depth) pairs in the shared index currently served by
         ``req_id``'s OWN block-table pages.  The engine snapshots its KV
         row under exactly these digests after the prompt completes —
@@ -324,7 +327,7 @@ class PagedKVAllocator:
                 or len(prompt_tokens) == 0 or table is None:
             return []
         ps = self.page_size
-        parent, out = b"", []
+        parent, out = root, []
         for i in range(min(len(prompt_tokens) // ps, len(table))):
             toks = tuple(int(t) for t in prompt_tokens[i * ps:(i + 1) * ps])
             d = _page_digest(parent, toks)
@@ -346,13 +349,14 @@ class PagedKVAllocator:
 
     def can_admit(self, n_tokens: int, stash_tokens: int = 0,
                   headroom_pages: int = 0,
-                  prompt_tokens: Optional[Sequence[int]] = None) -> bool:
+                  prompt_tokens: Optional[Sequence[int]] = None,
+                  root: bytes = b"") -> bool:
         """True iff a reservation for ``n_tokens`` of KV plus the stash
         charge fits the pool RIGHT NOW, leaving ``headroom_pages`` free
         (the scheduler's per-SLO-class admission reserve).  With
         ``prompt_tokens`` the query is prefix-aware: matched shared pages
         are charged zero new pages."""
-        hit = self.lookup_prefix(prompt_tokens)
+        hit = self.lookup_prefix(prompt_tokens, root)
         need = (max(0, self.pages_for(n_tokens) - len(hit.pages))
                 + self.stash_pages_for(stash_tokens))
         return need + headroom_pages <= self._avail_for(hit)
@@ -380,7 +384,8 @@ class PagedKVAllocator:
         return req_id in self._host_tables
 
     def reserve(self, req_id: int, n_tokens: int, stash_tokens: int = 0,
-                prompt_tokens: Optional[Sequence[int]] = None) -> PrefixHit:
+                prompt_tokens: Optional[Sequence[int]] = None,
+                root: bytes = b"") -> PrefixHit:
         """Admission-time reservation: claims pages for ``n_tokens`` of KV
         (prompt + decode reservation) and the stash charge.  With
         ``prompt_tokens``, matched shared prefix pages are LINKED at the
@@ -388,7 +393,7 @@ class PagedKVAllocator:
         and only the uncached remainder allocates new pages.  Records the
         filled length as the cached token count and returns the hit."""
         assert req_id not in self._tables, req_id
-        hit = self.lookup_prefix(prompt_tokens)
+        hit = self.lookup_prefix(prompt_tokens, root)
         need_kv = self.pages_for(n_tokens)
         assert len(hit.pages) <= need_kv, (req_id, hit, n_tokens)
         need_new = need_kv - len(hit.pages)

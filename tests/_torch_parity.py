@@ -104,12 +104,12 @@ def record(eng, runtime, res, verified=()) -> dict:
 
 def run(framework: str, cfg, sched: str, *, jobs=(), trace=(),
         sched_kw=None, **engine_kw) -> dict:
-    """Closed-loop ``jobs`` ((prompt, max_new) pairs submitted up front)
-    and/or an open-loop ``trace`` of the port's TraceRequests replayed on
-    the iteration clock."""
+    """Closed-loop ``jobs`` ((prompt, max_new) pairs, or (prompt, max_new,
+    encoder frames) triples, submitted up front) and/or an open-loop
+    ``trace`` of the port's TraceRequests replayed on the iteration
+    clock."""
     eng = build(framework, cfg, sched, sched_kw, **engine_kw)
-    for prompt, max_new in jobs:
-        eng.submit(list(prompt), max_new)
+    submit(eng, jobs)
     # what each iteration verified (the engine keeps the last one only)
     verified, execute = [], eng.execute_plan
 
@@ -127,6 +127,11 @@ def run(framework: str, cfg, sched: str, *, jobs=(), trace=(),
                                  record_plans=True)
     res = runtime.run(list(trace), max_iterations=100_000)
     return record(eng, runtime, res, verified)
+
+
+def submit(eng, jobs) -> None:
+    for prompt, max_new, *frames in jobs:
+        eng.submit(list(prompt), max_new, *frames)
 
 
 def assert_same(got: dict, want: dict, keys=None) -> None:
@@ -150,13 +155,15 @@ def build_pair(framework: str, cfg, sched: str = "layered", sched_kw=None,
 
 def run_disagg(framework: str, cfg, trace, *, streaming: bool = True,
                fault_plan=None, retry_budget: int = 3, sched="layered",
-               sched_kw=None, **engine_kw) -> dict:
+               sched_kw=None, jobs=(), **engine_kw) -> dict:
     """The port's TraceRequests replayed through ``framework``'s
-    ``DisaggRuntime`` (iteration clock, plans recorded), with an optional
+    ``DisaggRuntime`` (iteration clock, plans recorded), after ``jobs``
+    (as for ``run``) submitted to the prefill pool, with an optional
     ``FaultPlan`` (a JSON string) injected; returns the per-pool plans,
     the merged token streams, per-request and per-pool counters, and each
     migration's (request, prompt length, bytes)."""
     ep, ed = build_pair(framework, cfg, sched, sched_kw, **engine_kw)
+    submit(ep, jobs)
     jax_side = framework == "jax"
     bridge = (JaxHandoff if jax_side else EngineHandoff)(
         ep, ed, streaming=streaming)

@@ -1,7 +1,8 @@
 """The port's registered configurations against the JAX package's: the
 paper's two models, the four dense GQA decoders, the two large MoE
 models (deepseek-v2-236b, qwen3-moe-235b-a22b) and the two recurrent
-models (recurrentgemma-9b, xlstm-1.3b) field for field (full and smoke
+models (recurrentgemma-9b, xlstm-1.3b), whisper-base and qwen2-vl-72b
+(all twelve of the JAX registry) field for field (full and smoke
 variants), and the smoke gpt-oss-20b engine trace through both
 packages (identical plans, tokens, TTFTs and expert bytes, layered and
 chunked).  The dense configs' forwards and engine traces are held against
@@ -17,22 +18,27 @@ import pytest
 import _torch_parity as parity
 from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke_config as jax_get_smoke_config
+from repro.configs import list_configs as jax_list_configs
 from repro_torch.configs import get_config, get_smoke_config, list_configs
 
 ARCHS = ["qwen3-30b-a3b", "gpt-oss-20b"]
 DENSE_ARCHS = ["minicpm-2b", "stablelm-1.6b", "yi-34b", "phi4-mini-3.8b"]
 MOE_ARCHS = ["deepseek-v2-236b", "qwen3-moe-235b-a22b"]
 RECURRENT_ARCHS = ["recurrentgemma-9b", "xlstm-1.3b"]
+MULTIMODAL_ARCHS = ["whisper-base", "qwen2-vl-72b"]
 
 
 def test_port_registers_the_papers_two_models():
     """The paper's two models first, then the dense GQA decoders, the
-    large MoE models and the recurrent models."""
-    assert list_configs() == ARCHS + DENSE_ARCHS + MOE_ARCHS + RECURRENT_ARCHS
+    large MoE models, the recurrent models, whisper and qwen2-vl: the
+    whole JAX registry."""
+    assert list_configs() == (ARCHS + DENSE_ARCHS + MOE_ARCHS
+                              + RECURRENT_ARCHS + MULTIMODAL_ARCHS)
+    assert sorted(list_configs()) == sorted(jax_list_configs())
 
 
 @pytest.mark.parametrize("arch", ARCHS + DENSE_ARCHS + MOE_ARCHS
-                         + RECURRENT_ARCHS)
+                         + RECURRENT_ARCHS + MULTIMODAL_ARCHS)
 def test_config_matches_jax(arch):
     assert dataclasses.asdict(get_config(arch)) == \
         dataclasses.asdict(jax_get_config(arch))

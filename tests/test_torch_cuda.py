@@ -384,6 +384,110 @@ def test_mla_engine_serves_on_the_card(cuda, moe_dispatch):
         ops.LAUNCHES
 
 
+# (B, P, S_max, H, Hkv, hd): whisper-base's encoder (1500 frames over
+# themselves) and cross-attention prefill (512 prompt tokens over 1500
+# frames), both off K2's 128-row query tile and 128-key tile; g 8 at hd
+# 128; g 2 at hd 32 over fewer keys than one tile; g 16 at hd 256 (64-key
+# tiles)
+NON_CAUSAL_SHAPES = [(1, 1500, 1500, 8, 8, 64), (4, 512, 1500, 8, 8, 64),
+                     (3, 40, 300, 32, 4, 128), (2, 130, 77, 8, 4, 32),
+                     (2, 70, 200, 16, 1, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,p,s_max,h,hkv,hd", NON_CAUSAL_SHAPES)
+def test_prefill_attention_non_causal_matches_plain(cuda, b, p, s_max, h,
+                                                    hkv, hd):
+    """K2 with ``causal=False`` against its plain version: every query
+    sees all S_max keys (the last key tile's keys past S_max are masked,
+    not scored as zeros); offsets and a window change nothing; two
+    launches agree bit for bit."""
+    rng = np.random.default_rng(s_max + p)
+    q = _bf16(rng, (b, p, h, hd), cuda)
+    k = _bf16(rng, (b, s_max, hkv, hd), cuda)
+    v = _bf16(rng, (b, s_max, hkv, hd), cuda)
+    zeros = torch.zeros(b, dtype=torch.int32, device=cuda)
+    before = ops.LAUNCHES["prefill_attention"]
+    got = ops.prefill_attention(q, k, v, zeros, causal=False)
+    assert ops.LAUNCHES["prefill_attention"] == before + 1
+    want = ref.prefill_attention_ref(q, k, v, zeros, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    off = torch.arange(b, dtype=torch.int32, device=cuda) * 7
+    assert torch.equal(got, ops.prefill_attention(q, k, v, off, window=16,
+                                                  causal=False))
+    causal = ops.prefill_attention(q, k, v, zeros)
+    assert not torch.equal(got, causal)
+
+
+@pytest.mark.cuda
+def test_decode_attention_over_1500_frames_matches_plain(cuda):
+    """K3 at cross-attention decode: 8 slots, S_max = lengths = 1500 (24
+    64-key tiles, the last of 28 keys), 8/8 heads of 64; two launches bit
+    for bit; the same as K2 non-causal for one query."""
+    rng = np.random.default_rng(1500)
+    b, s_max, h, hd = 8, 1500, 8, 64
+    q = _bf16(rng, (b, h, hd), cuda)
+    k, v = _bf16(rng, (b, s_max, h, hd), cuda), _bf16(rng, (b, s_max, h, hd),
+                                                      cuda)
+    lengths = torch.full((b,), s_max, dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, lengths)
+    want = ref.decode_attention_ref(q, k, v, lengths)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(got, ops.decode_attention(q, k, v, lengths))
+    full = ref.prefill_attention_ref(q[:, None], k, v, lengths * 0,
+                                     causal=False)[:, 0]
+    torch.testing.assert_close(want.float(), full.float(), atol=1e-6,
+                               rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_prefill_attention_non_causal_refuses_what_it_does_not_take(cuda):
+    z = torch.zeros(1, dtype=torch.int32, device=cuda)
+    bf = dict(dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="hd"):
+        ops.prefill_attention(torch.zeros(1, 4, 8, 48, **bf),
+                              torch.zeros(1, 8, 8, 48, **bf),
+                              torch.zeros(1, 8, 8, 48, **bf), z, causal=False)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.prefill_attention(torch.zeros(1, 4, 8, 64, device=cuda),
+                              torch.zeros(1, 8, 8, 64, device=cuda),
+                              torch.zeros(1, 8, 8, 64, device=cuda), z,
+                              causal=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1], ids=["whisper", "qwen2-vl"])
+def test_encdec_and_mrope_engines_serve_on_the_card(cuda, which):
+    """``chip_smoke``'s small whisper model (frames seeded per request; a
+    request without frames too) and small qwen2-vl model in bf16 through
+    the engine, more requests than slots: every request completes, one
+    cross-K/V install per admission, K2 and K3 launch and nothing else."""
+    from repro_torch.core.base import make_scheduler
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.serving.engine import Engine
+    cfg = _chip_smoke().small_encdec_configs()[which]
+    model = DecoderModel(cfg, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(1))
+    ops.reset_launches()
+    sched = make_scheduler("layered", model.n_blocks, n_slots=2, quantum=16)
+    eng = Engine(model, params, sched, n_slots=2, max_len=96)
+    rng = np.random.default_rng(0)
+    for i in range(5):
+        frames = None
+        if cfg.encoder.enabled and i != 3:
+            frames = (rng.normal(size=(cfg.encoder.n_frames, cfg.d_model))
+                      * 0.01).astype(np.float32)
+        eng.submit(rng.integers(1, 500, int(rng.integers(4, 60))).tolist(), 6,
+                   frames)
+    eng.run()
+    assert all(len(t) == 6 for t in eng.outputs.values())
+    assert eng.n_cross_installs == (5 if cfg.encoder.enabled else 0)
+    path = ("prefill_attention", "decode_attention")
+    assert all(ops.LAUNCHES[k] > 0 for k in path), ops.LAUNCHES
+    assert all(n == 0 for k, n in ops.LAUNCHES.items() if k not in path), \
+        ops.LAUNCHES
+
+
 def _chip_smoke():
     import importlib.util
     from pathlib import Path

@@ -152,9 +152,12 @@ def test_unported_options_raise():
         Engine(tm, tp, "layered", n_slots=2, max_len=64, moe_dispatch="sparse")
     eng = Engine(tm, tp, "layered", n_slots=2, max_len=64)
     from repro_torch.core.plan import SubmitSpec
-    with pytest.raises(NotImplementedError):
+    # a decoder-only stack refuses encoder frames at submission (the JAX
+    # engine takes them and fails only at admission)
+    with pytest.raises(ValueError, match="no encoder"):
         eng.submit_spec(SubmitSpec(max_new_tokens=2, prompt_tokens=[1, 2],
                                    enc_frames=np.zeros((4, 64))))
+    assert not eng.requests
 
 
 def test_defaults_run_prefix_caching_with_recompute_preemption():

@@ -34,9 +34,14 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 try:
-    from hypothesis import given, settings, strategies as st
+    from hypothesis import HealthCheck, given, settings, strategies as st
+    # hypothesis's checks on wall time: a host stall (a loaded CPU, a
+    # garbage collection of the worker's models) is no fault of the test
+    HOST_TIMED = dict(deadline=None, suppress_health_check=[
+        HealthCheck.too_slow])
 except ImportError:          # degrade to a deterministic seeded sweep
     from _hypothesis_fallback import given, settings, strategies as st
+    HOST_TIMED = {}
 
 from _torch_parity import run as parity_run
 from conftest import tiny_dense
@@ -564,7 +569,7 @@ def test_sse_client_disconnect_cancels_and_frees_kv():
 # ----------------------------------------------------------- rate limiter
 
 
-@settings(max_examples=30)
+@settings(max_examples=30, **HOST_TIMED)
 @given(st.floats(0.1, 50.0), st.floats(0.5, 20.0),
        st.lists(st.tuples(st.floats(0.0, 2.0), st.floats(0.1, 3.0)),
                 min_size=1, max_size=40))

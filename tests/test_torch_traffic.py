@@ -147,7 +147,7 @@ def test_validate_rejects_what_jax_rejects(kw):
 
 def test_validate_checks_the_ports_own_fields():
     for kw in (dict(dtype="float16"), dict(prompt_len=(10, 5)),
-               dict(new_tokens=(0, 4)), dict(arch="whisper-base")):
+               dict(new_tokens=(0, 4)), dict(arch="not-a-registered-arch")):
         with pytest.raises(ValueError):
             ServeConfig(**kw).validate()
     ServeConfig(arch="gpt-oss-20b", dtype="float32", prompt_len=(4, 9),
