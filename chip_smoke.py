@@ -48,7 +48,16 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    at cross-attention prefill (4 x 512 prompt tokens over 1500 frames),
    each beside SDPA without a mask; K3 at cross decode (8 slots, lengths
    1500); K2 and K3 at its decoder's short trace; qwen2-vl-72b's K2 and
-   K3 (64/8 heads of 128) at the long trace.
+   K3 (64/8 heads of 128) at the long trace.  Training's kernels: K2's
+   forward with its log-sum-exp (against the plain one; the output
+   unchanged by it) and K2's backward (three launches: D, dK/dV,
+   dQ) at minicpm-2b's heads (36/36 of 64) and qwen3-30b-a3b's (32/4 of
+   128), at the launcher's 8 x 256 tokens and at two 2048-token rows,
+   beside the plain backward and SDPA's backward; K4's backward (four
+   launches) at qwen3's widths with C 160 (2048 tokens) and at widths off
+   a multiple of 8 (the padded copy), beside the plain version and the
+   bf16 bmm chain; each within ``BWD_REL_FRO`` of its fp32 plain version
+   and bit for bit across two launches.
 3. check the kernel path end to end against the CPU fp32 plain path on a
    small model, under the ragged and the dense MoE dispatch (finite
    logits that agree within a stated tolerance); and a small MLA model
@@ -67,6 +76,11 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    sections): the encoder, the cross K/V, a prefill and a decode step
    through the cache, and the forward with the encoder output or with 8
    patch embeddings prepended, within ``E2E_REL_FRO``; K2 and K3 only.
+   Then two small models at the backward kernels' contracts (a
+   dense one at minicpm's head shape, a MoE one at qwen3's) train 5
+   steps in bf16 on the card and in fp32 on the CPU: losses and step 1's
+   gradients leaf by leaf within ``E2E_REL_FRO``, tokens routed otherwise
+   at router near-ties only.
 4. serve qwen3-30b-a3b at full width (d_model 2048, 32/4 heads, 128
    experts top-8, 48 layers, random weights from a seed) through the
    port's launcher: the ragged dispatch with layered and then chunked
@@ -142,8 +156,8 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    chunked), and the open-loop trace on the iteration clock through the
    card's engine and through ``SimExecutor``: the same plans, the modelled
    ms/iter (h100x2 preset) printed beside the measured one.  Then profile
-   the ragged layered serve once more (device time by kernel, the
-   device's busy share).
+   the ragged layered serve once more at its first 24 of 48 layers
+   (``PROFILE_LAYERS``: device time by kernel, the device's busy share).
 5. free qwen3 and serve gpt-oss-20b at full width (d_model 2880, 64/8
    heads of 64, 32 experts top-4 of d_ff 2880, 24 layers): the long trace
    layered and chunked (layered expert-load <= chunked), and the short
@@ -188,10 +202,24 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    cross-K/V install per admission; K2 and K3 only.  Then qwen2-vl-72b
    at full width and the depth the card holds (the reckoning logged;
    145 GB at 80 layers), text-only, the long trace layered and chunked.
+9. free them and train as ``python -m repro_torch.launch.train``
+   does (8 x 256 tokens of ``PackedDataset``, WSD, remat): minicpm-2b at
+   full width and depth (2.73 B parameters; K2 and its backward) 20
+   steps, then qwen3-30b-a3b at full width and the depth the card holds
+   at 12 B a parameter (the reckoning logged; K2 at g 8, K4 and their
+   backwards) 10 steps: every loss finite, ce falling, the matrices
+   moved, the training path's kernels only, one host sync per logged
+   step, and step 1's loss, ce and grad norm within ``TRAIN_LOSS_REL`` /
+   ``TRAIN_GNORM_REL`` of the same step in fp32 through the plain
+   versions on the card (the yardstick; the trainer's path never calls a
+   plain version); minicpm's state (32.7 GB) saved and restored, the next
+   step bit for bit the step without the round trip.  Seconds a step,
+   peak memory and the checkpoint's seconds are printed.
    Each phase's seconds are printed.
 
 It prints a JSON ``kernels`` line (each row's ``launches`` summed over
-the serves of its own model, ``launches_of``), the ``nvidia-smi`` line,
+the serves, or the training run, of its own model, ``launches_of``),
+the ``nvidia-smi`` line,
 and, as its last line, ``{"ok": true, "device": {...}}``.
 ``--explain-divergence`` adds to phase 4 the analysis of the long
 trace's bf16 streams: where a request's layered and chunked streams
@@ -1748,8 +1776,8 @@ def serve_qwen3(times: dict, explain: bool = False) -> dict:
     live = serve_live(model, params, runs, times, time.perf_counter())
 
     t0 = time.perf_counter()
-    profile_serve(dataclasses.replace(base, scheduler="layered"), model,
-                  params)
+    profile_serve(dataclasses.replace(base, scheduler="layered"),
+                  *first_layers(model, params, PROFILE_LAYERS))
     _phase("qwen3 profile", t0, times)
     del model, params
     return {"runs": runs, "divergence": divergence, "spec": spec,
@@ -2930,6 +2958,30 @@ def serve_qwen2_vl(times: dict) -> dict:
     return {"runs": runs, "depth": depth}
 
 
+# the profiled serve runs the first 24 of qwen3's 48 layers: the
+# training phase's 64-90 s are paid for by halving this 107 s phase (the
+# serves whose streams are compared across trees keep their depth)
+PROFILE_LAYERS = 24
+
+
+def first_layers(model, params, n: int):
+    """(model, params) of the first ``n`` blocks of a one-segment stack:
+    the segment's stacked leaves sliced (views, no copy), the embedding
+    and head shared."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import DecoderModel
+    if len(model.segments) != 1:
+        raise ValueError("first_layers takes a one-segment stack")
+    cut = DecoderModel(dataclasses.replace(model.cfg, n_layers=n),
+                       device=model.device)
+    seg = params["segments"][0]
+    cut_params = dict(params, segments=[
+        {"pattern": ops.tree_map(lambda a: a[:n], seg["pattern"])}])
+    log(f"profile at {n} of {model.cfg.n_layers} layers (depth cut to pay "
+        f"for the training phase)")
+    return cut, cut_params
+
+
 def profile_serve(a, model, params) -> None:
     """The same serve once more under torch.profiler: device time by
     kernel and the device's busy share of the (profiled) wall time."""
@@ -2964,9 +3016,609 @@ def profile_serve(a, model, params) -> None:
             log(f"  {us / 1e3:10.1f} ms {n:7d} x  {name[:100]}")
 
 
+
+# ---------------------------------------------------------------- phase 9
+# training: K2 and K4 with their hand-written backward kernels
+
+# the backward kernels against their fp32 plain versions on the same bf16
+# inputs: relative Frobenius per gradient (P and dS, or H, dG and dU, are
+# rounded to bf16 for the tensor cores, and every gradient to bf16)
+BWD_REL_FRO = 2e-2
+# step 1 of a full-size model in bf16 against the same step in fp32
+# through the plain versions on the card, from the same weights and batch
+# (predicted before its first run in PERF.md §6): the loss and ce
+# of a random model (about ln V) move by bf16 rounding of the logits only,
+# well under 1e-2 of their value; the grad norm sums every bf16 gradient
+# (routing near-ties at qwen3 move some tokens' experts), within 5e-2
+TRAIN_LOSS_REL = 1e-2
+TRAIN_GNORM_REL = 5e-2
+MINICPM_TRAIN_ATTN = (36, 36, 64)      # MHA: g 1
+TRAIN_B, TRAIN_SEQ = 8, 256            # the training launcher's defaults
+# qwen3's dense dispatch at the launcher's 2048 tokens: C = ceil(2048 * 8
+# / 128 * 1.25) = 160
+QWEN3_TRAIN_C = 160
+
+
+def _visible_pairs(b: int, p: int) -> int:
+    """(query, key) pairs of causal no-cache attention over P tokens."""
+    return b * p * (p + 1) // 2
+
+
+def check_prefill_attention_bwd(tag: str, gen, b: int, p: int,
+                                heads) -> list:
+    """K2's forward with the log-sum-exp and its backward at the training
+    path's contract (no cache: offset 0, S_max = P, causal), against the
+    plain versions; two launches bit for bit; timed beside the plain
+    backward and SDPA's backward (forward + backward through autograd,
+    minus its forward; KV repeated g-major).  Returns the forward row (at
+    the training shape, with the log-sum-exp) and the backward row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    h, hkv, hd = heads
+    dev = torch.device("cuda")
+    q, k, v, do = (torch.randn(s, device=dev, generator=gen).to(torch.bfloat16)
+                   for s in ((b, p, h, hd), (b, p, hkv, hd), (b, p, hkv, hd),
+                             (b, p, h, hd)))
+    off = torch.zeros(b, dtype=torch.int32, device=dev)
+    out, lse = ops._prefill_forward(q, k, v, off, None, True, True)
+    plain_out = ops.prefill_attention(q, k, v, off)
+    want_lse = ref.prefill_attention_lse_ref(q, k, v, off)
+    torch.cuda.synchronize()
+    lse_err = (lse - want_lse).abs().max().item()
+    if not torch.equal(out, plain_out):
+        raise AssertionError(f"prefill_attention[{tag}]: the output with "
+                             "the log-sum-exp differs from the output without")
+    if not lse_err <= 1e-3:
+        raise AssertionError(f"prefill_attention[{tag}]: log-sum-exp off by "
+                             f"{lse_err}")
+    got = ops.prefill_attention_bwd(q, k, v, out, lse, do, off)
+    again = ops.prefill_attention_bwd(q, k, v, out, lse, do, off)
+    want = ref.prefill_attention_bwd_ref(q, k, v, out, lse, do, off)
+    torch.cuda.synchronize()
+    rels, max_abs = {}, 0.0
+    for name, g_, a_, w_ in zip(("dq", "dk", "dv"), got, again, want):
+        if not torch.equal(g_, a_):
+            raise AssertionError(f"prefill_attention_bwd[{tag}]: two launches "
+                                 f"differ in {name}")
+        d_ = g_.float() - w_.float()
+        rels[name] = (d_.norm() / w_.float().norm()).item()
+        max_abs = max(max_abs, d_.abs().max().item())
+    log(f"prefill_attention_bwd[{tag}] B {b} P {p} {h}/{hkv} heads of {hd}: "
+        f"rel Frobenius {({k_: f'{v_:.3e}' for k_, v_ in rels.items()})} "
+        f"(tol {BWD_REL_FRO}), max abs {max_abs:.3e}; forward log-sum-exp "
+        f"max abs {lse_err:.3e}")
+    if max(rels.values()) > BWD_REL_FRO:
+        raise AssertionError(f"prefill_attention_bwd[{tag}] disagrees: {rels}")
+    del want, again
+    pairs = _visible_pairs(b, p) * h
+    # inputs q, k, v, o, dO and the log-sum-exp read once, dq, dk, dv
+    # written once; five products (S, dP, dV, dK, dQ) of 2 hd flops a pair
+    nbytes = 2 * (2 * q.numel() + 4 * k.numel() + out.numel()
+                  + do.numel()) + 4 * lse.numel()
+    b_ms, b_by = bound_ms(nbytes, 10 * hd * pairs)
+    ms = cuda_time(lambda: ops.prefill_attention_bwd(q, k, v, out, lse, do,
+                                                     off), iters=5)
+    plain = cuda_time(lambda: ref.prefill_attention_bwd_ref(
+        q, k, v, out, lse, do, off), iters=2)
+    g = h // hkv
+    qt = q.transpose(1, 2).detach().requires_grad_(True)
+    kt = k.transpose(1, 2).repeat(1, g, 1, 1).detach().requires_grad_(True)
+    vt = v.transpose(1, 2).repeat(1, g, 1, 1).detach().requires_grad_(True)
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
+    lib = cuda_time(sdpa_fwd_bwd, iters=5) - cuda_time(sdpa_fwd, iters=5)
+    fwd_bytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
+    fb_ms, fb_by = bound_ms(fwd_bytes, 4 * hd * pairs)
+    fwd_ms = cuda_time(lambda: ops._prefill_forward(q, k, v, off, None, True,
+                                                    True), iters=5)
+    fwd_plain = cuda_time(lambda: (ref.prefill_attention_ref(q, k, v, off),
+                                   ref.prefill_attention_lse_ref(q, k, v, off)),
+                          iters=2)
+    shape = {"B": b, "P": p, "S_max": p, "offsets": 0, "H": h, "Hkv": hkv,
+             "hd": hd, "hd_v": hd, "window": None, "causal": True}
+    return [{"name": f"prefill_attention[{tag}, lse]", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/prefill_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:78",
+             "max_abs_err": (out.float() - ref.prefill_attention_ref(
+                 q, k, v, off).float()).abs().max().item(),
+             "lse_max_abs_err": lse_err, "ms": fwd_ms, "plain_ms": fwd_plain,
+             "bound_ms": fb_ms, "bound_by": fb_by,
+             "library_ms": cuda_time(sdpa_fwd, iters=5),
+             "library_note": "SDPA forward, is_causal, KV repeated g-major",
+             "shape": shape},
+            {"name": f"prefill_attention_bwd[{tag}]", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/prefill_attention_bwd.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:78",
+             "replaces_note": "the vjp of that kernel's function: the JAX "
+                              "package has no backward Pallas kernel",
+             "max_abs_err": max_abs, "rel_fro_err": rels, "ms": ms,
+             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": lib,
+             "library_note": "SDPA (is_causal, KV repeated g-major) forward "
+                             "+ backward through autograd minus its forward",
+             "achieved_tflops": 10 * hd * pairs / ms / 1e9, "shape": shape}]
+
+
+def check_moe_gmm_bwd(tag: str, c: int, gen, widths=QWEN3_MOE) -> dict:
+    """K4's backward over the dense (E, C, d) buffer against its plain
+    version; two launches bit for bit; timed beside the plain version and
+    the cuBLAS chain (bf16 torch.bmm calls with the elementwise steps)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.layers import dense_init
+    e, _, d, f = widths
+    dev = torch.device("cuda")
+    args = (torch.randn((e, c, d), device=dev, generator=gen).to(torch.bfloat16),
+            dense_init((e, d, f), torch.bfloat16, dev, gen),
+            dense_init((e, d, f), torch.bfloat16, dev, gen),
+            dense_init((e, f, d), torch.bfloat16, dev, gen))
+    dy = torch.randn((e, c, d), device=dev, generator=gen).to(torch.bfloat16)
+    padded = ops.PAD_COPIES["moe_gmm_bwd"]
+    got = ops.moe_gmm_bwd(*args, dy)
+    again = ops.moe_gmm_bwd(*args, dy)
+    want = ref.moe_gmm_bwd_ref(*args, dy)
+    torch.cuda.synchronize()
+    rels, max_abs = {}, 0.0
+    for name, g_, a_, w_ in zip(("dx", "dwg", "dwu", "dwd"), got, again, want):
+        if not torch.equal(g_, a_):
+            raise AssertionError(f"moe_gmm_bwd[{tag}]: two launches differ "
+                                 f"in {name}")
+        d_ = g_.float() - w_.float()
+        rels[name] = (d_.norm() / w_.float().norm()).item()
+        max_abs = max(max_abs, d_.abs().max().item())
+    pad = ops.PAD_COPIES["moe_gmm_bwd"] - padded
+    log(f"moe_gmm_bwd[{tag}] E {e} C {c} d {d} F {f}: rel Frobenius "
+        f"{({k_: f'{v_:.3e}' for k_, v_ in rels.items()})} (tol "
+        f"{BWD_REL_FRO}), max abs {max_abs:.3e}; padded copies {pad}")
+    if max(rels.values()) > BWD_REL_FRO:
+        raise AssertionError(f"moe_gmm_bwd[{tag}] disagrees: {rels}")
+    del want, again
+    # x, the three weights and dY read once; dx and the three weight
+    # grads written once; eight products of 2 E C d F flops (G, U, dH, dX
+    # twice, dWg, dWu, dWd)
+    nbytes = 2 * (3 * args[0].numel() + 6 * args[1].numel())
+    flops = 8 * 2 * e * c * d * f
+    b_ms, b_by = bound_ms(nbytes, flops)
+    ms = cuda_time(lambda: ops.moe_gmm_bwd(*args, dy), iters=5)
+    plain = cuda_time(lambda: ref.moe_gmm_bwd_ref(*args, dy), iters=2)
+    x, wg, wu, wd = args
+
+    def chain():
+        g = torch.bmm(x, wg)
+        u = torch.bmm(x, wu)
+        s = torch.sigmoid(g)
+        dh = torch.bmm(dy, wd.transpose(1, 2))
+        h = g * s * u
+        dg = dh * u * s * (1 + g * (1 - s))
+        du = dh * g * s
+        return (torch.bmm(dg, wg.transpose(1, 2))
+                + torch.bmm(du, wu.transpose(1, 2)),
+                torch.bmm(x.transpose(1, 2), dg),
+                torch.bmm(x.transpose(1, 2), du),
+                torch.bmm(h.transpose(1, 2), dy))
+    chain_ms = cuda_time(chain, iters=5)
+    return {"name": f"moe_gmm_bwd[{tag}]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_gmm_bwd.cu",
+            "replaces": "src/repro/kernels/moe_gmm.py:45",
+            "replaces_note": "the vjp of that kernel's function: the JAX "
+                             "package has no backward Pallas kernel",
+            "max_abs_err": max_abs, "rel_fro_err": rels, "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes the backward of "
+                            "a per-expert fused SwiGLU",
+            "cublas_chain_ms": chain_ms,
+            "cublas_chain_note": "eight bf16 torch.bmm calls with the "
+                                 "elementwise steps, timed as the kernel is: "
+                                 "a yardstick of several calls, not "
+                                 "library_ms",
+            "padded_copies": pad, "achieved_tflops": flops / ms / 1e9,
+            "shape": {"E": e, "C": c, "d": d, "F": f}}
+
+
+def small_train_configs():
+    """Two small models at the backward kernels' contracts, bf16: a dense
+    one at minicpm-2b's head shape (4/4 heads of 64: g 1, tied
+    embeddings) and a MoE one at qwen3-30b-a3b's (8/1 heads of 128: g 8;
+    a dense first block, then 8 experts top-2 of d_ff 128 under the dense
+    dispatch at capacity factor E / k = 4, which drops nothing).  Without
+    drops a token that bf16 routes otherwise at a near-tie changes its own
+    output only: under capacity drops it also moves the drop ranking of
+    the tokens after it (seen: 137 against 136 drops, then block 1 routes
+    tokens otherwise at fp32 margins up to 0.015), and the comparison
+    would measure that cascade, not the kernels.  The dropping path is
+    held by phase 9's qwen3 run against its fp32 yardstick."""
+    from repro_torch.models.config import ModelConfig, MoEConfig
+    base = dict(n_layers=2, d_model=256, d_ff=512, vocab_size=1024,
+                max_seq_len=512, dtype="bfloat16", param_dtype="bfloat16")
+    return [ModelConfig(name="train-dense-small", family="dense", n_heads=4,
+                        n_kv_heads=4, head_dim=64, tie_embeddings=True,
+                        **base).validate(),
+            ModelConfig(name="train-moe-small", family="moe", n_heads=8,
+                        n_kv_heads=1, head_dim=128, dense_block_ids=(0,),
+                        moe=MoEConfig(n_experts=8, top_k=2, expert_d_ff=128,
+                                      capacity_factor=4.0),
+                        **base).validate()]
+
+
+def _grads_of(model, params, batch, record: list):
+    """(metrics, gradient leaves, routes) of ``loss_fn`` at ``params``:
+    each MoE block's (expert ids, probabilities) recorded."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train import loss_fn
+    leaves = tree_leaves(params)
+    for p_ in leaves:
+        p_.requires_grad_(True)
+    route = moe.route
+
+    def recorded(*args):
+        out = route(*args)
+        record.append((out[0].detach().cpu(), out[2].detach().float().cpu()))
+        return out
+    moe.route = recorded
+    try:
+        loss, m = loss_fn(model, params, batch["tokens"], batch["targets"],
+                          batch["mask"])
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        moe.route = route
+        for p_ in leaves:
+            p_.requires_grad_(False)
+    return ({k: float(v.detach()) for k, v in m.items()},
+            [torch.zeros_like(p_) if g is None else g.detach()
+             for p_, g in zip(leaves, grads)])
+
+
+def check_small_training_end_to_end() -> None:
+    """Each of ``small_train_configs`` trains 5 steps in bf16 on the card
+    (K2 and its backward, and K4 and its backward) and in fp32 on the CPU
+    (plain versions) from the same weights and ``PackedDataset`` batches:
+    every loss within ``E2E_REL_FRO``; step 1's gradients leaf by leaf
+    within ``E2E_REL_FRO`` relative Frobenius.  Every token's expert set is
+    recorded on both sides (under the remat's recompute too): a token
+    routed otherwise must sit at a router near-tie (``ROUTER_TIE``), at
+    most one token in 16."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.training.data import PackedDataset, SyntheticCorpus
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.training.train import device_batch, make_train_step
+    for cfg in small_train_configs():
+        gpu = DecoderModel(cfg, device="cuda", remat=True)
+        params = gpu.init_params(torch.Generator(device="cuda").manual_seed(1))
+        cpu = DecoderModel(dataclasses.replace(cfg, dtype="float32",
+                                               param_dtype="float32"),
+                           device="cpu")
+        p_cpu = ops.tree_map(lambda a: a.float().cpu(), params)
+        ds = iter(PackedDataset(SyntheticCorpus(cfg.vocab_size, seed=0),
+                                seq_len=128, batch_size=4, seed=0))
+        host = [next(ds) for _ in range(5)]
+        ra, rb = [], []
+        ops.reset_launches()
+        mg, gg = _grads_of(gpu, params, device_batch(gpu, *host[0]), ra)
+        launched = dict(ops.LAUNCHES)
+        mc, gc_ = _grads_of(cpu, p_cpu, device_batch(cpu, *host[0]), rb)
+        need = ["prefill_attention", "prefill_attention_bwd"]
+        if cfg.moe.enabled:
+            need += ["moe_gmm", "moe_gmm_bwd"]
+        check_launches(f"{cfg.name} step 1", launched, need, need)
+        k = cfg.moe.top_k
+        flipped, margins = [], []
+        # the forward's routes (the remat's recompute repeats them)
+        for (ia, _), (ib, pb) in zip(ra[:len(rb)], rb):
+            alike = (ia.sort(-1).values == ib.sort(-1).values).all(-1)
+            top = pb.sort(-1, descending=True).values
+            margin = top[:, k - 1] - top[:, k]
+            flipped += (~alike).nonzero().flatten().tolist()
+            margins += margin[~alike].tolist()
+        n_tok = host[0][0].size
+        rel = {}
+        for i, (a, b_) in enumerate(zip(gg, gc_)):
+            bf = b_.float()
+            rel[i] = ((a.float().cpu() - bf).norm()
+                      / max(bf.norm().item(), 1e-30)).item()
+        worst = max(rel.values())
+        log(f"{cfg.name} step 1, bf16 kernels vs fp32 CPU: loss "
+            f"{mg['loss']:.6f} / {mc['loss']:.6f}, dropped {mg['dropped']:.0f}"
+            f" / {mc['dropped']:.0f}; gradients rel Frobenius worst {worst:.3e}"
+            f" over {len(rel)} leaves (tol {E2E_REL_FRO}); tokens routed "
+            f"otherwise {len(flipped)} of {n_tok} per block, fp32 router "
+            f"margins {[round(m_, 6) for m_ in margins]} (near-tie below "
+            f"{ROUTER_TIE}); launches {launched}")
+        if (len(flipped) > max(1, n_tok // 16)
+                or any(m_ >= ROUTER_TIE for m_ in margins)):
+            raise AssertionError(f"{cfg.name}: tokens routed otherwise, not "
+                                 f"at router near-ties: {margins}")
+        if not worst <= E2E_REL_FRO:
+            raise AssertionError(f"{cfg.name}: step 1 gradients disagree: "
+                                 f"{rel}")
+        opt = adamw(lr=1e-3, schedule="wsd", total_steps=5, warmup=1)
+        losses = []
+        for model, p_, dev in ((gpu, params, "cuda"), (cpu, p_cpu, "cpu")):
+            step, state, out = make_train_step(model, opt), opt.init(p_), []
+            for hb in host:
+                p_, state, m = step(p_, state, device_batch(model, *hb))
+                out.append(float(m["loss"]))
+            losses.append(out)
+        rels = [abs(a - b_) / b_ for a, b_ in zip(*losses)]
+        log(f"{cfg.name} 5 steps: losses bf16 card {[round(x, 5) for x in losses[0]]}"
+            f", fp32 CPU {[round(x, 5) for x in losses[1]]}; worst rel "
+            f"{max(rels):.3e} (tol {E2E_REL_FRO})")
+        if not (all(math.isfinite(x) for x in losses[0])
+                and max(rels) <= E2E_REL_FRO):
+            raise AssertionError(f"{cfg.name}: training losses disagree")
+
+
+def _plain_kernels():
+    """The plain versions in place of K2 and K4 on the card, for the fp32
+    yardstick (``chip_smoke.py`` only; the trainer's path never does
+    this): returns a function that puts the kernels back."""
+    from repro_torch.kernels import ops, ref
+    saved = ops.prefill_attention, ops.moe_gmm
+
+    def attn(q, k, v, offset, *, window=None, causal=True):
+        return ref.prefill_attention_ref(q, k, v, offset, window=window,
+                                         causal=causal)
+    ops.prefill_attention, ops.moe_gmm = attn, ref.moe_gmm_ref
+
+    def restore():
+        ops.prefill_attention, ops.moe_gmm = saved
+    return restore
+
+
+def fp32_yardstick(cfg, params, host_batch) -> dict:
+    """Step 1's loss, ce, aux_loss, dropped and grad norm in fp32 through
+    the plain versions on the card, from the same weights (converted) and
+    batch, with remat: the yardstick of the bf16 kernel step."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.training.train import device_batch
+    model = DecoderModel(dataclasses.replace(cfg, dtype="float32",
+                                             param_dtype="float32"),
+                         device="cuda", remat=True)
+    p32 = ops.tree_map(lambda a: a.float(), params)
+    back = _plain_kernels()
+    try:
+        m, grads = _grads_of(model, p32, device_batch(model, *host_batch), [])
+    finally:
+        back()
+    sq = torch.zeros((), dtype=torch.float32, device="cuda")
+    for g in grads:
+        sq = sq + torch.sum(torch.square(g.float()))
+    m["grad_norm"] = float(torch.sqrt(sq))
+    del p32, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return m
+
+
+def train_model(arch: str, times: dict, steps: int, n_layers=None,
+                ckpt: bool = False) -> dict:
+    """Phase 9: ``arch`` at full width (``n_layers`` cuts its depth) trains
+    ``steps`` steps as ``python -m repro_torch.launch.train`` does (batch 8
+    x 256 tokens of ``PackedDataset``, WSD at lr 6e-4, remat on), through
+    ``Trainer.fit`` logging every step.  Checks: every loss finite, the
+    last ce below step 1's, the weight matrices moved, launches of the training
+    path's kernels only, host syncs one per logged step, and step 1's
+    loss, ce and grad norm against ``fp32_yardstick``.  With ``ckpt``: the
+    state after the last step saved and restored, and the next step taken
+    from the restored state equal, bit for bit, to the step taken
+    without the round trip."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training.data import PackedDataset, SyntheticCorpus
+    from repro_torch.training.optimizer import adamw, tree_leaves
+    from repro_torch.training.train import Trainer
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers).validate()
+    model = DecoderModel(cfg, device="cuda", remat=True)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p_.numel() for p_ in tree_leaves(params))
+    ds = iter(PackedDataset(SyntheticCorpus(cfg.vocab_size, seed=0),
+                            seq_len=TRAIN_SEQ, batch_size=TRAIN_B, seed=0))
+    host = [next(ds) for _ in range(steps + 1)]
+    torch.cuda.synchronize()
+    log(f"train {cfg.name}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+        f"params ({torch.cuda.memory_allocated() / 1e9:.1f} GB bf16) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    yard = fp32_yardstick(cfg, params, host[0])
+    t_yard = time.perf_counter() - t1
+    opt = adamw(lr=6e-4, schedule="wsd", total_steps=steps + 1,
+                warmup=max((steps + 1) // 10, 1))
+    trainer = Trainer(model=model, opt=opt, params=params)
+    # the first 2^20 elements of every weight matrix (a norm's scale of
+    # 1.0 may stay: a step of lr <= 6e-4 moves it by less than half a bf16
+    # ulp, as under JAX)
+    probe = {i: p_.reshape(-1)[:1 << 20].clone()
+             for i, (name, p_) in enumerate(zip(ck.leaf_names(params),
+                                                tree_leaves(params)))
+             if p_.dim() >= 2 and not name.endswith(("scale", "bias"))}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    hist, launches, sites = traced(
+        lambda: trainer.fit(iter(host[:steps]), steps, log_every=1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    first, last = hist[0], hist[-1]
+    s_step = [b_["wall"] - a_["wall"] for a_, b_ in zip(hist, hist[1:])]
+    log(f"train {cfg.name}: {steps} steps in {wall:.1f} s, "
+        f"{float(np.median(s_step)) if s_step else wall:.3f} s a step "
+        f"(median after step 1), peak memory {peak:.1f} GB; host syncs "
+        f"{dict(sites)}")
+    for h_ in hist:
+        log(f"  step {h_['step']:3d} loss {h_['loss']:.5f} ce {h_['ce']:.5f} "
+            f"aux {h_['aux_loss']:.5f} dropped {h_['dropped']:.0f} grad_norm "
+            f"{h_['grad_norm']:.4f} lr {h_['lr']:.2e}")
+    rel = {k: abs(first[k] - yard[k]) / abs(yard[k])
+           for k in ("loss", "ce", "grad_norm")}
+    log(f"train {cfg.name} step 1 against the fp32 yardstick (plain "
+        f"versions on the card, {t_yard:.1f} s): loss {first['loss']:.5f} / "
+        f"{yard['loss']:.5f}, ce {first['ce']:.5f} / {yard['ce']:.5f}, "
+        f"grad norm {first['grad_norm']:.4f} / {yard['grad_norm']:.4f}, "
+        f"dropped {first['dropped']:.0f} / {yard['dropped']:.0f}; rel "
+        f"{ {k: f'{v:.2e}' for k, v in rel.items()} } (tol loss, ce "
+        f"{TRAIN_LOSS_REL}, grad norm {TRAIN_GNORM_REL})")
+    if not all(math.isfinite(h_["loss"]) for h_ in hist):
+        raise AssertionError(f"train {cfg.name}: a loss is not finite")
+    if not last["ce"] < first["ce"]:
+        raise AssertionError(f"train {cfg.name}: ce did not fall "
+                             f"({first['ce']} -> {last['ce']})")
+    if (rel["loss"] > TRAIN_LOSS_REL or rel["ce"] > TRAIN_LOSS_REL
+            or rel["grad_norm"] > TRAIN_GNORM_REL):
+        raise AssertionError(f"train {cfg.name}: step 1 off its fp32 "
+                             f"yardstick: {rel}")
+    now = tree_leaves(trainer.params)
+    moved = sum(not torch.equal(p_, now[i].reshape(-1)[:1 << 20])
+                for i, p_ in probe.items())
+    if moved != len(probe):
+        raise AssertionError(f"train {cfg.name}: {len(probe) - moved} of "
+                             f"{len(probe)} matrices did not move")
+    need = ["prefill_attention", "prefill_attention_bwd"]
+    if cfg.moe.enabled:
+        need += ["moe_gmm", "moe_gmm_bwd"]
+    check_launches(f"train {cfg.name}", launches, need, need)
+    if sum(sites.values()) > steps + 2:
+        raise AssertionError(f"train {cfg.name}: {sum(sites.values())} host "
+                             f"syncs in {steps} logged steps: {dict(sites)}")
+    del probe
+    run = {"arch": f"{arch} train", "iterations": steps, "launches": launches,
+           "host_syncs": sum(sites.values()), "n_layers": cfg.n_layers,
+           "params_b": n_params / 1e9, "s_per_step": (float(np.median(s_step))
+                                                     if s_step else wall),
+           "peak_gb": peak, "step1": first, "last": last, "yardstick": yard,
+           "step1_rel": rel}
+    if ckpt:
+        run["checkpoint"] = checkpoint_round_trip(trainer, host[steps])
+    _phase(f"train {arch}", t0, times)
+    return run
+
+
+def checkpoint_round_trip(trainer, host_batch) -> dict:
+    """Save the trainer's state, take the next step, restore the state
+    into fresh tensors and take the same step again: the metrics and every
+    parameter must be equal bit for bit."""
+    import tempfile
+    import torch
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training.optimizer import tree_leaves
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    path = str(Path(d) / "state.pt")
+    t0 = time.perf_counter()
+    ck.save(path, {"params": trainer.params, "opt": trainer.opt_state})
+    t_save = time.perf_counter() - t0
+    size = Path(path).stat().st_size
+    step0 = trainer.step
+    template = meta_tree({"params": trainer.params, "opt": trainer.opt_state})
+    trainer.fit(iter([host_batch]), 1, log_every=1)
+    want_m = trainer.history[-1]
+    want_p = [p_.clone() for p_ in tree_leaves(trainer.params)]
+    trainer.params = trainer.opt_state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    state = ck.restore(path, template, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    trainer.params, trainer.opt_state = state["params"], state["opt"]
+    trainer.step = step0
+    trainer.fit(iter([host_batch]), 1, log_every=1)
+    got_m = trainer.history[-1]
+    same_p = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(trainer.params), want_p))
+    keys = ("loss", "ce", "aux_loss", "dropped", "grad_norm", "lr")
+    same_m = all(got_m[k] == want_m[k] for k in keys)
+    Path(path).unlink()
+    Path(d).rmdir()
+    log(f"checkpoint: {size / 1e9:.2f} GB saved in {t_save:.1f} s, restored "
+        f"in {t_load:.1f} s; step {step0 + 1} after the round trip: metrics "
+        f"{'equal' if same_m else 'DIFFER'} ({ {k: got_m[k] for k in keys} } "
+        f"vs { {k: want_m[k] for k in keys} }), parameters "
+        f"{'equal' if same_p else 'DIFFER'}")
+    if not (same_m and same_p):
+        raise AssertionError("checkpoint round trip: the next step differs")
+    del want_p
+    return {"gb": size / 1e9, "save_s": t_save, "load_s": t_load}
+
+
+def meta_tree(tree):
+    """A tree of ``meta`` tensors shaped like ``tree`` (a restore
+    template that holds no memory)."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: meta_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[meta_tree(v) for v in tree])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(meta_tree(v) for v in tree)
+    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+
+def qwen3_train_depth() -> int:
+    """The qwen3-30b-a3b layers one card trains at 12 B a parameter (bf16
+    weights and grads, fp32 AdamW moments) beside the untied embedding and
+    head, keeping 12 GB for activations (remat), the fp32 logits and the
+    optimizer's chunked temporaries; the reckoning is logged."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-30b-a3b")
+    d, f, e = cfg.d_model, cfg.moe.expert_d_ff, cfg.moe.n_experts
+    hd = cfg.head_dim_
+    layer = (d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) + d * e
+             + 3 * e * d * f + 2 * d)
+    embed = 2 * cfg.vocab_size * d + d
+    free = torch.cuda.mem_get_info()[0]
+    depth = int((free - 12e9 - 12 * embed) // (12 * layer))
+    depth = max(1, min(depth, cfg.n_layers))
+    log(f"qwen3-30b-a3b training depth: {free / 1e9:.2f} GB free, "
+        f"{layer / 1e6:.1f} M params a layer and {embed / 1e6:.1f} M in the "
+        f"embedding and head at 12 B a parameter, 12 GB kept: {depth} of "
+        f"{cfg.n_layers} layers")
+    return depth
+
+
+def train_models(times: dict) -> dict:
+    """Phase 9: minicpm-2b at full width and depth (K2 and its backward,
+    with a checkpoint round trip), then qwen3-30b-a3b at full width and
+    the depth the card holds (K2 at g 8 and K4, with their backwards)."""
+    import torch
+    runs = {}
+    runs["minicpm-2b train"] = train_model("minicpm-2b", times, steps=20,
+                                           ckpt=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["qwen3-30b-a3b train"] = train_model(
+        "qwen3-30b-a3b", times, steps=10, n_layers=qwen3_train_depth())
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
 def model_of(row: str) -> str:
-    """The model whose serves a kernel row's shapes come from."""
-    for key, arch in (("recurrentgemma", "recurrentgemma-9b"),
+    """The model whose serves (or training run) a kernel row's shapes
+    come from."""
+    for key, arch in (("minicpm", "minicpm-2b train"),
+                      ("qwen3 train", "qwen3-30b-a3b train"),
+                      ("qwen3 P 2048", "qwen3-30b-a3b train"),
+                      ("bwd[padded]", "qwen3-30b-a3b train"),
+                      ("recurrentgemma", "recurrentgemma-9b"),
                       ("whisper", "whisper-base"),
                       ("qwen2-vl", "qwen2-vl-72b"),
                       ("gpt-oss", "gpt-oss-20b"), ("phi4", "phi4-mini-3.8b"),
@@ -3157,6 +3809,24 @@ def main() -> None:
                 check_decode_attention(gen, "qwen2-vl long",
                                        heads=QWEN2_VL_ATTN)]
     torch.cuda.empty_cache()
+    # training (phase 9's shapes): K2's forward with the log-sum-exp and
+    # its backward at minicpm-2b's (36/36 heads of 64) and qwen3-30b-a3b's
+    # (32/4 of 128) heads, at the launcher's 8 x 256 tokens and at 2048-
+    # token rows; K4's backward at qwen3's widths (C 160: 2048 tokens) and
+    # at widths off a multiple of 8 (the padded copy)
+    kernels += check_prefill_attention_bwd("minicpm train", gen, TRAIN_B,
+                                           TRAIN_SEQ, MINICPM_TRAIN_ATTN)
+    kernels += check_prefill_attention_bwd("qwen3 train", gen, TRAIN_B,
+                                           TRAIN_SEQ, QWEN3_ATTN)
+    torch.cuda.empty_cache()
+    kernels += check_prefill_attention_bwd("minicpm P 2048", gen, 2, 2048,
+                                           MINICPM_TRAIN_ATTN)[1:]
+    kernels += check_prefill_attention_bwd("qwen3 P 2048", gen, 2, 2048,
+                                           QWEN3_ATTN)[1:]
+    torch.cuda.empty_cache()
+    kernels += [check_moe_gmm_bwd("qwen3 train", QWEN3_TRAIN_C, gen),
+                check_moe_gmm_bwd("padded", 40, gen, (8, 2, 2044, 764))]
+    torch.cuda.empty_cache()
     digest = k2_g8_digest()
     log(f"prefill_attention at g 8: outputs sha256 {digest} (the kernel "
         f"before its repair: {K2_G8_SHA256})")
@@ -3169,6 +3839,7 @@ def main() -> None:
     check_small_mla_end_to_end()
     check_small_recurrent_end_to_end()
     check_small_encdec_end_to_end()
+    check_small_training_end_to_end()
     torch.cuda.empty_cache()
     times: dict = {}
     _phase("build and kernel checks", t_start, times)
@@ -3194,8 +3865,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     whisper = serve_whisper(times)
     vl = serve_qwen2_vl(times)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_models(times)
     runs = {**qwen["runs"], **oss["runs"], **large["runs"], **dense["runs"],
-            **recurrent["runs"], **whisper["runs"], **vl["runs"]}
+            **recurrent["runs"], **whisper["runs"], **vl["runs"], **train}
     # each kernel row's launches: the sum over its own model's serves,
     # each counted from 0 just before it and read just after
     launches, iters = {}, collections.Counter()

@@ -10,7 +10,9 @@ the recurrent mixers' fp32 leaves, RG-LRU's ``a_param``, stay fp32;
 whisper's ``encoder`` list of unstacked blocks and the learned position
 table ``embed["pos"]`` come across as they are).
 JAX's PRNG cannot be reproduced in torch, so every test that holds the
-port against the JAX package goes through here.
+port against the JAX package goes through here.  ``from_jax_opt_state``
+does the same for the JAX package's ``AdamWState`` (step, mu, nu), so a
+JAX run's ``(params, opt)`` can continue in the port.
 This module imports numpy and torch only.
 """
 
@@ -44,3 +46,15 @@ def from_jax_params(cfg: ModelConfig, tree, device=None):
             return [conv(v) for v in x]
         return _to_torch(x, dev)
     return conv(tree)
+
+
+def from_jax_opt_state(cfg: ModelConfig, state, device=None):
+    """The JAX package's ``AdamWState`` (a NamedTuple of ``step`` and the
+    fp32 moment trees ``mu``/``nu``, its leaves turned into numpy arrays)
+    -> the port's ``training.optimizer.AdamWState`` on ``device``."""
+    from repro_torch.training.optimizer import AdamWState
+    dev = resolve_device(device)
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=dev)
+    return AdamWState(step=step, mu=from_jax_params(cfg, state.mu, dev),
+                      nu=from_jax_params(cfg, state.nu, dev))

@@ -26,9 +26,10 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("moe_gmm_ragged", "prefill_attention", "decode_attention",
-           "moe_gmm", "paged_attention")
+           "moe_gmm", "paged_attention", "prefill_attention_bwd",
+           "moe_gmm_bwd")
 # headers a source may include: any edit rebuilds every kernel
-HEADERS = ("common.cuh", "moe_swiglu.cuh", "hopper.cuh")
+HEADERS = ("common.cuh", "moe_swiglu.cuh", "hopper.cuh", "tiles.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

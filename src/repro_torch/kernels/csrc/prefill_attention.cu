@@ -17,7 +17,11 @@
 // and cross-attention over the encoder frames (models/attention.py
 // apply_cross_attn; JAX's flash_attention_pallas(causal=False)).
 // Query head h reads kv head h % Hkv (g-major grouping).  A query row that
-// sees no key outputs 0.
+// sees no key outputs 0.  On request (``lse`` not null: training's forward,
+// never a serve path) it also writes each row's log-sum-exp, natural log,
+// (B, H, P) fp32 (-inf for a row that sees no key), which the backward
+// (prefill_attention_bwd.cu) reads; the output's arithmetic is the same
+// either way.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): the causal
 // products QK^T and PV, 2 * (dk + dv) flops per visible (query head, key)
@@ -81,6 +85,7 @@ constexpr int STAGES = 2;
 constexpr int kThreads = 384;    // consumers: warpgroups 0, 1; producer: 2
 constexpr int kConsumerWarps = 8;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int HDK, int HDV>
 struct Tile {
@@ -102,7 +107,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 prefill_attention_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap,
-                         const int* __restrict__ offset, bf16* __restrict__ out, int P, int H,
+                         const int* __restrict__ offset, bf16* __restrict__ out,
+                         float* __restrict__ lse, int P, int H,
                          int Hkv, int S_max, int window, int causal, float scale_log2,
                          int n_qtiles) {
   using T = Tile<HDK, HDV>;
@@ -297,6 +303,9 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap qmap,
       const int pos = q0 + row / g;
       if (row >= rows_q || pos >= P) continue;
       const int h = (row % g) * Hkv + kh;
+      if (lse != nullptr && lane % 4 == 0)
+        lse[(static_cast<long>(b) * H + h) * P + pos] =
+            l > 0.0f ? (m_run[r] + log2f(l)) * kLn2 : -INFINITY;
       bf16* dst = out + ((static_cast<long>(b) * P + pos) * H + h) * HDV + (lane % 4) * 2;
 #pragma unroll
       for (int bx = 0; bx < T::NBOX_V; ++bx)
@@ -309,9 +318,9 @@ prefill_attention_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 template <int HDK, int HDV>
-int launch(const void* q, const void* k, const void* v, const int* offset, bf16* out, int B,
-           int P, int H, int Hkv, int S_max, int window, int causal, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const int* offset, bf16* out,
+           float* lse, int B, int P, int H, int Hkv, int S_max, int window, int causal,
+           float scale, cudaStream_t stream) {
   using T = Tile<HDK, HDV>;
   constexpr int KT = T::KT;
   const int g = H / Hkv;
@@ -344,7 +353,7 @@ int launch(const void* q, const void* k, const void* v, const int* offset, bf16*
   const int qt = ROWS / g;
   const int n_qtiles = (P + qt - 1) / qt;
   prefill_attention_kernel<HDK, HDV><<<dim3(n_qtiles, Hkv, B), kThreads, T::SMEM, stream>>>(
-      qmap, kmap, vmap, offset, out, P, H, Hkv, S_max, window, causal, scale * kLog2e,
+      qmap, kmap, vmap, offset, out, lse, P, H, Hkv, S_max, window, causal, scale * kLog2e,
       n_qtiles);
   return static_cast<int>(cudaGetLastError());
 }
@@ -352,9 +361,10 @@ int launch(const void* q, const void* k, const void* v, const int* offset, bf16*
 }  // namespace
 
 // (dk, dv) in (32, 32), (64, 64), (128, 128), (192, 128), (256, 256); any g = H / Hkv
-// up to 128; q, k, v 16-byte aligned; causal 1, or 0 for the bidirectional mask.
+// up to 128; q, k, v 16-byte aligned; causal 1, or 0 for the bidirectional mask;
+// lse null, or (B, H, P) fp32 for each row's log-sum-exp.
 extern "C" int prefill_attention_bf16(const void* q, const void* k, const void* v,
-                                      const void* offset, void* out, int B, int P,
+                                      const void* offset, void* out, void* lse, int B, int P,
                                       int H, int Hkv, int S_max, int dk, int dv,
                                       int window, int causal, float scale, void* stream) {
   if (B == 0 || P == 0) return 0;
@@ -364,16 +374,17 @@ extern "C" int prefill_attention_bf16(const void* q, const void* k, const void* 
     return static_cast<int>(cudaErrorInvalidValue);
   auto off = static_cast<const int*>(offset);
   auto o = static_cast<bf16*>(out);
+  auto ls = static_cast<float*>(lse);
   auto st = static_cast<cudaStream_t>(stream);
   if (dk == 32 && dv == 32)
-    return launch<32, 32>(q, k, v, off, o, B, P, H, Hkv, S_max, window, causal, scale, st);
+    return launch<32, 32>(q, k, v, off, o, ls, B, P, H, Hkv, S_max, window, causal, scale, st);
   if (dk == 64 && dv == 64)
-    return launch<64, 64>(q, k, v, off, o, B, P, H, Hkv, S_max, window, causal, scale, st);
+    return launch<64, 64>(q, k, v, off, o, ls, B, P, H, Hkv, S_max, window, causal, scale, st);
   if (dk == 128 && dv == 128)
-    return launch<128, 128>(q, k, v, off, o, B, P, H, Hkv, S_max, window, causal, scale, st);
+    return launch<128, 128>(q, k, v, off, o, ls, B, P, H, Hkv, S_max, window, causal, scale, st);
   if (dk == 192 && dv == 128)
-    return launch<192, 128>(q, k, v, off, o, B, P, H, Hkv, S_max, window, causal, scale, st);
+    return launch<192, 128>(q, k, v, off, o, ls, B, P, H, Hkv, S_max, window, causal, scale, st);
   if (dk == 256 && dv == 256)
-    return launch<256, 256>(q, k, v, off, o, B, P, H, Hkv, S_max, window, causal, scale, st);
+    return launch<256, 256>(q, k, v, off, o, ls, B, P, H, Hkv, S_max, window, causal, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

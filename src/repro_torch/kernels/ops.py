@@ -15,6 +15,16 @@ shape and contiguity, launches on PyTorch's current stream, raises if the
 launch returned a CUDA error, and adds one to ``LAUNCHES[name]`` for every
 kernel launch (and for nothing else), so a run can show that its main path
 went through the kernels.
+
+Training (``repro_torch.training``) differentiates two of them, K2 and K4,
+which the training path runs: ``prefill_attention`` and ``moe_gmm`` go
+through ``torch.autograd.Function``s (``PrefillAttention``, ``MoeGmm``)
+whose backward is a hand-written kernel too (``prefill_attention_bwd``,
+``moe_gmm_bwd``; on the CPU their plain versions) whenever grad mode is on
+and an input requires grad.  The other four kernels have no backward: on
+the card their wrappers raise when grad mode is on and an input requires
+grad, rather than return an output that autograd would silently treat as
+a constant — as K2 and K4 do at a contract their backward does not take.
 """
 
 from __future__ import annotations
@@ -35,14 +45,17 @@ Tensor = torch.Tensor
 # designs of decode_attention and of the paged kernels are two CUDA
 # launches (split, then merge) when their split count exceeds 1, and
 # moe_gmm_ragged's and moe_gmm's two-phase design is always two (gate/up,
-# then down): each still counts one
+# then down); the backward of K2 is three launches (D = rowsum(dO o O),
+# then dK/dV, then dQ) and that of K4 four (G, U, dH and the epilogue,
+# then dX, dWg/dWu, dWd): each still counts one
 LAUNCHES: Dict[str, int] = {"moe_gmm_ragged": 0, "prefill_attention": 0,
                             "decode_attention": 0, "moe_gmm": 0,
                             "paged_decode_attention": 0,
-                            "paged_verify_attention": 0}
+                            "paged_verify_attention": 0,
+                            "prefill_attention_bwd": 0, "moe_gmm_bwd": 0}
 # calls of moe_gmm on the card that zero-padded d or F to a multiple of 8
 # (a copy of the operands; widths of real models never take it)
-PAD_COPIES: Dict[str, int] = {"moe_gmm": 0}
+PAD_COPIES: Dict[str, int] = {"moe_gmm": 0, "moe_gmm_bwd": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel -> (source csrc/<source>.cu, C entry point, its argument types)
@@ -50,8 +63,9 @@ _SIGNATURES = {
     # the MoE kernels take an H scratch (rows, F) between their two phases
     "moe_gmm_ragged": ("moe_gmm_ragged", "moe_gmm_ragged_bf16",
                        [_P] * 7 + [_I] * 5 + [_P]),
+    # the last pointer before the ints is the optional log-sum-exp output
     "prefill_attention": ("prefill_attention", "prefill_attention_bf16",
-                          [_P] * 5 + [_I] * 9 + [_F, _P]),
+                          [_P] * 6 + [_I] * 9 + [_F, _P]),
     "decode_attention": ("decode_attention", "decode_attention_bf16",
                          [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
     "moe_gmm": ("moe_gmm", "moe_gmm_bf16", [_P] * 6 + [_I] * 5 + [_P]),
@@ -60,6 +74,13 @@ _SIGNATURES = {
                                [_P] * 7 + [_I] * 8 + [_F, _I, _P]),
     "paged_verify_attention": ("paged_attention", "paged_attention_bf16",
                                [_P] * 7 + [_I] * 8 + [_F, _I, _P]),
+    # q, k, v, o, lse, dO, offset, dq, dk, dv, the D scratch
+    "prefill_attention_bwd": ("prefill_attention_bwd",
+                              "prefill_attention_bwd_bf16",
+                              [_P] * 11 + [_I] * 6 + [_F, _P]),
+    # x, Wg, Wu, Wd, dY, the H / dG / dU scratch, dx, dWg, dWu, dWd
+    "moe_gmm_bwd": ("moe_gmm_bwd", "moe_gmm_bwd_bf16",
+                    [_P] * 12 + [_I] * 4 + [_P]),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -104,6 +125,20 @@ def _on_card(name: str, *tensors: Tensor) -> bool:
     return True
 
 
+def _needs_grad(*tensors: Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _no_backward(name: str, *tensors: Tensor, why: str = "") -> None:
+    """Refuse a launch whose output autograd would take for a constant:
+    the kernel records nothing for the backward pass."""
+    if _needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward{why}, and an input "
+            "requires grad (its output would silently drop out of the "
+            "gradient)")
+
+
 def _check_bf16(name: str, *tensors: Tensor) -> None:
     for t in tensors:
         if t.dtype != torch.bfloat16:
@@ -135,6 +170,7 @@ def moe_gmm_ragged(rows: Tensor, w_gate: Tensor, w_up: Tensor,
     if not _on_card("moe_gmm_ragged", rows, w_gate, w_up, w_down, tile_expert):
         return ref.moe_gmm_ragged_ref(rows, w_gate, w_up, w_down, tile_expert,
                                       m_blk)
+    _no_backward("moe_gmm_ragged", rows, w_gate, w_up, w_down)
     _check_bf16("moe_gmm_ragged", rows, w_gate, w_up, w_down)
     if tile_expert.dtype != torch.int32:
         raise TypeError("moe_gmm_ragged: tile_expert must be int32")
@@ -191,6 +227,11 @@ def _check_kv(name: str, q: Tensor, k: Tensor, v: Tensor) -> None:
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
 
 
+# the (query/key, value) widths the prefill backward kernel takes: the
+# training path's minicpm-2b (64) and qwen3-30b-a3b (128); causal, no window
+PREFILL_BWD_HEAD_DIMS = ((64, 64), (128, 128))
+
+
 def prefill_attention(q: Tensor, k: Tensor, v: Tensor, offset: Tensor, *,
                       window: Optional[int] = None,
                       causal: bool = True) -> Tensor:
@@ -200,15 +241,34 @@ def prefill_attention(q: Tensor, k: Tensor, v: Tensor, offset: Tensor, *,
     -> (B, P, H, dv), scaled by 1/sqrt(dk).  With ``causal=False`` every
     query sees all S_max keys (``offset`` and ``window`` are ignored): the
     encoder's self-attention and cross-attention.  See
-    ``ref.prefill_attention_ref`` for the masks."""
+    ``ref.prefill_attention_ref`` for the masks.  Differentiable
+    (``PrefillAttention``) where grad mode is on and q, k or v requires
+    grad; on the card only at the backward kernel's contract (causal, no
+    window, widths ``PREFILL_BWD_HEAD_DIMS``), else it raises."""
     b, p, h, dk = q.shape
     _check_kv("prefill_attention", q, k, v)
     if offset.shape != (b,):
         raise ValueError(f"prefill_attention: bad offset shape "
                          f"{tuple(offset.shape)}")
+    if _needs_grad(q, k, v):
+        if q.device.type == "cuda":
+            _check_prefill_bwd(q, k, v, window, causal)
+        return PrefillAttention.apply(q, k, v, offset, window, causal)
+    return _prefill_forward(q, k, v, offset, window, causal, False)[0]
+
+
+def _prefill_forward(q: Tensor, k: Tensor, v: Tensor, offset: Tensor,
+                     window: Optional[int], causal: bool, want_lse: bool):
+    """(out, lse or None): the kernel (or, for CPU tensors, the plain
+    version); ``lse`` (B, H, P) fp32 is the kernel's optional output,
+    which the serve paths never ask for."""
     if not _on_card("prefill_attention", q, k, v, offset):
-        return ref.prefill_attention_ref(q, k, v, offset, window=window,
-                                         causal=causal)
+        out = ref.prefill_attention_ref(q, k, v, offset, window=window,
+                                        causal=causal)
+        return out, (ref.prefill_attention_lse_ref(
+            q, k, v, offset, window=window, causal=causal)
+            if want_lse else None)
+    b, p, h, dk = q.shape
     _check_attention("prefill_attention", q, k, v, offset)
     g, dv = h // k.shape[2], v.shape[3]
     if g > PREFILL_ROWS or (dk, dv) not in PREFILL_HEAD_DIMS:
@@ -217,11 +277,91 @@ def prefill_attention(q: Tensor, k: Tensor, v: Tensor, offset: Tensor, *,
                          f"{PREFILL_HEAD_DIMS} (g={g}, hd={dk}, hd_v={dv})")
     _check_aligned("prefill_attention", q, k, v)
     out = q.new_empty((b, p, h, dv))
+    lse = (torch.empty((b, h, p), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     _launch("prefill_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            offset.data_ptr(), out.data_ptr(), b, p, h, k.shape[2],
-            k.shape[1], dk, dv, window or 0, int(causal),
+            offset.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None, b, p, h,
+            k.shape[2], k.shape[1], dk, dv, window or 0, int(causal),
             1.0 / math.sqrt(dk))
-    return out
+    return out, lse
+
+
+def _check_prefill_bwd(q: Tensor, k: Tensor, v: Tensor,
+                       window: Optional[int], causal: bool) -> None:
+    dk, dv = q.shape[-1], v.shape[-1]
+    if not causal or window is not None or (dk, dv) not in PREFILL_BWD_HEAD_DIMS:
+        _no_backward("prefill_attention", q, k, v,
+                     why=f" at this contract (the backward kernel takes "
+                         f"causal attention without a window at (hd, hd_v) "
+                         f"in {PREFILL_BWD_HEAD_DIMS}; here causal={causal}, "
+                         f"window={window}, hd={dk}, hd_v={dv})")
+
+
+class PrefillAttention(torch.autograd.Function):
+    """K2 with its backward: the forward kernel also writes each query
+    row's log-sum-exp, which the backward kernel reads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, offset, window, causal):
+        out, lse = _prefill_forward(q, k, v, offset, window, causal, True)
+        ctx.save_for_backward(q, k, v, out, lse, offset)
+        ctx.window, ctx.causal = window, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, lse, offset = ctx.saved_tensors
+        dq, dk, dv = prefill_attention_bwd(q, k, v, out, lse,
+                                           d_out.contiguous(), offset,
+                                           window=ctx.window,
+                                           causal=ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
+def prefill_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
+                          lse: Tensor, do: Tensor, offset: Tensor, *,
+                          window: Optional[int] = None,
+                          causal: bool = True):
+    """The vjp of ``prefill_attention`` (see
+    ``ref.prefill_attention_bwd_ref``): from q, k, v, the forward's output
+    ``o`` (B, P, H, dv) and log-sum-exp ``lse`` (B, H, P) fp32 and the
+    output cotangent ``do`` -> (dq, dk, dv).  On the card: bf16, causal,
+    no window, (hd, hd_v) in ``PREFILL_BWD_HEAD_DIMS``, any group size
+    and offsets; three launches, no atomics (two calls give the same
+    bits)."""
+    b, p, h, dk = q.shape
+    if (o.shape != (b, p, h, v.shape[3]) or do.shape != o.shape
+            or lse.shape != (b, h, p)):
+        raise ValueError(f"prefill_attention_bwd: bad shapes o "
+                         f"{tuple(o.shape)} do {tuple(do.shape)} lse "
+                         f"{tuple(lse.shape)}")
+    if not _on_card("prefill_attention_bwd", q, k, v, o, lse, do, offset):
+        return ref.prefill_attention_bwd_ref(q, k, v, o, lse, do, offset,
+                                             window=window, causal=causal)
+    _check_attention("prefill_attention_bwd", q, k, v, offset)
+    _check_bf16("prefill_attention_bwd", o, do)
+    if lse.dtype != torch.float32:
+        raise TypeError("prefill_attention_bwd: lse must be float32")
+    if not causal or window is not None or (dk, v.shape[3]) not in \
+            PREFILL_BWD_HEAD_DIMS:
+        raise ValueError(f"prefill_attention_bwd: the kernel takes causal "
+                         f"attention without a window at (hd, hd_v) in "
+                         f"{PREFILL_BWD_HEAD_DIMS} (causal={causal}, "
+                         f"window={window}, hd={dk}, hd_v={v.shape[3]})")
+    _check_aligned("prefill_attention_bwd", q, k, v, o, do)
+    hkv, s_max = k.shape[2], k.shape[1]
+    if b > 65535 or hkv > 65535 or h > 65535:
+        raise ValueError("prefill_attention_bwd: grid past the launch limit")
+    dq = torch.empty_like(q)
+    dk_ = torch.empty_like(k)
+    dv_ = torch.empty_like(v)
+    delta = torch.empty((b, h, p), dtype=torch.float32, device=q.device)
+    _launch("prefill_attention_bwd", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+            offset.data_ptr(), dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(),
+            delta.data_ptr(), b, p, h, hkv, s_max, dk, 1.0 / math.sqrt(dk))
+    return dq, dk_, dv_
 
 
 # --------------------------------------------------------------------- K3
@@ -259,6 +399,7 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     if not _on_card("decode_attention", q, k_cache, v_cache, lengths):
         return ref.decode_attention_ref(q, k_cache, v_cache, lengths,
                                         window=window)
+    _no_backward("decode_attention", q, k_cache, v_cache)
     _check_attention("decode_attention", q, k_cache, v_cache, lengths)
     dv = v_cache.shape[3]
     if not ((dk == dv and dk % 16 == 0 and dk <= 128)
@@ -311,19 +452,34 @@ def pad_widths(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor):
             pad(w_up, (0, pf, 0, pd)), pad(w_down, (0, pd, 0, pf)))
 
 
+def _check_moe_shapes(name: str, x: Tensor, w_gate: Tensor, w_up: Tensor,
+                      w_down: Tensor) -> None:
+    e, c, d = x.shape
+    f = w_gate.shape[-1]
+    if (w_gate.shape != (e, d, f) or w_up.shape != w_gate.shape
+            or w_down.shape != (e, f, d)):
+        raise ValueError(f"{name}: bad shapes x {tuple(x.shape)} w_gate "
+                         f"{tuple(w_gate.shape)} w_up {tuple(w_up.shape)} "
+                         f"w_down {tuple(w_down.shape)}")
+
+
 def moe_gmm(x: Tensor, w_gate: Tensor, w_up: Tensor,
             w_down: Tensor) -> Tensor:
     """Batched per-expert fused SwiGLU over the dense capacity buffer:
     x (E, C, d), w_gate/w_up (E, d, F), w_down (E, F, d) -> (E, C, d).
     Any C; on the card bf16, and d or F off a multiple of 8 costs a padded
-    copy of the operands (``pad_widths``, counted in ``PAD_COPIES``)."""
+    copy of the operands (``pad_widths``, counted in ``PAD_COPIES``).
+    Differentiable (``MoeGmm``) where grad mode is on and an input
+    requires grad."""
+    _check_moe_shapes("moe_gmm", x, w_gate, w_up, w_down)
+    if _needs_grad(x, w_gate, w_up, w_down):
+        return MoeGmm.apply(x, w_gate, w_up, w_down)
+    return _moe_gmm_forward(x, w_gate, w_up, w_down)
+
+
+def _moe_gmm_forward(x: Tensor, w_gate: Tensor, w_up: Tensor,
+                     w_down: Tensor) -> Tensor:
     e, c, d = x.shape
-    f = w_gate.shape[-1]
-    if (w_gate.shape != (e, d, f) or w_up.shape != w_gate.shape
-            or w_down.shape != (e, f, d)):
-        raise ValueError(f"moe_gmm: bad shapes x {tuple(x.shape)} w_gate "
-                         f"{tuple(w_gate.shape)} w_up {tuple(w_up.shape)} "
-                         f"w_down {tuple(w_down.shape)}")
     if not _on_card("moe_gmm", x, w_gate, w_up, w_down):
         return ref.moe_gmm_ref(x, w_gate, w_up, w_down)
     _check_bf16("moe_gmm", x, w_gate, w_up, w_down)
@@ -343,6 +499,62 @@ def moe_gmm(x: Tensor, w_gate: Tensor, w_up: Tensor,
             wd.data_ptr(), h.data_ptr(), out.data_ptr(), e, c, xp.shape[-1],
             wg.shape[-1], m_tile)
     return out if xp is x else out[..., :d].contiguous()
+
+
+class MoeGmm(torch.autograd.Function):
+    """K4 with its backward (``moe_gmm_bwd``), which recomputes G and U
+    from the saved inputs rather than keeping the forward's H."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down):
+        ctx.save_for_backward(x, w_gate, w_up, w_down)
+        return _moe_gmm_forward(x, w_gate, w_up, w_down)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return moe_gmm_bwd(*ctx.saved_tensors, dy.contiguous())
+
+
+def moe_gmm_bwd(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor,
+                dy: Tensor):
+    """The vjp of ``moe_gmm`` (see ``ref.moe_gmm_bwd_ref``) for the output
+    cotangent ``dy`` (E, C, d) -> (dx, dw_gate, dw_up, dw_down) in the
+    inputs' dtype.  On the card: bf16, any C; d or F off a multiple of 8
+    pads the operands as the forward does and slices the padded grads
+    back (counted in ``PAD_COPIES``); four launches, no atomics."""
+    _check_moe_shapes("moe_gmm_bwd", x, w_gate, w_up, w_down)
+    if dy.shape != x.shape:
+        raise ValueError(f"moe_gmm_bwd: dy {tuple(dy.shape)} against x "
+                         f"{tuple(x.shape)}")
+    if not _on_card("moe_gmm_bwd", x, w_gate, w_up, w_down, dy):
+        return ref.moe_gmm_bwd_ref(x, w_gate, w_up, w_down, dy)
+    _check_bf16("moe_gmm_bwd", x, w_gate, w_up, w_down, dy)
+    e, c, d = x.shape
+    f = w_gate.shape[-1]
+    if x.numel() == 0 or f == 0:
+        return (torch.zeros_like(x), torch.zeros_like(w_gate),
+                torch.zeros_like(w_up), torch.zeros_like(w_down))
+    xp, wg, wu, wd = pad_widths(x, w_gate, w_up, w_down)
+    dyp = dy
+    if wg is not w_gate:
+        PAD_COPIES["moe_gmm_bwd"] += 1
+        dyp = torch.nn.functional.pad(dy, (0, xp.shape[-1] - d))
+    dp, fp = xp.shape[-1], wg.shape[-1]
+    _check_aligned("moe_gmm_bwd", xp, wg, wu, wd, dyp)
+    scratch = torch.empty((3, e, c, fp), dtype=x.dtype, device=x.device)
+    dx = torch.empty_like(xp)
+    dwg, dwu, dwd = (torch.empty_like(wg), torch.empty_like(wu),
+                     torch.empty_like(wd))
+    _launch("moe_gmm_bwd", xp.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+            wd.data_ptr(), dyp.data_ptr(), scratch[0].data_ptr(),
+            scratch[1].data_ptr(), scratch[2].data_ptr(), dx.data_ptr(),
+            dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(), e, c, dp, fp)
+    if xp is x:
+        return dx, dwg, dwu, dwd
+    # the backward of pad_widths: the grads of the zero padding are
+    # sliced off
+    return (dx[..., :d].contiguous(), dwg[:, :d, :f].contiguous(),
+            dwu[:, :d, :f].contiguous(), dwd[:, :f, :d].contiguous())
 
 
 # ----------------------------------------------------------------- K5, K6
@@ -383,6 +595,7 @@ def _paged(name: str, q: Tensor, k_pages: Tensor, v_pages: Tensor,
                          f"{tuple(lengths.shape)}")
     if not _on_card(name, q, k_pages, v_pages, block_tables, lengths):
         return None
+    _no_backward(name, q, k_pages, v_pages)
     _check_bf16(name, q, k_pages, v_pages)
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError(f"{name}: block_tables and lengths must be int32")

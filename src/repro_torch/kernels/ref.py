@@ -16,6 +16,16 @@ and are no yardstick of speed.
   ``masked_attention``.
 * ``moe_gmm_ragged_ref`` — the ragged grouped fused SwiGLU.
 * ``moe_gmm_ref`` — the fused SwiGLU over the dense (E, C, d) buffer.
+
+And the plain versions of the two backward kernels, written out step by
+step (training differentiates K2 and K4; JAX's ``jax.grad`` of
+``masked_attention`` and ``expert_ffn_ref`` is what they compute):
+
+* ``prefill_attention_lse_ref`` — the per-row log-sum-exp that the
+  prefill kernel's forward writes when asked (its backward reads it).
+* ``prefill_attention_bwd_ref`` — (dq, dk, dv) of the prefill contract.
+* ``moe_gmm_bwd_ref`` — (dx, dw_gate, dw_up, dw_down) of the dense
+  SwiGLU.
 """
 
 from __future__ import annotations
@@ -205,3 +215,121 @@ def moe_gmm_ragged_ref(rows: Tensor, w_gate: Tensor, w_up: Tensor,
         h = F.silu(x @ w_gate[ex].float()) * (x @ w_up[ex].float())
         out.index_copy_(0, idx, h @ w_down[ex].float())
     return out.to(rows.dtype)
+
+
+# ------------------------------------------------------------- backwards
+
+
+def _prefill_visible(q: Tensor, k: Tensor, offset: Tensor,
+                     window: Optional[int], causal: bool) -> Tensor:
+    """(B, P, S_max) bool: key j visible to query i under the prefill
+    contract (``prefill_attention_ref``'s masks)."""
+    b, p = q.shape[:2]
+    s_max = k.shape[1]
+    kv_pos = torch.arange(s_max, device=q.device)
+    if not causal:
+        return torch.ones((b, p, s_max), dtype=torch.bool, device=q.device)
+    off = offset.to(device=q.device, dtype=torch.int64)
+    q_pos = off[:, None] + torch.arange(p, device=q.device)[None]
+    vis = ((kv_pos[None, None, :] <= q_pos[:, :, None])
+           & (kv_pos[None, None, :] < (off + p)[:, None, None]))
+    if window is not None:
+        vis = vis & (kv_pos[None, None, :] > q_pos[:, :, None] - window)
+    return vis
+
+
+def _grouped_scores(q: Tensor, k: Tensor, vis: Tensor) -> Tensor:
+    """Scaled fp32 scores (B, g, Hkv, P, S_max), g-major heads (query head
+    h = gi * Hkv + kv head), -inf where ``vis`` (B, P, S_max) is False."""
+    b, p, h, dk = q.shape
+    hkv = k.shape[2]
+    qf = q.reshape(b, p, h // hkv, hkv, dk).float()
+    s = torch.einsum("bqgkd,bskd->bgkqs", qf, k.float()) / math.sqrt(dk)
+    return s.masked_fill(~vis[:, None, None], float("-inf"))
+
+
+def prefill_attention_lse_ref(q: Tensor, k: Tensor, v: Tensor,
+                              offset: Tensor, *,
+                              window: Optional[int] = None,
+                              causal: bool = True) -> Tensor:
+    """(B, H, P) fp32: the natural-log log-sum-exp of each query row's
+    scaled scores over the keys it sees (``prefill_attention_ref``'s
+    masks); -inf for a row that sees none."""
+    b, p, h, _ = q.shape
+    vis = _prefill_visible(q, k, offset, window, causal)
+    lse = torch.logsumexp(_grouped_scores(q, k, vis), dim=-1)  # (B,g,Hkv,P)
+    return lse.reshape(b, h, p)
+
+
+def prefill_attention_bwd_ref(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
+                              lse: Tensor, do: Tensor, offset: Tensor, *,
+                              window: Optional[int] = None,
+                              causal: bool = True):
+    """The vjp of ``prefill_attention_ref`` at (q, k, v) for the output
+    cotangent ``do`` (B, P, H, dv), from the forward's output ``o`` and
+    log-sum-exp ``lse`` (B, H, P), in fp32:
+
+        P  = exp(S - lse)            S = q k^T / sqrt(dk), masked
+        D  = rowsum(dO o o)
+        dV = P^T dO        dP = dO V^T        dS = P o (dP - D)
+        dQ = dS K / sqrt(dk)          dK = dS^T Q / sqrt(dk)
+
+    with GQA's g query heads of a kv head summed into its dK and dV.
+    Returns (dq, dk, dv) in the dtypes of q, k and v; keys no query sees
+    get zero gradients."""
+    b, p, h, dk = q.shape
+    hkv, dv_w = k.shape[2], v.shape[3]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(dk)
+    vis = _prefill_visible(q, k, offset, window, causal)
+    lse_g = lse.float().reshape(b, g, hkv, p)
+    do_f = do.reshape(b, p, g, hkv, dv_w).float()
+    d_row = (do_f * o.reshape(b, p, g, hkv, dv_w).float()).sum(-1)
+    d_row = d_row.permute(0, 2, 3, 1)                         # (B,g,Hkv,P)
+    qf = q.reshape(b, p, g, hkv, dk).float()
+    kf, vf = k.float(), v.float()
+    dq = torch.empty_like(qf)
+    dk_ = torch.zeros_like(kf)
+    dv_ = torch.zeros_like(vf)
+    step = _Q_CHUNK if p >= _CHUNK_THRESHOLD else p
+    for i in range(0, p, step):
+        sl = slice(i, i + step)
+        s = _grouped_scores(q[:, sl], k, vis[:, sl])
+        prob = torch.where(vis[:, None, None, sl],
+                           torch.exp(s - lse_g[..., sl, None]), 0.0)
+        dv_ += torch.einsum("bgkqs,bqgkd->bskd", prob, do_f[:, sl])
+        dp = torch.einsum("bqgkd,bskd->bgkqs", do_f[:, sl], vf)
+        ds = prob * (dp - d_row[..., sl, None])
+        dq[:, sl] = torch.einsum("bgkqs,bskd->bqgkd", ds, kf) * scale
+        dk_ += torch.einsum("bgkqs,bqgkd->bskd", ds, qf[:, sl]) * scale
+    return (dq.reshape(b, p, h, dk).to(q.dtype), dk_.to(k.dtype),
+            dv_.to(v.dtype))
+
+
+def moe_gmm_bwd_ref(x: Tensor, w_gate: Tensor, w_up: Tensor,
+                    w_down: Tensor, dy: Tensor):
+    """The vjp of ``moe_gmm_ref`` for the output cotangent ``dy`` (E, C,
+    d), in fp32:
+
+        G = X Wg, U = X Wu, H = silu(G) U        dH = dY Wd^T
+        dG = dH o U o silu'(G)   dU = dH o silu(G)   silu' = s (1 + G (1 - s))
+        dX = dG Wg^T + dU Wu^T
+        dWg = X^T dG   dWu = X^T dU   dWd = H^T dY
+
+    per expert.  Returns (dx, dw_gate, dw_up, dw_down) in the inputs'
+    dtypes."""
+    xf, dyf = x.float(), dy.float()
+    wg, wu, wd = w_gate.float(), w_up.float(), w_down.float()
+    g = torch.bmm(xf, wg)
+    u = torch.bmm(xf, wu)
+    sig = torch.sigmoid(g)
+    act = g * sig
+    h = act * u
+    dh = torch.bmm(dyf, wd.transpose(1, 2))
+    dg = dh * u * (sig * (1.0 + g * (1.0 - sig)))
+    du = dh * act
+    dx = torch.bmm(dg, wg.transpose(1, 2)) + torch.bmm(du, wu.transpose(1, 2))
+    xt = xf.transpose(1, 2)
+    return (dx.to(x.dtype), torch.bmm(xt, dg).to(w_gate.dtype),
+            torch.bmm(xt, du).to(w_up.dtype),
+            torch.bmm(h.transpose(1, 2), dyf).to(w_down.dtype))

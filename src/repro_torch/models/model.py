@@ -32,9 +32,11 @@ embeddings in ``embed``; its M-RoPE gets three equal position planes.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention, blocks, layers
@@ -66,10 +68,15 @@ ENCODER_SPEC = BlockSpec(mixer="gqa", ffn="dense")
 
 
 class DecoderModel:
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, remat: bool = False):
         """``device`` defaults to ``cuda`` (raises without CUDA); pass
-        ``"cpu"`` to run the plain versions on the CPU."""
+        ``"cpu"`` to run the plain versions on the CPU.  ``remat``: run
+        each block without a cache under activation checkpointing
+        (``torch.utils.checkpoint``, non-reentrant), so the backward pass
+        recomputes its activations — the JAX package's ``jax.checkpoint``
+        per block, which its training launcher turns on."""
         self.cfg = cfg.validate()
+        self.remat = remat
         self.device = resolve_device(device)
         self.specs = cfg.block_specs()
         self.segments = cfg.scan_segments()
@@ -206,10 +213,15 @@ class DecoderModel:
         for b in range(start, start + n):
             s, r, p_idx = self.index_map[b]
             c = (_index(cache[s][p_idx], r) if cache is not None else None)
-            x, _, aux = blocks.apply_block(
-                self.cfg, self.specs[b], self.block_params(params, b), x,
-                positions=positions, offset=offset, cache=c, enc_out=enc_out,
-                valid=valid, dropless=dropless, moe_dispatch=moe_dispatch)
+            fn = functools.partial(
+                blocks.apply_block, self.cfg, self.specs[b],
+                self.block_params(params, b), positions=positions,
+                offset=offset, cache=c, enc_out=enc_out, valid=valid,
+                dropless=dropless, moe_dispatch=moe_dispatch)
+            if self.remat and cache is None:
+                x, _, aux = checkpoint(fn, x, use_reentrant=False)
+            else:
+                x, _, aux = fn(x)
             auxes.append(aux)
         return x, cache, auxes
 

@@ -1064,3 +1064,200 @@ def test_per_slice_prefill_on_the_card(cuda):
         out[packed] = (plans, eng.n_dispatches)
     assert out[True][0] == out[False][0]
     assert out[False][1] > out[True][1]
+
+
+# ------------------------------------------------ training: the backwards
+# Tolerances: bf16 inputs against the fp32 plain backward versions on the
+# same inputs, relative Frobenius per gradient within 2e-2 (the kernels
+# round P and dS, or H, dG and dU, to bf16 for the tensor cores, and every
+# gradient to bf16) and two launches bit for bit.
+
+BWD_TOL = 2e-2
+
+
+def _attn_bwd_inputs(rng, dev, b, p, s_max, h, hkv, hd):
+    q = _bf16(rng, (b, p, h, hd), dev)
+    k = _bf16(rng, (b, s_max, hkv, hd), dev)
+    v = _bf16(rng, (b, s_max, hkv, hd), dev)
+    do = _bf16(rng, (b, p, h, hd), dev)
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,p,s_max,h,hkv,hd,offsets", [
+    (2, 256, 256, 4, 4, 64, (0, 0)),          # minicpm's contract (g 1)
+    (1, 256, 256, 16, 2, 128, (0,)),          # qwen3's (g 8)
+    (1, 300, 300, 3, 1, 64, (0,)),            # tiles off P; g 3
+    (2, 40, 100, 6, 2, 128, (0, 37)),         # through a cache at offsets
+])
+def test_prefill_attention_bwd_kernel_matches_plain(cuda, b, p, s_max, h,
+                                                    hkv, hd, offsets):
+    """The forward's log-sum-exp and the three-pass backward against the
+    plain versions; keys no query sees get zero gradients; two calls give
+    the same bits."""
+    rng = np.random.default_rng(p + h)
+    q, k, v, do = _attn_bwd_inputs(rng, cuda, b, p, s_max, h, hkv, hd)
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    out, lse = ops._prefill_forward(q, k, v, off, None, True, True)
+    assert torch.equal(out, ops.prefill_attention(q, k, v, off))
+    want_lse = ref.prefill_attention_lse_ref(q, k, v, off)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    before = ops.LAUNCHES["prefill_attention_bwd"]
+    got = ops.prefill_attention_bwd(q, k, v, out, lse, do, off)
+    again = ops.prefill_attention_bwd(q, k, v, out, lse, do, off)
+    assert ops.LAUNCHES["prefill_attention_bwd"] == before + 2
+    want = ref.prefill_attention_bwd_ref(q, k, v, out, lse, do, off)
+    for name, g_, a_, w_ in zip(("dq", "dk", "dv"), got, again, want):
+        assert g_.dtype == torch.bfloat16 and torch.equal(g_, a_), name
+        assert torch.isfinite(g_.float()).all(), name
+        assert _rel_fro(g_, w_) <= BWD_TOL, (name, _rel_fro(g_, w_))
+    seen = ref._prefill_visible(q, k, off, None, True).any(dim=1)
+    assert (got[1][~seen] == 0).all() and (got[2][~seen] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f", [(4, 40, 128, 64), (3, 7, 64, 192),
+                                     (2, 130, 256, 96), (2, 9, 60, 20)])
+def test_moe_gmm_bwd_kernel_matches_plain(cuda, e, c, d, f):
+    """The four-launch backward against its plain version, at C off the
+    64-row tiles and, last, d and F off a multiple of 8 (the padded
+    operands, grads sliced back); two calls give the same bits."""
+    rng = np.random.default_rng(c + d)
+    args = (_bf16(rng, (e, c, d), cuda), _bf16(rng, (e, d, f), cuda, d ** -0.5),
+            _bf16(rng, (e, d, f), cuda, d ** -0.5),
+            _bf16(rng, (e, f, d), cuda, f ** -0.5))
+    dy = _bf16(rng, (e, c, d), cuda)
+    before = ops.LAUNCHES["moe_gmm_bwd"]
+    padded = ops.PAD_COPIES["moe_gmm_bwd"]
+    got = ops.moe_gmm_bwd(*args, dy)
+    again = ops.moe_gmm_bwd(*args, dy)
+    assert ops.LAUNCHES["moe_gmm_bwd"] == before + 2
+    assert ops.PAD_COPIES["moe_gmm_bwd"] == padded + 2 * bool(d % 8 or f % 8)
+    want = ref.moe_gmm_bwd_ref(*args, dy)
+    for name, g_, a_, w_, x_ in zip(("dx", "dwg", "dwu", "dwd"), got, again,
+                                    want, args):
+        assert g_.shape == x_.shape and g_.dtype == torch.bfloat16, name
+        assert torch.equal(g_, a_), name
+        assert _rel_fro(g_, w_) <= BWD_TOL, (name, _rel_fro(g_, w_))
+
+
+@pytest.mark.cuda
+def test_autograd_runs_the_backward_kernels(cuda):
+    """Through ``torch.autograd`` the wrappers' Functions launch the
+    backward kernels and give their gradients."""
+    rng = np.random.default_rng(5)
+    q, k, v, do = _attn_bwd_inputs(rng, cuda, 1, 64, 64, 4, 2, 64)
+    z = torch.zeros(1, dtype=torch.int32, device=cuda)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ops.reset_launches()
+    out = ops.prefill_attention(*leaves, z)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert ops.LAUNCHES["prefill_attention"] == 1
+    assert ops.LAUNCHES["prefill_attention_bwd"] == 1
+    _, lse = ops._prefill_forward(q, k, v, z, None, True, True)
+    for g_, w_ in zip(grads, ops.prefill_attention_bwd(q, k, v, out.detach(),
+                                                       lse, do, z)):
+        assert torch.equal(g_, w_)
+    args = [_bf16(rng, s, cuda, 0.1) for s in ((2, 16, 64), (2, 64, 32),
+                                                (2, 64, 32), (2, 32, 64))]
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    dy = _bf16(rng, (2, 16, 64), cuda)
+    grads = torch.autograd.grad(ops.moe_gmm(*leaves), leaves, dy)
+    assert ops.LAUNCHES["moe_gmm"] == 1 and ops.LAUNCHES["moe_gmm_bwd"] == 1
+    for g_, w_ in zip(grads, ops.moe_gmm_bwd(*args, dy)):
+        assert torch.equal(g_, w_)
+
+
+@pytest.mark.cuda
+def test_kernels_without_backward_refuse_inputs_that_require_grad(cuda):
+    """K1, K3, K5 and K6 raise rather than return an output autograd would
+    take for a constant; K2 does too at a contract its backward does not
+    take (a window, non-causal, hd 32 or (192, 128)).  Without grad mode
+    the same calls run."""
+    bf = dict(dtype=torch.bfloat16, device=cuda)
+    z = torch.zeros(1, dtype=torch.int32, device=cuda)
+    lens = torch.full((1,), 8, dtype=torch.int32, device=cuda)
+    q3 = torch.zeros(1, 4, 64, **bf, requires_grad=True)
+    kc = torch.zeros(1, 8, 2, 64, **bf)
+    with pytest.raises(RuntimeError, match="decode_attention.*no backward"):
+        ops.decode_attention(q3, kc, kc, lens)
+    w = torch.zeros(2, 64, 64, **bf, requires_grad=True)
+    rows = torch.zeros(16, 64, **bf)
+    te = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="moe_gmm_ragged.*no backward"):
+        ops.moe_gmm_ragged(rows, w, w, w, te, 8)
+    pages = torch.zeros(4, 4, 2, 64, **bf)
+    bt = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="paged_decode_attention"):
+        ops.paged_decode_attention(q3, pages, pages, bt, lens)
+    with pytest.raises(RuntimeError, match="paged_verify_attention"):
+        ops.paged_verify_attention(q3[:, None], pages, pages, bt, lens)
+    for hd, hd_v, kw in ((64, 64, dict(window=16)),
+                         (64, 64, dict(causal=False)), (32, 32, {}),
+                         (192, 128, {})):
+        q = torch.zeros(1, 8, 2, hd, **bf, requires_grad=True)
+        with pytest.raises(RuntimeError, match="prefill_attention.*no backward"):
+            ops.prefill_attention(q, torch.zeros(1, 8, 2, hd, **bf),
+                                  torch.zeros(1, 8, 2, hd_v, **bf), z, **kw)
+        with torch.no_grad():
+            ops.prefill_attention(q, torch.zeros(1, 8, 2, hd, **bf),
+                                  torch.zeros(1, 8, 2, hd_v, **bf), z, **kw)
+    with torch.no_grad():
+        ops.decode_attention(q3, kc, kc, lens)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
+def test_small_model_trains_on_the_card(cuda, moe):
+    """A small model (hd 64; MoE: 4 experts top-2, capacity-limited dense
+    dispatch) takes three train steps in bf16 on the card: finite losses,
+    K2 and its backward (and K4 and its backward) launched and nothing
+    else, every weight matrix changed, and step 1's loss within 2e-2
+    relative of the same step in fp32 on the CPU (plain versions)."""
+    from repro_torch.models.config import ModelConfig, MoEConfig
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training.train import make_train_step
+    cfg = ModelConfig(name="tiny", family="moe" if moe else "dense",
+                      n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                      head_dim=64, d_ff=256, vocab_size=512, max_seq_len=256,
+                      moe=MoEConfig(n_experts=4, top_k=2, expert_d_ff=64)
+                      if moe else MoEConfig(), dtype="bfloat16",
+                      param_dtype="bfloat16").validate()
+    gpu = DecoderModel(cfg, device="cuda", remat=True)
+    params = gpu.init_params(torch.Generator(device="cuda").manual_seed(0))
+    cpu_cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    cpu = DecoderModel(cpu_cfg, device="cpu")
+    p_cpu = ops.tree_map(lambda a: a.float().cpu(), params)
+    before = [x.clone() for x in topt.tree_leaves(params)]
+    rng = np.random.default_rng(0)
+    toks = rng.integers(1, 512, size=(2, 64))
+    batch = {"tokens": torch.from_numpy(toks),
+             "targets": torch.from_numpy(np.roll(toks, -1, 1)),
+             "mask": torch.ones(2, 64, dtype=torch.bool)}
+    opt = topt.adamw(lr=1e-3, total_steps=10, warmup=1)
+    _, _, m_cpu = make_train_step(cpu, opt)(p_cpu, opt.init(p_cpu), batch)
+    step = make_train_step(gpu, opt)
+    state = opt.init(params)
+    ops.reset_launches()
+    losses = []
+    for _ in range(3):
+        params, state, m = step(params, state,
+                                {k: v.to(cuda) for k, v in batch.items()})
+        losses.append(float(m["loss"]))
+    assert all(np.isfinite(losses)), losses
+    assert abs(losses[0] - float(m_cpu["loss"])) <= 2e-2 * float(
+        m_cpu["loss"])
+    launched = {k for k, v in ops.LAUNCHES.items() if v}
+    want = {"prefill_attention", "prefill_attention_bwd"}
+    if moe:
+        want |= {"moe_gmm", "moe_gmm_bwd"}
+    assert launched == want, ops.LAUNCHES
+    # every weight matrix moved (a norm's scale of 1.0 may not, stacked
+    # over the blocks or not: three steps of lr 1e-3 stay within half a
+    # bf16 ulp of 1.0, as they do under JAX)
+    from repro_torch.training.checkpoint import leaf_names
+    for name, a, b in zip(leaf_names(params), topt.tree_leaves(params),
+                          before):
+        assert name.endswith("scale") or not torch.equal(a, b), name

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: it imports neither JAX nor anything of
-the JAX package ``repro``, its smoke serve runs with ``jax`` blocked, and
+the JAX package ``repro`` (nor ``msgpack``), its smoke serve runs with ``jax`` blocked, and
 its entry points refuse to run without CUDA unless told to use the CPU."""
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ import runpy
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import pytest
@@ -34,7 +35,10 @@ def _imported_modules(path: Path):
 def test_port_imports_neither_jax_nor_repro(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
+        # msgpack: the JAX package's checkpoint format; the port's
+        # checkpoints are torch.save files (the card's machine has none)
+        assert top not in ("jax", "jaxlib", "repro", "msgpack"), \
+            f"{path}: imports {mod}"
 
 
 def _env():
@@ -93,3 +97,31 @@ def test_chip_smoke_fails_without_cuda_or_repo(tmp_path, capsys):
             runpy.run_path(str(script), run_name="__main__")
         assert exit_.value.code not in (0, None)
         assert '"ok"' not in capsys.readouterr().out
+
+
+def test_train_launcher_runs_with_jax_blocked():
+    """The training launcher (``repro_torch.launch.train``) trains with
+    ``jax``, ``repro`` and ``msgpack`` blocked, and refuses to run without
+    CUDA unless told to use the CPU."""
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'repro', 'msgpack'):\n"
+            "    sys.modules[m] = None\n"
+            "from repro_torch.launch import train\n"
+            "train.main(['--smoke', '--device', 'cpu', '--steps', '2',\n"
+            "            '--batch', '2', '--seq', '16', '--arch',\n"
+            "            'qwen3-moe-235b-a22b', '--ckpt', sys.argv[1]])\n")
+    with tempfile.TemporaryDirectory() as d:
+        out = subprocess.run([sys.executable, "-c", code, d + "/c.pt"],
+                             env=_env(), cwd=ROOT, capture_output=True,
+                             text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "[train] qwen3-moe-235b-a22b-smoke:" in out.stdout
+    assert "[train] step     1 loss=" in out.stdout
+    assert "[train] checkpoint -> " in out.stdout
+
+
+def test_train_launcher_without_cpu_flag_raises_without_cuda(monkeypatch):
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--smoke", "--steps", "1"])
