@@ -53,7 +53,15 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    unchanged by it) and K2's backward (three launches: D, dK/dV,
    dQ) at minicpm-2b's heads (36/36 of 64) and qwen3-30b-a3b's (32/4 of
    128), at the launcher's 8 x 256 tokens and at two 2048-token rows,
-   beside the plain backward and SDPA's backward; K4's backward (four
+   and at the contracts of the other three archs' attention:
+   recurrentgemma-9b's (16/1 of 256, window 2048) at 8 x 256 tokens and
+   at one 4096-token row, where the window binds; deepseek-v2-236b's MLA
+   (128 heads, dk 192, dv 128) at 8 x 256; whisper-base's cross-
+   attention (8 x 256 queries over 1500 frames, no causal mask) and its
+   encoder (1500 frames over themselves, not on the training path),
+   beside the plain backward and SDPA's backward, and the gradients at
+   (64, 64) and (128, 128) bit for bit those of the kernel before it
+   took these contracts (``K2_BWD_SHA256``); K4's backward (four
    launches) at qwen3's widths with C 160 (2048 tokens) and at widths off
    a multiple of 8 (the padded copy), beside the plain version and the
    bf16 bmm chain; each within ``BWD_REL_FRO`` of its fp32 plain version
@@ -76,8 +84,11 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    sections): the encoder, the cross K/V, a prefill and a decode step
    through the cache, and the forward with the encoder output or with 8
    patch embeddings prepended, within ``E2E_REL_FRO``; K2 and K3 only.
-   Then two small models at the backward kernels' contracts (a
-   dense one at minicpm's head shape, a MoE one at qwen3's) train 5
+   Then five small models at the backward kernels' contracts (a
+   dense one at minicpm's head shape, a MoE one at qwen3's, an MLA + MoE
+   one at (192, 128), an RG-LRU + local one at 16/1 heads of 256 under a
+   window shorter than the sequence, a whisper one with cross-attention
+   over 150 frames) train 5
    steps in bf16 on the card and in fp32 on the CPU: losses and step 1's
    gradients leaf by leaf within ``E2E_REL_FRO``, tokens routed otherwise
    at router near-ties only.
@@ -207,8 +218,14 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    full width and depth (2.73 B parameters; K2 and its backward) 20
    steps, then qwen3-30b-a3b at full width and the depth the card holds
    at 12 B a parameter (the reckoning logged; K2 at g 8, K4 and their
-   backwards) 10 steps: every loss finite, ce falling, the matrices
-   moved, the training path's kernels only, one host sync per logged
+   backwards) 10 steps; whisper-base at full depth (K2 causal and
+   non-causal over its 1500 frames) 20 steps; recurrentgemma-9b at full
+   width and the depth the card holds, a multiple of its 3-block pattern
+   (K2 at (256, 256), window 2048) 10 steps; deepseek-v2-236b at full
+   width, its dense block 0 and the MoE blocks the card holds (K2 at (192,
+   128), K4 and their backwards) 10 steps: every loss finite, ce falling,
+   the matrices the loss reaches moved, the training path's kernels
+   only, one host sync per logged
    step, and step 1's loss, ce and grad norm within ``TRAIN_LOSS_REL`` /
    ``TRAIN_GNORM_REL`` of the same step in fp32 through the plain
    versions on the card (the yardstick; the trainer's path never calls a
@@ -3039,42 +3056,66 @@ TRAIN_B, TRAIN_SEQ = 8, 256            # the training launcher's defaults
 QWEN3_TRAIN_C = 160
 
 
-def _visible_pairs(b: int, p: int) -> int:
-    """(query, key) pairs of causal no-cache attention over P tokens."""
-    return b * p * (p + 1) // 2
+def _train_pairs(b: int, p: int, s_max: int, window, causal: bool) -> int:
+    """(query, key) pairs of attention without a cache (offset 0): causal
+    under an optional window, or every query over all S_max keys."""
+    if not causal:
+        return b * p * s_max
+    return b * sum(min(i + 1, window or p) for i in range(p))
 
 
-def check_prefill_attention_bwd(tag: str, gen, b: int, p: int,
-                                heads) -> list:
-    """K2's forward with the log-sum-exp and its backward at the training
-    path's contract (no cache: offset 0, S_max = P, causal), against the
-    plain versions; two launches bit for bit; timed beside the plain
-    backward and SDPA's backward (forward + backward through autograd,
-    minus its forward; KV repeated g-major).  Returns the forward row (at
-    the training shape, with the log-sum-exp) and the backward row."""
+def _sdpa_train(qt, kt, vt, mask, is_causal, dot):
+    """SDPA's forward and its forward + backward through autograd minus
+    its forward, in ms: the yardstick (every training shape here has a
+    backend that takes it)."""
     import torch
     import torch.nn.functional as F
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              is_causal=is_causal)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+    return (cuda_time(fwd, iters=5),
+            cuda_time(fwd_bwd, iters=5) - cuda_time(fwd, iters=5))
+
+
+def check_prefill_attention_bwd(tag: str, gen, b: int, p: int, heads,
+                                s_max=None, window=None,
+                                causal: bool = True) -> list:
+    """K2's forward with the log-sum-exp and its backward at a training
+    path's contract (no cache: offset 0; S_max = P for self-attention,
+    or the encoder's frames with ``causal=False``; ``heads`` is (H, Hkv,
+    hd) or (H, Hkv, hd, hd_v)), against the plain versions; two launches
+    bit for bit; timed beside the plain backward and SDPA's backward
+    (forward + backward through autograd, minus its forward; KV repeated
+    g-major; the window as a boolean mask).  Returns the forward row (with
+    the log-sum-exp) and the backward row."""
+    import torch
     from repro_torch.kernels import ops, ref
-    h, hkv, hd = heads
+    h, hkv, hd, hd_v = _heads(heads)
+    s_max = s_max or p
     dev = torch.device("cuda")
     q, k, v, do = (torch.randn(s, device=dev, generator=gen).to(torch.bfloat16)
-                   for s in ((b, p, h, hd), (b, p, hkv, hd), (b, p, hkv, hd),
-                             (b, p, h, hd)))
+                   for s in ((b, p, h, hd), (b, s_max, hkv, hd),
+                             (b, s_max, hkv, hd_v), (b, p, h, hd_v)))
     off = torch.zeros(b, dtype=torch.int32, device=dev)
-    out, lse = ops._prefill_forward(q, k, v, off, None, True, True)
-    plain_out = ops.prefill_attention(q, k, v, off)
-    want_lse = ref.prefill_attention_lse_ref(q, k, v, off)
+    kw = dict(window=window, causal=causal)
+    out, lse = ops._prefill_forward(q, k, v, off, window, causal, True)
+    plain_out = ops.prefill_attention(q, k, v, off, **kw)
+    want_lse = ref.prefill_attention_lse_ref(q, k, v, off, **kw)
     torch.cuda.synchronize()
     lse_err = (lse - want_lse).abs().max().item()
     if not torch.equal(out, plain_out):
         raise AssertionError(f"prefill_attention[{tag}]: the output with "
                              "the log-sum-exp differs from the output without")
-    if not lse_err <= 1e-3:
+    if not lse_err <= 1e-4:
         raise AssertionError(f"prefill_attention[{tag}]: log-sum-exp off by "
                              f"{lse_err}")
-    got = ops.prefill_attention_bwd(q, k, v, out, lse, do, off)
-    again = ops.prefill_attention_bwd(q, k, v, out, lse, do, off)
-    want = ref.prefill_attention_bwd_ref(q, k, v, out, lse, do, off)
+    got = ops.prefill_attention_bwd(q, k, v, out, lse, do, off, **kw)
+    again = ops.prefill_attention_bwd(q, k, v, out, lse, do, off, **kw)
+    want = ref.prefill_attention_bwd_ref(q, k, v, out, lse, do, off, **kw)
     torch.cuda.synchronize()
     rels, max_abs = {}, 0.0
     for name, g_, a_, w_ in zip(("dq", "dk", "dv"), got, again, want):
@@ -3084,53 +3125,65 @@ def check_prefill_attention_bwd(tag: str, gen, b: int, p: int,
         d_ = g_.float() - w_.float()
         rels[name] = (d_.norm() / w_.float().norm()).item()
         max_abs = max(max_abs, d_.abs().max().item())
-    log(f"prefill_attention_bwd[{tag}] B {b} P {p} {h}/{hkv} heads of {hd}: "
-        f"rel Frobenius {({k_: f'{v_:.3e}' for k_, v_ in rels.items()})} "
-        f"(tol {BWD_REL_FRO}), max abs {max_abs:.3e}; forward log-sum-exp "
-        f"max abs {lse_err:.3e}")
+    # the dK/dV pass: one CTA per (key tile, kv head, row); 32-key tiles
+    # past dk 128, each walking the g query heads of its kv head
+    kt_keys = 32 if hd > 128 else 64
+    ctas = {"dkdv": -(-s_max // kt_keys) * hkv * b, "dq": -(-p // 64) * h * b}
+    log(f"prefill_attention_bwd[{tag}] B {b} P {p} S_max {s_max} {h}/{hkv} "
+        f"heads of {hd}/{hd_v}{f' window {window}' if window else ''}"
+        f"{'' if causal else ' non-causal'}: rel Frobenius "
+        f"{({k_: f'{v_:.3e}' for k_, v_ in rels.items()})} (tol "
+        f"{BWD_REL_FRO}), max abs {max_abs:.3e}; forward log-sum-exp max abs "
+        f"{lse_err:.3e}; CTAs {ctas}")
     if max(rels.values()) > BWD_REL_FRO:
         raise AssertionError(f"prefill_attention_bwd[{tag}] disagrees: {rels}")
     del want, again
-    pairs = _visible_pairs(b, p) * h
+    pairs = _train_pairs(b, p, s_max, window, causal) * h
     # inputs q, k, v, o, dO and the log-sum-exp read once, dq, dk, dv
-    # written once; five products (S, dP, dV, dK, dQ) of 2 hd flops a pair
-    nbytes = 2 * (2 * q.numel() + 4 * k.numel() + out.numel()
+    # written once; five products of a pair: S, dK, dQ over hd and dP, dV
+    # over hd_v
+    nbytes = 2 * (2 * (q.numel() + k.numel() + v.numel()) + out.numel()
                   + do.numel()) + 4 * lse.numel()
-    b_ms, b_by = bound_ms(nbytes, 10 * hd * pairs)
+    flops = 2 * (3 * hd + 2 * hd_v) * pairs
+    b_ms, b_by = bound_ms(nbytes, flops)
     ms = cuda_time(lambda: ops.prefill_attention_bwd(q, k, v, out, lse, do,
-                                                     off), iters=5)
+                                                     off, **kw), iters=5)
     plain = cuda_time(lambda: ref.prefill_attention_bwd_ref(
-        q, k, v, out, lse, do, off), iters=2)
+        q, k, v, out, lse, do, off, **kw), iters=2)
     g = h // hkv
     qt = q.transpose(1, 2).detach().requires_grad_(True)
     kt = k.transpose(1, 2).repeat(1, g, 1, 1).detach().requires_grad_(True)
     vt = v.transpose(1, 2).repeat(1, g, 1, 1).detach().requires_grad_(True)
-    dot = do.transpose(1, 2)
-
-    def sdpa_fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-
-    def sdpa_fwd_bwd():
-        torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
-    lib = cuda_time(sdpa_fwd_bwd, iters=5) - cuda_time(sdpa_fwd, iters=5)
-    fwd_bytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
-    fb_ms, fb_by = bound_ms(fwd_bytes, 4 * hd * pairs)
-    fwd_ms = cuda_time(lambda: ops._prefill_forward(q, k, v, off, None, True,
-                                                    True), iters=5)
-    fwd_plain = cuda_time(lambda: (ref.prefill_attention_ref(q, k, v, off),
-                                   ref.prefill_attention_lse_ref(q, k, v, off)),
+    mask = None
+    if causal and window:
+        pos = torch.arange(s_max, device=dev)
+        mask = ((pos[None, :] <= pos[:p, None])
+                & (pos[None, :] > pos[:p, None] - window))
+    lib_fwd, lib = _sdpa_train(qt, kt, vt, mask, causal and not window,
+                               do.transpose(1, 2))
+    del qt, kt, vt, mask
+    mask_note = ("is_causal" if causal and not window else
+                 "a boolean window mask" if causal else "no mask")
+    fwd_bytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) \
+        + 4 * lse.numel()
+    fb_ms, fb_by = bound_ms(fwd_bytes, 2 * (hd + hd_v) * pairs)
+    fwd_ms = cuda_time(lambda: ops._prefill_forward(q, k, v, off, window,
+                                                    causal, True), iters=5)
+    fwd_plain = cuda_time(lambda: (ref.prefill_attention_ref(q, k, v, off, **kw),
+                                   ref.prefill_attention_lse_ref(q, k, v, off,
+                                                                 **kw)),
                           iters=2)
-    shape = {"B": b, "P": p, "S_max": p, "offsets": 0, "H": h, "Hkv": hkv,
-             "hd": hd, "hd_v": hd, "window": None, "causal": True}
+    shape = {"B": b, "P": p, "S_max": s_max, "offsets": 0, "H": h, "Hkv": hkv,
+             "hd": hd, "hd_v": hd_v, "window": window, "causal": causal}
     return [{"name": f"prefill_attention[{tag}, lse]", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/prefill_attention.cu",
              "replaces": "src/repro/kernels/flash_attention.py:78",
              "max_abs_err": (out.float() - ref.prefill_attention_ref(
-                 q, k, v, off).float()).abs().max().item(),
+                 q, k, v, off, **kw).float()).abs().max().item(),
              "lse_max_abs_err": lse_err, "ms": fwd_ms, "plain_ms": fwd_plain,
-             "bound_ms": fb_ms, "bound_by": fb_by,
-             "library_ms": cuda_time(sdpa_fwd, iters=5),
-             "library_note": "SDPA forward, is_causal, KV repeated g-major",
+             "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": lib_fwd,
+             "library_note": f"SDPA forward, {mask_note}, KV repeated "
+                             "g-major",
              "shape": shape},
             {"name": f"prefill_attention_bwd[{tag}]", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/prefill_attention_bwd.cu",
@@ -3140,9 +3193,41 @@ def check_prefill_attention_bwd(tag: str, gen, b: int, p: int,
              "max_abs_err": max_abs, "rel_fro_err": rels, "ms": ms,
              "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
              "library_ms": lib,
-             "library_note": "SDPA (is_causal, KV repeated g-major) forward "
-                             "+ backward through autograd minus its forward",
-             "achieved_tflops": 10 * hd * pairs / ms / 1e9, "shape": shape}]
+             "library_note": f"SDPA ({mask_note}, KV repeated g-major) "
+                             "forward + backward through autograd minus "
+                             "its forward",
+             "ctas": ctas, "achieved_tflops": flops / ms / 1e9,
+             "shape": shape}]
+
+
+# K2's backward at (64, 64) and (128, 128) on inputs built by integer
+# hashing (``hashed_bf16``): the sha256 of dq, dk and dv at minicpm-2b's
+# and qwen3-30b-a3b's training shapes, one at P off the tiles (g 3) and
+# one at g 8 over one kv head.  The digest was taken from the kernel
+# before it took every contract of the forward (the tree of the parent
+# commit, built and run on an H100); at those widths, causal and without
+# a window, the kernel must give the same bits.  (B, P, H, Hkv, hd)
+K2_BWD_CASES = ((8, 256, 36, 36, 64), (8, 256, 32, 4, 128),
+                (2, 300, 12, 4, 64), (1, 200, 8, 1, 128))
+K2_BWD_SHA256 = "deb003311f295bc6"
+
+
+def k2_bwd_digest() -> str:
+    """sha256 (first 16 hex digits) of K2's backward on K2_BWD_CASES."""
+    import torch
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    h = hashlib.sha256()
+    for n, (b, p, nh, hkv, hd) in enumerate(K2_BWD_CASES):
+        q = hashed_bf16((b, p, nh, hd), 4 * n, dev)
+        k = hashed_bf16((b, p, hkv, hd), 4 * n + 1, dev)
+        v = hashed_bf16((b, p, hkv, hd), 4 * n + 2, dev)
+        do = hashed_bf16((b, p, nh, hd), 4 * n + 3, dev)
+        off = torch.zeros(b, dtype=torch.int32, device=dev)
+        out, lse = ops._prefill_forward(q, k, v, off, None, True, True)
+        for g in ops.prefill_attention_bwd(q, k, v, out, lse, do, off):
+            h.update(g.view(torch.int16).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def check_moe_gmm_bwd(tag: str, c: int, gen, widths=QWEN3_MOE) -> dict:
@@ -3223,7 +3308,7 @@ def check_moe_gmm_bwd(tag: str, c: int, gen, widths=QWEN3_MOE) -> dict:
 
 
 def small_train_configs():
-    """Two small models at the backward kernels' contracts, bf16: a dense
+    """Five small models at the backward kernels' contracts, bf16: a dense
     one at minicpm-2b's head shape (4/4 heads of 64: g 1, tied
     embeddings) and a MoE one at qwen3-30b-a3b's (8/1 heads of 128: g 8;
     a dense first block, then 8 experts top-2 of d_ff 128 under the dense
@@ -3233,10 +3318,17 @@ def small_train_configs():
     the tokens after it (seen: 137 against 136 drops, then block 1 routes
     tokens otherwise at fp32 margins up to 0.015), and the comparison
     would measure that cascade, not the kernels.  The dropping path is
-    held by phase 9's qwen3 run against its fp32 yardstick."""
+    held by phase 9's qwen3 and deepseek runs against their fp32
+    yardsticks.  Then phase 3's small MLA model (K2 at (192, 128); its 8
+    experts top-2 at capacity factor 4 for the same reason), its small
+    RG-LRU + local model (16/1 heads of 256, window 32 < the 128-token
+    sequence: the window binds) and its small whisper model (cross-
+    attention over 150 frames: K2 without the causal mask, its last key
+    tile partial)."""
     from repro_torch.models.config import ModelConfig, MoEConfig
     base = dict(n_layers=2, d_model=256, d_ff=512, vocab_size=1024,
                 max_seq_len=512, dtype="bfloat16", param_dtype="bfloat16")
+    mla = small_mla_config()
     return [ModelConfig(name="train-dense-small", family="dense", n_heads=4,
                         n_kv_heads=4, head_dim=64, tie_embeddings=True,
                         **base).validate(),
@@ -3244,12 +3336,20 @@ def small_train_configs():
                         n_kv_heads=1, head_dim=128, dense_block_ids=(0,),
                         moe=MoEConfig(n_experts=8, top_k=2, expert_d_ff=128,
                                       capacity_factor=4.0),
-                        **base).validate()]
+                        **base).validate(),
+            dataclasses.replace(mla, name="train-mla-small",
+                                moe=dataclasses.replace(
+                                    mla.moe, capacity_factor=4.0)).validate(),
+            small_recurrent_configs()[0], small_encdec_configs()[0]]
 
 
-def _grads_of(model, params, batch, record: list):
-    """(metrics, gradient leaves, routes) of ``loss_fn`` at ``params``:
-    each MoE block's (expert ids, probabilities) recorded."""
+def _grads_of(model, params, batch, record: list, pinned=None):
+    """(metrics, gradient leaves) of ``loss_fn`` at ``params``: each MoE
+    block's own (expert ids, probabilities) recorded.  With ``pinned``
+    (the expert ids of a model's one MoE block) every token takes those
+    experts instead, weighted by its own renormalised router
+    probabilities: the routes of another run, so that a comparison of
+    gradients does not measure a near-tie's flip."""
     import torch
     from repro_torch.models import moe
     from repro_torch.training.optimizer import tree_leaves
@@ -3262,11 +3362,15 @@ def _grads_of(model, params, batch, record: list):
     def recorded(*args):
         out = route(*args)
         record.append((out[0].detach().cpu(), out[2].detach().float().cpu()))
+        if pinned is not None:
+            idx = pinned.to(out[0].device)
+            w = out[2].gather(1, idx)
+            out = (idx, w / w.sum(dim=-1, keepdim=True), out[2])
         return out
     moe.route = recorded
     try:
         loss, m = loss_fn(model, params, batch["tokens"], batch["targets"],
-                          batch["mask"])
+                          batch["mask"], batch.get("enc_out"))
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:
         moe.route = route
@@ -3282,10 +3386,16 @@ def check_small_training_end_to_end() -> None:
     (K2 and its backward, and K4 and its backward) and in fp32 on the CPU
     (plain versions) from the same weights and ``PackedDataset`` batches:
     every loss within ``E2E_REL_FRO``; step 1's gradients leaf by leaf
-    within ``E2E_REL_FRO`` relative Frobenius.  Every token's expert set is
-    recorded on both sides (under the remat's recompute too): a token
-    routed otherwise must sit at a router near-tie (``ROUTER_TIE``), at
-    most one token in 16."""
+    within ``E2E_REL_FRO`` relative Frobenius, the card's MoE block
+    pinned to the fp32 side's routes (a token routed otherwise changes its
+    whole contribution to every gradient: 7 of 512 tokens flipped at
+    margins under 1e-3 moved the small MLA model's leaves by ~0.1).  Every
+    token's own expert set is recorded on both sides (under the remat's
+    recompute too): a token routed otherwise must sit at a router near-tie
+    (``ROUTER_TIE``), at most one token in 16.  The encoder-decoder model
+    takes seeded frames (normal, rounded to bf16), the same on both sides,
+    so that its cross-attention's gradients are not zero."""
+    import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models.model import DecoderModel
@@ -3303,10 +3413,20 @@ def check_small_training_end_to_end() -> None:
                                 seq_len=128, batch_size=4, seed=0))
         host = [next(ds) for _ in range(5)]
         ra, rb = [], []
+        b_cpu, b_gpu = (device_batch(cpu, *host[0]),
+                        device_batch(gpu, *host[0]))
+        if cfg.encoder.enabled:
+            frames = torch.from_numpy(np.random.default_rng(7).standard_normal(
+                tuple(b_cpu["enc_out"].shape)).astype(np.float32)).bfloat16()
+            b_cpu["enc_out"] = frames.float()
+            b_gpu["enc_out"] = frames.cuda()
+        mc, gc_ = _grads_of(cpu, p_cpu, b_cpu, rb)
+        if len(rb) > 1:
+            raise AssertionError(f"{cfg.name}: pinning takes one MoE block")
         ops.reset_launches()
-        mg, gg = _grads_of(gpu, params, device_batch(gpu, *host[0]), ra)
+        mg, gg = _grads_of(gpu, params, b_gpu, ra,
+                           pinned=rb[0][0] if rb else None)
         launched = dict(ops.LAUNCHES)
-        mc, gc_ = _grads_of(cpu, p_cpu, device_batch(cpu, *host[0]), rb)
         need = ["prefill_attention", "prefill_attention_bwd"]
         if cfg.moe.enabled:
             need += ["moe_gmm", "moe_gmm_bwd"]
@@ -3344,7 +3464,9 @@ def check_small_training_end_to_end() -> None:
         opt = adamw(lr=1e-3, schedule="wsd", total_steps=5, warmup=1)
         losses = []
         for model, p_, dev in ((gpu, params, "cuda"), (cpu, p_cpu, "cpu")):
-            step, state, out = make_train_step(model, opt), opt.init(p_), []
+            step, state, out = (make_train_step(model, opt,
+                                                cfg.encoder.enabled),
+                                opt.init(p_), [])
             for hb in host:
                 p_, state, m = step(p_, state, device_batch(model, *hb))
                 out.append(float(m["loss"]))
@@ -3375,10 +3497,12 @@ def _plain_kernels():
     return restore
 
 
-def fp32_yardstick(cfg, params, host_batch) -> dict:
+def fp32_yardstick(cfg, params, host_batch):
     """Step 1's loss, ce, aux_loss, dropped and grad norm in fp32 through
     the plain versions on the card, from the same weights (converted) and
-    batch, with remat: the yardstick of the bf16 kernel step."""
+    batch, with remat: the yardstick of the bf16 kernel step.  Also the
+    indices of the leaves whose gradient is zero (whisper's encoder and
+    cross K/V projections: the batch's ``enc_out`` is zeros)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models.model import DecoderModel
@@ -3396,10 +3520,11 @@ def fp32_yardstick(cfg, params, host_batch) -> dict:
     for g in grads:
         sq = sq + torch.sum(torch.square(g.float()))
     m["grad_norm"] = float(torch.sqrt(sq))
+    unreached = {i for i, g in enumerate(grads) if not bool(g.any())}
     del p32, grads
     gc.collect()
     torch.cuda.empty_cache()
-    return m
+    return m, unreached
 
 
 def train_model(arch: str, times: dict, steps: int, n_layers=None,
@@ -3437,18 +3562,20 @@ def train_model(arch: str, times: dict, steps: int, n_layers=None,
         f"params ({torch.cuda.memory_allocated() / 1e9:.1f} GB bf16) in "
         f"{time.perf_counter() - t0:.1f} s")
     t1 = time.perf_counter()
-    yard = fp32_yardstick(cfg, params, host[0])
+    yard, unreached = fp32_yardstick(cfg, params, host[0])
     t_yard = time.perf_counter() - t1
     opt = adamw(lr=6e-4, schedule="wsd", total_steps=steps + 1,
                 warmup=max((steps + 1) // 10, 1))
     trainer = Trainer(model=model, opt=opt, params=params)
-    # the first 2^20 elements of every weight matrix (a norm's scale of
-    # 1.0 may stay: a step of lr <= 6e-4 moves it by less than half a bf16
-    # ulp, as under JAX)
+    # the first 2^20 elements of every weight matrix the loss reaches (a
+    # norm's scale of 1.0 may stay: a step of lr <= 6e-4 moves it by less
+    # than half a bf16 ulp, as under JAX; a leaf of zero gradient moves by
+    # weight decay alone, less than that)
     probe = {i: p_.reshape(-1)[:1 << 20].clone()
              for i, (name, p_) in enumerate(zip(ck.leaf_names(params),
                                                 tree_leaves(params)))
-             if p_.dim() >= 2 and not name.endswith(("scale", "bias"))}
+             if p_.dim() >= 2 and not name.endswith(("scale", "bias"))
+             and i not in unreached}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
@@ -3473,7 +3600,8 @@ def train_model(arch: str, times: dict, steps: int, n_layers=None,
         f"versions on the card, {t_yard:.1f} s): loss {first['loss']:.5f} / "
         f"{yard['loss']:.5f}, ce {first['ce']:.5f} / {yard['ce']:.5f}, "
         f"grad norm {first['grad_norm']:.4f} / {yard['grad_norm']:.4f}, "
-        f"dropped {first['dropped']:.0f} / {yard['dropped']:.0f}; rel "
+        f"dropped {first['dropped']:.0f} / {yard['dropped']:.0f}, leaves of "
+        f"zero gradient {len(unreached)}; rel "
         f"{ {k: f'{v:.2e}' for k, v in rel.items()} } (tol loss, ce "
         f"{TRAIN_LOSS_REL}, grad norm {TRAIN_GNORM_REL})")
     if not all(math.isfinite(h_["loss"]) for h_ in hist):
@@ -3571,43 +3699,52 @@ def meta_tree(tree):
     return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
 
 
-def qwen3_train_depth() -> int:
-    """The qwen3-30b-a3b layers one card trains at 12 B a parameter (bf16
-    weights and grads, fp32 AdamW moments) beside the untied embedding and
-    head, keeping 12 GB for activations (remat), the fp32 logits and the
-    optimizer's chunked temporaries; the reckoning is logged."""
+def train_depth(arch: str, period: int = 1) -> int:
+    """The layers of ``arch`` one card trains at 12 B a parameter (bf16
+    weights and grads, fp32 AdamW moments), embeddings and head included,
+    keeping 12 GB for activations (remat), the fp32 logits and the
+    optimizer's chunked temporaries: the most a multiple of ``period``
+    (a block pattern's length) allows, up to the full depth; the
+    reckoning is logged."""
     import torch
     from repro_torch.configs import get_config
-    cfg = get_config("qwen3-30b-a3b")
-    d, f, e = cfg.d_model, cfg.moe.expert_d_ff, cfg.moe.n_experts
-    hd = cfg.head_dim_
-    layer = (d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) + d * e
-             + 3 * e * d * f + 2 * d)
-    embed = 2 * cfg.vocab_size * d + d
+    cfg = get_config(arch)
     free = torch.cuda.mem_get_info()[0]
-    depth = int((free - 12e9 - 12 * embed) // (12 * layer))
-    depth = max(1, min(depth, cfg.n_layers))
-    log(f"qwen3-30b-a3b training depth: {free / 1e9:.2f} GB free, "
-        f"{layer / 1e6:.1f} M params a layer and {embed / 1e6:.1f} M in the "
-        f"embedding and head at 12 B a parameter, 12 GB kept: {depth} of "
-        f"{cfg.n_layers} layers")
+
+    def params(n):
+        return dataclasses.replace(cfg, n_layers=n).param_count()
+
+    depth = cfg.n_layers
+    while depth > period and 12 * params(depth) + 12e9 > free:
+        depth = (depth - 1) // period * period
+    log(f"{arch} training depth: {free / 1e9:.2f} GB free, "
+        f"{(params(depth) - params(0)) / depth / 1e6:.1f} M params a layer "
+        f"on average and {params(0) / 1e6:.1f} M in the embeddings and head, "
+        f"12 B a parameter, 12 GB kept: {depth} of {cfg.n_layers} layers "
+        f"({12 * params(depth) / 1e9:.1f} GB)")
     return depth
 
 
 def train_models(times: dict) -> dict:
     """Phase 9: minicpm-2b at full width and depth (K2 and its backward,
-    with a checkpoint round trip), then qwen3-30b-a3b at full width and
-    the depth the card holds (K2 at g 8 and K4, with their backwards)."""
+    with a checkpoint round trip), then at full width and the depth the
+    card holds: qwen3-30b-a3b (K2 at g 8 and K4, with their backwards),
+    whisper-base (full depth; K2 causal and over the 1500 frames),
+    recurrentgemma-9b (a multiple of its RG-LRU, RG-LRU, local pattern;
+    K2 at (256, 256) under the window) and deepseek-v2-236b (its dense
+    block 0 and the MoE blocks that fit; K2 at (192, 128) and K4)."""
     import torch
     runs = {}
-    runs["minicpm-2b train"] = train_model("minicpm-2b", times, steps=20,
-                                           ckpt=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    runs["qwen3-30b-a3b train"] = train_model(
-        "qwen3-30b-a3b", times, steps=10, n_layers=qwen3_train_depth())
-    gc.collect()
-    torch.cuda.empty_cache()
+    for arch, steps, period, ckpt in (("minicpm-2b", 20, None, True),
+                                      ("qwen3-30b-a3b", 10, 1, False),
+                                      ("whisper-base", 20, None, False),
+                                      ("recurrentgemma-9b", 10, 3, False),
+                                      ("deepseek-v2-236b", 10, 1, False)):
+        runs[f"{arch} train"] = train_model(
+            arch, times, steps=steps, ckpt=ckpt,
+            n_layers=train_depth(arch, period) if period else None)
+        gc.collect()
+        torch.cuda.empty_cache()
     return runs
 
 
@@ -3618,6 +3755,14 @@ def model_of(row: str) -> str:
                       ("qwen3 train", "qwen3-30b-a3b train"),
                       ("qwen3 P 2048", "qwen3-30b-a3b train"),
                       ("bwd[padded]", "qwen3-30b-a3b train"),
+                      ("recurrentgemma train", "recurrentgemma-9b train"),
+                      ("recurrentgemma P 4096", "recurrentgemma-9b train"),
+                      ("deepseek train", "deepseek-v2-236b train"),
+                      ("whisper cross train", "whisper-base train"),
+                      # the training path feeds enc_out and runs no
+                      # encoder; whisper-base's serves run it (K2 non-
+                      # causal at 1500 frames) at every admission
+                      ("whisper encoder train", "whisper-base"),
                       ("recurrentgemma", "recurrentgemma-9b"),
                       ("whisper", "whisper-base"),
                       ("qwen2-vl", "qwen2-vl-72b"),
@@ -3827,6 +3972,36 @@ def main() -> None:
     kernels += [check_moe_gmm_bwd("qwen3 train", QWEN3_TRAIN_C, gen),
                 check_moe_gmm_bwd("padded", 40, gen, (8, 2, 2044, 764))]
     torch.cuda.empty_cache()
+    # the other archs' training attention: recurrentgemma-9b's local
+    # attention (16/1 heads of 256, window 2048) at the launcher's 8 x 256
+    # tokens and at one 4096-token row, where the window binds;
+    # deepseek-v2-236b's MLA (128 heads, 192/128); whisper-base's cross-
+    # attention (8 x 256 over 1500 frames) and its encoder (1500 over
+    # 1500: not on the training path, which feeds enc_out)
+    kernels += check_prefill_attention_bwd(
+        "recurrentgemma train", gen, TRAIN_B, TRAIN_SEQ, RECURRENTGEMMA_ATTN,
+        window=2048)
+    kernels += check_prefill_attention_bwd(
+        "recurrentgemma P 4096", gen, 1, 4096, RECURRENTGEMMA_ATTN,
+        window=2048)
+    torch.cuda.empty_cache()
+    kernels += check_prefill_attention_bwd("deepseek train", gen, TRAIN_B,
+                                           TRAIN_SEQ, DEEPSEEK_ATTN)
+    torch.cuda.empty_cache()
+    kernels += check_prefill_attention_bwd(
+        "whisper cross train", gen, TRAIN_B, TRAIN_SEQ, WHISPER_ATTN,
+        s_max=WHISPER_FRAMES, causal=False)
+    kernels += check_prefill_attention_bwd(
+        "whisper encoder train", gen, 1, WHISPER_FRAMES, WHISPER_ATTN,
+        causal=False)
+    torch.cuda.empty_cache()
+    digest = k2_bwd_digest()
+    log(f"prefill_attention_bwd at (64, 64) and (128, 128): gradients sha256 "
+        f"{digest} (the kernel before it took every contract: "
+        f"{K2_BWD_SHA256})")
+    if digest != K2_BWD_SHA256:
+        raise AssertionError("prefill_attention_bwd no longer gives the bits "
+                             "it gave before it took every contract")
     digest = k2_g8_digest()
     log(f"prefill_attention at g 8: outputs sha256 {digest} (the kernel "
         f"before its repair: {K2_G8_SHA256})")

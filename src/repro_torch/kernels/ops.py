@@ -21,10 +21,12 @@ which the training path runs: ``prefill_attention`` and ``moe_gmm`` go
 through ``torch.autograd.Function``s (``PrefillAttention``, ``MoeGmm``)
 whose backward is a hand-written kernel too (``prefill_attention_bwd``,
 ``moe_gmm_bwd``; on the CPU their plain versions) whenever grad mode is on
-and an input requires grad.  The other four kernels have no backward: on
-the card their wrappers raise when grad mode is on and an input requires
-grad, rather than return an output that autograd would silently treat as
-a constant — as K2 and K4 do at a contract their backward does not take.
+and an input requires grad.  K2's backward takes every contract its
+forward takes: each pair of ``PREFILL_HEAD_DIMS``, any group size,
+offsets, a window and ``causal=False``.  The other four kernels have no
+backward: on the card their wrappers raise when grad mode is on and an
+input requires grad, rather than return an output that autograd would
+silently treat as a constant.
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ _SIGNATURES = {
     # q, k, v, o, lse, dO, offset, dq, dk, dv, the D scratch
     "prefill_attention_bwd": ("prefill_attention_bwd",
                               "prefill_attention_bwd_bf16",
-                              [_P] * 11 + [_I] * 6 + [_F, _P]),
+                              [_P] * 11 + [_I] * 9 + [_F, _P]),
     # x, Wg, Wu, Wd, dY, the H / dG / dU scratch, dx, dWg, dWu, dWd
     "moe_gmm_bwd": ("moe_gmm_bwd", "moe_gmm_bwd_bf16",
                     [_P] * 12 + [_I] * 4 + [_P]),
@@ -129,12 +131,12 @@ def _needs_grad(*tensors: Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def _no_backward(name: str, *tensors: Tensor, why: str = "") -> None:
+def _no_backward(name: str, *tensors: Tensor) -> None:
     """Refuse a launch whose output autograd would take for a constant:
     the kernel records nothing for the backward pass."""
     if _needs_grad(*tensors):
         raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward{why}, and an input "
+            f"{name}: the CUDA kernel has no backward, and an input "
             "requires grad (its output would silently drop out of the "
             "gradient)")
 
@@ -197,9 +199,9 @@ def _check_aligned(name: str, *tensors: Tensor) -> None:
 
 # query rows per CTA of the prefill kernel: PREFILL_ROWS // g positions x
 # g heads of one group, the rows past them padding; and the (query/key,
-# value) head widths it is built for: GQA's equal pairs (256 at
-# recurrentgemma-9b) and multi-head latent attention's 128 nope + 64 rope
-# query/key dims against 128 value dims
+# value) head widths it and its backward are built for: GQA's equal pairs
+# (256 at recurrentgemma-9b) and multi-head latent attention's 128 nope +
+# 64 rope query/key dims against 128 value dims
 PREFILL_ROWS = 128
 PREFILL_HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128), (256, 256))
 # the pairs past 128 the decode kernel is built for (it takes every equal
@@ -227,11 +229,6 @@ def _check_kv(name: str, q: Tensor, k: Tensor, v: Tensor) -> None:
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
 
 
-# the (query/key, value) widths the prefill backward kernel takes: the
-# training path's minicpm-2b (64) and qwen3-30b-a3b (128); causal, no window
-PREFILL_BWD_HEAD_DIMS = ((64, 64), (128, 128))
-
-
 def prefill_attention(q: Tensor, k: Tensor, v: Tensor, offset: Tensor, *,
                       window: Optional[int] = None,
                       causal: bool = True) -> Tensor:
@@ -242,17 +239,14 @@ def prefill_attention(q: Tensor, k: Tensor, v: Tensor, offset: Tensor, *,
     query sees all S_max keys (``offset`` and ``window`` are ignored): the
     encoder's self-attention and cross-attention.  See
     ``ref.prefill_attention_ref`` for the masks.  Differentiable
-    (``PrefillAttention``) where grad mode is on and q, k or v requires
-    grad; on the card only at the backward kernel's contract (causal, no
-    window, widths ``PREFILL_BWD_HEAD_DIMS``), else it raises."""
+    (``PrefillAttention``, whose backward kernel takes every contract the
+    forward takes) where grad mode is on and q, k or v requires grad."""
     b, p, h, dk = q.shape
     _check_kv("prefill_attention", q, k, v)
     if offset.shape != (b,):
         raise ValueError(f"prefill_attention: bad offset shape "
                          f"{tuple(offset.shape)}")
     if _needs_grad(q, k, v):
-        if q.device.type == "cuda":
-            _check_prefill_bwd(q, k, v, window, causal)
         return PrefillAttention.apply(q, k, v, offset, window, causal)
     return _prefill_forward(q, k, v, offset, window, causal, False)[0]
 
@@ -287,17 +281,6 @@ def _prefill_forward(q: Tensor, k: Tensor, v: Tensor, offset: Tensor,
     return out, lse
 
 
-def _check_prefill_bwd(q: Tensor, k: Tensor, v: Tensor,
-                       window: Optional[int], causal: bool) -> None:
-    dk, dv = q.shape[-1], v.shape[-1]
-    if not causal or window is not None or (dk, dv) not in PREFILL_BWD_HEAD_DIMS:
-        _no_backward("prefill_attention", q, k, v,
-                     why=f" at this contract (the backward kernel takes "
-                         f"causal attention without a window at (hd, hd_v) "
-                         f"in {PREFILL_BWD_HEAD_DIMS}; here causal={causal}, "
-                         f"window={window}, hd={dk}, hd_v={dv})")
-
-
 class PrefillAttention(torch.autograd.Function):
     """K2 with its backward: the forward kernel also writes each query
     row's log-sum-exp, which the backward kernel reads."""
@@ -326,10 +309,11 @@ def prefill_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     """The vjp of ``prefill_attention`` (see
     ``ref.prefill_attention_bwd_ref``): from q, k, v, the forward's output
     ``o`` (B, P, H, dv) and log-sum-exp ``lse`` (B, H, P) fp32 and the
-    output cotangent ``do`` -> (dq, dk, dv).  On the card: bf16, causal,
-    no window, (hd, hd_v) in ``PREFILL_BWD_HEAD_DIMS``, any group size
-    and offsets; three launches, no atomics (two calls give the same
-    bits)."""
+    output cotangent ``do`` -> (dq, dk, dv).  On the card: bf16, the
+    forward's contract (``_prefill_forward``: (hd, hd_v) in
+    ``PREFILL_HEAD_DIMS``, any group size up to ``PREFILL_ROWS``, offsets,
+    a window, ``causal=False``); three launches, no atomics (two calls
+    give the same bits)."""
     b, p, h, dk = q.shape
     if (o.shape != (b, p, h, v.shape[3]) or do.shape != o.shape
             or lse.shape != (b, h, p)):
@@ -343,14 +327,13 @@ def prefill_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     _check_bf16("prefill_attention_bwd", o, do)
     if lse.dtype != torch.float32:
         raise TypeError("prefill_attention_bwd: lse must be float32")
-    if not causal or window is not None or (dk, v.shape[3]) not in \
-            PREFILL_BWD_HEAD_DIMS:
-        raise ValueError(f"prefill_attention_bwd: the kernel takes causal "
-                         f"attention without a window at (hd, hd_v) in "
-                         f"{PREFILL_BWD_HEAD_DIMS} (causal={causal}, "
-                         f"window={window}, hd={dk}, hd_v={v.shape[3]})")
+    hkv, s_max, dv = k.shape[2], k.shape[1], v.shape[3]
+    if h // hkv > PREFILL_ROWS or (dk, dv) not in PREFILL_HEAD_DIMS:
+        raise ValueError(f"prefill_attention_bwd: kernel needs the group "
+                         f"size at most {PREFILL_ROWS} and (hd, hd_v) in "
+                         f"{PREFILL_HEAD_DIMS} (g={h // hkv}, hd={dk}, "
+                         f"hd_v={dv})")
     _check_aligned("prefill_attention_bwd", q, k, v, o, do)
-    hkv, s_max = k.shape[2], k.shape[1]
     if b > 65535 or hkv > 65535 or h > 65535:
         raise ValueError("prefill_attention_bwd: grid past the launch limit")
     dq = torch.empty_like(q)
@@ -360,7 +343,8 @@ def prefill_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     _launch("prefill_attention_bwd", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
             offset.data_ptr(), dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(),
-            delta.data_ptr(), b, p, h, hkv, s_max, dk, 1.0 / math.sqrt(dk))
+            delta.data_ptr(), b, p, h, hkv, s_max, dk, dv, window or 0,
+            int(causal), 1.0 / math.sqrt(dk))
     return dq, dk_, dv_
 
 

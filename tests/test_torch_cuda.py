@@ -1075,44 +1075,125 @@ def test_per_slice_prefill_on_the_card(cuda):
 BWD_TOL = 2e-2
 
 
-def _attn_bwd_inputs(rng, dev, b, p, s_max, h, hkv, hd):
+def _attn_bwd_inputs(rng, dev, b, p, s_max, h, hkv, hd, hd_v=None):
+    hd_v = hd_v or hd
     q = _bf16(rng, (b, p, h, hd), dev)
     k = _bf16(rng, (b, s_max, hkv, hd), dev)
-    v = _bf16(rng, (b, s_max, hkv, hd), dev)
-    do = _bf16(rng, (b, p, h, hd), dev)
+    v = _bf16(rng, (b, s_max, hkv, hd_v), dev)
+    do = _bf16(rng, (b, p, h, hd_v), dev)
     return q, k, v, do
 
 
+# (B, P, S_max, H, Hkv, hd, hd_v, offsets, window, causal): every (hd,
+# hd_v) pair of ops.PREFILL_HEAD_DIMS, causal without and with a window
+# that binds, through a cache at offsets, and non-causal with S_max past P
+# and off the kernels' 64- and 32-key tiles (1500 = 23 x 64 + 28, 75 = 2
+# x 32 + 11)
+ATTN_BWD_CASES = {
+    "minicpm_g1": (2, 256, 256, 4, 4, 64, 64, (0, 0), None, True),
+    "qwen3_g8": (1, 256, 256, 16, 2, 128, 128, (0,), None, True),
+    "tiles_off_p_g3": (1, 300, 300, 3, 1, 64, 64, (0,), None, True),
+    "offsets_128": (2, 40, 100, 6, 2, 128, 128, (0, 37), None, True),
+    "hd32": (2, 100, 100, 4, 2, 32, 32, (0, 0), None, True),
+    "hd32_window": (2, 100, 100, 16, 1, 32, 32, (0, 0), 9, True),
+    "window_64": (2, 70, 70, 4, 2, 64, 64, (0, 0), 17, True),
+    "window_128_offsets": (2, 64, 200, 8, 2, 128, 128, (30, 136), 50, True),
+    "mla": (2, 96, 96, 4, 4, 192, 128, (0, 0), None, True),
+    "mla_offsets": (2, 40, 130, 2, 2, 192, 128, (5, 90), None, True),
+    "hd256_g16_window": (2, 160, 160, 16, 1, 256, 256, (0, 0), 40, True),
+    "hd256_window_offsets": (2, 64, 300, 16, 1, 256, 256, (100, 236), 90,
+                             True),
+    "cross_1500": (2, 37, 1500, 8, 8, 64, 64, (0, 0), None, False),
+    "encoder_self": (1, 100, 100, 4, 4, 64, 64, (0,), None, False),
+    "cross_hd32": (2, 40, 75, 4, 2, 32, 32, (0, 0), None, False),
+    "cross_128": (1, 50, 75, 4, 1, 128, 128, (0,), None, False),
+    "cross_mla": (2, 20, 75, 2, 2, 192, 128, (0, 0), None, False),
+    "cross_hd256": (2, 33, 75, 4, 2, 256, 256, (0, 0), None, False),
+}
+
+
+def _bwd_into(q, k, v, out, lse, do, off, window, causal, pad):
+    """The backward through the C entry point with dK and dV written into
+    buffers of ``pad`` rows past the last (b, S_max) row, filled with a
+    sentinel: returns (dq, dk, dv, whether the tails are untouched)."""
+    b, p, h, dk_w = q.shape
+    s_max, hkv, dv_w = k.shape[1], k.shape[2], v.shape[3]
+    fill = dict(dtype=torch.bfloat16, device=q.device)
+    dq = torch.empty_like(q)
+    dk = torch.full((b * s_max + pad, hkv, dk_w), 7.0, **fill)
+    dv = torch.full((b * s_max + pad, hkv, dv_w), 7.0, **fill)
+    delta = torch.empty((b, h, p), dtype=torch.float32, device=q.device)
+    ops._launch("prefill_attention_bwd", q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), lse.data_ptr(), do.data_ptr(),
+                off.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                delta.data_ptr(), b, p, h, hkv, s_max, dk_w, dv_w,
+                window or 0, int(causal), 1.0 / dk_w ** 0.5)
+    n = b * s_max
+    kept = bool((dk[n:] == 7.0).all()) and bool((dv[n:] == 7.0).all())
+    return dq, dk[:n].reshape(k.shape), dv[:n].reshape(v.shape), kept
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,p,s_max,h,hkv,hd,offsets", [
-    (2, 256, 256, 4, 4, 64, (0, 0)),          # minicpm's contract (g 1)
-    (1, 256, 256, 16, 2, 128, (0,)),          # qwen3's (g 8)
-    (1, 300, 300, 3, 1, 64, (0,)),            # tiles off P; g 3
-    (2, 40, 100, 6, 2, 128, (0, 37)),         # through a cache at offsets
-])
-def test_prefill_attention_bwd_kernel_matches_plain(cuda, b, p, s_max, h,
-                                                    hkv, hd, offsets):
+@pytest.mark.parametrize("case", list(ATTN_BWD_CASES))
+def test_prefill_attention_bwd_kernel_matches_plain(cuda, case):
     """The forward's log-sum-exp and the three-pass backward against the
-    plain versions; keys no query sees get zero gradients; two calls give
-    the same bits."""
-    rng = np.random.default_rng(p + h)
-    q, k, v, do = _attn_bwd_inputs(rng, cuda, b, p, s_max, h, hkv, hd)
+    plain versions at every contract the forward takes; keys no query
+    sees get zero gradients; nothing is written at or past S_max; two
+    calls give the same bits."""
+    b, p, s_max, h, hkv, hd, hd_v, offsets, window, causal = \
+        ATTN_BWD_CASES[case]
+    rng = np.random.default_rng(p + h + hd)
+    q, k, v, do = _attn_bwd_inputs(rng, cuda, b, p, s_max, h, hkv, hd, hd_v)
     off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
-    out, lse = ops._prefill_forward(q, k, v, off, None, True, True)
-    assert torch.equal(out, ops.prefill_attention(q, k, v, off))
-    want_lse = ref.prefill_attention_lse_ref(q, k, v, off)
+    kw = dict(window=window, causal=causal)
+    out, lse = ops._prefill_forward(q, k, v, off, window, causal, True)
+    assert torch.equal(out, ops.prefill_attention(q, k, v, off, **kw))
+    want_lse = ref.prefill_attention_lse_ref(q, k, v, off, **kw)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
     before = ops.LAUNCHES["prefill_attention_bwd"]
-    got = ops.prefill_attention_bwd(q, k, v, out, lse, do, off)
-    again = ops.prefill_attention_bwd(q, k, v, out, lse, do, off)
+    got = ops.prefill_attention_bwd(q, k, v, out, lse, do, off, **kw)
+    again = ops.prefill_attention_bwd(q, k, v, out, lse, do, off, **kw)
     assert ops.LAUNCHES["prefill_attention_bwd"] == before + 2
-    want = ref.prefill_attention_bwd_ref(q, k, v, out, lse, do, off)
+    want = ref.prefill_attention_bwd_ref(q, k, v, out, lse, do, off, **kw)
     for name, g_, a_, w_ in zip(("dq", "dk", "dv"), got, again, want):
         assert g_.dtype == torch.bfloat16 and torch.equal(g_, a_), name
         assert torch.isfinite(g_.float()).all(), name
         assert _rel_fro(g_, w_) <= BWD_TOL, (name, _rel_fro(g_, w_))
-    seen = ref._prefill_visible(q, k, off, None, True).any(dim=1)
+    seen = ref._prefill_visible(q, k, off, window, causal).any(dim=1)
     assert (got[1][~seen] == 0).all() and (got[2][~seen] == 0).all()
+    *into, tails_kept = _bwd_into(q, k, v, out, lse, do, off, window,
+                                  causal, pad=64)
+    assert tails_kept, "a dK/dV row at or past S_max was written"
+    for g_, i_ in zip(got, into):
+        assert torch.equal(g_, i_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,hd_v,kw", [(64, 64, dict(window=16)),
+                                        (64, 64, dict(causal=False)),
+                                        (32, 32, {}), (192, 128, {})],
+                         ids=["window", "non_causal", "hd32", "mla"])
+def test_prefill_attention_under_grad_runs_its_backward_kernel(cuda, hd,
+                                                               hd_v, kw):
+    """Under grad mode K2 at a window, ``causal=False``, hd 32 and (192,
+    128) — the contracts whose backward was refused before it took them —
+    launches the forward and the backward kernel and gives the gradients
+    ``torch.autograd`` takes through the plain forward."""
+    rng = np.random.default_rng(hd + len(kw))
+    q, k, v, do = _attn_bwd_inputs(rng, cuda, 1, 40, 40, 4, 2, hd, hd_v)
+    z = torch.zeros(1, dtype=torch.int32, device=cuda)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ops.reset_launches()
+    grads = torch.autograd.grad(ops.prefill_attention(*leaves, z, **kw),
+                                leaves, do)
+    assert ops.LAUNCHES["prefill_attention"] == 1
+    assert ops.LAUNCHES["prefill_attention_bwd"] == 1
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(ref.prefill_attention_ref(*leaves, z, **kw),
+                               leaves, do)
+    for name, g_, w_ in zip(("dq", "dk", "dv"), grads, want):
+        assert g_.shape == w_.shape and g_.dtype == torch.bfloat16, name
+        assert _rel_fro(g_, w_) <= BWD_TOL, (name, _rel_fro(g_, w_))
 
 
 @pytest.mark.cuda
@@ -1171,11 +1252,8 @@ def test_autograd_runs_the_backward_kernels(cuda):
 @pytest.mark.cuda
 def test_kernels_without_backward_refuse_inputs_that_require_grad(cuda):
     """K1, K3, K5 and K6 raise rather than return an output autograd would
-    take for a constant; K2 does too at a contract its backward does not
-    take (a window, non-causal, hd 32 or (192, 128)).  Without grad mode
-    the same calls run."""
+    take for a constant.  Without grad mode the same calls run."""
     bf = dict(dtype=torch.bfloat16, device=cuda)
-    z = torch.zeros(1, dtype=torch.int32, device=cuda)
     lens = torch.full((1,), 8, dtype=torch.int32, device=cuda)
     q3 = torch.zeros(1, 4, 64, **bf, requires_grad=True)
     kc = torch.zeros(1, 8, 2, 64, **bf)
@@ -1192,39 +1270,58 @@ def test_kernels_without_backward_refuse_inputs_that_require_grad(cuda):
         ops.paged_decode_attention(q3, pages, pages, bt, lens)
     with pytest.raises(RuntimeError, match="paged_verify_attention"):
         ops.paged_verify_attention(q3[:, None], pages, pages, bt, lens)
-    for hd, hd_v, kw in ((64, 64, dict(window=16)),
-                         (64, 64, dict(causal=False)), (32, 32, {}),
-                         (192, 128, {})):
-        q = torch.zeros(1, 8, 2, hd, **bf, requires_grad=True)
-        with pytest.raises(RuntimeError, match="prefill_attention.*no backward"):
-            ops.prefill_attention(q, torch.zeros(1, 8, 2, hd, **bf),
-                                  torch.zeros(1, 8, 2, hd_v, **bf), z, **kw)
-        with torch.no_grad():
-            ops.prefill_attention(q, torch.zeros(1, 8, 2, hd, **bf),
-                                  torch.zeros(1, 8, 2, hd_v, **bf), z, **kw)
     with torch.no_grad():
         ops.decode_attention(q3, kc, kc, lens)
     torch.cuda.synchronize()
 
 
+def _small_train_config(kind: str):
+    """A small bf16 model of each attention the training path runs: GQA
+    at hd 64 (dense, or MoE: 4 experts top-2, capacity-limited dense
+    dispatch), MLA at its (192, 128) widths with MoE (deepseek-v2-236b's
+    smoke variant), RG-LRU + local attention at recurrentgemma's 16/1
+    heads of 256 with a window shorter than the sequence, and whisper's
+    decoder with cross-attention over 150 frames (off K2's key tiles),
+    fed seeded frames as its encoder output."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.config import (EncoderConfig, MLAConfig,
+                                           ModelConfig, MoEConfig)
+    bf = dict(dtype="bfloat16", param_dtype="bfloat16")
+    if kind in ("dense", "moe"):
+        moe = kind == "moe"
+        return ModelConfig(name="tiny", family="moe" if moe else "dense",
+                           n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                           head_dim=64, d_ff=256, vocab_size=512,
+                           max_seq_len=256,
+                           moe=MoEConfig(n_experts=4, top_k=2, expert_d_ff=64)
+                           if moe else MoEConfig(), **bf).validate()
+    if kind == "mla":
+        cfg = get_smoke_config("deepseek-v2-236b")
+        return dataclasses.replace(
+            cfg, n_heads=4, n_kv_heads=4, head_dim=128,
+            mla=MLAConfig(kv_lora_rank=128, q_lora_rank=64, qk_rope_dim=64,
+                          qk_nope_dim=128, v_head_dim=128), **bf).validate()
+    if kind == "local":
+        return dataclasses.replace(
+            get_smoke_config("recurrentgemma-9b"), n_heads=16, n_kv_heads=1,
+            head_dim=256, local_window=24, **bf).validate()
+    return dataclasses.replace(
+        get_smoke_config("whisper-base"), head_dim=64,
+        encoder=EncoderConfig(n_layers=2, n_frames=150), **bf).validate()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
-def test_small_model_trains_on_the_card(cuda, moe):
-    """A small model (hd 64; MoE: 4 experts top-2, capacity-limited dense
-    dispatch) takes three train steps in bf16 on the card: finite losses,
-    K2 and its backward (and K4 and its backward) launched and nothing
-    else, every weight matrix changed, and step 1's loss within 2e-2
-    relative of the same step in fp32 on the CPU (plain versions)."""
-    from repro_torch.models.config import ModelConfig, MoEConfig
+@pytest.mark.parametrize("kind", ["dense", "moe", "mla", "local", "encdec"])
+def test_small_model_trains_on_the_card(cuda, kind):
+    """A small model (``_small_train_config``) takes three train steps in
+    bf16 on the card: finite losses, K2 and its backward (and, with MoE,
+    K4 and its backward) launched and nothing else, every weight matrix
+    the loss reaches changed, and step 1's loss within 2e-2 relative of
+    the same step in fp32 on the CPU (plain versions)."""
     from repro_torch.models.model import DecoderModel
     from repro_torch.training import optimizer as topt
-    from repro_torch.training.train import make_train_step
-    cfg = ModelConfig(name="tiny", family="moe" if moe else "dense",
-                      n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
-                      head_dim=64, d_ff=256, vocab_size=512, max_seq_len=256,
-                      moe=MoEConfig(n_experts=4, top_k=2, expert_d_ff=64)
-                      if moe else MoEConfig(), dtype="bfloat16",
-                      param_dtype="bfloat16").validate()
+    from repro_torch.training.train import device_batch, make_train_step
+    cfg = _small_train_config(kind)
     gpu = DecoderModel(cfg, device="cuda", remat=True)
     params = gpu.init_params(torch.Generator(device="cuda").manual_seed(0))
     cpu_cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
@@ -1232,32 +1329,41 @@ def test_small_model_trains_on_the_card(cuda, moe):
     p_cpu = ops.tree_map(lambda a: a.float().cpu(), params)
     before = [x.clone() for x in topt.tree_leaves(params)]
     rng = np.random.default_rng(0)
-    toks = rng.integers(1, 512, size=(2, 64))
-    batch = {"tokens": torch.from_numpy(toks),
-             "targets": torch.from_numpy(np.roll(toks, -1, 1)),
-             "mask": torch.ones(2, 64, dtype=torch.bool)}
+    toks = rng.integers(1, cfg.vocab_size, size=(2, 64))
+    host = (toks, np.roll(toks, -1, 1), np.ones((2, 64), bool))
+    enc = cfg.encoder.enabled
+    frames = torch.from_numpy(rng.normal(size=(
+        2, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)).bfloat16()
+
+    def batch(model):
+        out = device_batch(model, *host)
+        if enc:
+            out["enc_out"] = frames.to(model.device, out["enc_out"].dtype)
+        return out
     opt = topt.adamw(lr=1e-3, total_steps=10, warmup=1)
-    _, _, m_cpu = make_train_step(cpu, opt)(p_cpu, opt.init(p_cpu), batch)
-    step = make_train_step(gpu, opt)
+    _, _, m_cpu = make_train_step(cpu, opt, enc)(
+        p_cpu, opt.init(p_cpu), batch(cpu))
+    step = make_train_step(gpu, opt, enc)
     state = opt.init(params)
     ops.reset_launches()
     losses = []
     for _ in range(3):
-        params, state, m = step(params, state,
-                                {k: v.to(cuda) for k, v in batch.items()})
+        params, state, m = step(params, state, batch(gpu))
         losses.append(float(m["loss"]))
     assert all(np.isfinite(losses)), losses
     assert abs(losses[0] - float(m_cpu["loss"])) <= 2e-2 * float(
         m_cpu["loss"])
     launched = {k for k, v in ops.LAUNCHES.items() if v}
     want = {"prefill_attention", "prefill_attention_bwd"}
-    if moe:
+    if cfg.moe.enabled:
         want |= {"moe_gmm", "moe_gmm_bwd"}
     assert launched == want, ops.LAUNCHES
     # every weight matrix moved (a norm's scale of 1.0 may not, stacked
     # over the blocks or not: three steps of lr 1e-3 stay within half a
-    # bf16 ulp of 1.0, as they do under JAX)
+    # bf16 ulp of 1.0, as they do under JAX); whisper's encoder takes no
+    # step (the batch gives its output)
     from repro_torch.training.checkpoint import leaf_names
     for name, a, b in zip(leaf_names(params), topt.tree_leaves(params),
                           before):
-        assert name.endswith("scale") or not torch.equal(a, b), name
+        assert (name.endswith(("scale", "bias")) or name.startswith("encoder/")
+                or not torch.equal(a, b)), name

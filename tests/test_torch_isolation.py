@@ -18,7 +18,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "examples" / "train_small_torch.py"]
 
 
 def _imported_modules(path: Path):
@@ -125,3 +125,31 @@ def test_train_launcher_without_cpu_flag_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["--smoke", "--steps", "1"])
+
+
+def test_train_small_example_runs_with_jax_blocked(tmp_path):
+    """``examples/train_small_torch.py`` (the port of
+    ``examples/train_small.py``) trains on the CPU with ``jax``, ``repro``
+    and ``msgpack`` blocked, and refuses to run without CUDA unless told
+    to use the CPU."""
+    code = ("import runpy, sys\n"
+            "for m in ('jax', 'jaxlib', 'repro', 'msgpack'):\n"
+            "    sys.modules[m] = None\n"
+            "ns = runpy.run_path(sys.argv[1])\n"
+            "ns['main'](['--steps', '2', '--batch', '2', '--seq', '32',\n"
+            "            '--device', 'cpu', '--ckpt', sys.argv[2]])\n")
+    out = subprocess.run([sys.executable, "-c", code,
+                          str(ROOT / "examples" / "train_small_torch.py"),
+                          str(tmp_path / "c.pt")], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "minicpm-100m:" in out.stdout and "on cpu" in out.stdout
+    assert "  step    1  loss " in out.stdout and "loss: " in out.stdout
+
+
+def test_train_small_example_without_cpu_flag_raises_without_cuda(
+        monkeypatch):
+    ns = runpy.run_path(str(ROOT / "examples" / "train_small_torch.py"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ns["main"](["--steps", "1"])

@@ -282,6 +282,14 @@ ATTN_CASES = {
     "mla_widths": (2, 10, 10, 2, 2, 24, 16, (0, 0), None, True),
     "non_causal": (2, 7, 19, 4, 2, 8, 8, (0, 0), None, False),
     "query_chunks": (1, 1024, 1024, 2, 1, 8, 8, (0,), None, True),
+    # recurrentgemma's shape of heads (g 16, one kv head) at hd 32, under
+    # a window that binds, without and with a cache before the new tokens
+    "g16_window": (2, 40, 40, 16, 1, 32, 32, (0, 0), 9, True),
+    "g16_window_offsets": (2, 40, 100, 16, 1, 32, 32, (7, 60), 9, True),
+    # MLA's unequal widths (H = Hkv) at offsets into a cache
+    "mla_offsets": (2, 10, 40, 2, 2, 24, 16, (3, 30), None, True),
+    # cross-attention: S_max past P and off the kernels' key tiles
+    "non_causal_partial_tile": (2, 7, 75, 4, 2, 8, 8, (0, 0), None, False),
 }
 
 
@@ -334,7 +342,7 @@ def test_prefill_attention_bwd_ref_matches_jax_vjp(case):
     vis = ref._prefill_visible(tq, tk, offs_t, window, causal)
     s = ref._grouped_scores(tq, tk, vis)
     close(lse, torch.logsumexp(s, -1).reshape(b, h, p).numpy())
-    if causal and case != "non_causal":
+    if causal:
         seen = vis.any(dim=1)                       # (B, S_max)
         assert (got[1][~seen] == 0).all() and (got[2][~seen] == 0).all()
 
@@ -398,9 +406,10 @@ def _jax_launcher_loop(cfg, steps: int, batch: int, seq: int):
     and every tenth) without its mesh: on this JAX version the launcher's
     sharding context raises (the seed's failing
     tests/test_sharding.py::test_shard_hint_applies_in_context).  Returns
-    (initial params, [(step, loss, lr)], final params)."""
+    (initial params, [(step, loss, lr)], final params, step 1's
+    gradients)."""
     from repro.models.model import DecoderModel as JaxModel
-    from repro.training.train import make_train_step
+    from repro.training.train import loss_fn, make_train_step
     model = JaxModel(cfg, remat=False)
     opt = jadamw(lr=6e-4, schedule="wsd", total_steps=steps,
                  warmup=max(steps // 10, 1))
@@ -409,53 +418,123 @@ def _jax_launcher_loop(cfg, steps: int, batch: int, seq: int):
     step_fn = jax.jit(make_train_step(model, opt, cfg.encoder.enabled))
     ds = iter(JPackedDataset(JSyntheticCorpus(cfg.vocab_size, seed=0),
                              seq_len=seq, batch_size=batch, seed=0))
+    grad_fn = jax.jit(jax.grad(lambda p, b: loss_fn(
+        model, p, b["tokens"], b["targets"], b["mask"], b.get("enc_out"))[0]))
     lines = []
     for step in range(1, steps + 1):
         tokens, targets, mask = next(ds)
-        params, state, m = step_fn(params, state, {
-            "tokens": jnp.asarray(tokens), "targets": jnp.asarray(targets),
-            "mask": jnp.asarray(mask)})
+        jbatch = {"tokens": jnp.asarray(tokens),
+                  "targets": jnp.asarray(targets), "mask": jnp.asarray(mask)}
+        if cfg.encoder.enabled:
+            jbatch["enc_out"] = jnp.zeros(
+                (batch, cfg.encoder.n_frames, cfg.d_model), cfg.dtype)
+        if step == 1:
+            g1 = grad_fn(params, jbatch)
+        params, state, m = step_fn(params, state, jbatch)
         if step % 10 == 0 or step == 1:
             lines.append((step, float(m["loss"]), float(m["lr"])))
-    return p0, lines, params
+    return p0, lines, params, g1
 
 
-def test_launcher_matches_jax_launcher(tmp_path):
-    """``python -m repro_torch.launch.train --smoke --device cpu --steps 3``
-    from the JAX launcher's initial weights (converted, given by
-    ``--init``) prints the JAX launcher's ``[train]`` loss and lr, and its
-    checkpoint after three steps holds the JAX loop's parameters (within
-    1e-5 of each leaf's scale plus 1e-2 of three steps' move, as in
-    tests/test_torch_train_jax.py) and step."""
+# the launcher's default, and the three archs whose attention trains
+# through K2's backward at a window, MLA's widths or causal=False
+LAUNCHER_ARCHS = ["minicpm-2b", "deepseek-v2-236b", "recurrentgemma-9b",
+                  "whisper-base"]
+
+
+def _port_step1_grads(cfg, params, batch: int, seq: int):
+    """The port's step-1 gradients (in ``tree_leaves`` order, as numpy)
+    at ``params`` on the launcher's first batch."""
+    from repro_torch.training.train import device_batch, loss_fn
+    model = DecoderModel(port_cfg(cfg), device="cpu")
+    tokens, targets, mask = next(iter(PackedDataset(
+        SyntheticCorpus(cfg.vocab_size, seed=0), seq_len=seq,
+        batch_size=batch, seed=0)))
+    b = device_batch(model, tokens, targets, mask)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = loss_fn(model, params, b["tokens"], b["targets"], b["mask"],
+                      b.get("enc_out"))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    for p in leaves:
+        p.requires_grad_(False)
+    return [np.zeros(p.shape, np.float32) if g is None else g.numpy()
+            for p, g in zip(leaves, grads)]
+
+
+@pytest.mark.parametrize("arch", LAUNCHER_ARCHS)
+def test_launcher_matches_jax_launcher(tmp_path, arch):
+    """``python -m repro_torch.launch.train --smoke --device cpu --steps 3
+    --arch <arch>`` from the JAX launcher's initial weights (converted,
+    given by ``--init``) prints the JAX launcher's ``[train]`` loss and
+    lr, and its checkpoint after three steps holds the JAX loop's
+    parameters (within 1e-5 of each leaf's scale plus 1e-2 of three
+    steps' move, as in tests/test_torch_train_jax.py) and step.
+
+    One exemption, for every arch: an element whose step-1 gradient is
+    below 100 x AdamW's eps on both sides and not zero on both is held to
+    AdamW's own bound instead (at most lr = 6e-4 a step, plus 1e-5 of the
+    leaf's scale).  There the first normalised update m / (sqrt(v) + eps)
+    takes its sign and size from fp32 summation noise (seen: -3.8e-8
+    against -8.0e-10 at recurrentgemma's RG-LRU gate, moves of -3.7e-4
+    against -4.5e-4).  An element of zero gradient on both sides (an
+    embedding row no token of the batch reaches, whisper's encoder) keeps
+    the tolerance above.  The share of each leaf exempted is printed."""
     from repro.configs import get_smoke_config
     from repro_torch.convert import from_jax_params
     from repro_torch.launch import train as tlaunch
-    cfg = get_smoke_config("minicpm-2b")
-    p0, jlines, jparams = _jax_launcher_loop(cfg, 3, 2, 32)
+    cfg = get_smoke_config(arch)
+    p0, jlines, jparams, jgrads = _jax_launcher_loop(cfg, 3, 2, 32)
+    tp0 = from_jax_params(port_cfg(cfg),
+                          jax.tree_util.tree_map(np.asarray, p0), "cpu")
     init = os.path.join(tmp_path, "init.pt")
-    ckpt.save(init, {"params": from_jax_params(
-        port_cfg(cfg), jax.tree_util.tree_map(np.asarray, p0), "cpu")})
+    ckpt.save(init, {"params": tp0})
+    tgrads = _port_step1_grads(cfg, tp0, 2, 32)
     tck = os.path.join(tmp_path, "t.pt")
     out = io.StringIO()
     with redirect_stdout(out):
-        tlaunch.main(["--smoke", "--steps", "3", "--batch", "2", "--seq",
-                      "32", "--device", "cpu", "--init", init,
+        tlaunch.main(["--arch", arch, "--smoke", "--steps", "3", "--batch",
+                      "2", "--seq", "32", "--device", "cpu", "--init", init,
                       "--ckpt", tck])
     text = out.getvalue()
     tlines = _train_lines(text)
-    assert "[train] minicpm-2b-smoke:" in text and "on device cpu" in text
+    assert f"[train] {arch}-smoke:" in text and "on device cpu" in text
     assert f"[train] checkpoint -> {tck}" in text
     assert [s for s, _, _ in tlines] == [s for s, _, _ in jlines] == [1]
     for (_, tl, tr), (_, jl, jr) in zip(tlines, jlines):
         assert abs(tl - jl) <= 1e-3 and tr == pytest.approx(jr, rel=1e-2)
     tstate = torch.load(tck, weights_only=True)
     names = ckpt.leaf_names({"params": jparams})
-    for name, want in zip(names, jax.tree_util.tree_leaves(jparams)):
-        want = np.asarray(want)
+    exempted = {}
+    for name, want, gj, gt, w0 in zip(
+            names, jax.tree_util.tree_leaves(jparams),
+            jax.tree_util.tree_leaves(jgrads), tgrads,
+            jax.tree_util.tree_leaves(p0)):
+        want, w0 = np.asarray(want), np.asarray(w0)
+        gj, gt = np.abs(np.asarray(gj)), np.abs(gt)
+        got = tstate[name].numpy()
         scale = max(1.0, float(np.abs(want).max()))
-        close(tstate[name], want, rtol=1e-5,
+        noisy = (np.maximum(gj, gt) < 100 * 1e-8) & ((gj > 0) | (gt > 0))
+        if noisy.any():
+            exempted[name] = float(noisy.mean())
+        close(got[~noisy], want[~noisy], rtol=1e-5,
               atol=1e-5 * scale + 1e-2 * 6e-4 * 3)
+        assert (np.abs(got - w0)[noisy] <= 6e-4 * 3 + 1e-5 * scale).all(), name
+    print(f"{arch}: share of each leaf exempted {exempted}")
     assert int(tstate["opt/.step"]) == 3
+
+
+def test_train_small_example_config_matches_jax():
+    """``examples/train_small_torch.py``'s ``small_minicpm()`` is the JAX
+    example's, field for field."""
+    import dataclasses
+    import runpy
+    root = os.path.join(os.path.dirname(__file__), os.pardir, "examples")
+    want = runpy.run_path(os.path.join(root, "train_small.py"))
+    got = runpy.run_path(os.path.join(root, "train_small_torch.py"))
+    assert dataclasses.asdict(got["small_minicpm"]()) == \
+        dataclasses.asdict(want["small_minicpm"]())
 
 
 def test_launcher_refuses_production_mesh():
