@@ -30,11 +30,12 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    decode are timed in CUDA graphs beside their eager time; two launches
    of each kernel must agree bit for bit.  Each kernel's share of its
    bound is bound_ms / ms.  The build's ptxas report and, where cuobjdump
-   exists, the SASS opcodes that show K2, K1 and K4 on wgmma (HGMMA) and
-   TMA (UTMALDG), and K3 and K5/K6 on mma.sync (HMMA) fed by cp.async
-   (LDGSTS), are printed (none in K1 or K4, or no HMMA in K5/K6, fails
-   the run).  The large MoE models' shapes too: K2 and K3 at multi-head
-   latent attention's query/key width 192 against value width 128
+   exists, the SASS opcodes that show K2, K1, K4 and the backwards of K2
+   and K4 on wgmma (HGMMA) and TMA (UTMALDG), and K3 and K5/K6 on
+   mma.sync (HMMA) fed by cp.async (LDGSTS), are printed (none in K1, K4
+   or either backward, or no HMMA in K5/K6, fails the run).  The large
+   MoE models' shapes too: K2 and K3 at multi-head latent attention's
+   query/key width 192 against value width 128
    (deepseek-v2-236b, H = Hkv = 128; two launches bit for bit; SDPA at
    the same widths beside them, with the backends that take them) and at
    g 16 (qwen3-moe-235b-a22b), K1 at both models' widths and K4 at
@@ -50,22 +51,26 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    1500); K2 and K3 at its decoder's short trace; qwen2-vl-72b's K2 and
    K3 (64/8 heads of 128) at the long trace.  Training's kernels: K2's
    forward with its log-sum-exp (against the plain one; the output
-   unchanged by it) and K2's backward (three launches: D, dK/dV,
-   dQ) at minicpm-2b's heads (36/36 of 64) and qwen3-30b-a3b's (32/4 of
-   128), at the launcher's 8 x 256 tokens and at two 2048-token rows,
-   and at the contracts of the other three archs' attention:
+   unchanged by it) and K2's backward (three launches: D and the
+   log-sum-exp rows, dK/dV, dQ; two more sum the dK/dV pass's query-head
+   groups where ``ops.bwd_split`` splits it; the split and each pass's
+   CTAs printed as the C entry reports launching them) at minicpm-2b's heads (36/36 of 64) and qwen3-30b-a3b's
+   (32/4 of 128), at the launcher's 8 x 256 tokens and at two 2048-token
+   rows, and at the contracts of the other three archs' attention:
    recurrentgemma-9b's (16/1 of 256, window 2048) at 8 x 256 tokens and
    at one 4096-token row, where the window binds; deepseek-v2-236b's MLA
    (128 heads, dk 192, dv 128) at 8 x 256; whisper-base's cross-
    attention (8 x 256 queries over 1500 frames, no causal mask) and its
    encoder (1500 frames over themselves, not on the training path),
-   beside the plain backward and SDPA's backward, and the gradients at
-   (64, 64) and (128, 128) bit for bit those of the kernel before it
-   took these contracts (``K2_BWD_SHA256``); K4's backward (four
-   launches) at qwen3's widths with C 160 (2048 tokens) and at widths off
-   a multiple of 8 (the padded copy), beside the plain version and the
-   bf16 bmm chain; each within ``BWD_REL_FRO`` of its fp32 plain version
-   and bit for bit across two launches.
+   beside the plain backward and SDPA's backward (each row's kernel and
+   SDPA timed over 20 calls), and the gradients at
+   (64, 64) and (128, 128) must keep their bits (``K2_BWD_SHA256``); K4's
+   backward (four launches) at qwen3's widths with C 160 (2048 tokens),
+   130 and 1 and at widths off a multiple of 8 (the padded copy), beside
+   the plain version and the bf16 bmm chain (both timed over 10 calls),
+   with each launch's CTAs as its C entry reports them;
+   each within ``BWD_REL_FRO`` of its fp32 plain version and bit for bit
+   across two launches, with its achieved TFLOP/s.
 3. check the kernel path end to end against the CPU fp32 plain path on a
    small model, under the ragged and the dense MoE dispatch (finite
    logits that agree within a stated tolerance); and a small MLA model
@@ -167,7 +172,7 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    chunked), and the open-loop trace on the iteration clock through the
    card's engine and through ``SimExecutor``: the same plans, the modelled
    ms/iter (h100x2 preset) printed beside the measured one.  Then profile
-   the ragged layered serve once more at its first 24 of 48 layers
+   the ragged layered serve once more at its first 16 of 48 layers
    (``PROFILE_LAYERS``: device time by kernel, the device's busy share).
 5. free qwen3 and serve gpt-oss-20b at full width (d_model 2880, 64/8
    heads of 64, 32 experts top-4 of d_ff 2880, 24 layers): the long trace
@@ -231,7 +236,10 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    versions on the card (the yardstick; the trainer's path never calls a
    plain version); minicpm's state (32.7 GB) saved and restored, the next
    step bit for bit the step without the round trip.  Seconds a step,
-   peak memory and the checkpoint's seconds are printed.
+   peak memory and the checkpoint's seconds are printed.  One more step
+   of minicpm-2b and of qwen3-30b-a3b runs under torch.profiler: device
+   time by kernel, the two backward kernels' share, the optimizer's share
+   and the device's idle share of the step.
    Each phase's seconds are printed.
 
 It prints a JSON ``kernels`` line (each row's ``launches`` summed over
@@ -2975,10 +2983,12 @@ def serve_qwen2_vl(times: dict) -> dict:
     return {"runs": runs, "depth": depth}
 
 
-# the profiled serve runs the first 24 of qwen3's 48 layers: the
-# training phase's 64-90 s are paid for by halving this 107 s phase (the
-# serves whose streams are compared across trees keep their depth)
-PROFILE_LAYERS = 24
+# the profiled serve runs the first 16 of qwen3's 48 layers: the
+# training phase's 64-90 s were paid for by halving this 107 s phase, and
+# the two profiled training steps' ~17 s (the backward rows' ~14 s on top)
+# by a third of what was left (the serves whose streams are compared
+# across trees keep their depth)
+PROFILE_LAYERS = 16
 
 
 def first_layers(model, params, n: int):
@@ -3064,10 +3074,10 @@ def _train_pairs(b: int, p: int, s_max: int, window, causal: bool) -> int:
     return b * sum(min(i + 1, window or p) for i in range(p))
 
 
-def _sdpa_train(qt, kt, vt, mask, is_causal, dot):
+def _sdpa_train(qt, kt, vt, mask, is_causal, dot, iters: int):
     """SDPA's forward and its forward + backward through autograd minus
-    its forward, in ms: the yardstick (every training shape here has a
-    backend that takes it)."""
+    its forward, in ms over ``iters`` calls each: the yardstick (every
+    training shape here has a backend that takes it)."""
     import torch
     import torch.nn.functional as F
 
@@ -3077,8 +3087,8 @@ def _sdpa_train(qt, kt, vt, mask, is_causal, dot):
 
     def fwd_bwd():
         torch.autograd.grad(fwd(), (qt, kt, vt), dot)
-    return (cuda_time(fwd, iters=5),
-            cuda_time(fwd_bwd, iters=5) - cuda_time(fwd, iters=5))
+    return (cuda_time(fwd, iters=iters),
+            cuda_time(fwd_bwd, iters=iters) - cuda_time(fwd, iters=iters))
 
 
 def check_prefill_attention_bwd(tag: str, gen, b: int, p: int, heads,
@@ -3125,16 +3135,17 @@ def check_prefill_attention_bwd(tag: str, gen, b: int, p: int, heads,
         d_ = g_.float() - w_.float()
         rels[name] = (d_.norm() / w_.float().norm()).item()
         max_abs = max(max_abs, d_.abs().max().item())
-    # the dK/dV pass: one CTA per (key tile, kv head, row); 32-key tiles
-    # past dk 128, each walking the g query heads of its kv head
-    kt_keys = 32 if hd > 128 else 64
-    ctas = {"dkdv": -(-s_max // kt_keys) * hkv * b, "dq": -(-p // 64) * h * b}
+    # the CTAs of each pass as the C entry reports launching them: dK/dV
+    # one per (key tile, kv head, row, head group), each walking the query
+    # heads of its group; the sums of the groups' partials; dQ
+    ctas = dict(ops.GRIDS["prefill_attention_bwd"])
+    split = ctas.pop("split")
     log(f"prefill_attention_bwd[{tag}] B {b} P {p} S_max {s_max} {h}/{hkv} "
         f"heads of {hd}/{hd_v}{f' window {window}' if window else ''}"
         f"{'' if causal else ' non-causal'}: rel Frobenius "
         f"{({k_: f'{v_:.3e}' for k_, v_ in rels.items()})} (tol "
         f"{BWD_REL_FRO}), max abs {max_abs:.3e}; forward log-sum-exp max abs "
-        f"{lse_err:.3e}; CTAs {ctas}")
+        f"{lse_err:.3e}; split {split}, CTAs {ctas}")
     if max(rels.values()) > BWD_REL_FRO:
         raise AssertionError(f"prefill_attention_bwd[{tag}] disagrees: {rels}")
     del want, again
@@ -3146,8 +3157,14 @@ def check_prefill_attention_bwd(tag: str, gen, b: int, p: int, heads,
                   + do.numel()) + 4 * lse.numel()
     flops = 2 * (3 * hd + 2 * hd_v) * pairs
     b_ms, b_by = bound_ms(nbytes, flops)
+    # 20 launches, and as many of each yardstick: at the training shapes a
+    # launch's device time (~0.1 ms) is near the wrapper's host time, so a
+    # short run times the host
+    iters = 20
     ms = cuda_time(lambda: ops.prefill_attention_bwd(q, k, v, out, lse, do,
-                                                     off, **kw), iters=5)
+                                                     off, **kw), iters=iters)
+    log(f"prefill_attention_bwd[{tag}]: {ms:.4f} ms, "
+        f"{flops / ms / 1e9:.1f} TFLOP/s of the five products")
     plain = cuda_time(lambda: ref.prefill_attention_bwd_ref(
         q, k, v, out, lse, do, off, **kw), iters=2)
     g = h // hkv
@@ -3160,7 +3177,7 @@ def check_prefill_attention_bwd(tag: str, gen, b: int, p: int, heads,
         mask = ((pos[None, :] <= pos[:p, None])
                 & (pos[None, :] > pos[:p, None] - window))
     lib_fwd, lib = _sdpa_train(qt, kt, vt, mask, causal and not window,
-                               do.transpose(1, 2))
+                               do.transpose(1, 2), iters)
     del qt, kt, vt, mask
     mask_note = ("is_causal" if causal and not window else
                  "a boolean window mask" if causal else "no mask")
@@ -3168,7 +3185,7 @@ def check_prefill_attention_bwd(tag: str, gen, b: int, p: int, heads,
         + 4 * lse.numel()
     fb_ms, fb_by = bound_ms(fwd_bytes, 2 * (hd + hd_v) * pairs)
     fwd_ms = cuda_time(lambda: ops._prefill_forward(q, k, v, off, window,
-                                                    causal, True), iters=5)
+                                                    causal, True), iters=iters)
     fwd_plain = cuda_time(lambda: (ref.prefill_attention_ref(q, k, v, off, **kw),
                                    ref.prefill_attention_lse_ref(q, k, v, off,
                                                                  **kw)),
@@ -3196,20 +3213,21 @@ def check_prefill_attention_bwd(tag: str, gen, b: int, p: int, heads,
              "library_note": f"SDPA ({mask_note}, KV repeated g-major) "
                              "forward + backward through autograd minus "
                              "its forward",
-             "ctas": ctas, "achieved_tflops": flops / ms / 1e9,
-             "shape": shape}]
+             "split": split, "ctas": ctas,
+             "achieved_tflops": flops / ms / 1e9, "shape": shape}]
 
 
 # K2's backward at (64, 64) and (128, 128) on inputs built by integer
 # hashing (``hashed_bf16``): the sha256 of dq, dk and dv at minicpm-2b's
-# and qwen3-30b-a3b's training shapes, one at P off the tiles (g 3) and
-# one at g 8 over one kv head.  The digest was taken from the kernel
-# before it took every contract of the forward (the tree of the parent
-# commit, built and run on an H100); at those widths, causal and without
-# a window, the kernel must give the same bits.  (B, P, H, Hkv, hd)
+# and qwen3-30b-a3b's training shapes (the latter split into 4 head
+# groups), one at P off the tiles (g 3) and one at g 8 over one kv head.
+# The digest was taken from the wgmma kernel on an H100 on its first run
+# (the mma.sync kernel it replaced summed in another order and gave
+# deb003311f295bc6); a change that moves these bits must say why.
+# (B, P, H, Hkv, hd)
 K2_BWD_CASES = ((8, 256, 36, 36, 64), (8, 256, 32, 4, 128),
                 (2, 300, 12, 4, 64), (1, 200, 8, 1, 128))
-K2_BWD_SHA256 = "deb003311f295bc6"
+K2_BWD_SHA256 = "243cb0d6e10c6ce6"
 
 
 def k2_bwd_digest() -> str:
@@ -3258,9 +3276,14 @@ def check_moe_gmm_bwd(tag: str, c: int, gen, widths=QWEN3_MOE) -> dict:
         rels[name] = (d_.norm() / w_.float().norm()).item()
         max_abs = max(max_abs, d_.abs().max().item())
     pad = ops.PAD_COPIES["moe_gmm_bwd"] - padded
+    # the C entry's report of its launches: CTAs of kernels 1 and 2 (row
+    # tiles by F or d columns) and of the two persistent weight-gradient
+    # launches, the row tile and the weight-gradient output tiles
+    ctas = dict(ops.GRIDS["moe_gmm_bwd"])
     log(f"moe_gmm_bwd[{tag}] E {e} C {c} d {d} F {f}: rel Frobenius "
         f"{({k_: f'{v_:.3e}' for k_, v_ in rels.items()})} (tol "
-        f"{BWD_REL_FRO}), max abs {max_abs:.3e}; padded copies {pad}")
+        f"{BWD_REL_FRO}), max abs {max_abs:.3e}; padded copies {pad}; "
+        f"CTAs {ctas}")
     if max(rels.values()) > BWD_REL_FRO:
         raise AssertionError(f"moe_gmm_bwd[{tag}] disagrees: {rels}")
     del want, again
@@ -3270,7 +3293,11 @@ def check_moe_gmm_bwd(tag: str, c: int, gen, widths=QWEN3_MOE) -> dict:
     nbytes = 2 * (3 * args[0].numel() + 6 * args[1].numel())
     flops = 8 * 2 * e * c * d * f
     b_ms, b_by = bound_ms(nbytes, flops)
-    ms = cuda_time(lambda: ops.moe_gmm_bwd(*args, dy), iters=5)
+    # 10 launches of the kernel and of the chain
+    iters = 10
+    ms = cuda_time(lambda: ops.moe_gmm_bwd(*args, dy), iters=iters)
+    log(f"moe_gmm_bwd[{tag}]: {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s of "
+        f"the eight products, {b_ms / ms:.3f} of the bound ({b_by})")
     plain = cuda_time(lambda: ref.moe_gmm_bwd_ref(*args, dy), iters=2)
     x, wg, wu, wd = args
 
@@ -3287,7 +3314,7 @@ def check_moe_gmm_bwd(tag: str, c: int, gen, widths=QWEN3_MOE) -> dict:
                 torch.bmm(x.transpose(1, 2), dg),
                 torch.bmm(x.transpose(1, 2), du),
                 torch.bmm(h.transpose(1, 2), dy))
-    chain_ms = cuda_time(chain, iters=5)
+    chain_ms = cuda_time(chain, iters=iters)
     return {"name": f"moe_gmm_bwd[{tag}]", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/moe_gmm_bwd.cu",
             "replaces": "src/repro/kernels/moe_gmm.py:45",
@@ -3303,7 +3330,8 @@ def check_moe_gmm_bwd(tag: str, c: int, gen, widths=QWEN3_MOE) -> dict:
                                  "elementwise steps, timed as the kernel is: "
                                  "a yardstick of several calls, not "
                                  "library_ms",
-            "padded_copies": pad, "achieved_tflops": flops / ms / 1e9,
+            "padded_copies": pad, "ctas": ctas,
+            "achieved_tflops": flops / ms / 1e9,
             "shape": {"E": e, "C": c, "d": d, "F": f}}
 
 
@@ -3528,7 +3556,7 @@ def fp32_yardstick(cfg, params, host_batch):
 
 
 def train_model(arch: str, times: dict, steps: int, n_layers=None,
-                ckpt: bool = False) -> dict:
+                ckpt: bool = False, profile: bool = False) -> dict:
     """Phase 9: ``arch`` at full width (``n_layers`` cuts its depth) trains
     ``steps`` steps as ``python -m repro_torch.launch.train`` does (batch 8
     x 256 tokens of ``PackedDataset``, WSD at lr 6e-4, remat on), through
@@ -3538,7 +3566,8 @@ def train_model(arch: str, times: dict, steps: int, n_layers=None,
     loss, ce and grad norm against ``fp32_yardstick``.  With ``ckpt``: the
     state after the last step saved and restored, and the next step taken
     from the restored state equal, bit for bit, to the step taken
-    without the round trip."""
+    without the round trip.  With ``profile``: one more step under
+    torch.profiler (``profile_train_step``)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -3635,8 +3664,93 @@ def train_model(arch: str, times: dict, steps: int, n_layers=None,
            "step1_rel": rel}
     if ckpt:
         run["checkpoint"] = checkpoint_round_trip(trainer, host[steps])
+    if profile:
+        run["profile"] = profile_train_step(trainer, host[steps], cfg.name)
     _phase(f"train {arch}", t0, times)
     return run
+
+
+# the CUDA kernels of the two backward wrappers' launches, by name (each
+# in its source's anonymous namespace: PyTorch has a reduce_kernel too)
+BWD_KERNELS = {"prefill_attention_bwd": ("rowstat_kernel", "dkdv_kernel",
+                                         "reduce_kernel", "dq_kernel"),
+               "moe_gmm_bwd": ("gate_up_dh_kernel", "dx_kernel",
+                               "wgrad_kernel")}
+
+
+def profile_train_step(trainer, host_batch, label: str) -> dict:
+    """One training step of ``trainer`` on ``host_batch`` under
+    torch.profiler: device time by kernel; the share of the step's device
+    time in each backward kernel's launches (``BWD_KERNELS``); the
+    optimizer update's span on the device (two CUDA events around it: the
+    profiler's attribution of kernels to a ``record_function`` range
+    counted more device time than the step had at qwen3) as a share of
+    the step's wall time; and the device's idle share of that wall time
+    (host clock, synchronised, under the profiler).  The step runs through
+    a second ``Trainer`` over the same parameters and moments, whose
+    optimizer is the trainer's own with its update bracketed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training.train import Trainer
+
+    class Marked:
+        def __init__(self, opt):
+            self.opt = opt
+            self.span = [torch.cuda.Event(enable_timing=True)
+                         for _ in range(2)]
+
+        def init(self, params):
+            return self.opt.init(params)
+
+        def update(self, *args, **kw):
+            self.span[0].record()
+            out = self.opt.update(*args, **kw)
+            self.span[1].record()
+            return out
+
+    marked = Trainer(model=trainer.model, opt=Marked(trainer.opt),
+                     params=trainer.params, opt_state=trainer.opt_state,
+                     step=trainer.step)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        marked.fit(iter([host_batch]), 1, log_every=1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    trainer.params, trainer.opt_state = marked.params, marked.opt_state
+    opt_span = marked.opt.span[0].elapsed_time(marked.opt.span[1])
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        if e.self_device_time_total > 0:
+            kernels.append((e.self_device_time_total / 1e3, e.count, e.key))
+    kernels.sort(reverse=True)
+    busy = sum(ms for ms, _, _ in kernels)
+    if busy <= 0:
+        raise AssertionError(f"profile of a {label} training step: the "
+                             "profiler recorded no device time")
+    bwd = {w: sum(ms for ms, _, k in kernels
+                  if any(f"(anonymous namespace)::{n}" in k for n in names))
+           for w, names in BWD_KERNELS.items()}
+    out = {"wall_ms": wall_ms, "busy_ms": busy,
+           "idle_share": 1.0 - busy / wall_ms,
+           "bwd_ms": bwd, "bwd_share": {w: v / busy for w, v in bwd.items()},
+           "optimizer_span_ms": opt_span,
+           "optimizer_share": opt_span / wall_ms,
+           "top": [(round(ms, 3), n, k[:90]) for ms, n, k in kernels[:15]]}
+    log(f"profile of one {label} training step: {wall_ms:.1f} ms wall under "
+        f"the profiler, device busy {busy:.1f} ms (idle share "
+        f"{out['idle_share']:.3f}); backward kernels "
+        + ", ".join(f"{w} {v:.2f} ms ({out['bwd_share'][w]:.3f})"
+                    for w, v in bwd.items())
+        + f" of the busy time; the optimizer's span on the device "
+        f"{opt_span:.2f} ms ({out['optimizer_share']:.3f} of the wall)")
+    for ms, n, k in kernels[:15]:
+        log(f"  {ms:10.3f} ms {n:6d} x  {k[:100]}")
+    return out
 
 
 def checkpoint_round_trip(trainer, host_batch) -> dict:
@@ -3732,7 +3846,8 @@ def train_models(times: dict) -> dict:
     whisper-base (full depth; K2 causal and over the 1500 frames),
     recurrentgemma-9b (a multiple of its RG-LRU, RG-LRU, local pattern;
     K2 at (256, 256) under the window) and deepseek-v2-236b (its dense
-    block 0 and the MoE blocks that fit; K2 at (192, 128) and K4)."""
+    block 0 and the MoE blocks that fit; K2 at (192, 128) and K4).
+    minicpm-2b and qwen3-30b-a3b each profile one more step."""
     import torch
     runs = {}
     for arch, steps, period, ckpt in (("minicpm-2b", 20, None, True),
@@ -3742,6 +3857,7 @@ def train_models(times: dict) -> dict:
                                       ("deepseek-v2-236b", 10, 1, False)):
         runs[f"{arch} train"] = train_model(
             arch, times, steps=steps, ckpt=ckpt,
+            profile=arch in ("minicpm-2b", "qwen3-30b-a3b"),
             n_layers=train_depth(arch, period) if period else None)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3755,6 +3871,7 @@ def model_of(row: str) -> str:
                       ("qwen3 train", "qwen3-30b-a3b train"),
                       ("qwen3 P 2048", "qwen3-30b-a3b train"),
                       ("bwd[padded]", "qwen3-30b-a3b train"),
+                      ("bwd[qwen3 C", "qwen3-30b-a3b train"),
                       ("recurrentgemma train", "recurrentgemma-9b train"),
                       ("recurrentgemma P 4096", "recurrentgemma-9b train"),
                       ("deepseek train", "deepseek-v2-236b train"),
@@ -3812,12 +3929,14 @@ def main() -> None:
     # the prefill and the two MoE kernels' products should run on wgmma
     # (HGMMA) and their tiles arrive by TMA (UTMALDG); the decode and the
     # paged kernels' on mma.sync (HMMA) fed by cp.async (LDGSTS)
-    sass = {k: build.sass_counts(k) for k in ("prefill_attention",
-                                              "moe_gmm_ragged", "moe_gmm")}
+    sass = {k: build.sass_counts(k) for k in (
+        "prefill_attention", "moe_gmm_ragged", "moe_gmm",
+        "prefill_attention_bwd", "moe_gmm_bwd")}
     mma = {k: build.sass_counts(k, ("HMMA", "LDGSTS", "MOVM"))
            for k in ("decode_attention", "paged_attention")}
     log(f"SASS opcodes: {sass}, {mma}")
-    for k in ("moe_gmm_ragged", "moe_gmm"):
+    for k in ("moe_gmm_ragged", "moe_gmm", "prefill_attention_bwd",
+              "moe_gmm_bwd"):
         if sass[k] is not None and not (sass[k]["HGMMA"] > 0
                                         and sass[k]["UTMALDG"] > 0):
             raise AssertionError(f"{k}: no wgmma or TMA in its SASS: {sass[k]}")
@@ -3957,8 +4076,9 @@ def main() -> None:
     # training (phase 9's shapes): K2's forward with the log-sum-exp and
     # its backward at minicpm-2b's (36/36 heads of 64) and qwen3-30b-a3b's
     # (32/4 of 128) heads, at the launcher's 8 x 256 tokens and at 2048-
-    # token rows; K4's backward at qwen3's widths (C 160: 2048 tokens) and
-    # at widths off a multiple of 8 (the padded copy)
+    # token rows; K4's backward at qwen3's widths (C 160: 2048 tokens; C
+    # 130, two real rows past two warpgroups; C 1, one 8-row tile) and at
+    # widths off a multiple of 8 (the padded copy)
     kernels += check_prefill_attention_bwd("minicpm train", gen, TRAIN_B,
                                            TRAIN_SEQ, MINICPM_TRAIN_ATTN)
     kernels += check_prefill_attention_bwd("qwen3 train", gen, TRAIN_B,
@@ -3970,6 +4090,8 @@ def main() -> None:
                                            QWEN3_ATTN)[1:]
     torch.cuda.empty_cache()
     kernels += [check_moe_gmm_bwd("qwen3 train", QWEN3_TRAIN_C, gen),
+                check_moe_gmm_bwd("qwen3 C 130", 130, gen),
+                check_moe_gmm_bwd("qwen3 C 1", 1, gen),
                 check_moe_gmm_bwd("padded", 40, gen, (8, 2, 2044, 764))]
     torch.cuda.empty_cache()
     # the other archs' training attention: recurrentgemma-9b's local
@@ -3997,11 +4119,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     digest = k2_bwd_digest()
     log(f"prefill_attention_bwd at (64, 64) and (128, 128): gradients sha256 "
-        f"{digest} (the kernel before it took every contract: "
-        f"{K2_BWD_SHA256})")
+        f"{digest} (pinned: {K2_BWD_SHA256})")
     if digest != K2_BWD_SHA256:
         raise AssertionError("prefill_attention_bwd no longer gives the bits "
-                             "it gave before it took every contract")
+                             "pinned in K2_BWD_SHA256")
     digest = k2_g8_digest()
     log(f"prefill_attention at g 8: outputs sha256 {digest} (the kernel "
         f"before its repair: {K2_G8_SHA256})")

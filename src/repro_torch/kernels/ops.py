@@ -47,9 +47,11 @@ Tensor = torch.Tensor
 # designs of decode_attention and of the paged kernels are two CUDA
 # launches (split, then merge) when their split count exceeds 1, and
 # moe_gmm_ragged's and moe_gmm's two-phase design is always two (gate/up,
-# then down); the backward of K2 is three launches (D = rowsum(dO o O),
-# then dK/dV, then dQ) and that of K4 four (G, U, dH and the epilogue,
-# then dX, dWg/dWu, dWd): each still counts one
+# then down); the backward of K2 is three launches (D = rowsum(dO o O)
+# with the log-sum-exp rows, then dK/dV, then dQ; two more sum the dK and
+# dV partials of its head groups where ``bwd_split`` splits it) and that
+# of K4 four (G, U, dH and the epilogue, then dX, dWg/dWu, dWd): each
+# still counts one
 LAUNCHES: Dict[str, int] = {"moe_gmm_ragged": 0, "prefill_attention": 0,
                             "decode_attention": 0, "moe_gmm": 0,
                             "paged_decode_attention": 0,
@@ -58,8 +60,13 @@ LAUNCHES: Dict[str, int] = {"moe_gmm_ragged": 0, "prefill_attention": 0,
 # calls of moe_gmm on the card that zero-padded d or F to a multiple of 8
 # (a copy of the operands; widths of real models never take it)
 PAD_COPIES: Dict[str, int] = {"moe_gmm": 0, "moe_gmm_bwd": 0}
+# what the last launch of each backward wrapper on the card launched, as
+# its C entry reported it: CTAs of each pass (and K4's row tile and
+# weight-gradient tiles)
+GRIDS: Dict[str, Dict[str, int]] = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 # kernel -> (source csrc/<source>.cu, C entry point, its argument types)
 _SIGNATURES = {
     # the MoE kernels take an H scratch (rows, F) between their two phases
@@ -76,13 +83,16 @@ _SIGNATURES = {
                                [_P] * 7 + [_I] * 8 + [_F, _I, _P]),
     "paged_verify_attention": ("paged_attention", "paged_attention_bf16",
                                [_P] * 7 + [_I] * 8 + [_F, _I, _P]),
-    # q, k, v, o, lse, dO, offset, dq, dk, dv, the D scratch
+    # q, k, v, o, lse, dO, offset, dq, dk, dv, the L/D scratch, the
+    # split's partials; then the ints up to the split count and the key
+    # tile it was chosen for; the scale; the launched grid (out)
     "prefill_attention_bwd": ("prefill_attention_bwd",
                               "prefill_attention_bwd_bf16",
-                              [_P] * 11 + [_I] * 9 + [_F, _P]),
-    # x, Wg, Wu, Wd, dY, the H / dG / dU scratch, dx, dWg, dWu, dWd
+                              [_P] * 12 + [_I] * 11 + [_F, _IP, _P]),
+    # x, Wg, Wu, Wd, dY, the H / dG / dU scratch, dx, dWg, dWu, dWd; the
+    # ints; the launched grid (out)
     "moe_gmm_bwd": ("moe_gmm_bwd", "moe_gmm_bwd_bf16",
-                    [_P] * 12 + [_I] * 4 + [_P]),
+                    [_P] * 12 + [_I] * 4 + [_IP, _P]),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -312,7 +322,8 @@ def prefill_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     output cotangent ``do`` -> (dq, dk, dv).  On the card: bf16, the
     forward's contract (``_prefill_forward``: (hd, hd_v) in
     ``PREFILL_HEAD_DIMS``, any group size up to ``PREFILL_ROWS``, offsets,
-    a window, ``causal=False``); three launches, no atomics (two calls
+    a window, ``causal=False``); three launches, five where the dK/dV
+    pass splits its query heads (``bwd_split``), no atomics (two calls
     give the same bits)."""
     b, p, h, dk = q.shape
     if (o.shape != (b, p, h, v.shape[3]) or do.shape != o.shape
@@ -334,18 +345,68 @@ def prefill_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
                          f"{PREFILL_HEAD_DIMS} (g={h // hkv}, hd={dk}, "
                          f"hd_v={dv})")
     _check_aligned("prefill_attention_bwd", q, k, v, o, do)
-    if b > 65535 or hkv > 65535 or h > 65535:
-        raise ValueError("prefill_attention_bwd: grid past the launch limit")
     dq = torch.empty_like(q)
     dk_ = torch.empty_like(k)
     dv_ = torch.empty_like(v)
-    delta = torch.empty((b, h, p), dtype=torch.float32, device=q.device)
+    launch_prefill_bwd(q, k, v, o, lse, do, offset, dq, dk_, dv_,
+                       window=window, causal=causal)
+    return dq, dk_, dv_
+
+
+def launch_prefill_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
+                       lse: Tensor, do: Tensor, offset: Tensor, dq: Tensor,
+                       dk: Tensor, dv: Tensor, *, window: Optional[int],
+                       causal: bool) -> None:
+    """Launch K2's backward into ``dq``, ``dk`` and ``dv`` (checked
+    inputs on the card): allocates its scratch, the padded L/D rows and,
+    where ``bwd_split`` splits the dK/dV pass, the groups' fp32
+    partials."""
+    b, p, h, hd = q.shape
+    hkv, s_max, hd_v = k.shape[2], k.shape[1], v.shape[3]
+    split = bwd_split(b, hkv, h // hkv, s_max, hd)
+    # the grids' y axis is B and their z axis the key or query tiles
+    if b > 65535 or s_max > 64 * 65535 or p > _BWD_ROW_PAD * 65535:
+        raise ValueError("prefill_attention_bwd: grid past the launch limit")
+    pad = -(-p // _BWD_ROW_PAD) * _BWD_ROW_PAD
+    stat = torch.empty(2 * b * h * pad, dtype=torch.float32, device=q.device)
+    part = (torch.empty(split * b * s_max * hkv * (hd + hd_v),
+                        dtype=torch.float32, device=q.device)
+            if split > 1 else None)
+    grid = (ctypes.c_int * 3)()
+    # the C entry refuses a key tile other than its build's
     _launch("prefill_attention_bwd", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
-            offset.data_ptr(), dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(),
-            delta.data_ptr(), b, p, h, hkv, s_max, dk, dv, window or 0,
-            int(causal), 1.0 / math.sqrt(dk))
-    return dq, dk_, dv_
+            offset.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stat.data_ptr(), part.data_ptr() if part is not None else None,
+            b, p, h, hkv, s_max, hd, hd_v, window or 0, int(causal), split,
+            bwd_key_tile(hd), 1.0 / math.sqrt(hd), grid)
+    GRIDS["prefill_attention_bwd"] = {"split": split, "dkdv": grid[0],
+                                      "reduce": grid[1], "dq": grid[2]}
+
+
+# K2's backward: L and D rows padded to its dQ pass's 128-query tiles
+_BWD_ROW_PAD = 128
+
+
+def bwd_key_tile(hd: int) -> int:
+    """Keys per CTA of K2's backward dK/dV pass (two warpgroups of 64 up
+    to dk 128, one tile of 64 shared by both past it); the C entry checks
+    it against its build's."""
+    return 128 if hd <= 128 else 64
+
+
+def bwd_split(b: int, hkv: int, g: int, s_max: int, hd: int) -> int:
+    """Query-head groups of K2's backward dK/dV pass, from the shapes the
+    host knows: 1 where its (key tile, kv head, row) grid already fills
+    the 132 SMs; else the smallest divisor s of the group size g that
+    makes s times as many CTAs fill them (each group sums its own heads
+    into fp32 partials, which a second launch adds in a fixed order); g
+    where no divisor does."""
+    ctas = -(-s_max // bwd_key_tile(hd)) * hkv * b
+    if ctas >= _SMS:
+        return 1
+    return next((s for s in range(1, g + 1)
+                 if g % s == 0 and ctas * s >= _SMS), g)
 
 
 # --------------------------------------------------------------------- K3
@@ -529,10 +590,15 @@ def moe_gmm_bwd(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor,
     dx = torch.empty_like(xp)
     dwg, dwu, dwd = (torch.empty_like(wg), torch.empty_like(wu),
                      torch.empty_like(wd))
+    grid = (ctypes.c_int * 7)()
     _launch("moe_gmm_bwd", xp.data_ptr(), wg.data_ptr(), wu.data_ptr(),
             wd.data_ptr(), dyp.data_ptr(), scratch[0].data_ptr(),
             scratch[1].data_ptr(), scratch[2].data_ptr(), dx.data_ptr(),
-            dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(), e, c, dp, fp)
+            dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(), e, c, dp, fp,
+            grid)
+    GRIDS["moe_gmm_bwd"] = dict(zip(
+        ("gate_up_dh", "dx", "dwgu", "dwd", "row_tile", "dwgu_tiles",
+         "dwd_tiles"), grid))
     if xp is x:
         return dx, dwg, dwu, dwd
     # the backward of pad_widths: the grads of the zero padding are

@@ -1087,8 +1087,8 @@ def _attn_bwd_inputs(rng, dev, b, p, s_max, h, hkv, hd, hd_v=None):
 # (B, P, S_max, H, Hkv, hd, hd_v, offsets, window, causal): every (hd,
 # hd_v) pair of ops.PREFILL_HEAD_DIMS, causal without and with a window
 # that binds, through a cache at offsets, and non-causal with S_max past P
-# and off the kernels' 64- and 32-key tiles (1500 = 23 x 64 + 28, 75 = 2
-# x 32 + 11)
+# and off the kernels' 128-, 64- and 32-key tiles (1500 = 11 x 128 + 92 =
+# 23 x 64 + 28, 75 = 64 + 11 = 2 x 32 + 11)
 ATTN_BWD_CASES = {
     "minicpm_g1": (2, 256, 256, 4, 4, 64, 64, (0, 0), None, True),
     "qwen3_g8": (1, 256, 256, 16, 2, 128, 128, (0,), None, True),
@@ -1109,6 +1109,15 @@ ATTN_BWD_CASES = {
     "cross_128": (1, 50, 75, 4, 1, 128, 128, (0,), None, False),
     "cross_mla": (2, 20, 75, 2, 2, 192, 128, (0, 0), None, False),
     "cross_hd256": (2, 33, 75, 4, 2, 256, 256, (0, 0), None, False),
+    # the dK/dV pass's head-group split (ops.bwd_split): recurrentgemma's
+    # one kv head under a window (16 groups), a qwen3-like training shape
+    # (8), g 3 over offsets, (192, 128) at g 4; and a grid that fills the
+    # card unsplit at g 2
+    "split_hd256_g16": (2, 256, 256, 16, 1, 256, 256, (0, 0), 64, True),
+    "split_qwen3_like": (2, 256, 256, 8, 4, 128, 128, (0, 0), None, True),
+    "split_g3_offsets": (2, 130, 300, 6, 2, 64, 64, (0, 100), None, True),
+    "split_mla_g4": (1, 100, 100, 8, 2, 192, 128, (0,), None, True),
+    "unsplit_g2": (3, 2048, 2048, 6, 3, 64, 64, (0, 0, 0), None, True),
 }
 
 
@@ -1122,12 +1131,8 @@ def _bwd_into(q, k, v, out, lse, do, off, window, causal, pad):
     dq = torch.empty_like(q)
     dk = torch.full((b * s_max + pad, hkv, dk_w), 7.0, **fill)
     dv = torch.full((b * s_max + pad, hkv, dv_w), 7.0, **fill)
-    delta = torch.empty((b, h, p), dtype=torch.float32, device=q.device)
-    ops._launch("prefill_attention_bwd", q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), lse.data_ptr(), do.data_ptr(),
-                off.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                delta.data_ptr(), b, p, h, hkv, s_max, dk_w, dv_w,
-                window or 0, int(causal), 1.0 / dk_w ** 0.5)
+    ops.launch_prefill_bwd(q, k, v, out, lse, do, off, dq, dk, dv,
+                           window=window, causal=causal)
     n = b * s_max
     kept = bool((dk[n:] == 7.0).all()) and bool((dv[n:] == 7.0).all())
     return dq, dk[:n].reshape(k.shape), dv[:n].reshape(v.shape), kept
@@ -1136,7 +1141,7 @@ def _bwd_into(q, k, v, out, lse, do, off, window, causal, pad):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(ATTN_BWD_CASES))
 def test_prefill_attention_bwd_kernel_matches_plain(cuda, case):
-    """The forward's log-sum-exp and the three-pass backward against the
+    """The forward's log-sum-exp and the backward against the
     plain versions at every contract the forward takes; keys no query
     sees get zero gradients; nothing is written at or past S_max; two
     calls give the same bits."""
@@ -1154,6 +1159,13 @@ def test_prefill_attention_bwd_kernel_matches_plain(cuda, case):
     got = ops.prefill_attention_bwd(q, k, v, out, lse, do, off, **kw)
     again = ops.prefill_attention_bwd(q, k, v, out, lse, do, off, **kw)
     assert ops.LAUNCHES["prefill_attention_bwd"] == before + 2
+    # the grid the C entry reports launching: the host's split, and one
+    # wave of dK/dV CTAs wherever the query heads allow it
+    grid = ops.GRIDS["prefill_attention_bwd"]
+    split = ops.bwd_split(b, hkv, h // hkv, s_max, hd)
+    assert grid["split"] == split and (grid["reduce"] > 0) == (split > 1)
+    assert grid["dkdv"] >= min(132, grid["dkdv"] // split * (h // hkv))
+    assert grid["dq"] == -(-p // 128) * h * b
     want = ref.prefill_attention_bwd_ref(q, k, v, out, lse, do, off, **kw)
     for name, g_, a_, w_ in zip(("dq", "dk", "dv"), got, again, want):
         assert g_.dtype == torch.bfloat16 and torch.equal(g_, a_), name
@@ -1198,10 +1210,12 @@ def test_prefill_attention_under_grad_runs_its_backward_kernel(cuda, hd,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("e,c,d,f", [(4, 40, 128, 64), (3, 7, 64, 192),
-                                     (2, 130, 256, 96), (2, 9, 60, 20)])
+                                     (2, 130, 256, 96), (2, 160, 256, 128),
+                                     (3, 1, 128, 64), (2, 9, 60, 20)])
 def test_moe_gmm_bwd_kernel_matches_plain(cuda, e, c, d, f):
     """The four-launch backward against its plain version, at C off the
-    64-row tiles and, last, d and F off a multiple of 8 (the padded
+    row tiles (130 and 160: one tile of three warpgroups, 192 rows; 1: an
+    8-row tile) and, last, d and F off a multiple of 8 (the padded
     operands, grads sliced back); two calls give the same bits."""
     rng = np.random.default_rng(c + d)
     args = (_bf16(rng, (e, c, d), cuda), _bf16(rng, (e, d, f), cuda, d ** -0.5),
@@ -1214,6 +1228,10 @@ def test_moe_gmm_bwd_kernel_matches_plain(cuda, e, c, d, f):
     again = ops.moe_gmm_bwd(*args, dy)
     assert ops.LAUNCHES["moe_gmm_bwd"] == before + 2
     assert ops.PAD_COPIES["moe_gmm_bwd"] == padded + 2 * bool(d % 8 or f % 8)
+    grid = ops.GRIDS["moe_gmm_bwd"]
+    assert grid["gate_up_dh"] > 0 and grid["dx"] > 0 and grid["row_tile"] >= 8
+    for w in ("dwgu", "dwd"):
+        assert 0 < grid[w] <= min(grid[f"{w}_tiles"], 132), (w, grid)
     want = ref.moe_gmm_bwd_ref(*args, dy)
     for name, g_, a_, w_, x_ in zip(("dx", "dwg", "dwu", "dwd"), got, again,
                                     want, args):

@@ -491,6 +491,60 @@ def test_scatter_refuses_device_side_slot_ids():
 
 # ------------------------------------------------------------ no fallback
 
+@pytest.mark.parametrize("b,s_max,hkv,g,hd,want", [
+    (8, 256, 1, 16, 256, 8),     # recurrentgemma-9b's training shape
+    (1, 4096, 1, 16, 256, 4),    # one 4096-token row at one kv head
+    (8, 256, 4, 8, 128, 4),      # qwen3-30b-a3b's training shape
+    (2, 2048, 4, 8, 128, 2),     # qwen3's heads at 2048-token rows
+    (8, 256, 36, 1, 64, 1),      # minicpm-2b: the grid fills the card
+    (8, 256, 128, 1, 192, 1),    # deepseek-v2-236b (64-key tiles)
+    (1, 1500, 8, 1, 64, 1),      # whisper's encoder: g 1, nothing to split
+    (1, 10, 2, 8, 128, 8),       # S_max under one tile: every head a group
+    (2, 160, 1, 16, 256, 16),
+    (1, 256, 2, 6, 64, 6),       # the divisors of 6 below it do not fill
+])
+def test_bwd_split_count(b, s_max, hkv, g, hd, want):
+    """K2's backward splits the g query heads of its dK/dV pass into s
+    groups from host-known shapes only: s divides g; no split where the
+    (key tile, kv head, row) grid fills the 132 SMs; else the smallest
+    split that fills them, or every head its own group where none does."""
+    split = ops.bwd_split(b, hkv, g, s_max, hd)
+    assert split == want and g % split == 0
+    ctas = -(-s_max // ops.bwd_key_tile(hd)) * hkv * b
+    if ctas >= 132:
+        assert split == 1
+    elif ctas * g >= 132:
+        assert ctas * split >= 132
+        assert all(ctas * s < 132 for s in range(1, split) if g % s == 0)
+    else:
+        assert split == g
+
+
+def test_backward_wrappers_on_cpu_take_the_plain_versions():
+    """On CPU tensors the two backward wrappers give their plain versions'
+    results exactly (the card's scratch and split are not taken) and
+    launch nothing."""
+    rng = np.random.default_rng(3)
+    q, do = (torch.from_numpy(_np(rng, (2, 40, 8, 32))) for _ in range(2))
+    k, v = (torch.from_numpy(_np(rng, (2, 40, 1, 32))) for _ in range(2))
+    off = torch.zeros(2, dtype=torch.int32)
+    out = ref.prefill_attention_ref(q, k, v, off, window=16)
+    lse = ref.prefill_attention_lse_ref(q, k, v, off, window=16)
+    moe = [torch.from_numpy(_np(rng, s_, 0.1))
+           for s_ in ((3, 7, 16), (3, 16, 24), (3, 16, 24), (3, 24, 16))]
+    dy = torch.from_numpy(_np(rng, (3, 7, 16)))
+    ops.reset_launches()
+    got = ops.prefill_attention_bwd(q, k, v, out, lse, do, off, window=16)
+    want = ref.prefill_attention_bwd_ref(q, k, v, out, lse, do, off,
+                                         window=16)
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
+    for g_, w_ in zip(ops.moe_gmm_bwd(*moe, dy), ref.moe_gmm_bwd_ref(*moe, dy)):
+        assert torch.equal(g_, w_)
+    assert all(v_ == 0 for v_ in ops.LAUNCHES.values())
+    assert all(v_ == 0 for v_ in ops.PAD_COPIES.values())
+
+
 def test_wrappers_take_no_silent_fallback():
     """Only a CPU tensor takes the plain version; anything else that is
     not a CUDA tensor raises instead of quietly running elsewhere."""
