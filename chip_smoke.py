@@ -240,6 +240,26 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    of minicpm-2b and of qwen3-30b-a3b runs under torch.profiler: device
    time by kernel, the two backward kernels' share, the optimizer's share
    and the device's idle share of the step.
+10. the multi-device code on this card: qwen3-30b-a3b at full width, 8
+   of 48 layers, seed-0 bf16 weights made once on the card and handed to
+   16 ranks by CUDA IPC, sharded over the (2, 8) ``(data, model)`` mesh
+   (gloo; every kernel built before any rank starts): a prefill step (2 x
+   512 tokens, dense and ragged: the a2a MoE and the "gqa" attention
+   region over a sequence-split cache), 8 decode steps (the split softmax
+   with K3's log-sum-exp, the gathered MoE) and one layered step (its row
+   of 256 tokens: the split softmax with K2's log-sum-exp, the psum MoE),
+   dropless as the serving engine is.  Per step: K1-K4 launches summed
+   over ranks (each rank launches every kernel of the path), collectives
+   by kind and bytes, and the wall time (the harness, not a cluster).
+   Held against the unsharded port on the same card and weights, every
+   rank's routes pinned to the unsharded run's (``serve_sharded``): each
+   step's logits within ``E2E_REL_FRO``, expert counts equal, greedy
+   tokens equal but at logit near-ties, and each block's update,
+   teacher-forced, within ``BLOCK_TOL``.  Phase 2 adds K3 with its
+   log-sum-exp (``check_decode_lse``).
+11. beside phase 10, on the host: ``python -m repro_torch.launch.dryrun``
+   for qwen3-moe-235b-a22b at prefill_32k (16x16) and decode_32k
+   (2x16x16); each JSON line printed.
    Each phase's seconds are printed.
 
 It prints a JSON ``kernels`` line (each row's ``launches`` summed over
@@ -264,6 +284,7 @@ import gc
 import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -3864,10 +3885,615 @@ def train_models(times: dict) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------- phase 10
+
+SHARD_MESH = (2, 8)                    # (data, model): 16 ranks on one card
+SHARD_LAYERS = 8                       # of qwen3-30b-a3b's 48, full width
+SHARD_B, SHARD_S, SHARD_CACHE = 2, 512, 1024
+SHARD_DECODES, SHARD_P, SHARD_GROUP = 8, 256, (0, 4)
+SHARD_KERNELS = ("moe_gmm_ragged", "prefill_attention", "decode_attention",
+                 "moe_gmm")
+# the ranks' routes are pinned to the unsharded run's (``_pin_route``):
+# each of a rank's MoE tokens takes the expert ids of the reference token
+# nearest to it, which must lie within PIN_NEAR of that token's norm and
+# at most 1 / PIN_APART as far as the next nearest (tokens of other rows
+# or positions lie about 1.4 norms apart)
+PIN_NEAR, PIN_APART = 0.25, 2.0
+# each block's update (its output less its input), teacher-forced,
+# against the unsharded block's, relative Frobenius over every token:
+# sound blocks read at most 1.0e-2, planted faults 2.5e-2 to 3.4e-2
+# (psum capacity binding despite dropless) and 5.5e-2 (decode lengths
+# one short) in the blocks they touched (PERF.md §6)
+BLOCK_TOL = 2e-2
+# K3 at the sharded decode step's slices: 2 rows over 8 slices of 128
+# positions of a 1024-row cache, lengths clamped to the slice (0 where the
+# slice lies past the row)
+LSE_SLICE = 128
+# K3's log-sum-exp (fp32, about ln of the keys seen, 5-8 here) against
+# its fp32 plain version: one 16-key tile missed among 1000 keys moves it
+# by about 0.016; the first readings were 9.5e-7 (PERF.md §6)
+LSE_ATOL = 1e-4
+# K3's bf16 output, and the fp32 merge of its slices, against the plain
+# version rounded to bf16: one bf16 ulp (2^-7 of the value) apart at most,
+# atol for values near 0
+OUT_TOL = dict(atol=1e-3, rtol=2 ** -7)
+
+
+def check_decode_lse(gen) -> dict:
+    """K3 with its log-sum-exp output at qwen3-30b-a3b's decode shapes:
+    (a) the 8-slot serve step (S_max 2048), where the output must keep the
+    bits of the call without the log-sum-exp; (b) the sharded decode
+    step's slices (``LSE_SLICE`` positions, lengths clamped to the slice,
+    some 0: output 0 and log-sum-exp -inf), each against the plain
+    version; and the two halves of a split row merged from their (o, lse)
+    against the unsplit call."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    h, hkv, hd, _ = _heads(QWEN3_ATTN)
+    dev = torch.device("cuda")
+    b, s_max = 8, 2048
+    q = torch.randn((b, h, hd), device=dev, generator=gen).to(torch.bfloat16)
+    kc, vc = (torch.randn((b, s_max, hkv, hd), device=dev, generator=gen)
+              .to(torch.bfloat16) for _ in range(2))
+    lens = torch.randint(601, 1517, (b,), device=dev, generator=gen,
+                         dtype=torch.int32)
+    plain_out = ops.decode_attention(q, kc, vc, lens)
+    out, lse = ops.decode_attention(q, kc, vc, lens, return_lse=True)
+    if not torch.equal(out, plain_out):
+        raise AssertionError("decode_attention: asking for the log-sum-exp "
+                             "changed the output's bits")
+    want = ref.decode_attention_ref(q, kc, vc, lens)
+    want_lse = ref.decode_attention_lse_ref(q, kc, lens)
+
+    def excess(got, want):
+        """max |got - want| and whether it lies within ``OUT_TOL``."""
+        d = (got.float() - want.float()).abs()
+        ok = bool((d <= OUT_TOL["atol"] + OUT_TOL["rtol"]
+                   * want.float().abs()).all())
+        return d.max().item(), ok
+    err, ok_out = excess(out, want)
+    err_lse = (lse - want_lse).abs().max().item()
+    # the sharded decode's slices: rank j holds positions [j*128, ...)
+    n_sl = SHARD_CACHE // LSE_SLICE
+    rows = torch.tensor([300, 1000], dtype=torch.int64, device=dev)
+    errs, errs_lse, zero_ok = [], [], True
+    kq, vq = kc[:2, :SHARD_CACHE].contiguous(), vc[:2, :SHARD_CACHE].contiguous()
+    parts = []
+    for j in range(n_sl):
+        lo = j * LSE_SLICE
+        ln = (rows - lo).clamp(0, LSE_SLICE).to(torch.int32)
+        ks = kq[:, lo:lo + LSE_SLICE].contiguous()
+        vs = vq[:, lo:lo + LSE_SLICE].contiguous()
+        o_j, l_j = ops.decode_attention(q[:2], ks, vs, ln, return_lse=True)
+        e_j, ok_j = excess(o_j, ref.decode_attention_ref(q[:2], ks, vs, ln))
+        errs.append(e_j)
+        ok_out = ok_out and ok_j
+        wl_j = ref.decode_attention_lse_ref(q[:2], ks, ln)
+        fin = torch.isfinite(wl_j)
+        if not torch.equal(fin, torch.isfinite(l_j)):
+            zero_ok = False
+        if fin.any():
+            errs_lse.append((l_j[fin] - wl_j[fin]).abs().max().item())
+        if (ln == 0).any() and not (o_j[ln == 0] == 0).all():
+            zero_ok = False
+        parts.append((o_j.float(), l_j))
+    ls = torch.stack([p_[1] for p_ in parts])
+    m = ls.max(0).values
+    wts = torch.exp(ls - torch.where(torch.isfinite(m), m, 0.0))
+    merged = (wts[..., None] * torch.stack([p_[0] for p_ in parts])).sum(0) \
+        / wts.sum(0)[..., None]
+    whole = ref.decode_attention_ref(q[:2], kq, vq, (rows + 0).to(torch.int32))
+    err_merge, ok_merge = excess(merged, whole)
+    err_lse = max([err_lse] + errs_lse)
+    max_abs = max([err, err_lse, err_merge] + errs)
+    log(f"decode_attention[qwen3 sharded lse]: serve step B{b} S_max {s_max}"
+        f" out max abs {err:.3e}, lse max abs {err_lse:.3e} over it and the "
+        f"slices (tol {LSE_ATOL}; bits of the call without it kept); {n_sl} "
+        f"slices of {LSE_SLICE}: out max abs {max(errs):.3e}, empty slices "
+        f"0 / -inf: {zero_ok}; merged slices vs unsplit {err_merge:.3e} "
+        f"(out and merge tol {OUT_TOL})")
+    if not (zero_ok and ok_out and ok_merge and err_lse <= LSE_ATOL):
+        raise AssertionError("decode_attention with log-sum-exp disagrees")
+    used = [int(n) for n in lens.tolist()]
+    nbytes = (q.numel() * 2 + out.numel() * 2 + lse.numel() * 4
+              + sum(used) * hkv * 2 * hd * 2 + b * 4)
+    b_ms, b_by = bound_ms(nbytes, 4 * hd * h * sum(used))
+    # timed as check_decode_attention's ms_hot: CUDA graph replay over
+    # one cache copy, beside the serve call without the log-sum-exp
+    ms = cuda_time_cold(lambda i: ops.decode_attention(
+        q, kc, vc, lens, return_lse=True), 1, rounds=48)
+    ms_serve = cuda_time_cold(lambda i: ops.decode_attention(
+        q, kc, vc, lens), 1, rounds=48)
+    plain = cuda_time_cold(lambda i: (
+        ref.decode_attention_ref(q, kc, vc, lens),
+        ref.decode_attention_lse_ref(q, kc, lens)), 1, rounds=4)
+    log(f"decode_attention[qwen3 sharded lse]: {ms:.4f} ms with the "
+        f"log-sum-exp, {ms_serve:.4f} ms without (graph, hot)")
+    return {"name": "decode_attention[qwen3 sharded lse]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:85",
+            "max_abs_err": max_abs, "ms": ms, "ms_without_lse": ms_serve,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "timing": "CUDA graph replay, hot (one cache copy)",
+            "shape": {"B": b, "S_max": s_max, "lengths": used, "H": h,
+                      "Hkv": hkv, "hd": hd, "lse": True}}
+
+
+def _pin_route(route, queue: list, seen: dict):
+    """``moe.route`` with each call's expert ids taken from the unsharded
+    run's call in the same place: ``queue`` holds that run's (MoE input,
+    expert ids) of each call still to come, in order.  Each of this
+    rank's tokens takes the ids of the reference token nearest to it,
+    weighted by its own renormalised router probabilities (phase 3's
+    pinning); ``seen`` keeps the farthest match (relative to the
+    reference token's norm) and the least ratio of the next nearest
+    reference to the nearest, which the parent holds to ``PIN_NEAR`` and
+    ``PIN_APART``."""
+    import torch
+
+    def pinned(cfg, p, x):
+        _, _, probs = route(cfg, p, x)
+        xr, ir = queue.pop(0)
+        d = torch.cdist(x.float(), xr.float())
+        near = d.topk(min(2, d.shape[1]), dim=1, largest=False)
+        d1 = near.values[:, 0]
+        j = near.indices[:, 0]
+        seen["near"] = max(seen["near"],
+                           (d1 / xr.float().norm(dim=1)[j]).max().item())
+        if d.shape[1] > 1:
+            seen["apart"] = min(seen["apart"], (
+                near.values[:, 1] / d1.clamp(min=1e-30)).min().item())
+        idx = ir[j]
+        w = probs.gather(1, idx)
+        return idx, w / w.sum(dim=-1, keepdim=True), probs
+    return pinned
+
+
+def _teacher_forced(model, lp, mesh, rules, cases, queue) -> dict:
+    """Each block of each case run alone over this rank's shards from the
+    unsharded run's input to that block (its rows and positions, in the
+    residual layout) with that block's routes pinned: the prefill (dense,
+    then ragged, each into a fresh cache), the first decode step over the
+    dense prefill's cache, and the layered row over slot 0's row.  Returns
+    each block's output block."""
+    import torch
+    from repro_torch.convert import shard_cache
+    from repro_torch.launch import steps
+    from repro_torch.sharding import spmd
+    out = {}
+    caches = {}
+    for key, case in cases.items():
+        b, s = case["b"], case["x"][0].shape[1]
+        lay = spmd.layout(mesh, rules, b, s, SHARD_CACHE)
+        if key.startswith("prefill"):
+            cache = caches[key] = shard_cache(
+                model.init_cache(SHARD_B, SHARD_CACHE), mesh, SHARD_B)
+        elif key.startswith("decode"):
+            cache = caches["prefill dense"]
+        else:
+            cache = steps.slice_row(caches["prefill dense"], 0, SHARD_B)
+        b_r = b // SHARD_MESH[0] if lay.b_split else b
+        r0 = mesh.coords["data"] * b_r if lay.b_split else 0
+        pos = case["positions"][r0:r0 + b_r]
+        off = case["offset"][r0:r0 + b_r]
+        outs = []
+        for i, x, pin in zip(case["blocks"], case["x"], case["pins"]):
+            xl = spmd.take_seq(mesh, rules, x[r0:r0 + b_r], lay)
+            queue[:] = [pin]
+            y, _, _ = model.run_blocks(
+                lp, xl, i, 1, positions=pos, offset=off, cache=cache,
+                moe_dispatch=case["dispatch"], dropless=True, global_batch=b,
+                cache_len=SHARD_CACHE)
+            if queue:
+                raise AssertionError(f"{key} block {i}: no MoE call")
+            outs.append(y.float().cpu())
+        out[key] = outs
+    torch.cuda.synchronize()
+    return out
+
+
+def _shard_rank(rank: int, world: int, tmp: str, params, cfg, inputs) -> None:
+    """One rank of the sharded phase: its shards of ``params`` (the
+    parent's tensors on the card, shared by CUDA IPC), the prefill (dense
+    and ragged), the decode steps and the layered step under the (2, 8)
+    mesh, each MoE call's routes pinned to the unsharded run's; per step
+    the kernels' launches, the collectives and the wall time; results to
+    ``tmp/rank<r>.pt``."""
+    import os
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        tmp, "rendezvous"), rank=rank, world_size=world)
+    try:
+        from repro_torch.configs.shapes import InputShape
+        from repro_torch.convert import shard_cache, shard_params
+        from repro_torch.kernels import ops
+        from repro_torch.launch import steps
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models import moe
+        from repro_torch.models.model import DecoderModel
+        from repro_torch.sharding import collectives as col
+        from repro_torch.sharding import spmd
+        from repro_torch.sharding.partition import (default_rules,
+                                                    sharding_context)
+        mesh = make_mesh(SHARD_MESH, ("data", "model"), rank=rank,
+                         distributed=True)
+        rules = default_rules(mesh)
+        lp = shard_params(params, mesh)
+        del params
+        torch.cuda.synchronize()
+        model = DecoderModel(cfg, device="cuda")
+        b_r = SHARD_B // SHARD_MESH[0]
+        r0 = mesh.coords["data"] * b_r
+        queue, seen = [], {"near": 0.0, "apart": math.inf}
+        moe.route = _pin_route(moe.route, queue, seen)
+
+        def rows(t):
+            return t[r0:r0 + b_r].cuda()
+        pre = InputShape("prefill", "prefill", SHARD_CACHE, SHARD_B)
+        dec = InputShape("decode", "decode", SHARD_CACHE, SHARD_B)
+        stats, out = [], {}
+
+        def timed(label, fn):
+            queue[:] = inputs["pins"][label]
+            ops.reset_launches()
+            col.reset_record()
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            dist.barrier()
+            stats.append({"step": label,
+                          "s": time.perf_counter() - t0,
+                          "launches": {k: ops.LAUNCHES[k]
+                                       for k in SHARD_KERNELS},
+                          "coll": {k: dict(v) for k, v in
+                                   col.RECORD.items()}})
+            if queue:
+                raise AssertionError(f"{label}: {len(queue)} MoE calls of "
+                                     "the unsharded run not made")
+            return res
+        with sharding_context(mesh, rules):
+            for disp in ("ragged", "dense"):
+                cache = shard_cache(model.init_cache(SHARD_B, SHARD_CACHE),
+                                    mesh, SHARD_B)
+                step = steps.make_step_fn(model, pre, moe_dispatch=disp,
+                                          dropless=True)
+                lg, cache, aux = timed(f"prefill {disp}", lambda: step(
+                    lp, cache, {"tokens": rows(inputs["tokens"])}))
+                out[f"prefill {disp}"] = (lg.float().cpu(),
+                                          aux["expert_counts"].cpu())
+            dstep = steps.make_step_fn(model, dec, dropless=True)
+            for i in range(SHARD_DECODES):
+                lg, cache, aux = timed(f"decode {i}", lambda: dstep(
+                    lp, cache, {"tokens": rows(inputs["decode"][i]),
+                                "offsets": rows(inputs["offsets"][i])}))
+                out[f"decode {i}"] = (lg.float().cpu(),
+                                      aux["expert_counts"].cpu())
+            lstep = steps.make_layered_step_fn(
+                model, group=SHARD_GROUP, prefill_len=SHARD_P,
+                global_batch=SHARD_B, cache_len=SHARD_CACHE, dropless=True)
+            lay1 = spmd.layout(mesh, rules, 1, SHARD_P)
+            lg, h_out, cache, aux = timed("layered", lambda: lstep(
+                lp, cache, {"tokens": rows(inputs["layered_tokens"]),
+                            "offsets": rows(inputs["layered_offsets"]),
+                            "valid": rows(inputs["valid"]),
+                            "hidden": spmd.take_seq(
+                                mesh, rules, inputs["hidden"].cuda(), lay1)}))
+            out["layered"] = (lg.float().cpu(), aux["expert_counts"].cpu(),
+                              h_out.float().cpu(),
+                              aux["prefill_expert_counts"].cpu())
+            out["blocks"] = _teacher_forced(model, lp, mesh, rules,
+                                            inputs["blocks"], queue)
+        torch.save({"coords": mesh.coords, "out": out, "stats": stats,
+                    "pins": seen, "mem": torch.cuda.max_memory_allocated()},
+                   os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_sharded(times: dict) -> dict:
+    """Phase 10: qwen3-30b-a3b at full width, ``SHARD_LAYERS`` layers,
+    bf16, seed-0 weights made once on the card, sharded over the (2, 8)
+    mesh as 16 ranks on this one card (gloo: NCCL refuses two ranks on one
+    device).  The plans take every regime this model has at serve shapes:
+    "gqa" attention over a sequence-split cache and the a2a MoE (dense and
+    ragged) at the prefill (2 x 512), the split softmax (K3 with its
+    log-sum-exp) and the gathered MoE at the 8 decode steps, and the split
+    softmax (K2 with its log-sum-exp) with the psum MoE at the layered
+    step's 256-token row.  Held against the unsharded port on the same
+    card and weights (decode inputs teacher-forced: the unsharded run's
+    tokens), with every rank's MoE calls pinned to the unsharded run's
+    routes (``_pin_route``: at seed-0 random weights the smallest router
+    margin over 8 blocks is about 1e-4, the size of the bf16 sums' other
+    order over 8 ranks, so unpinned routing parts after a few blocks):
+    every step's logits (and the layered row's output) within
+    ``E2E_REL_FRO``, expert counts equal, greedy tokens equal except at a
+    near-tie of the unsharded logits (``NEAR_TIE_ULPS``); and every block
+    of the prefills, the first decode step and the layered row, run alone
+    on the ranks from the unsharded run's input to it, with its update
+    (output less input) within ``BLOCK_TOL`` of the unsharded block's.
+    Per step: K1-K4 launches summed over ranks (every rank must launch
+    each of the path's kernels), the collectives by kind and bytes, and
+    the wall time: 16 processes on one card over gloo, the harness, not
+    a cluster."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.models import blocks, moe
+    from repro_torch.models.model import DecoderModel
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen3-30b-a3b"),
+                              n_layers=SHARD_LAYERS)
+    model = DecoderModel(cfg, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator().manual_seed(3)
+    inputs = {"tokens": torch.randint(1, cfg.vocab_size, (SHARD_B, SHARD_S),
+                                      generator=g)}
+    # the unsharded reference on the card: every MoE call's (input, expert
+    # ids) and every block's (input, output), recorded
+    pre = InputShape("prefill", "prefill", SHARD_CACHE, SHARD_B)
+    dec = InputShape("decode", "decode", SHARD_CACHE, SHARD_B)
+    route, pins = moe.route, []
+
+    def recorded(*args):
+        out = route(*args)
+        pins.append((args[2].detach().clone(), out[0].detach().clone()))
+        return out
+
+    apply_block, io = blocks.apply_block, []
+
+    def recording_block(*args, **kw):
+        x = args[3]
+        y = apply_block(*args, **kw)
+        io.append((x.detach().clone(), y[0].detach().float().cpu()))
+        return y
+
+    def run(key, fn):
+        """``fn()``, recording its MoE calls as ``key``'s pins."""
+        pins.clear()
+        io.clear()
+        moe.route, blocks.apply_block = recorded, recording_block
+        try:
+            res = fn()
+        finally:
+            moe.route, blocks.apply_block = route, apply_block
+        inputs["pins"][key] = list(pins)
+        return res
+
+    def forced(key, b, positions, offset, dispatch, first=0):
+        """The teacher-forced per-block check's case, from the blocks and
+        MoE calls of the run just recorded (from block ``first`` on)."""
+        inputs["blocks"][key] = {
+            "b": b, "dispatch": dispatch, "positions": positions,
+            "offset": offset, "blocks": list(range(first, first + len(io))),
+            "x": [x for x, _ in io], "pins": pins[-len(io):]}
+        per_block[key] = [(x.float().cpu(), y) for x, y in io]
+    want, per_block = {}, {}
+    inputs["blocks"], inputs["pins"] = {}, {}
+    dev = torch.device("cuda")
+    pos_pre = torch.arange(SHARD_S, device=dev)[None].expand(SHARD_B, -1)
+    zeros = torch.zeros((SHARD_B,), dtype=torch.int32, device=dev)
+    for disp in ("ragged", "dense"):
+        cache = model.init_cache(SHARD_B, SHARD_CACHE)
+        step = steps.make_step_fn(model, pre, moe_dispatch=disp,
+                                  dropless=True)
+        lg, cache, aux = run(f"prefill {disp}", lambda: step(
+            params, cache, {"tokens": inputs["tokens"].cuda()}))
+        want[f"prefill {disp}"] = (lg.float().cpu(),
+                                   aux["expert_counts"].cpu())
+        forced(f"prefill {disp}", SHARD_B, pos_pre, zeros, disp)
+    dstep = steps.make_step_fn(model, dec, dropless=True)
+    tok = want["prefill dense"][0].argmax(-1)[:, None].to(torch.int32)
+    off = torch.full((SHARD_B,), SHARD_S, dtype=torch.int32)
+    inputs["decode"], inputs["offsets"] = [], []
+    for i in range(SHARD_DECODES):
+        inputs["decode"].append(tok)
+        inputs["offsets"].append(off)
+        lg, cache, aux = run(f"decode {i}", lambda: dstep(
+            params, cache, {"tokens": tok.cuda(), "offsets": off.cuda()}))
+        want[f"decode {i}"] = (lg.float().cpu(), aux["expert_counts"].cpu())
+        if i == 0:
+            forced("decode 0", SHARD_B, off.cuda().long()[:, None],
+                   off.cuda(), "dense")
+        tok = lg.float().cpu().argmax(-1)[:, None].to(torch.int32)
+        off = off + 1
+    inputs["layered_tokens"], inputs["layered_offsets"] = tok, off
+    inputs["valid"] = torch.tensor([False, True])
+    inputs["hidden"] = (torch.randn((1, SHARD_P, cfg.d_model), generator=g)
+                        .to(torch.bfloat16))
+    lstep = steps.make_layered_step_fn(model, group=SHARD_GROUP,
+                                       prefill_len=SHARD_P,
+                                       global_batch=SHARD_B,
+                                       cache_len=SHARD_CACHE, dropless=True)
+    lg, h_out, cache, aux = run("layered", lambda: lstep(params, cache, {
+        "tokens": tok.cuda(), "offsets": off.cuda(),
+        "valid": inputs["valid"].cuda(), "hidden": inputs["hidden"].cuda()}))
+    # the decode part's SHARD_LAYERS blocks, then the row's group
+    del io[:SHARD_LAYERS]
+    forced("layered row", 1, torch.arange(SHARD_P, device=dev)[None],
+           torch.zeros((1,), dtype=torch.int32, device=dev), "dense",
+           first=SHARD_GROUP[0])
+    want["layered"] = (lg.float().cpu(), aux["expert_counts"].cpu(),
+                       h_out.float().cpu(),
+                       aux["prefill_expert_counts"].cpu())
+    del cache
+    torch.cuda.synchronize()
+    t_ref = _phase("sharded qwen3 reference", t0, times)
+    world = SHARD_MESH[0] * SHARD_MESH[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_shard_rank,
+                           args=(world, tmp, params, cfg, inputs),
+                           nprocs=world, start_method="spawn")
+        res = [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
+    _phase("sharded qwen3 16 ranks", t_ref, times)
+    del params, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad = []
+    near = max(r["pins"]["near"] for r in res)
+    apart = min(r["pins"]["apart"] for r in res)
+    log(f"sharded routes pinned: farthest match {near:.3e} of the "
+        f"reference token's norm (limit {PIN_NEAR}), next nearest at least "
+        f"{apart:.3f} times as far (limit {PIN_APART})")
+    if not (near <= PIN_NEAR and apart >= PIN_APART):
+        bad.append(f"pinning: match {near}, apart {apart}")
+    # each data rank's rows; every rank of a data row holds the same
+    by_data = {r["coords"]["data"]: r for r in res
+               if r["coords"]["model"] == 0}
+    h_parts = sorted(((r["coords"]["model"], r["out"]["layered"][2])
+                      for r in res if r["coords"]["data"] == 0),
+                     key=lambda x: x[0])
+    pairs = {key: (torch.cat([by_data[d]["out"][key][0]
+                              for d in range(SHARD_MESH[0])]), want[key][0])
+             for key in want}
+    pairs["layered h_out"] = (torch.cat([h for _, h in h_parts], dim=1)[0],
+                              want["layered"][2][0])
+    report, n_tokens, parted = {}, 0, 0
+    for key, (got, ref_) in pairs.items():
+        rel = ((got - ref_).norm() / ref_.norm()).item()
+        rep = {"rel_fro": rel}
+        ok = bool(torch.isfinite(got).all()) and rel <= E2E_REL_FRO
+        if key != "layered h_out":
+            a, b_ = got.argmax(-1), ref_.argmax(-1)
+            top2 = ref_.topk(2, dim=-1).values
+            gaps = [(float(top2[i, 0] - top2[i, 1])
+                     / _bf16_ulp(float(top2[i, 0])))
+                    for i in torch.nonzero(a != b_).flatten().tolist()]
+            rep["greedy_equal"] = int((a == b_).sum())
+            rep["greedy"] = int(a.numel())
+            rep["parted_gap_ulps"] = gaps
+            rep["counts_equal"] = all(torch.equal(r["out"][key][1],
+                                                  want[key][1]) for r in res)
+            if key == "layered":
+                rep["counts_equal"] &= all(torch.equal(
+                    r["out"][key][3], want[key][3]) for r in res)
+            ok = ok and rep["counts_equal"] and all(
+                gap <= NEAR_TIE_ULPS for gap in gaps)
+            n_tokens += int(a.numel())
+            parted += len(gaps)
+        report[key] = rep
+        if not ok:
+            bad.append(f"{key}: {rep}")
+    log(f"sharded against unsharded, end to end (routes pinned; logits "
+        f"tol {E2E_REL_FRO}, greedy tokens may part only below "
+        f"{NEAR_TIE_ULPS} ulps) " + json.dumps(report))
+    # each block alone from the unsharded run's input to it: its update
+    forced_rep, worst = {}, 0.0
+    for key, xys in per_block.items():
+        rows_ = []
+        for j, (x, y) in enumerate(xys):
+            parts = {}
+            for r in res:
+                c = r["coords"]
+                parts[(c["data"], c["model"])] = r["out"]["blocks"][key][j]
+            b_, s_ = y.shape[:2]
+            ds = SHARD_MESH[0] if parts[(0, 0)].shape[0] < b_ else 1
+            ms_ = SHARD_MESH[1] if parts[(0, 0)].shape[1] < s_ else 1
+            got = torch.cat([torch.cat([parts[(d, m)] for m in range(ms_)],
+                                       dim=1) for d in range(ds)], dim=0)
+            rel = ((got - y).norm() / (y - x).norm()).item()
+            rows_.append(rel)
+            worst = max(worst, rel)
+            if not torch.isfinite(got).all() or not rel <= BLOCK_TOL:
+                bad.append(f"{key} block {j}: update rel {rel}")
+        forced_rep[key] = rows_
+    log(f"sharded against unsharded, each block teacher-forced: update "
+        f"rel Frobenius a block (tol {BLOCK_TOL}) " + json.dumps(forced_rep))
+    if bad:
+        raise AssertionError(f"sharded phase disagrees with the unsharded "
+                             f"port: {bad}")
+    steps_rep, launches = [], collections.Counter()
+    for i, st in enumerate(res[0]["stats"]):
+        per = collections.Counter()
+        for r in res:
+            per.update(r["stats"][i]["launches"])
+        coll = {k: {"calls": sum(r["stats"][i]["coll"][k]["calls"]
+                                 for r in res),
+                    "bytes": sum(r["stats"][i]["coll"][k]["bytes"]
+                                 for r in res)}
+                for k in res[0]["stats"][i]["coll"]}
+        wall = max(r["stats"][i]["s"] for r in res)
+        steps_rep.append({"step": st["step"], "launches": dict(per),
+                          "collectives": coll, "wall_s": wall})
+        log(f"sharded {st['step']}: launches {dict(per)} (over {world} "
+            f"ranks); collectives {json.dumps(coll)}; wall {wall:.3f} s")
+        launches.update(per)
+    for k in SHARD_KERNELS:
+        for r in res:
+            if not sum(st["launches"][k] for st in r["stats"]):
+                raise AssertionError(f"rank {r['coords']}: {k} never "
+                                     "launched in the sharded phase")
+    log(f"sharded qwen3-30b-a3b ({SHARD_LAYERS} of 48 layers, mesh "
+        f"{SHARD_MESH}, {world} ranks on one card over gloo): against the "
+        f"unsharded port, routes pinned: logits of {len(want)} steps within "
+        f"{E2E_REL_FRO}, {parted} of {n_tokens} greedy tokens parted at "
+        f"near-ties; every teacher-forced block update within {BLOCK_TOL} "
+        f"(worst {worst:.3e}); gloo took every collective on CUDA tensors; "
+        f"peak memory a rank {max(r['mem'] for r in res) / 1e9:.2f} GB.  "
+        f"Wall times are the harness (16 processes on one card, gloo "
+        f"through the host), not a cluster")
+    return {"runs": {"qwen3-30b-a3b sharded": {
+        "arch": "qwen3-30b-a3b sharded", "launches": dict(launches),
+        "iterations": len(steps_rep), "steps": steps_rep,
+        "against_unsharded": report, "teacher_forced": forced_rep,
+        "pinning": {"near": near, "apart": apart}}}}
+
+
+# ---------------------------------------------------------------- phase 11
+
+DRYRUNS = (("qwen3-moe-235b-a22b", "prefill_32k", False),
+           ("qwen3-moe-235b-a22b", "decode_32k", True))
+
+
+def start_dryruns() -> list:
+    """Phase 11, on the host: the multi-device dry-run (fake process
+    group, fake CUDA tensors, every layer traced) of qwen3-moe-235b-a22b
+    at prefill_32k on 16x16 and at decode_32k on 2x16x16, each in its own
+    process, started beside phase 10 (they use no card)."""
+    procs = []
+    for arch, shape, multi in DRYRUNS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out",
+               str(ROOT / "build" / "dryrun_torch")]
+        if multi:
+            cmd.append("--multi-pod")
+        procs.append((arch, shape, subprocess.Popen(
+            cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env={**os.environ, "PYTHONPATH": str(SRC)})))
+    return procs
+
+
+def finish_dryruns(procs: list, times: dict, t0: float) -> list:
+    """Wait for ``start_dryruns``' processes; print each JSON line."""
+    recs = []
+    for arch, shape, proc in procs:
+        out, err = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"dry-run {arch} {shape} failed: "
+                                 f"{err[-2000:]}")
+        for line in out.splitlines():
+            if line.startswith("[dryrun] json "):
+                rec = json.loads(line[len("[dryrun] json "):])
+                if rec.get("status") != "ok":
+                    raise AssertionError(f"dry-run {arch} {shape}: {rec}")
+                recs.append(rec)
+                log("dry-run " + line[len("[dryrun] json "):])
+    _phase("dry-run qwen3-moe-235b-a22b (beside phase 10)", t0, times)
+    return recs
+
+
 def model_of(row: str) -> str:
     """The model whose serves (or training run) a kernel row's shapes
     come from."""
-    for key, arch in (("minicpm", "minicpm-2b train"),
+    for key, arch in (("sharded", "qwen3-30b-a3b sharded"),
+                      ("minicpm", "minicpm-2b train"),
                       ("qwen3 train", "qwen3-30b-a3b train"),
                       ("qwen3 P 2048", "qwen3-30b-a3b train"),
                       ("bwd[padded]", "qwen3-30b-a3b train"),
@@ -4005,6 +4631,10 @@ def main() -> None:
                                        heads=PHI4_MINI_ATTN),
                 check_decode_attention(gen, "yi-34b long",
                                        heads=YI_34B_ATTN)]
+    torch.cuda.empty_cache()
+    # K3 with its log-sum-exp (phase 10's split softmax over a sequence-
+    # split cache): the serve step's bits kept, the slices' clamped lengths
+    kernels.append(check_decode_lse(gen))
     torch.cuda.empty_cache()
     # the large MoE models' shapes: K2 and K3 at MLA's (192, 128) widths
     # (deepseek-v2-236b: H = Hkv = 128) at a layered first group and the
@@ -4164,8 +4794,21 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     train = train_models(times)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_dry = time.perf_counter()
+    dry_procs = start_dryruns()
+    try:
+        sharded = serve_sharded(times)
+        dry = finish_dryruns(dry_procs, times, t_dry)
+    finally:
+        for _, _, proc in dry_procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     runs = {**qwen["runs"], **oss["runs"], **large["runs"], **dense["runs"],
-            **recurrent["runs"], **whisper["runs"], **vl["runs"], **train}
+            **recurrent["runs"], **whisper["runs"], **vl["runs"], **train,
+            **sharded["runs"]}
     # each kernel row's launches: the sum over its own model's serves,
     # each counted from 0 just before it and read just after
     launches, iters = {}, collections.Counter()
@@ -4192,6 +4835,10 @@ def main() -> None:
         + json.dumps(recurrent["parted"]))
     log("whisper partings " + json.dumps(whisper["parted"]))
     log(f"qwen2-vl-72b depth {vl['depth']}")
+    log("dry-run summary " + json.dumps(
+        [{k: r[k] for k in ("arch", "shape", "mesh", "peak_memory_per_device",
+                            "hlo_flops", "hlo_bytes", "collective_bytes",
+                            "bottleneck")} for r in dry]))
     log("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in times.items()}))
     log(f"total {time.perf_counter() - t_start:.1f} s")

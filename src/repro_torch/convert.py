@@ -48,6 +48,28 @@ def from_jax_params(cfg: ModelConfig, tree, device=None):
     return conv(tree)
 
 
+def shard_params(params, mesh, coords=None, rules=None):
+    """One rank's local shards of the parameter tree ``params`` (the
+    port's tree, e.g. ``from_jax_params``' output): each leaf cut to the
+    rank's block under ``partition.param_specs`` (``coords``: the rank's
+    coordinates, by default the mesh's own), so a sharded port and an
+    unsharded forward compute the same function."""
+    from repro_torch.sharding.partition import (local_shard,
+                                                map_with_specs, param_specs)
+    return map_with_specs(lambda x, s: local_shard(x, s, mesh, coords),
+                          params, param_specs(params, mesh, rules))
+
+
+def shard_cache(cache, mesh, batch: int, coords=None, rules=None):
+    """One rank's block of a cache tree (``DecoderModel.init_cache``'s
+    layout) under ``partition.cache_specs`` for a call of global
+    ``batch`` rows."""
+    from repro_torch.sharding.partition import (cache_specs, local_shard,
+                                                map_with_specs)
+    return map_with_specs(lambda x, s: local_shard(x, s, mesh, coords),
+                          cache, cache_specs(cache, mesh, batch, rules))
+
+
 def from_jax_opt_state(cfg: ModelConfig, state, device=None):
     """The JAX package's ``AdamWState`` (a NamedTuple of ``step`` and the
     fp32 moment trees ``mu``/``nu``, its leaves turned into numpy arrays)

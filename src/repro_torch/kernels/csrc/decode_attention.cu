@@ -9,7 +9,12 @@
 // recurrentgemma-9b's local attention) and is 192 against 128 for
 // multi-head latent attention (its decompressed keys and values, H = Hkv,
 // models/attention.py apply_mla);
-// with a window the query sees keys >= length - window.  Query head h reads
+// with a window the query sees keys >= length - window.  On request (``lse``
+// not null) each (slot, head)'s natural-log log-sum-exp of its scaled scores
+// goes to lse (B, H) fp32, -inf where the query sees no key: the partial
+// softmax statistic a rank's slice of a sequence-sharded cache gives its
+// merge (models/attention.py); serve calls pass null and keep their bits.
+// Query head h reads
 // kv head h % Hkv (g-major grouping).  ``length`` is clamped to S_max: an
 // idle slot of the engine's full-pool decode step may carry a stale offset
 // equal to max_len.  A query that sees no key outputs 0.
@@ -61,6 +66,12 @@ constexpr int KT = 16 * kWarps;          // keys per tile
 constexpr int STAGES = 2;
 constexpr int G_MAX = 16;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// natural-log log-sum-exp from the base-2 running max m and sum l
+__device__ inline float lse_of(float m, float l) {
+  return l > 0.0f ? (m + log2f(l)) * kLn2 : -INFINITY;
+}
 
 // the ring (later the merge area), then, with Q in shared memory, Q
 __host__ __device__ inline size_t ring_bytes(int dk, int dv) {
@@ -79,8 +90,9 @@ template <int NT, int DK_MAX, int DV_MAX>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ lengths,
-                    bf16* __restrict__ out, float* __restrict__ part, int H, int Hkv,
-                    int S_max, int dk, int dv, int window, float scale_log2, int split) {
+                    bf16* __restrict__ out, float* __restrict__ part,
+                    float* __restrict__ lse, int H, int Hkv, int S_max, int dk, int dv,
+                    int window, float scale_log2, int split) {
   constexpr bool QS = DK_MAX >= 256;
   const int s = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int g = H / Hkv;
@@ -297,6 +309,7 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const long bh = static_cast<long>(b) * H + gi * Hkv + kh;
     if (split == 1) {
       out[bh * dv + c] = __float2bfloat16(l > 0.0f ? acc / l : 0.0f);
+      if (lse != nullptr && c == 0) lse[bh] = lse_of(m_use, l);
     } else {
       const long ps = bh * split + s;
       part[ps * dv + c] = acc;
@@ -312,7 +325,7 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // One CTA per (query head, slot), one thread per output column (hd = dv):
 // merge the splits' (O, m, l) in split order.
 __global__ void decode_merge_kernel(const float* __restrict__ part, bf16* __restrict__ out,
-                                    int B, int H, int hd, int split) {
+                                    float* __restrict__ lse, int B, int H, int hd, int split) {
   const int h = blockIdx.x, b = blockIdx.y, c = threadIdx.x;
   const long bh = static_cast<long>(b) * H + h;
   const float* po = part + bh * split * hd;
@@ -327,42 +340,45 @@ __global__ void decode_merge_kernel(const float* __restrict__ part, bf16* __rest
     acc += po[s * hd + c] * f;
   }
   out[bh * hd + c] = __float2bfloat16(l > 0.0f ? acc / l : 0.0f);
+  if (lse != nullptr && c == 0) lse[bh] = lse_of(m_use, l);
 }
 
 template <int NT, int DK_MAX, int DV_MAX>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const int* lengths, bf16* out,
-                   float* part, int B, int H, int Hkv, int S_max, int dk, int dv, int window,
-                   float scale, int split, cudaStream_t stream) {
+                   float* part, float* lse, int B, int H, int Hkv, int S_max, int dk, int dv,
+                   int window, float scale, int split, cudaStream_t stream) {
   const size_t smem = smem_bytes(dk, dv, DK_MAX >= 256);
   cudaError_t err = allow_smem(decode_split_kernel<NT, DK_MAX, DV_MAX>, smem);
   if (err != cudaSuccess) return err;
   decode_split_kernel<NT, DK_MAX, DV_MAX><<<dim3(split, Hkv, B), kThreads, smem, stream>>>(
-      q, k, v, lengths, out, part, H, Hkv, S_max, dk, dv, window, scale * kLog2e, split);
+      q, k, v, lengths, out, part, lse, H, Hkv, S_max, dk, dv, window, scale * kLog2e, split);
   err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return err;
-  decode_merge_kernel<<<dim3(H, B), dv, 0, stream>>>(part, out, B, H, dv, split);
+  decode_merge_kernel<<<dim3(H, B), dv, 0, stream>>>(part, out, lse, B, H, dv, split);
   return cudaGetLastError();
 }
 
 template <int DK_MAX, int DV_MAX>
 cudaError_t launch_g(const bf16* q, const bf16* k, const bf16* v, const int* lengths,
-                     bf16* out, float* part, int B, int H, int Hkv, int S_max, int dk, int dv,
-                     int window, float scale, int split, cudaStream_t stream) {
-  return H / Hkv <= 8 ? launch<1, DK_MAX, DV_MAX>(q, k, v, lengths, out, part, B, H, Hkv, S_max,
-                                                  dk, dv, window, scale, split, stream)
-                      : launch<2, DK_MAX, DV_MAX>(q, k, v, lengths, out, part, B, H, Hkv, S_max,
-                                                  dk, dv, window, scale, split, stream);
+                     bf16* out, float* part, float* lse, int B, int H, int Hkv, int S_max,
+                     int dk, int dv, int window, float scale, int split,
+                     cudaStream_t stream) {
+  return H / Hkv <= 8 ? launch<1, DK_MAX, DV_MAX>(q, k, v, lengths, out, part, lse, B, H, Hkv,
+                                                  S_max, dk, dv, window, scale, split, stream)
+                      : launch<2, DK_MAX, DV_MAX>(q, k, v, lengths, out, part, lse, B, H, Hkv,
+                                                  S_max, dk, dv, window, scale, split, stream);
 }
 
 }  // namespace
 
 // (dk, dv): dk = dv a multiple of 16 up to 128, (192, 128) or (256, 256).
 // ``scratch``: split > 1 needs B * H * split * (dv + 2) fp32 (unused, and
-// may be null, at split 1).  Two CUDA launches when split > 1.
+// may be null, at split 1).  ``lse``: null, or (B, H) fp32 for each query's
+// log-sum-exp.  Two CUDA launches when split > 1.
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v,
                                      const void* lengths, void* out, void* scratch, int B,
                                      int H, int Hkv, int S_max, int dk, int dv, int window,
-                                     float scale, int split, void* stream) {
+                                     float scale, int split, void* lse, void* stream) {
   if (B == 0) return 0;
   const int g = Hkv > 0 ? H / Hkv : 0;
   const bool equal = dk == dv && dk % 16 == 0 && dk > 0 && dk <= 128;
@@ -377,13 +393,14 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
   auto ln = static_cast<const int*>(lengths);
   auto oo = static_cast<bf16*>(out);
   auto part = static_cast<float*>(scratch);
+  auto ls = static_cast<float*>(lse);
   auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      equal  ? launch_g<128, 128>(qq, kk, vv, ln, oo, part, B, H, Hkv, S_max, dk, dv, window,
+      equal  ? launch_g<128, 128>(qq, kk, vv, ln, oo, part, ls, B, H, Hkv, S_max, dk, dv, window,
                                   scale, split, st)
-      : mla  ? launch_g<192, 128>(qq, kk, vv, ln, oo, part, B, H, Hkv, S_max, dk, dv, window,
+      : mla  ? launch_g<192, 128>(qq, kk, vv, ln, oo, part, ls, B, H, Hkv, S_max, dk, dv, window,
                                   scale, split, st)
-             : launch_g<256, 256>(qq, kk, vv, ln, oo, part, B, H, Hkv, S_max, dk, dv, window,
+             : launch_g<256, 256>(qq, kk, vv, ln, oo, part, ls, B, H, Hkv, S_max, dk, dv, window,
                                   scale, split, st);
   return static_cast<int>(err);
 }

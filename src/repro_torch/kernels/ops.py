@@ -27,13 +27,20 @@ offsets, a window and ``causal=False``.  The other four kernels have no
 backward: on the card their wrappers raise when grad mode is on and an
 input requires grad, rather than return an output that autograd would
 silently treat as a constant.
+
+Tracing: K1-K4 are also ``torch.library.custom_op``s (``repro_torch::``
+namespace) with a fake implementation that only propagates shapes.  A
+wrapper given a ``FakeTensor`` (the dry-run traces a step on fake tensors,
+``launch/dryrun.py``) calls its custom op, which under the fake mode
+returns empty outputs of the kernel's shapes and launches nothing; a real
+tensor never takes that branch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,8 +82,9 @@ _SIGNATURES = {
     # the last pointer before the ints is the optional log-sum-exp output
     "prefill_attention": ("prefill_attention", "prefill_attention_bf16",
                           [_P] * 6 + [_I] * 9 + [_F, _P]),
+    # the pointer after the split count is the optional log-sum-exp output
     "decode_attention": ("decode_attention", "decode_attention_bf16",
-                         [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
+                         [_P] * 6 + [_I] * 7 + [_F, _I, _P, _P]),
     "moe_gmm": ("moe_gmm", "moe_gmm_bf16", [_P] * 6 + [_I] * 5 + [_P]),
     # one kernel: paged decode is the verify window W = 1
     "paged_decode_attention": ("paged_attention", "paged_attention_bf16",
@@ -137,6 +145,12 @@ def _on_card(name: str, *tensors: Tensor) -> bool:
     return True
 
 
+def _fake(*tensors: Tensor) -> bool:
+    """True when tracing on fake tensors (no data: shapes only)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return any(isinstance(t, FakeTensor) for t in tensors)
+
+
 def _needs_grad(*tensors: Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
@@ -179,6 +193,9 @@ def moe_gmm_ragged(rows: Tensor, w_gate: Tensor, w_up: Tensor,
                          f"w_gate {tuple(w_gate.shape)} w_down "
                          f"{tuple(w_down.shape)} tile_expert "
                          f"{tuple(tile_expert.shape)} m_blk {m_blk}")
+    if _fake(rows, w_gate):
+        return torch.ops.repro_torch.moe_gmm_ragged(rows, w_gate, w_up, w_down,
+                                                    tile_expert, m_blk)
     if not _on_card("moe_gmm_ragged", rows, w_gate, w_up, w_down, tile_expert):
         return ref.moe_gmm_ragged_ref(rows, w_gate, w_up, w_down, tile_expert,
                                       m_blk)
@@ -241,7 +258,7 @@ def _check_kv(name: str, q: Tensor, k: Tensor, v: Tensor) -> None:
 
 def prefill_attention(q: Tensor, k: Tensor, v: Tensor, offset: Tensor, *,
                       window: Optional[int] = None,
-                      causal: bool = True) -> Tensor:
+                      causal: bool = True, return_lse: bool = False):
     """Causal GQA attention of P new tokens over the slot-row cache:
     q (B, P, H, dk) at positions ``offset[b] + i``, k (B, S_max, Hkv, dk)
     and v (B, S_max, Hkv, dv) already holding the new keys, offset (B,)
@@ -250,15 +267,27 @@ def prefill_attention(q: Tensor, k: Tensor, v: Tensor, offset: Tensor, *,
     encoder's self-attention and cross-attention.  See
     ``ref.prefill_attention_ref`` for the masks.  Differentiable
     (``PrefillAttention``, whose backward kernel takes every contract the
-    forward takes) where grad mode is on and q, k or v requires grad."""
+    forward takes) where grad mode is on and q, k or v requires grad.
+    ``return_lse``: also each query row's natural-log log-sum-exp (B, H,
+    P) fp32, the kernel's optional output: ``(out, lse)``.  Offsets may
+    lie outside [0, S_max) (a rank's slice of a sequence-sharded cache):
+    the masks are the same arithmetic."""
     b, p, h, dk = q.shape
     _check_kv("prefill_attention", q, k, v)
     if offset.shape != (b,):
         raise ValueError(f"prefill_attention: bad offset shape "
                          f"{tuple(offset.shape)}")
+    if _fake(q, k):
+        out, lse = torch.ops.repro_torch.prefill_attention(
+            q, k, v, offset, window or 0, causal, return_lse)
+        return (out, lse) if return_lse else out
     if _needs_grad(q, k, v):
+        if return_lse:
+            raise RuntimeError("prefill_attention: return_lse is for calls "
+                               "without autograd")
         return PrefillAttention.apply(q, k, v, offset, window, causal)
-    return _prefill_forward(q, k, v, offset, window, causal, False)[0]
+    out, lse = _prefill_forward(q, k, v, offset, window, causal, return_lse)
+    return (out, lse) if return_lse else out
 
 
 def _prefill_forward(q: Tensor, k: Tensor, v: Tensor, offset: Tensor,
@@ -429,21 +458,32 @@ def decode_split(b: int, hkv: int, s_max: int) -> int:
 
 
 def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
-                     lengths: Tensor, *,
-                     window: Optional[int] = None) -> Tensor:
+                     lengths: Tensor, *, window: Optional[int] = None,
+                     return_lse: bool = False):
     """One query token per row over the contiguous cache: q (B, H, dk),
     caches k (B, S_max, Hkv, dk) and v (B, S_max, Hkv, dv), lengths (B,)
     valid entries including the new token's K/V -> (B, H, dv), scaled by
     1/sqrt(dk).  On the card dk = dv a multiple of 16 up to 128, or a pair
-    of ``DECODE_WIDE_DIMS``."""
+    of ``DECODE_WIDE_DIMS``.  ``return_lse``: also each query's natural-
+    log log-sum-exp (B, H) fp32 (-inf where it sees no key), the kernel's
+    optional output, which the serve paths never ask for: ``(out,
+    lse)``."""
     b, h, dk = q.shape
     _check_kv("decode_attention", q, k_cache, v_cache)
     if lengths.shape != (b,):
         raise ValueError(f"decode_attention: bad lengths shape "
                          f"{tuple(lengths.shape)}")
+    if _fake(q, k_cache):
+        out, lse = torch.ops.repro_torch.decode_attention(
+            q, k_cache, v_cache, lengths, window or 0, return_lse)
+        return (out, lse) if return_lse else out
     if not _on_card("decode_attention", q, k_cache, v_cache, lengths):
-        return ref.decode_attention_ref(q, k_cache, v_cache, lengths,
-                                        window=window)
+        out = ref.decode_attention_ref(q, k_cache, v_cache, lengths,
+                                       window=window)
+        if not return_lse:
+            return out
+        return out, ref.decode_attention_lse_ref(q, k_cache, lengths,
+                                                 window=window)
     _no_backward("decode_attention", q, k_cache, v_cache)
     _check_attention("decode_attention", q, k_cache, v_cache, lengths)
     dv = v_cache.shape[3]
@@ -462,11 +502,82 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     # fp32 partials (O, then m and l) of every (slot, head, split)
     scratch = (torch.empty(b * h * split * (dv + 2), dtype=torch.float32,
                            device=q.device) if split > 1 else None)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     _launch("decode_attention", q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             scratch.data_ptr() if scratch is not None else None, b, h, hkv,
-            s_max, dk, dv, window or 0, 1.0 / math.sqrt(dk), split)
-    return out
+            s_max, dk, dv, window or 0, 1.0 / math.sqrt(dk), split,
+            lse.data_ptr() if lse is not None else None)
+    return (out, lse) if return_lse else out
+
+
+# ------------------------------------------------ K1-K4 as custom ops
+
+# Shape propagation for tracing on fake tensors: the real implementation
+# is the wrapper itself (so a real tensor that reached a custom op would
+# launch the kernel or take the plain version, as the wrapper does); the
+# fake one allocates the outputs' shapes and launches nothing.
+
+
+@torch.library.custom_op("repro_torch::moe_gmm_ragged", mutates_args=())
+def _moe_gmm_ragged_op(rows: Tensor, w_gate: Tensor, w_up: Tensor,
+                       w_down: Tensor, tile_expert: Tensor,
+                       m_blk: int) -> Tensor:
+    return moe_gmm_ragged(rows, w_gate, w_up, w_down, tile_expert, m_blk)
+
+
+@_moe_gmm_ragged_op.register_fake
+def _(rows, w_gate, w_up, w_down, tile_expert, m_blk):
+    return torch.empty_like(rows)
+
+
+@torch.library.custom_op("repro_torch::prefill_attention", mutates_args=())
+def _prefill_attention_op(q: Tensor, k: Tensor, v: Tensor, offset: Tensor,
+                          window: int, causal: bool,
+                          want_lse: bool) -> Tuple[Tensor, Tensor]:
+    out, lse = _prefill_forward(q, k, v, offset, window or None, causal,
+                                want_lse)
+    return out, (lse if lse is not None else q.new_empty((0,),
+                                                         dtype=torch.float32))
+
+
+@_prefill_attention_op.register_fake
+def _(q, k, v, offset, window, causal, want_lse):
+    b, p, h, _ = q.shape
+    lse_shape = (b, h, p) if want_lse else (0,)
+    return (q.new_empty((b, p, h, v.shape[3])),
+            q.new_empty(lse_shape, dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
+def _decode_attention_op(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                         lengths: Tensor, window: int,
+                         want_lse: bool) -> Tuple[Tensor, Tensor]:
+    if want_lse:
+        return decode_attention(q, k_cache, v_cache, lengths,
+                                window=window or None, return_lse=True)
+    out = decode_attention(q, k_cache, v_cache, lengths,
+                           window=window or None)
+    return out, q.new_empty((0,), dtype=torch.float32)
+
+
+@_decode_attention_op.register_fake
+def _(q, k_cache, v_cache, lengths, window, want_lse):
+    b, h, _ = q.shape
+    return (q.new_empty((b, h, v_cache.shape[3])),
+            q.new_empty((b, h) if want_lse else (0,), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::moe_gmm", mutates_args=())
+def _moe_gmm_op(x: Tensor, w_gate: Tensor, w_up: Tensor,
+                w_down: Tensor) -> Tensor:
+    return _moe_gmm_forward(x, w_gate, w_up, w_down)
+
+
+@_moe_gmm_op.register_fake
+def _(x, w_gate, w_up, w_down):
+    return torch.empty_like(x)
 
 
 # --------------------------------------------------------------------- K4
@@ -517,6 +628,8 @@ def moe_gmm(x: Tensor, w_gate: Tensor, w_up: Tensor,
     Differentiable (``MoeGmm``) where grad mode is on and an input
     requires grad."""
     _check_moe_shapes("moe_gmm", x, w_gate, w_up, w_down)
+    if _fake(x, w_gate):
+        return torch.ops.repro_torch.moe_gmm(x, w_gate, w_up, w_down)
     if _needs_grad(x, w_gate, w_up, w_down):
         return MoeGmm.apply(x, w_gate, w_up, w_down)
     return _moe_gmm_forward(x, w_gate, w_up, w_down)

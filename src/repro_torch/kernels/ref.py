@@ -141,6 +141,23 @@ def decode_attention_ref(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     return out[:, 0]
 
 
+def decode_attention_lse_ref(q: Tensor, k_cache: Tensor, lengths: Tensor, *,
+                             window: Optional[int] = None) -> Tensor:
+    """(B, H) fp32: the natural-log log-sum-exp of each query's scaled
+    scores over the keys ``decode_attention_ref`` lets it see (``j <
+    length``, with a window ``j >= length - window``); -inf for a query
+    that sees none (length 0)."""
+    s_max = k_cache.shape[1]
+    ln = lengths.to(device=q.device, dtype=torch.int64)
+    kv_pos = torch.arange(s_max, device=q.device)
+    vis = kv_pos[None, :] < ln[:, None].clamp(max=s_max)
+    if window is not None:
+        vis = vis & (kv_pos[None, :] >= ln[:, None] - window)
+    scores = _grouped_scores(q[:, None], k_cache, vis[:, None])
+    b, h = q.shape[:2]
+    return torch.logsumexp(scores, dim=-1).reshape(b, h)
+
+
 def _gather_pages(pages: Tensor, block_tables: Tensor) -> Tensor:
     """(n_pages, page_size, Hkv, hd) pool + (B, max_pages) block tables ->
     (B, max_pages * page_size, Hkv, hd): the logical rows the tables

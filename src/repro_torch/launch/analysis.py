@@ -1,0 +1,230 @@
+"""Roofline terms of a traced step (the JAX package's
+``repro/launch/analysis.py``), for one NVIDIA H100 SXM a rank:
+
+  compute term    = flops a rank / peak bf16 FLOP/s
+  memory term     = bytes a rank / HBM bandwidth
+  collective term = collective bytes a rank / NVLink bandwidth
+
+Constants: the H100 SXM datasheet's 989e12 dense bf16 FLOP/s, 3.35e12 B/s
+HBM3, and 450e9 B/s in each direction over NVLink 4 (900 GB/s both ways).
+They are datasheet figures, not measurements.
+
+The numbers come from tracing rank 0's step on fake tensors
+(``launch/dryrun.py``), not from a compiler:
+
+- flops: ``torch.utils.flop_counter.FlopCounterMode`` over the aten ops,
+  with the formulas below for the four kernels' custom ops (K1-K4 as
+  ``kernels/ops.py`` registers them);
+- bytes: each op's operands and results summed on rank 0, unfused (every
+  elementwise op counts its own reads and writes; a fused program moves
+  less); views move nothing, a gather the rows it reads, an in-place
+  scatter what it writes (``op_bytes``);
+- collective bytes: the result bytes of every collective the step calls
+  (``sharding/collectives.RECORD``);
+- peak memory a device: the highest sum of live storage bytes on rank 0
+  over the step: parameters, cache, inputs and temporaries
+  (``StepCost``).
+"""
+
+from __future__ import annotations
+
+import weakref
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.kernels import ops  # noqa: F401  (registers K1-K4's ops)
+
+PEAK_FLOPS = 989e12         # bf16 dense / H100 SXM (datasheet)
+HBM_BW = 3.35e12            # bytes/s / H100 SXM HBM3 (datasheet)
+LINK_BW = 450e9             # bytes/s each direction, NVLink 4 (datasheet)
+
+
+# ---------------------------------------------------------------- flops
+
+@register_flop_formula(torch.ops.repro_torch.moe_gmm)
+def _moe_gmm_flops(x_shape, wg_shape, wu_shape, wd_shape, *args,
+                   out_shape=None, **kw) -> int:
+    e, c, d = x_shape
+    return 2 * e * c * d * wg_shape[-1] * 3
+
+
+@register_flop_formula(torch.ops.repro_torch.moe_gmm_ragged)
+def _moe_gmm_ragged_flops(rows_shape, wg_shape, wu_shape, wd_shape,
+                          tile_shape, m_blk, *args, out_shape=None,
+                          **kw) -> int:
+    # every row of the worst-case buffer (the trace has no routing data)
+    return 2 * rows_shape[0] * rows_shape[1] * wg_shape[-1] * 3
+
+
+def _pairs(p: int, s_max: int, causal: bool) -> int:
+    """Query-key pairs of a prefill call from offset 0 (the dry-run's
+    prefill); a causal call over a longer cache counts every key."""
+    if causal and p == s_max:
+        return p * (p + 1) // 2
+    return p * s_max
+
+
+@register_flop_formula(torch.ops.repro_torch.prefill_attention)
+def _prefill_flops(q_shape, k_shape, v_shape, off_shape, window, causal,
+                   want_lse, *args, out_shape=None, **kw) -> int:
+    b, p, h, dk = q_shape
+    return 2 * b * h * _pairs(p, k_shape[1], causal) * (dk + v_shape[3])
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def _decode_flops(q_shape, k_shape, v_shape, len_shape, window, want_lse,
+                  *args, out_shape=None, **kw) -> int:
+    b, h, dk = q_shape
+    return 2 * b * h * k_shape[1] * (dk + v_shape[3])
+
+
+# ---------------------------------------------------------------- bytes
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
+
+
+class StepCost(TorchDispatchMode):
+    """Bytes moved (each op's operands and results, unfused) and the peak
+    of live storage bytes, over the ops dispatched inside the mode.
+    ``track`` registers tensors made before the mode (parameters, cache,
+    inputs) as live."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+        self.live = 0
+        self.peak = 0
+        self._refs: Dict[int, list] = {}
+
+    def _key(self, t: torch.Tensor) -> int:
+        return t.untyped_storage()._cdata
+
+    def track(self, tree) -> None:
+        for t in tree_leaves(tree):
+            if isinstance(t, torch.Tensor):
+                self._hold(t)
+
+    def _hold(self, t: torch.Tensor) -> None:
+        key = self._key(t)
+        ent = self._refs.get(key)
+        if ent is None:
+            ent = self._refs[key] = [t.untyped_storage().nbytes(), 0]
+            self.live += ent[0]
+            self.peak = max(self.peak, self.live)
+        ent[1] += 1
+        weakref.finalize(t, self._drop, key)
+
+    def _drop(self, key: int) -> None:
+        ent = self._refs.get(key)
+        if ent is None:
+            return
+        ent[1] -= 1
+        if ent[1] == 0:
+            self.live -= ent[0]
+            del self._refs[key]
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.bytes += op_bytes(func, args, kwargs, out)
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self._hold(t)
+        return out
+
+
+# ops that read rows of their first operand by index: they move the rows
+# they gather (the output), not the whole table
+_GATHERS = {"aten.index.Tensor", "aten.index_select.default",
+            "aten.gather.default", "aten.embedding.default"}
+
+
+def op_bytes(func, args, kwargs, out) -> int:
+    """Bytes one op moves, unfused: its tensor operands read and its
+    results written.  Views and metadata ops move none; a gather moves the
+    rows it reads (its index and its output, read and written); an in-place
+    op (a scatter into a cache) its other operands, read and written."""
+    outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+    if not outs or getattr(func, "is_view", False):
+        return 0
+    ins = [t for t in tree_leaves((args, kwargs))
+           if isinstance(t, torch.Tensor)]
+    name = str(func)
+    if name in _GATHERS:
+        return sum(_nbytes(t) for t in ins[1:]) + 2 * sum(map(_nbytes, outs))
+    if func._schema.is_mutable:
+        return 2 * sum(_nbytes(t) for t in ins[1:])
+    return sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
+
+
+# ---------------------------------------------------------------- report
+
+@dataclass
+class RooflineReport:
+    arch: str
+    shape: str
+    mesh: str
+    n_chips: int
+    hlo_flops: float                # flops a rank (traced, FlopCounterMode)
+    hlo_bytes: float                # bytes a rank (traced, unfused)
+    coll_bytes: float
+    coll_by_kind: Dict[str, int] = field(default_factory=dict)
+    model_flops: float = 0.0
+    peak_memory_per_device: Optional[float] = None
+
+    @property
+    def t_compute(self) -> float:
+        return self.hlo_flops / PEAK_FLOPS
+
+    @property
+    def t_memory(self) -> float:
+        return self.hlo_bytes / HBM_BW
+
+    @property
+    def t_collective(self) -> float:
+        return self.coll_bytes / LINK_BW
+
+    @property
+    def bottleneck(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        per_dev_model = self.model_flops / self.n_chips
+        return per_dev_model / self.hlo_flops if self.hlo_flops else 0.0
+
+    def to_dict(self) -> dict:
+        return {
+            "arch": self.arch, "shape": self.shape, "mesh": self.mesh,
+            "n_chips": self.n_chips,
+            "hlo_flops": self.hlo_flops, "hlo_bytes": self.hlo_bytes,
+            "collective_bytes": self.coll_bytes,
+            "collective_by_kind": self.coll_by_kind,
+            "model_flops": self.model_flops,
+            "useful_flops_ratio": self.useful_flops_ratio,
+            "t_compute_s": self.t_compute, "t_memory_s": self.t_memory,
+            "t_collective_s": self.t_collective,
+            "bottleneck": self.bottleneck,
+            "peak_memory_per_device": self.peak_memory_per_device,
+        }
+
+
+def model_flops_estimate(cfg, shape) -> float:
+    """MODEL_FLOPS: 6·N·D for training, 2·N_active·D for inference forward
+    (N = active params, D = processed tokens)."""
+    n_active = cfg.active_param_count()
+    if shape.kind == "train":
+        d = shape.global_batch * shape.seq_len
+        return 6.0 * n_active * d
+    if shape.kind == "prefill":
+        d = shape.global_batch * shape.seq_len
+        return 2.0 * n_active * d
+    d = shape.global_batch * 1
+    return 2.0 * n_active * d

@@ -12,7 +12,10 @@ one ``--ckpt`` wrote, or the JAX package's parameters converted through
 is on unless ``--smoke``, as in the JAX launcher.  It prints the JAX
 launcher's ``[train]`` lines with the device in place of the mesh; a
 logged step reads its metrics back in one transfer, other steps read
-nothing.  Multi-device training (``--production-mesh``) is not ported.
+nothing.  Multi-device training (``--production-mesh``, the train_4k
+step over the production mesh) is the next slice of the multi-device
+port; the serve steps already shard (``launch/steps.py``,
+``launch/dryrun.py``).
 
 Usage:
   # on the card, full minicpm-2b (2.7 B parameters), 8 x 256 tokens a step:
@@ -54,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["wsd", "cosine", "const"])
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the 16x16 mesh of the JAX launcher: not ported")
+                    help="the 16x16 mesh of the JAX launcher: not yet "
+                         "ported for training")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without CUDA) or cpu")
     ap.add_argument("--init", default=None,
@@ -66,7 +70,8 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.production_mesh:
         raise SystemExit("--production-mesh: multi-device training is not "
-                         "ported; the port trains on one device")
+                         "ported yet (the next slice of the multi-device "
+                         "port); the port trains on one device")
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
     model = DecoderModel(cfg, device=args.device, remat=not args.smoke)

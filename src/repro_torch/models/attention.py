@@ -26,6 +26,22 @@ learned positions are added at the embedding, so "learned" and "none"
 rotate nothing).  Cross-attention sees every frame: prefill attention
 with ``causal=False`` for S > 1, decode attention at lengths = n_frames
 for one token.
+
+Under a ``sharding_context`` (``sharding/partition.py``) ``apply_gqa``
+runs rank-locally over the rank's shards (``_apply_gqa_sharded``): the
+column-parallel projections of its rows at every position, a regroup of
+their columns into whole heads (column shards cut heads: minicpm-2b's 144
+q columns a rank on 16 ranks are 2.25 heads), then one of two schemes, and
+the row-parallel ``w_o`` summed back into the residual layout.
+``_attn_shard_plan`` makes the JAX package's decision; where it gives
+"gqa", or where the cache's kv heads are split over ``model`` or whole,
+attention is head-parallel (``_head_sets``: each rank a set of query heads
+over the kv heads they read; K/V whole over ``model`` in the "gqa"
+region, a sequence-split cache gathered there as the JAX region gathers
+it).  Where the plan gives None over a sequence-split cache, the softmax
+is split across ranks (``_split_softmax``): each rank attends over its
+slice of the positions with the kernels' log-sum-exp output, and the
+partial (o, lse) are merged in fp32; no rank reads another's cache.
 """
 
 from __future__ import annotations
@@ -39,6 +55,9 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.config import (MIXER_GQA, MIXER_LOCAL, MIXER_MLA,
                                        BlockSpec, ModelConfig)
+from repro_torch.sharding import collectives as col
+from repro_torch.sharding import spmd
+from repro_torch.sharding.partition import active_context, kv_cache_mode
 
 Tensor = torch.Tensor
 
@@ -148,12 +167,20 @@ def apply_gqa(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
               cache: Optional[dict] = None,
               valid: Optional[Tensor] = None,
               positions3: Optional[Tensor] = None,
-              causal: bool = True) -> Tuple[Tensor, Optional[dict]]:
+              causal: bool = True,
+              lay: Optional[spmd.Layout] = None
+              ) -> Tuple[Tensor, Optional[dict]]:
     """x: (B, S, D).  With a cache: writes the S new tokens at ``offset``
     (in place) and attends over the whole masked cache row.  Without:
     plain attention over x, causal unless ``causal=False`` (the encoder's
-    bidirectional self-attention)."""
+    bidirectional self-attention).  ``lay`` (under a sharding context):
+    x is this rank's block of the residual (``spmd.Layout``) and the
+    parameters and cache are its shards."""
     _check_spec(spec)
+    if lay is not None:
+        return _apply_gqa_sharded(cfg, spec, p, x, positions=positions,
+                                  offset=offset, cache=cache, valid=valid,
+                                  positions3=positions3, lay=lay)
     b, s, _ = x.shape
     hd = cfg.head_dim_
     q = (x @ p["w_q"]).reshape(b, s, cfg.n_heads, hd)
@@ -197,6 +224,225 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, offset: Optional[Tensor],
         return ops.decode_attention(q[:, 0].contiguous(), k, v, off32 + 1,
                                     window=window)[:, None]
     return ops.prefill_attention(q.contiguous(), k, v, off32, window=window)
+
+
+# ---------------------------------------------------------------------------
+# Sharded attention (explicit SPMD over the rank's shards)
+# ---------------------------------------------------------------------------
+
+
+def _attn_shard_plan(cfg: ModelConfig, b: int, s: int, n_kv: int = None,
+                     force_mha: bool = False):
+    """The JAX package's decision (``repro/models/attention.py``
+    ``_attn_shard_plan``) for a call of global batch ``b`` and ``s`` new
+    tokens: ``(batch axes, tp axes, mode)`` with mode "gqa" (few kv
+    heads: q heads over TP, K/V whole over TP inside) or "mha" (MLA), or
+    None (JAX leaves it to GSPMD; gated to s >= 256)."""
+    ctx = active_context()
+    if ctx is None or s < 256:
+        return None
+    n_kv = cfg.n_kv_heads if n_kv is None else n_kv
+    mesh, rules = ctx
+    tp = rules.get("tp") or ()
+    batch = rules.get("batch") or ()
+    tp_n = 1
+    for a in tp:
+        tp_n *= mesh.shape.get(a, 1)
+    b_n = 1
+    for a in batch:
+        b_n *= mesh.shape.get(a, 1)
+    if tp_n <= 1 or b_n <= 1 or b % b_n:
+        return None
+    h_loc = cfg.n_heads // tp_n
+    if cfg.n_heads % tp_n:
+        return None
+    if force_mha and n_kv == cfg.n_heads:
+        mode = "mha"
+    elif n_kv < tp_n and h_loc % n_kv == 0:
+        mode = "gqa"
+    else:
+        return None
+    return tuple(batch), tuple(tp), mode
+
+
+def _head_cols(heads, hd: int) -> Tuple[int, ...]:
+    return tuple(h * hd + c for h in heads for c in range(hd))
+
+
+def _head_sets(cfg: ModelConfig, n: int, plan, mode: str, out_sets):
+    """Per rank r of ``n`` over ``model``: (query heads, kv heads) it
+    attends with, ordered so its local query head l reads its local kv
+    head ``l % len(kv heads)`` (the kernels' g-major grouping).
+
+    - plan "gqa": the contiguous block of H/n query heads over every kv
+      head (the block starts at a multiple of Hkv);
+    - kv heads split over ``model``: its Hkv/n kv heads and the g query
+      heads of each, h = gi * Hkv + kv (strided, gi-major);
+    - otherwise (kv heads whole): every kv head, and the query heads that
+      the rank's ``w_o`` rows ``out_sets[r]`` cover, widened to whole
+      groups of Hkv (a few heads are computed on two ranks)."""
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    g = h // hkv
+    sets = []
+    for r in range(n):
+        if plan is not None:
+            h_loc = h // n
+            q, kv = range(r * h_loc, (r + 1) * h_loc), range(hkv)
+        elif mode == "heads":
+            kv_loc = hkv // n
+            kv = range(r * kv_loc, (r + 1) * kv_loc)
+            q = [gi * hkv + k for gi in range(g) for k in kv]
+        else:
+            h0, h1 = min(out_sets[r]) // hd, max(out_sets[r]) // hd + 1
+            q = range(h0 // hkv * hkv, -(-h1 // hkv) * hkv)
+            kv = range(hkv)
+        sets.append((tuple(q), tuple(kv)))
+    return sets
+
+
+def _write_slice(buf: Tensor, new: Tensor, offset: Tensor, lo: int,
+                 valid: Optional[Tensor]) -> Tensor:
+    """Write the tokens of ``new`` (B, S, ...) at global positions
+    ``offset + i`` that fall in this rank's slice ``[lo, lo + S_c)`` of
+    the cache into ``buf`` (B, S_c, ...), IN PLACE; the rest (and tokens
+    with ``valid == False``) are dropped."""
+    b, s = new.shape[:2]
+    s_c = buf.shape[1]
+    off = offset.long()
+    if s <= s_c:
+        pos = off[:, None] - lo + torch.arange(s, device=buf.device)[None]
+        keep = pos >= 0
+        if valid is not None:
+            keep = keep & valid
+        return _write_cache(buf, new, off - lo, keep)
+    # more new tokens than the slice holds: each slot looks up its token
+    i = (torch.arange(s_c, device=buf.device)[None] + lo - off[:, None])
+    ic = i.clamp(0, s - 1)
+    ok = (i >= 0) & (i < s)
+    if valid is not None:
+        ok = ok & torch.gather(valid, 1, ic)
+    rows = torch.arange(b, device=buf.device)[:, None].expand(b, s_c)
+    shape = ok.shape + (1,) * (new.dim() - 2)
+    buf.copy_(torch.where(ok.view(shape), new[rows, ic].to(buf.dtype), buf))
+    return buf
+
+
+def _apply_gqa_sharded(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
+                       positions: Tensor, offset: Optional[Tensor],
+                       cache: Optional[dict], valid: Optional[Tensor],
+                       positions3: Optional[Tensor], lay: spmd.Layout):
+    """``apply_gqa`` on this rank's shards: x (B_local, S_local, D) in the
+    residual layout; positions, valid (B_local, S) at every position;
+    the cache's leaves this rank's block (``cache_specs``)."""
+    mesh, rules = active_context()
+    if cache is None:
+        raise NotImplementedError(
+            "sharded attention without a cache is the training path "
+            "(train_4k), the next slice of the multi-device port")
+    tp = rules.get("tp")
+    n, j = mesh.size(tp), mesh.index(tp)
+    h_, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    hx = spmd.gather_seq(mesh, rules, x, lay)               # (B_l, S, D)
+    b, s, _ = hx.shape
+    qc, kc, vc = hx @ p["w_q"], hx @ p["w_k"], hx @ p["w_v"]
+    q_src = spmd.block_sets(h_ * hd, qc.shape[-1] != h_ * hd, n)
+    k_src = spmd.block_sets(hkv * hd, kc.shape[-1] != hkv * hd, n)
+    o_partial = p["w_o"].shape[0] != h_ * hd
+    o_sets = spmd.block_sets(h_ * hd, o_partial, n)
+    plan = _attn_shard_plan(cfg, lay.b, lay.s)
+    mode = kv_cache_mode(mesh, rules, hkv, lay.cache_len or 0)
+
+    def rope(t):
+        if cfg.pos_emb == "mrope":
+            p3 = positions3 if positions3 is not None \
+                else layers.position_plane(positions)
+            return layers.apply_mrope(t, p3, cfg.rope_theta,
+                                      cfg.mrope_sections)
+        if cfg.pos_emb in ("rope", "rope_partial"):
+            pct = cfg.rotary_pct if cfg.pos_emb == "rope_partial" else 1.0
+            return layers.apply_rope(t, positions, cfg.rope_theta, pct)
+        raise NotImplementedError(f"sharded pos_emb {cfg.pos_emb!r}")
+
+    if plan is None and mode == "seq":
+        out = _split_softmax(mesh, rules, cfg, qc, kc, vc, q_src, k_src,
+                             o_sets, rope, offset, cache, valid, lay)
+    else:
+        sets = _head_sets(cfg, n, plan, mode, o_sets)
+        qh, kvh = sets[j]
+        q = spmd.regroup(mesh, tp, qc, q_src,
+                         [_head_cols(qs, hd) for qs, _ in sets])
+        kv_dst = [_head_cols(ks, hd) for _, ks in sets]
+        k = spmd.regroup(mesh, tp, kc, k_src, kv_dst)
+        v = spmd.regroup(mesh, tp, vc, k_src, kv_dst)
+        q = rope(q.reshape(b, s, len(qh), hd))
+        k = rope(k.reshape(b, s, len(kvh), hd))
+        v = v.reshape(b, s, len(kvh), hd)
+        if mode == "seq":      # "gqa" region: the cache whole over TP
+            lo = j * cache["k"].shape[1]
+            kb = col.all_gather(mesh, _write_slice(
+                cache["k"], k, offset, lo, valid), tp, dim=1)
+            vb = col.all_gather(mesh, _write_slice(
+                cache["v"], v, offset, lo, valid), tp, dim=1)
+        else:
+            kb = _write_cache(cache["k"], k, offset, valid)
+            vb = _write_cache(cache["v"], v, offset, valid)
+        o = _attend(q, kb, vb, offset, True, None)
+        out = spmd.regroup(mesh, tp, o.reshape(b, s, -1),
+                           [_head_cols(qs, hd) for qs, _ in sets], o_sets)
+    y = out @ p["w_o"]
+    return spmd.reduce_rows(mesh, rules, y, lay, o_partial), cache
+
+
+def _split_softmax(mesh, rules, cfg, qc, kc, vc, q_src, k_src, o_sets, rope,
+                   offset, cache, valid, lay):
+    """Attention over a sequence-split cache with the softmax split across
+    ranks: every rank attends with all query heads over its slice of the
+    positions (K3, or K2 for several new tokens, each with its log-sum-
+    exp: lengths and offsets taken relative to the slice, so a slice past
+    a row's end sees nothing), writes the new keys that fall in its
+    slice, and the partial (o, lse) are merged in fp32 into the columns
+    its ``w_o`` rows take."""
+    tp = rules.get("tp")
+    n, j = mesh.size(tp), mesh.index(tp)
+    h_, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    b, s = qc.shape[:2]
+    everything = [tuple(range(h_ * hd))] * n
+    q = rope(spmd.regroup(mesh, tp, qc, q_src, everything).reshape(
+        b, s, h_, hd))
+    kv_all = [tuple(range(hkv * hd))] * n
+    k = rope(spmd.regroup(mesh, tp, kc, k_src, kv_all).reshape(b, s, hkv, hd))
+    v = spmd.regroup(mesh, tp, vc, k_src, kv_all).reshape(b, s, hkv, hd)
+    s_c = cache["k"].shape[1]
+    lo = j * s_c
+    kb = _write_slice(cache["k"], k, offset, lo, valid)
+    vb = _write_slice(cache["v"], v, offset, lo, valid)
+    rel = offset.long() - lo
+    if s == 1:
+        lengths = (rel + 1).clamp(0, s_c).to(torch.int32)
+        o, lse = ops.decode_attention(q[:, 0].contiguous(), kb, vb, lengths,
+                                      return_lse=True)
+        o, lse = o[:, None], lse[:, :, None]                # lse (B, H, 1)
+    else:
+        o, lse = ops.prefill_attention(q.contiguous(), kb, vb,
+                                       rel.clamp(-s, s_c).to(torch.int32),
+                                       return_lse=True)
+    lse_all = col.all_gather(mesh, lse[None], tp, dim=0)   # (n,B,H,S)
+    o = o.reshape(b, s, h_ * hd)
+    if o_sets[0] == o_sets[-1]:
+        parts = col.all_gather(mesh, o[None], tp, dim=0)
+    else:
+        parts = col.all_to_all(mesh, o[None], tp, split_dim=3,
+                                    concat_dim=0)          # (n, B, S, C)
+    cols = torch.arange(o_sets[j][0], o_sets[j][-1] + 1, device=o.device)
+    lse_c = lse_all.index_select(2, cols // hd).transpose(2, 3)  # (n,B,S,C)
+    m = lse_c.max(dim=0).values
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse_c - m[None])
+    den = w.sum(dim=0)
+    num = (w * parts.float()).sum(dim=0)
+    out = torch.where(den > 0, num / den.clamp(min=1e-30),
+                      torch.zeros_like(num))
+    return out.to(qc.dtype)
 
 
 def apply_mla(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,

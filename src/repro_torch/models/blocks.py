@@ -17,6 +17,7 @@ from repro_torch.models import attention, layers, moe, rglru, xlstm
 from repro_torch.models.config import (FFN_MOE, FFN_NONE, MIXER_MLSTM,
                                        MIXER_RGLRU, MIXER_SLSTM, BlockSpec,
                                        ModelConfig)
+from repro_torch.sharding import spmd
 
 Tensor = torch.Tensor
 
@@ -61,11 +62,16 @@ def apply_block(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
                 enc_out: Optional[Tensor] = None,
                 valid: Optional[Tensor] = None,
                 positions3: Optional[Tensor] = None, dropless: bool = False,
-                moe_dispatch: str = "ragged"
+                moe_dispatch: str = "ragged", lay=None
                 ) -> Tuple[Tensor, Optional[dict], dict]:
     """x: (B,S,D) -> (x', cache (updated in place), aux).  A cross-
     attention block attends over ``enc_out``'s K/V when it is given, else
-    over the cache's ``xk``/``xv``."""
+    over the cache's ``xk``/``xv``.  ``lay`` (under a sharding context,
+    ``sharding/spmd.py``): x is this rank's block of the residual and the
+    block runs over the rank's shards; attention (GQA) with a dense MLP or
+    routed experts only (``spmd.unported``)."""
+    if lay is not None and spmd.unported(cfg, spec):
+        raise NotImplementedError(spmd.unported(cfg, spec))
     h = layers.apply_norm(cfg, p["ln1"], x)
     if spec.mixer == MIXER_RGLRU:
         out, new_cache = rglru.apply_rglru(cfg, p["rglru"], h, cache=cache,
@@ -78,6 +84,8 @@ def apply_block(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
                                            valid=valid)
     else:
         kw = {} if positions3 is None else {"positions3": positions3}
+        if lay is not None:
+            kw["lay"] = lay
         out, new_cache = attention.apply_mixer_attn(
             cfg, spec, p["attn"], h, positions=positions, offset=offset,
             cache=cache, valid=valid, **kw)
@@ -99,8 +107,8 @@ def apply_block(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
         if spec.ffn == FFN_MOE:
             out2, aux = moe.apply_moe(cfg, p["moe"], h2, valid=valid,
                                       dropless=dropless,
-                                      moe_dispatch=moe_dispatch)
+                                      moe_dispatch=moe_dispatch, lay=lay)
         else:
-            out2 = layers.apply_mlp(cfg, p["mlp"], h2)
+            out2 = layers.apply_mlp(cfg, p["mlp"], h2, lay=lay)
         x = x + out2
     return x, new_cache, aux

@@ -150,7 +150,19 @@ def position_plane(positions: Tensor) -> Tensor:
     return positions[None].expand((3,) + tuple(positions.shape))
 
 
-def apply_mlp(cfg: ModelConfig, p, x: Tensor) -> Tensor:
+def apply_mlp(cfg: ModelConfig, p, x: Tensor, lay=None) -> Tensor:
+    """The dense MLP.  ``lay`` (under a sharding context): x is this
+    rank's block of the residual; ``w_gate``/``w_up`` are column shards
+    and ``w_down`` a row shard of d_ff, so the rank reads its rows at every
+    position and its partial output is summed back into the layout (a
+    reduce-scatter over the sequence where the layout splits it)."""
+    if lay is not None:
+        from repro_torch.sharding import spmd
+        from repro_torch.sharding.partition import active_context
+        mesh, rules = active_context()
+        y = apply_mlp(cfg, p, spmd.gather_seq(mesh, rules, x, lay))
+        return spmd.reduce_rows(mesh, rules, y, lay,
+                                p["w_down"].shape[0] != cfg.d_ff)
     if cfg.activation in ("swiglu", "geglu"):
         g = x @ p["w_gate"]
         u = x @ p["w_up"]
@@ -161,11 +173,28 @@ def apply_mlp(cfg: ModelConfig, p, x: Tensor) -> Tensor:
 
 
 def embed_tokens(cfg: ModelConfig, p, tokens: Tensor) -> Tensor:
-    return p["tok"][tokens].to(torch_dtype(cfg.dtype))
+    """Token embeddings.  Under a sharding context with the table's rows
+    split over ``model`` (vocab parallel): a masked lookup of the rank's
+    rows, summed over ``model``; a table the guard kept whole (minicpm's
+    122753 rows on 16 ranks) is read whole."""
+    tok = p["tok"]
+    if tok.shape[0] != cfg.vocab_size:
+        from repro_torch.sharding import collectives as col
+        from repro_torch.sharding.partition import active_context
+        mesh, rules = active_context()
+        tp = rules.get("tp")
+        v_loc = tok.shape[0]
+        loc = tokens.long() - mesh.index(tp) * v_loc
+        ok = (loc >= 0) & (loc < v_loc)
+        x = torch.where(ok[..., None], tok[loc.clamp(0, v_loc - 1)],
+                        torch.zeros((), dtype=tok.dtype, device=tok.device))
+        return col.all_reduce(mesh, x.to(torch_dtype(cfg.dtype)), tp)
+    return tok[tokens].to(torch_dtype(cfg.dtype))
 
 
 def unembed(cfg: ModelConfig, p, x: Tensor) -> Tensor:
-    """Matmul in ``x.dtype``, logits in fp32."""
+    """Matmul in ``x.dtype``, logits in fp32.  On vocab-split shards the
+    logits are this rank's vocab columns (gathered by the caller)."""
     w = p["tok"].t() if cfg.tie_embeddings else p["lm_head"]
     logits = (x @ w.to(x.dtype)).float()
     if cfg.logit_softcap:

@@ -28,6 +28,16 @@ K/V, which the cache keeps in ``xk``/``xv`` of shape (reps, batch,
 n_frames, Hkv, hd): a frame axis, which moves whole where positions move
 in part (``whole_leaf``).  Qwen2-VL's vision stub prepends patch
 embeddings in ``embed``; its M-RoPE gets three equal position planes.
+
+Under a ``sharding_context`` (``sharding/partition.py``) ``forward`` and
+``run_blocks`` run as one rank of the mesh over its shards
+(``convert.shard_params``, ``partition.cache_specs``): tokens, offsets
+and caches are the rank's rows, ``global_batch`` and ``cache_len`` name
+the call's global rows and cache length, the residual lies between
+blocks as ``sharding/spmd.py`` lays it (rows over the batch axes, the
+sequence over ``model`` where they divide), and the logits are the
+rank's vocab columns.  Every width a block reshapes by (heads, kv heads,
+F, vocab) is read from the rank's shards.
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention, blocks, layers
 from repro_torch.models.config import BlockSpec, ModelConfig
+from repro_torch.sharding import spmd
+from repro_torch.sharding.partition import active_context, shard_seq_hint
 
 Tensor = torch.Tensor
 
@@ -191,6 +203,18 @@ class DecoderModel:
         x = layers.apply_norm(self.cfg, params["final_norm"], x)
         return layers.unembed(self.cfg, params["embed"], x)
 
+    def _layout(self, global_batch: Optional[int], s: int,
+                cache_len: Optional[int]):
+        """The call's residual layout under a sharding context, else
+        None."""
+        ctx = active_context()
+        if ctx is None:
+            return None
+        if global_batch is None:
+            raise ValueError("under a sharding context forward and "
+                             "run_blocks need global_batch")
+        return spmd.layout(ctx[0], ctx[1], global_batch, s, cache_len)
+
     # -- execution -----------------------------------------------------------
 
     def block_params(self, params, b: int) -> dict:
@@ -202,13 +226,18 @@ class DecoderModel:
                    cache: Optional[list] = None,
                    enc_out: Optional[Tensor] = None,
                    valid: Optional[Tensor] = None, dropless: bool = False,
-                   moe_dispatch: str = "ragged"):
+                   moe_dispatch: str = "ragged",
+                   global_batch: Optional[int] = None,
+                   cache_len: Optional[int] = None):
         """Run blocks [start, start+n) over x (B, S, D).  Returns (x', cache,
         aux-list-in-block-order); ``cache`` (leaves (reps, B, ...)) is
         updated in place.  Rows are independent: the engine's packed
         layer-group path runs every prefill slice sharing this block range
         as one batch, with per-row ``offset``/``valid`` masking and
-        bucket-padded rows that are no-ops end to end."""
+        bucket-padded rows that are no-ops end to end.  Under a sharding
+        context x is this rank's block of the residual, ``positions`` and
+        ``valid`` its rows at every position."""
+        lay = self._layout(global_batch, positions.shape[1], cache_len)
         auxes = []
         for b in range(start, start + n):
             s, r, p_idx = self.index_map[b]
@@ -217,7 +246,7 @@ class DecoderModel:
                 blocks.apply_block, self.cfg, self.specs[b],
                 self.block_params(params, b), positions=positions,
                 offset=offset, cache=c, enc_out=enc_out, valid=valid,
-                dropless=dropless, moe_dispatch=moe_dispatch)
+                dropless=dropless, moe_dispatch=moe_dispatch, lay=lay)
             if self.remat and cache is None:
                 x, _, aux = checkpoint(fn, x, use_reentrant=False)
             else:
@@ -232,12 +261,17 @@ class DecoderModel:
                 enc_out: Optional[Tensor] = None,
                 extra_embeds: Optional[Tensor] = None,
                 valid: Optional[Tensor] = None, dropless: bool = False,
-                moe_dispatch: str = "ragged"):
+                moe_dispatch: str = "ragged", last_only: bool = False,
+                global_batch: Optional[int] = None,
+                cache_len: Optional[int] = None):
         """tokens (B, S) -> (logits (B, S', V) fp32, cache, aux) with
         ``aux["expert_counts"]`` of shape (L, E).  ``extra_embeds`` (B, N,
         D) are prepended (S' = N + S, at positions offset + arange(S'),
         whatever ``positions`` says: the JAX package's rule);
-        ``enc_out`` (B, T, D) feeds every cross-attention block."""
+        ``enc_out`` (B, T, D) feeds every cross-attention block.
+        ``last_only``: the logits of the last position only, (B, 1, V).
+        Under a sharding context (see the module docstring) the logits are
+        this rank's vocab columns."""
         b, s = tokens.shape
         dev = tokens.device
         if offset is None and cache is not None:
@@ -250,10 +284,21 @@ class DecoderModel:
         elif positions is None:
             positions = base[:, None] + torch.arange(s, device=dev)[None]
         x = self.embed(params, tokens, extra_embeds, positions)
+        lay = self._layout(global_batch, x.shape[1], cache_len)
+        if lay is not None:
+            # whole over model after the embedding: the residual's layout
+            mesh, rules = active_context()
+            x = shard_seq_hint(x, global_batch)
         x, cache, auxes = self.run_blocks(
             params, x, 0, self.n_blocks, positions=positions, offset=offset,
             cache=cache, enc_out=enc_out, valid=valid, dropless=dropless,
-            moe_dispatch=moe_dispatch)
+            moe_dispatch=moe_dispatch, global_batch=global_batch,
+            cache_len=cache_len)
+        if lay is not None:
+            x = (spmd.gather_seq(mesh, rules, x[:, -1:], lay)[:, -1:]
+                 if last_only else spmd.gather_seq(mesh, rules, x, lay))
+        elif last_only:
+            x = x[:, -1:]
         aux = {
             "expert_counts": torch.stack([a["expert_counts"] for a in auxes]),
             "aux_loss": sum(a["aux_loss"] for a in auxes),

@@ -1,0 +1,120 @@
+"""Rank processes of the port's sharded tests (``test_torch_sharding.py``):
+one gloo process per mesh position on the CPU, rendezvous through a
+``file://`` path in the test's temp dir (no TCP port, so parallel test
+workers cannot collide).  Imports torch and the port only.
+
+``run_ranks(world, tmp, job)`` spawns ``world`` ranks that each run
+``job["kind"]`` over ``job`` and save what they computed to
+``tmp/rank<r>.pt``; it returns the per-rank results."""
+
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def _rows(mesh, x, b_split: bool):
+    if not b_split:
+        return x
+    axes = ("pod", "data")
+    n = mesh.size(axes)
+    c = x.shape[0] // n
+    return x[mesh.index(axes) * c:(mesh.index(axes) + 1) * c]
+
+
+def _steps(rank: int, mesh, job: dict) -> dict:
+    """Prefill, decode and layered steps of the port over this rank's
+    shards; the same steps unsharded are the JAX reference's."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.convert import shard_cache, shard_params
+    from repro_torch.launch import steps
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.partition import (default_rules,
+                                                sharding_context)
+    cfg, b, s, clen = job["cfg"], job["b"], job["s"], job["cache_len"]
+    model = DecoderModel(cfg, device="cpu")
+    params = shard_params(torch.load(job["params"]), mesh)
+    rules = default_rules(mesh)
+    lay = spmd.layout(mesh, rules, b, s)
+    cache = shard_cache(model.init_cache(b, clen), mesh, b)
+    inp = job["inputs"]
+    out: dict = {}
+    # the step functions take the cache length from the shape
+    steps.cache_len_for = lambda c, shape: clen
+    with sharding_context(mesh, rules):
+        pre = steps.make_step_fn(model, InputShape("p", "prefill", s, b),
+                                 moe_dispatch=job["dispatch"])
+        dec = steps.make_step_fn(model, InputShape("d", "decode", s, b),
+                                 moe_dispatch=job["dispatch"])
+        logits, cache, aux = pre(params, cache,
+                                 {"tokens": _rows(mesh, inp["tokens"],
+                                                  lay.b_split)})
+        out["prefill"] = (logits, aux["expert_counts"], aux["dropped"])
+        logits, cache, aux = dec(params, cache, {
+            "tokens": _rows(mesh, inp["tokens2"], lay.b_split),
+            "offsets": _rows(mesh, inp["offsets2"], lay.b_split)})
+        out["decode"] = (logits, aux["expert_counts"], aux["dropped"])
+        if "hidden" in inp:
+            p = inp["hidden"].shape[1]
+            lay1 = spmd.layout(mesh, rules, 1, p)
+            step = steps.make_layered_step_fn(
+                model, group=job["group"], prefill_len=p, global_batch=b,
+                cache_len=clen, moe_dispatch=job["dispatch"])
+            logits, h_out, cache, aux = step(params, cache, {
+                "tokens": _rows(mesh, inp["tokens3"], lay.b_split),
+                "offsets": _rows(mesh, inp["offsets3"], lay.b_split),
+                "valid": _rows(mesh, inp["valid3"], lay.b_split),
+                "hidden": spmd.take_seq(mesh, rules, inp["hidden"], lay1)})
+            out["layered"] = (logits, h_out, aux["expert_counts"],
+                              aux["prefill_expert_counts"])
+    out["cache"] = cache
+    return out
+
+
+def _moe(rank: int, mesh, job: dict) -> dict:
+    """One sharded MoE call over this rank's block of the residual."""
+    from repro_torch.convert import shard_params
+    from repro_torch.models import moe
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.partition import (default_rules,
+                                                sharding_context)
+    cfg, x = job["cfg"], job["x"]
+    b, s = x.shape[:2]
+    rules = default_rules(mesh)
+    lay = spmd.layout(mesh, rules, b, s)
+    p = shard_params({"segments": [{"pattern": [{"moe": job["params"]}]}]},
+                     mesh)["segments"][0]["pattern"][0]["moe"]
+    xl = spmd.take_seq(mesh, rules, _rows(mesh, x, lay.b_split), lay)
+    with sharding_context(mesh, rules):
+        y, aux = moe.apply_moe(cfg, p, xl, moe_dispatch=job["dispatch"],
+                               lay=lay)
+    return {"out": y, "counts": aux["expert_counts"],
+            "dropped": aux["dropped"]}
+
+
+def _rank(rank: int, world: int, tmp: str, job: dict) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        tmp, "rendezvous"), rank=rank, world_size=world)
+    try:
+        from repro_torch.launch.mesh import make_mesh
+        res = []
+        for sub in job["runs"]:
+            mesh = make_mesh(sub["mesh"], sub["axes"], rank=rank,
+                             distributed=True)
+            fn = {"steps": _steps, "moe": _moe}[sub["kind"]]
+            res.append({"coords": mesh.coords, **fn(rank, mesh, sub)})
+        torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(world: int, tmp: str, job: dict):
+    mp.start_processes(_rank, args=(world, tmp, job), nprocs=world,
+                       start_method="spawn")
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+            for r in range(world)]

@@ -182,6 +182,40 @@ def test_decode_attention_unsplit_and_empty_rows(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,s_max,lens", [
+    # qwen3-30b-a3b's 8-slot decode step (split > 1: the merge launch
+    # writes the log-sum-exp)
+    (8, 2048, [601, 700, 1516, 2048, 2049, 1, 64, 1000]),
+    # a rank's 128-position slice of a sequence-split cache: lengths
+    # clamped to the slice, 0 where it lies past the row
+    (2, 128, [0, 128]), (4, 128, [0, 0, 37, 128])])
+def test_decode_attention_lse_matches_plain(cuda, b, s_max, lens):
+    """K3's optional log-sum-exp at qwen3's heads (32/4 of 128) against
+    its plain version (-inf where a query sees no key, and output 0); the
+    output keeps the bits of the serve call without it."""
+    rng = np.random.default_rng(20)
+    h, hkv, hd = 32, 4, 128
+    q = _bf16(rng, (b, h, hd), cuda)
+    k, v = _bf16(rng, (b, s_max, hkv, hd), cuda), _bf16(rng, (b, s_max, hkv, hd), cuda)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    serve = ops.decode_attention(q, k, v, lengths)
+    got, lse = ops.decode_attention(q, k, v, lengths, return_lse=True)
+    assert torch.equal(got, serve)
+    want = ref.decode_attention_lse_ref(q, k, lengths)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(lse))
+    # fp32, about ln of the keys seen: a 16-key tile missed among 1000
+    # keys would move it by about 0.016
+    torch.testing.assert_close(lse[fin], want[fin], atol=1e-4, rtol=0)
+    assert (lse[~fin] < 0).all()
+    empty = lengths == 0
+    assert not got[empty].any()
+    # bf16 against the plain version rounded to bf16: one ulp apart at most
+    torch.testing.assert_close(got.float(), ref.decode_attention_ref(
+        q, k, v, lengths).float(), atol=1e-3, rtol=2 ** -7)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("hd,h,hkv", ATTN_SHAPES)
 @pytest.mark.parametrize("window", [None, 20, 150])
 def test_prefill_attention_kernel_matches_plain(cuda, hd, h, hkv, window):
