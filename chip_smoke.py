@@ -240,8 +240,8 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    of minicpm-2b and of qwen3-30b-a3b runs under torch.profiler: device
    time by kernel, the two backward kernels' share, the optimizer's share
    and the device's idle share of the step.
-10. the multi-device code on this card: qwen3-30b-a3b at full width, 8
-   of 48 layers, seed-0 bf16 weights made once on the card and handed to
+10. the multi-device code on this card: qwen3-30b-a3b at full width, 4
+   of 48 layers (8 until phase 10b joined), seed-0 bf16 weights made once on the card and handed to
    16 ranks by CUDA IPC, sharded over the (2, 8) ``(data, model)`` mesh
    (gloo; every kernel built before any rank starts): a prefill step (2 x
    512 tokens, dense and ragged: the a2a MoE and the "gqa" attention
@@ -257,9 +257,25 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    tokens equal but at logit near-ties, and each block's update,
    teacher-forced, within ``BLOCK_TOL``.  Phase 2 adds K3 with its
    log-sum-exp (``check_decode_lse``).
-11. beside phase 10, on the host: ``python -m repro_torch.launch.dryrun``
-   for qwen3-moe-235b-a22b at prefill_32k (16x16) and decode_32k
-   (2x16x16); each JSON line printed.
+   10b. in the same 16 ranks, after the serve steps: one sharded
+   training step of qwen3-30b-a3b at full width (``sharded_train_depth``:
+   the depth the card holds beside the pool, reckoned from the specs and
+   the card's free memory, and logged; seed-1 weights, capacity raised so
+   that nothing drops), the launcher's 8 x 256 tokens and WSD step 1,
+   remat: attention's "gqa" region and the a2a dense MoE, K2, K4 and both
+   backward kernels on every rank, ZeRO-1 AdamW.  Held against the
+   unsharded port's step on the same card and weights, routes pinned
+   block by block: loss, ce, aux loss and grad norm within
+   ``TRAIN_LOSS_REL`` / ``TRAIN_GNORM_REL``, each leaf's gradient and
+   moments and the new parameters within ``TRAIN_SHARD_*`` (their reasons
+   beside them), no other kernel of the six launched; launches,
+   collectives forward and backward, wall time and peak memory a rank
+   printed.  Phase 2 adds K2, K4 and both backwards at the ranks' shapes
+   (``sharded_train_shapes``).
+11. beside phases 9 and 10, on the host: ``python -m
+   repro_torch.launch.dryrun`` for qwen3-moe-235b-a22b at prefill_32k
+   (16x16) and decode_32k (2x16x16), and for qwen3-30b-a3b at train_4k
+   (16x16); each JSON line printed.
    Each phase's seconds are printed.
 
 It prints a JSON ``kernels`` line (each row's ``launches`` summed over
@@ -3888,7 +3904,8 @@ def train_models(times: dict) -> dict:
 # ---------------------------------------------------------------- phase 10
 
 SHARD_MESH = (2, 8)                    # (data, model): 16 ranks on one card
-SHARD_LAYERS = 8                       # of qwen3-30b-a3b's 48, full width
+# of qwen3-30b-a3b's 48, full width (8 until phase 10b joined the pool)
+SHARD_LAYERS = 4
 SHARD_B, SHARD_S, SHARD_CACHE = 2, 512, 1024
 SHARD_DECODES, SHARD_P, SHARD_GROUP = 8, 256, (0, 4)
 SHARD_KERNELS = ("moe_gmm_ragged", "prefill_attention", "decode_attention",
@@ -4030,24 +4047,30 @@ def _pin_route(route, queue: list, seen: dict):
     reference token's norm) and the least ratio of the next nearest
     reference to the nearest, which the parent holds to ``PIN_NEAR`` and
     ``PIN_APART``."""
-    import torch
-
     def pinned(cfg, p, x):
         _, _, probs = route(cfg, p, x)
-        xr, ir = queue.pop(0)
-        d = torch.cdist(x.float(), xr.float())
-        near = d.topk(min(2, d.shape[1]), dim=1, largest=False)
-        d1 = near.values[:, 0]
-        j = near.indices[:, 0]
-        seen["near"] = max(seen["near"],
-                           (d1 / xr.float().norm(dim=1)[j]).max().item())
-        if d.shape[1] > 1:
-            seen["apart"] = min(seen["apart"], (
-                near.values[:, 1] / d1.clamp(min=1e-30)).min().item())
-        idx = ir[j]
-        w = probs.gather(1, idx)
-        return idx, w / w.sum(dim=-1, keepdim=True), probs
+        return _matched(x, probs, *queue.pop(0), seen)
     return pinned
+
+
+def _matched(x, probs, xr, ir, seen: dict):
+    """(ids, weights, probs) of tokens ``x``: each takes the expert ids
+    ``ir`` of its nearest reference token in ``xr``, weighted by its own
+    renormalised probabilities; ``seen`` keeps the farthest match and the
+    least ratio of the next nearest to the nearest (``_pin_route``)."""
+    import torch
+    d = torch.cdist(x.float(), xr.float())
+    near = d.topk(min(2, d.shape[1]), dim=1, largest=False)
+    d1 = near.values[:, 0]
+    j = near.indices[:, 0]
+    seen["near"] = max(seen["near"],
+                       (d1 / xr.float().norm(dim=1)[j]).max().item())
+    if d.shape[1] > 1:
+        seen["apart"] = min(seen["apart"], (
+            near.values[:, 1] / d1.clamp(min=1e-30)).min().item())
+    idx = ir[j]
+    w = probs.gather(1, idx)
+    return idx, w / w.sum(dim=-1, keepdim=True), probs
 
 
 def _teacher_forced(model, lp, mesh, rules, cases, queue) -> dict:
@@ -4093,6 +4116,421 @@ def _teacher_forced(model, lp, mesh, rules, cases, queue) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 10b
+
+# one sharded training step of qwen3-30b-a3b at full width in phase 10's
+# rank pool: the training launcher's 8 x 256 tokens (attention's "gqa"
+# region, the a2a dense MoE), its WSD optimizer at step 1, remat per block
+TRAIN_SHARD_B, TRAIN_SHARD_S = 8, 256
+TRAIN_SHARD_MAX_LAYERS = 4
+TRAIN_SHARD_KERNELS = ("prefill_attention", "prefill_attention_bwd",
+                       "moe_gmm", "moe_gmm_bwd")
+# per rank beside its shards, gradients and moments and its CUDA context
+# (measured on the parent): one block's recompute, the vocab-split logits
+# (4 rows x 256 x 18992 fp32) and their temporaries, the experts gathered
+# at full width and their gradients, ZeRO-1's update chunks
+# (a rank's peak less those read 0.32 GB at 2 layers on an H100; 0.5 GB
+# kept)
+TRAIN_SHARD_SLACK = 0.5e9
+# Tolerances, stated before the first chip run (the sharded step and the
+# unsharded one are two bf16 computations of the same step in other
+# summation orders, routes pinned alike): each leaf's gradient and first
+# moment within 5e-2 relative Frobenius (TRAIN_GNORM_REL's reason: the
+# bf16 gradient norm's own spread), the second moment (squares) within
+# twice that; parameters: AdamW's first step moves every element by about
+# lr (6e-4, ~5 bf16 steps at the init's scale) by its gradient's sign, so
+# elements whose gradient lies within the bf16 noise part by up to 2 lr:
+# at most 5e-2 of a leaf's elements may lie more than one bf16 step apart
+TRAIN_SHARD_GRAD_REL = 5e-2
+TRAIN_SHARD_NU_REL = 1e-1
+TRAIN_SHARD_PARAM_SHARE = 5e-2
+
+
+def sharded_train_config(n_layers: int):
+    """qwen3-30b-a3b at full width, ``n_layers`` deep, its capacity raised
+    to E / top_k so that neither the unsharded step nor the sharded one
+    (group-wise capacity, JAX's semantics) drops an assignment."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-30b-a3b")
+    return dataclasses.replace(cfg, n_layers=n_layers, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def sharded_train_depth() -> tuple:
+    """The depth phase 10b's card holds beside the pool, reckoned from the
+    specs and the card's free memory: each rank's parameter blocks and
+    bf16 gradients, its ZeRO-1 fp32 gradients and moments, a CUDA context
+    (this process's: the card's use less what its allocator reserves) and
+    ``TRAIN_SHARD_SLACK``; the parent's two whole copies shared with the
+    ranks (the weights and the unsharded step's gradients).  The deepest
+    up to ``TRAIN_SHARD_MAX_LAYERS`` within 0.9 of the free memory.
+    Returns (depth, the reckoning)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.sharding.collectives import Mesh
+    from repro_torch.sharding.partition import (local_shape, map_with_specs,
+                                                moment_specs, param_specs)
+    mesh = Mesh(SHARD_MESH, ("data", "model"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, card = torch.cuda.mem_get_info()
+    ctx = card - free - torch.cuda.memory_reserved()
+    best, rows = 1, []
+    for n in range(1, TRAIN_SHARD_MAX_LAYERS + 1):
+        shapes = DecoderModel(sharded_train_config(n),
+                              device="cpu").param_shapes()
+
+        def count(specs):
+            out = []
+            map_with_specs(lambda x, sp: out.append(
+                int(np.prod(local_shape(tuple(x.shape), sp, mesh)))),
+                shapes, specs)
+            return sum(out)
+        p_loc = count(param_specs(shapes, mesh))
+        m_loc = count(moment_specs(shapes, mesh))
+        whole = sum(int(np.prod(x.shape)) for x in _leaves(shapes)) * 2
+        rank = 4 * p_loc + 12 * m_loc + ctx + TRAIN_SHARD_SLACK
+        need = 2 * whole + world_of(SHARD_MESH) * rank
+        rows.append({"layers": n, "rank_GB": rank / 1e9,
+                     "shared_GB": 2 * whole / 1e9, "need_GB": need / 1e9})
+        if need <= 0.9 * free:
+            best = n
+    return best, {"card_GB": card / 1e9, "free_GB": free / 1e9,
+                  "context_GB": ctx / 1e9, "rows": rows}
+
+
+def sharded_train_shapes() -> tuple:
+    """What phase 10b's ranks give K2 and K4: (rows a rank, K2's (H, Hkv,
+    hd) a rank, K4's widths (E_loc, top-k, d, F), the a2a buffer's C tp),
+    from the config, the mesh and the plans' rules."""
+    from repro_torch.models import moe
+    cfg = sharded_train_config(1)
+    dn, tn = SHARD_MESH
+    t_loc = TRAIN_SHARD_B * TRAIN_SHARD_S // (dn * tn)
+    e = cfg.moe
+    return (TRAIN_SHARD_B // dn, (cfg.n_heads // tn, cfg.n_kv_heads,
+                                  cfg.head_dim_),
+            (e.n_experts // tn, e.top_k, cfg.d_model, e.expert_d_ff),
+            moe.capacity(cfg, t_loc) * tn)
+
+
+def world_of(shape) -> int:
+    n = 1
+    for k in shape:
+        n *= k
+    return n
+
+
+def _recording(opt, sink: list):
+    """``opt`` (an ``AdamW``) whose update first appends the gradients it
+    is given to ``sink``."""
+    cls = type(opt)
+
+    class Recording(cls):
+        def update(self, grads, state, params, plan=None):
+            sink.append(grads)
+            return cls.update(self, grads, state, params, plan)
+    return Recording(**{f.name: getattr(opt, f.name)
+                        for f in dataclasses.fields(opt)})
+
+
+def _router_blocks(model, params) -> dict:
+    """{data pointer of block b's router: b} over the MoE blocks: a
+    route call names its block by its router (a recompute under remat
+    calls it again, out of order)."""
+    out = {}
+    for b, (s_, r, p_) in enumerate(model.index_map):
+        blk = params["segments"][s_]["pattern"][p_]
+        if "moe" in blk:
+            out[blk["moe"]["router"][r].data_ptr()] = b
+    return out
+
+
+def _pin_block_route(route, pins: dict, blocks: dict, seen: dict):
+    """``moe.route`` with each token's expert ids taken from the
+    unsharded run's call of the same block (``pins[b]``: its MoE input and
+    expert ids), the block found by its router (``blocks``)."""
+    def pinned(cfg, p, x):
+        _, _, probs = route(cfg, p, x)
+        return _matched(x, probs, *pins[blocks[p["router"].data_ptr()]],
+                        seen)
+    return pinned
+
+
+def _train_opt():
+    from repro_torch.training.optimizer import adamw
+    # the training launcher's WSD schedule at step 1 (warmup 1 step)
+    return adamw(lr=6e-4, schedule="wsd", total_steps=10, warmup=1)
+
+
+def sharded_train_reference(times: dict) -> dict:
+    """Phase 10b's yardstick: the unsharded port's train step (remat, the
+    dense dispatch) on the card at ``sharded_train_depth``'s depth, seed-1
+    bf16 weights, the launcher's first 8 x 256 batch; every MoE block's
+    (input, expert ids) recorded for the ranks' pinning.  Returns what the
+    ranks read: the weights and the step's gradients (on the card, shared
+    with the ranks), its new weights (on the host), its metrics, the pins
+    and the batch."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.training.data import PackedDataset, SyntheticCorpus
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train import device_batch, make_train_step
+    t0 = time.perf_counter()
+    depth, reckoning = sharded_train_depth()
+    log(f"sharded training depth: {depth} of 48 layers, reckoned "
+        + json.dumps(reckoning))
+    cfg = sharded_train_config(depth)
+    model = DecoderModel(cfg, device="cuda", remat=True)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(1))
+    ds = iter(PackedDataset(SyntheticCorpus(vocab_size=cfg.vocab_size,
+                                            seed=0),
+                            seq_len=TRAIN_SHARD_S, batch_size=TRAIN_SHARD_B,
+                            seed=0))
+    host = next(ds)
+    work = ops.tree_map(torch.clone, params)
+    blocks = _router_blocks(model, work)
+    route, pins = moe.route, {}
+
+    def recorded(cfg_, p, x):
+        out = route(cfg_, p, x)
+        pins[blocks[p["router"].data_ptr()]] = (x.detach().clone(),
+                                                out[0].detach().clone())
+        return out
+    grads: list = []
+    opt = _recording(_train_opt(), grads)
+    state = opt.init(work)
+    step = make_train_step(model, opt)
+    moe.route = recorded
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        work, state, m = step(work, state, device_batch(model, *host))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    finally:
+        moe.route = route
+    del state
+    # the new weights go to the host: the ranks send back their blocks
+    new = ops.tree_map(lambda t: t.cpu(), work)
+    del work
+    metrics = {k: float(v) for k, v in m.items()}
+    if metrics["dropped"] != 0:
+        raise AssertionError(f"unsharded train step dropped {metrics}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase("sharded train reference", t0, times)
+    log(f"sharded train yardstick (unsharded, {depth} layers): "
+        + json.dumps(metrics) + f"; step {wall:.3f} s")
+    return {"cfg": cfg, "params": params, "grads": grads[0],
+            "new": new, "metrics": metrics, "pins": pins,
+            "batch": host, "wall": wall, "depth": depth,
+            "leaves": len(tree_leaves(params))}
+
+
+def _train_rank(mesh, rules, tin, route) -> dict:
+    """Phase 10b on this rank: its own copies of its shards of the
+    weights, one sharded train step (routes pinned block by block to the
+    unsharded step's), launches, collectives, wall time and peak memory;
+    and against the unsharded step, on this rank's blocks: squared
+    Frobenius sums of each leaf's gradient (the moments' layout) and
+    first and second moments against the unsharded step's gradient
+    clipped by its norm (AdamW's first step from zero: (1 - b1) g and (1 -
+    b2) g^2), each divided by the ranks that hold the same block, so the
+    sums over ranks are the whole leaf's; and the new parameter blocks of
+    which this rank holds the first copy (to the host), and the card's
+    free memory before the step."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.convert import shard_params
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.sharding import collectives as col
+    from repro_torch.sharding.partition import (local_slices,
+                                                sharding_context, spec_axes)
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train import (device_batch, make_train_step,
+                                            train_plan)
+    cfg = tin["cfg"]
+    model = DecoderModel(cfg, device="cuda", remat=True)
+    lp = ops.tree_map(torch.clone, shard_params(tin["params"], mesh))
+    seen = {"near": 0.0, "apart": math.inf}
+    moe.route = _pin_block_route(route, tin["pins"],
+                                 _router_blocks(model, lp), seen)
+    grads: list = []
+    opt = _recording(_train_opt(), grads)
+    batch = device_batch(model, *tin["batch"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with sharding_context(mesh, rules):
+        plan = train_plan(model)
+        state = opt.init(lp, plan)
+        step = make_train_step(model, opt)
+        ops.reset_launches()
+        col.reset_record()
+        torch.cuda.synchronize()
+        dist.barrier()
+        free = torch.cuda.mem_get_info()[0]
+        t0 = time.perf_counter()
+        lp, state, m = step(lp, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    coll = {k: dict(v) for k, v in col.RECORD.items()}
+    mem = torch.cuda.max_memory_allocated()
+    moe.route = route
+    scale = min(1.0, 1.0 / (tin["metrics"]["grad_norm"] + 1e-9))
+    sums = []
+    blocks = []
+    for i, (g, mu, nu, p_new, whole, lp_) in enumerate(zip(
+            tree_leaves(grads[0]), tree_leaves(state.mu),
+            tree_leaves(state.nu), tree_leaves(lp),
+            tree_leaves(tin["grads"]), tree_leaves(plan))):
+        ps = p_new.shape
+        spec = lp_.spec
+        if all(mesh.coords[a] == 0 for a in mesh.axis_names
+               if a not in spec_axes(spec)):
+            blocks.append((i, p_new.cpu()))
+        # the moment's block of the whole leaf: the parameter block's,
+        # then ZeRO-1's cut
+        sl = local_slices(tuple(whole.shape), spec, mesh)
+        ref_g = whole[sl]
+        if lp_.dim is not None:
+            c = ps[lp_.dim] // lp_.n
+            ref_g = ref_g.narrow(lp_.dim, lp_.j * c, c)
+        ref_g = ref_g.contiguous().view(-1)
+        row = {key: [0.0, 0.0] for key in ("grad", "mu", "nu")}
+        # in chunks: sixteen ranks compare at once beside their state
+        for a in range(0, ref_g.numel(), 1 << 22):
+            r = ref_g[a:a + (1 << 22)].float() * scale
+            for key, got, want in (
+                    ("grad", g.view(-1)[a:a + (1 << 22)] * scale, r),
+                    ("mu", mu.view(-1)[a:a + (1 << 22)], 0.1 * r),
+                    ("nu", nu.view(-1)[a:a + (1 << 22)], 0.05 * r * r)):
+                row[key][0] += float((got - want).double().square().sum())
+                row[key][1] += float(want.double().square().sum())
+        sums.append({k: (v[0] / lp_.copies, v[1] / lp_.copies)
+                     for k, v in row.items()})
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "launches": launches, "coll": coll, "wall": wall, "mem": mem,
+            "free": free, "sums": sums, "pins": seen, "coords": mesh.coords,
+            "blocks": blocks}
+
+
+def check_sharded_train(res: list, tin: dict) -> dict:
+    """Phase 10b's gate over the ranks' results (``_train_rank``): the
+    metrics equal on every rank and against the unsharded step, each
+    leaf's gradient and moments and its parameters within the stated
+    tolerances, routes pinned within ``PIN_NEAR``/``PIN_APART``, K2, K4
+    and both backward kernels launched on every rank and no other kernel
+    of the six; logs launches, collectives, wall and peak memory."""
+    import torch
+    world = len(res)
+    ref_m = tin["metrics"]
+    bad = []
+    for r in res:
+        m = r["metrics"]
+        if m != res[0]["metrics"]:
+            bad.append(f"metrics differ between ranks: {m}")
+        if m["dropped"] != 0:
+            bad.append(f"sharded train step dropped {m['dropped']}")
+    m = res[0]["metrics"]
+    rel = {k: abs(m[k] - ref_m[k]) / abs(ref_m[k])
+           for k in ("loss", "ce", "aux_loss", "grad_norm")}
+    for k, lim in (("loss", TRAIN_LOSS_REL), ("ce", TRAIN_LOSS_REL),
+                   ("aux_loss", TRAIN_LOSS_REL),
+                   ("grad_norm", TRAIN_GNORM_REL)):
+        if not rel[k] <= lim:
+            bad.append(f"{k} rel {rel[k]} (limit {lim})")
+    worst = {"grad": 0.0, "mu": 0.0, "nu": 0.0, "param": 0.0}
+    limits = {"grad": TRAIN_SHARD_GRAD_REL, "mu": TRAIN_SHARD_GRAD_REL,
+              "nu": TRAIN_SHARD_NU_REL, "param": TRAIN_SHARD_PARAM_SHARE}
+    for i in range(tin["leaves"]):
+        for key in ("grad", "mu", "nu"):
+            num = sum(r["sums"][i][key][0] for r in res)
+            den = sum(r["sums"][i][key][1] for r in res)
+            val = (num / den) ** 0.5 if den > 0 else float(num > 0)
+            worst[key] = max(worst[key], val)
+            if not val <= limits[key]:
+                bad.append(f"leaf {i} {key}: {val} (limit {limits[key]})")
+    # the new parameters: each block once, against the unsharded step's
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.sharding.collectives import Mesh
+    from repro_torch.sharding.partition import local_slices, zero1_plan
+    from repro_torch.training.optimizer import tree_leaves
+    mesh = Mesh(SHARD_MESH, ("data", "model"))
+    specs = [lp.spec for lp in tree_leaves(zero1_plan(
+        DecoderModel(tin["cfg"], device="cpu").param_shapes(), mesh))]
+    new = tree_leaves(tin["new"])
+    apart, total = [0] * len(new), [0] * len(new)
+    for r in res:
+        for i, block in r["blocks"]:
+            want = new[i][local_slices(tuple(new[i].shape), specs[i], mesh,
+                                       r["coords"])]
+            apart[i] += int(((block.view(torch.int16).int()
+                              - want.view(torch.int16).int()).abs()
+                             > 1).sum())
+            total[i] += block.numel()
+    for i in range(len(new)):
+        if total[i] != new[i].numel():
+            bad.append(f"leaf {i}: blocks cover {total[i]} of "
+                       f"{new[i].numel()} elements")
+        share = apart[i] / max(total[i], 1)
+        worst["param"] = max(worst["param"], share)
+        if not share <= limits["param"]:
+            bad.append(f"leaf {i} param share apart: {share} (limit "
+                       f"{limits['param']})")
+    near = max(r["pins"]["near"] for r in res)
+    apart = min(r["pins"]["apart"] for r in res)
+    if not (near <= PIN_NEAR and apart >= PIN_APART):
+        bad.append(f"train pinning: match {near}, apart {apart}")
+    launches = collections.Counter()
+    for r in res:
+        launches.update(r["launches"])
+        for k in TRAIN_SHARD_KERNELS:
+            if not r["launches"][k]:
+                bad.append(f"a rank never launched {k}")
+        others = {k: v for k, v in r["launches"].items()
+                  if k not in TRAIN_SHARD_KERNELS and v}
+        if others:
+            bad.append(f"a rank launched other kernels: {others}")
+    coll = {k: {"calls": sum(r["coll"][k]["calls"] for r in res),
+                "bytes": sum(r["coll"][k]["bytes"] for r in res)}
+            for k in res[0]["coll"]}
+    wall = max(r["wall"] for r in res)
+    mem = max(r["mem"] for r in res)
+    free = min(r["free"] for r in res)
+    log(f"sharded train step (qwen3-30b-a3b, {tin['depth']} of 48 layers, "
+        f"{TRAIN_SHARD_B} x {TRAIN_SHARD_S} tokens, mesh {SHARD_MESH}, "
+        f"{world} ranks on one card over gloo, routes pinned) against the "
+        f"unsharded step: metrics {json.dumps(m)}; rel "
+        f"{json.dumps(rel)}; worst leaf: gradient {worst['grad']:.3e}, "
+        f"mu {worst['mu']:.3e}, nu {worst['nu']:.3e} (limits "
+        f"{TRAIN_SHARD_GRAD_REL}, {TRAIN_SHARD_GRAD_REL}, "
+        f"{TRAIN_SHARD_NU_REL}); parameters more than one bf16 step apart: "
+        f"worst share {worst['param']:.3e} (limit {TRAIN_SHARD_PARAM_SHARE}); "
+        f"pins {near:.3e} / {apart:.3f}")
+    log(f"sharded train step: launches {dict(launches)} (over {world} "
+        f"ranks); collectives forward and backward {json.dumps(coll)}; wall "
+        f"{wall:.3f} s (the unsharded step {tin['wall']:.3f} s); peak memory "
+        f"a rank {mem / 1e9:.2f} GB (the card's free memory before the step "
+        f"{free / 1e9:.2f} GB).  Wall times are the harness ({world} "
+        f"processes on one card, gloo through the host), not a cluster")
+    if bad:
+        raise AssertionError(f"sharded train step disagrees with the "
+                             f"unsharded port: {bad}")
+    return {"qwen3-30b-a3b sharded train": {
+        "arch": "qwen3-30b-a3b sharded train", "launches": dict(launches),
+        "iterations": 1, "wall_s": wall, "peak_rank_GB": mem / 1e9,
+        "collectives": coll, "rel": rel, "worst": worst,
+        "depth": tin["depth"]}}
+
+
 def _shard_rank(rank: int, world: int, tmp: str, params, cfg, inputs) -> None:
     """One rank of the sharded phase: its shards of ``params`` (the
     parent's tensors on the card, shared by CUDA IPC), the prefill (dense
@@ -4128,7 +4566,8 @@ def _shard_rank(rank: int, world: int, tmp: str, params, cfg, inputs) -> None:
         b_r = SHARD_B // SHARD_MESH[0]
         r0 = mesh.coords["data"] * b_r
         queue, seen = [], {"near": 0.0, "apart": math.inf}
-        moe.route = _pin_route(moe.route, queue, seen)
+        route0 = moe.route
+        moe.route = _pin_route(route0, queue, seen)
 
         def rows(t):
             return t[r0:r0 + b_r].cuda()
@@ -4188,8 +4627,12 @@ def _shard_rank(rank: int, world: int, tmp: str, params, cfg, inputs) -> None:
                               aux["prefill_expert_counts"].cpu())
             out["blocks"] = _teacher_forced(model, lp, mesh, rules,
                                             inputs["blocks"], queue)
+        # phase 10b in the same pool: the serve weights' shards go first
+        serve_mem = torch.cuda.max_memory_allocated()
+        del lp, cache, model
+        out["train"] = _train_rank(mesh, rules, inputs["train"], route0)
         torch.save({"coords": mesh.coords, "out": out, "stats": stats,
-                    "pins": seen, "mem": torch.cuda.max_memory_allocated()},
+                    "pins": seen, "mem": serve_mem},
                    os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -4326,14 +4769,18 @@ def serve_sharded(times: dict) -> dict:
     del cache
     torch.cuda.synchronize()
     t_ref = _phase("sharded qwen3 reference", t0, times)
+    inputs["train"] = tin = sharded_train_reference(times)
+    t_ref = time.perf_counter()
     world = SHARD_MESH[0] * SHARD_MESH[1]
     with tempfile.TemporaryDirectory() as tmp:
         mp.start_processes(_shard_rank,
                            args=(world, tmp, params, cfg, inputs),
                            nprocs=world, start_method="spawn")
         res = [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
-    _phase("sharded qwen3 16 ranks", t_ref, times)
-    del params, inputs
+    _phase("sharded qwen3 16 ranks (serve steps and train step)", t_ref,
+           times)
+    train_run = check_sharded_train([r["out"]["train"] for r in res], tin)
+    del params, inputs, tin
     gc.collect()
     torch.cuda.empty_cache()
     bad = []
@@ -4443,20 +4890,22 @@ def serve_sharded(times: dict) -> dict:
         "arch": "qwen3-30b-a3b sharded", "launches": dict(launches),
         "iterations": len(steps_rep), "steps": steps_rep,
         "against_unsharded": report, "teacher_forced": forced_rep,
-        "pinning": {"near": near, "apart": apart}}}}
+        "pinning": {"near": near, "apart": apart}}, **train_run}}
 
 
 # ---------------------------------------------------------------- phase 11
 
 DRYRUNS = (("qwen3-moe-235b-a22b", "prefill_32k", False),
-           ("qwen3-moe-235b-a22b", "decode_32k", True))
+           ("qwen3-moe-235b-a22b", "decode_32k", True),
+           ("qwen3-30b-a3b", "train_4k", False))
 
 
 def start_dryruns() -> list:
     """Phase 11, on the host: the multi-device dry-run (fake process
     group, fake CUDA tensors, every layer traced) of qwen3-moe-235b-a22b
-    at prefill_32k on 16x16 and at decode_32k on 2x16x16, each in its own
-    process, started beside phase 10 (they use no card)."""
+    at prefill_32k on 16x16 and at decode_32k on 2x16x16, and of
+    qwen3-30b-a3b's sharded training step at train_4k on 16x16, each in
+    its own process, started beside phase 9 (they use no card)."""
     procs = []
     for arch, shape, multi in DRYRUNS:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -4485,14 +4934,15 @@ def finish_dryruns(procs: list, times: dict, t0: float) -> list:
                     raise AssertionError(f"dry-run {arch} {shape}: {rec}")
                 recs.append(rec)
                 log("dry-run " + line[len("[dryrun] json "):])
-    _phase("dry-run qwen3-moe-235b-a22b (beside phase 10)", t0, times)
+    _phase("dry-runs (beside phases 9 and 10)", t0, times)
     return recs
 
 
 def model_of(row: str) -> str:
     """The model whose serves (or training run) a kernel row's shapes
     come from."""
-    for key, arch in (("sharded", "qwen3-30b-a3b sharded"),
+    for key, arch in (("sharded train", "qwen3-30b-a3b sharded train"),
+                      ("sharded", "qwen3-30b-a3b sharded"),
                       ("minicpm", "minicpm-2b train"),
                       ("qwen3 train", "qwen3-30b-a3b train"),
                       ("qwen3 P 2048", "qwen3-30b-a3b train"),
@@ -4747,6 +5197,18 @@ def main() -> None:
         "whisper encoder train", gen, 1, WHISPER_FRAMES, WHISPER_ATTN,
         causal=False)
     torch.cuda.empty_cache()
+    # phase 10b's shapes on each rank (``sharded_train_shapes``): K2 with
+    # its log-sum-exp and its backward over the rank's rows at its heads
+    # (the "gqa" region's head block over every kv head), K4 and its
+    # backward over the a2a regime's (E_loc, C tp, d) buffer at full F
+    b_r, heads, moe_w, c_tp = sharded_train_shapes()
+    kernels += check_prefill_attention_bwd("sharded train", gen, b_r,
+                                           TRAIN_SHARD_S, heads)
+    kernels += [check_moe_gmm_dense(f"sharded train C {c_tp}", c_tp, gen,
+                                    moe_w),
+                check_moe_gmm_bwd(f"sharded train C {c_tp}", c_tp, gen,
+                                  moe_w)]
+    torch.cuda.empty_cache()
     digest = k2_bwd_digest()
     log(f"prefill_attention_bwd at (64, 64) and (128, 128): gradients sha256 "
         f"{digest} (pinned: {K2_BWD_SHA256})")
@@ -4793,12 +5255,13 @@ def main() -> None:
     vl = serve_qwen2_vl(times)
     gc.collect()
     torch.cuda.empty_cache()
-    train = train_models(times)
-    gc.collect()
-    torch.cuda.empty_cache()
+    # the dry-runs use the host only: they start beside phase 9
     t_dry = time.perf_counter()
     dry_procs = start_dryruns()
     try:
+        train = train_models(times)
+        gc.collect()
+        torch.cuda.empty_cache()
         sharded = serve_sharded(times)
         dry = finish_dryruns(dry_procs, times, t_dry)
     finally:

@@ -12,7 +12,10 @@ table ``embed["pos"]`` come across as they are).
 JAX's PRNG cannot be reproduced in torch, so every test that holds the
 port against the JAX package goes through here.  ``from_jax_opt_state``
 does the same for the JAX package's ``AdamWState`` (step, mu, nu), so a
-JAX run's ``(params, opt)`` can continue in the port.
+JAX run's ``(params, opt)`` can continue in the port.  ``shard_params``,
+``shard_cache`` and ``shard_moments`` cut whole trees to one rank's
+blocks (parameter, cache and ZeRO-1 moment specs); ``gather_params``,
+called on every rank, puts blocks back together into whole leaves.
 This module imports numpy and torch only.
 """
 
@@ -80,3 +83,37 @@ def from_jax_opt_state(cfg: ModelConfig, state, device=None):
                         device=dev)
     return AdamWState(step=step, mu=from_jax_params(cfg, state.mu, dev),
                       nu=from_jax_params(cfg, state.nu, dev))
+
+
+def shard_moments(state, mesh, coords=None, rules=None):
+    """One rank's ZeRO-1 shards of an optimizer state whose moments are
+    whole (the port's ``AdamWState``, e.g. ``from_jax_opt_state``'s
+    output): each moment leaf cut to the rank's block under
+    ``partition.moment_specs``; the step is kept."""
+    from repro_torch.sharding.partition import (local_shard, map_with_specs,
+                                                moment_specs)
+    from repro_torch.training.optimizer import AdamWState
+    specs = moment_specs(state.mu, mesh, rules)
+
+    def cut(tree):
+        return map_with_specs(lambda x, s: local_shard(x, s, mesh, coords),
+                              tree, specs)
+    return AdamWState(step=state.step, mu=cut(state.mu), nu=cut(state.nu))
+
+
+def gather_params(tree, mesh, specs):
+    """Whole leaves from this rank's blocks: every rank calls it (a
+    collective over the mesh's groups) with its blocks of ``tree`` laid
+    out by ``specs`` (``param_specs`` or ``moment_specs`` of the whole
+    tree), and gets every leaf whole, each dim gathered over the axes its
+    spec entry names (major to minor, as the blocks lie)."""
+    from repro_torch.sharding import collectives as col
+    from repro_torch.sharding.partition import map_with_specs
+
+    def whole(x, spec):
+        with torch.no_grad():
+            for i, e in enumerate(spec):
+                if e is not None:
+                    x = col.all_gather(mesh, x, e, dim=i)
+        return x
+    return map_with_specs(whole, tree, specs)

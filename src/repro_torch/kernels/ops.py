@@ -28,12 +28,13 @@ backward: on the card their wrappers raise when grad mode is on and an
 input requires grad, rather than return an output that autograd would
 silently treat as a constant.
 
-Tracing: K1-K4 are also ``torch.library.custom_op``s (``repro_torch::``
-namespace) with a fake implementation that only propagates shapes.  A
-wrapper given a ``FakeTensor`` (the dry-run traces a step on fake tensors,
-``launch/dryrun.py``) calls its custom op, which under the fake mode
-returns empty outputs of the kernel's shapes and launches nothing; a real
-tensor never takes that branch.
+Tracing: K1-K4 and the two backward kernels are also
+``torch.library.custom_op``s (``repro_torch::`` namespace) with a fake
+implementation that only propagates shapes.  A wrapper given a
+``FakeTensor`` (the dry-run traces a step on fake tensors,
+``launch/dryrun.py``; the train step's backward too) calls its custom op,
+which under the fake mode returns empty outputs of the kernel's shapes and
+launches nothing; a real tensor never takes that branch.
 """
 
 from __future__ import annotations
@@ -277,10 +278,6 @@ def prefill_attention(q: Tensor, k: Tensor, v: Tensor, offset: Tensor, *,
     if offset.shape != (b,):
         raise ValueError(f"prefill_attention: bad offset shape "
                          f"{tuple(offset.shape)}")
-    if _fake(q, k):
-        out, lse = torch.ops.repro_torch.prefill_attention(
-            q, k, v, offset, window or 0, causal, return_lse)
-        return (out, lse) if return_lse else out
     if _needs_grad(q, k, v):
         if return_lse:
             raise RuntimeError("prefill_attention: return_lse is for calls "
@@ -294,7 +291,12 @@ def _prefill_forward(q: Tensor, k: Tensor, v: Tensor, offset: Tensor,
                      window: Optional[int], causal: bool, want_lse: bool):
     """(out, lse or None): the kernel (or, for CPU tensors, the plain
     version); ``lse`` (B, H, P) fp32 is the kernel's optional output,
-    which the serve paths never ask for."""
+    which the serve paths never ask for.  Fake tensors (the dry-run's
+    trace) take the custom op, which only propagates shapes."""
+    if _fake(q, k):
+        out, lse = torch.ops.repro_torch.prefill_attention(
+            q, k, v, offset, window or 0, causal, want_lse)
+        return out, (lse if want_lse else None)
     if not _on_card("prefill_attention", q, k, v, offset):
         out = ref.prefill_attention_ref(q, k, v, offset, window=window,
                                         causal=causal)
@@ -360,6 +362,9 @@ def prefill_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
         raise ValueError(f"prefill_attention_bwd: bad shapes o "
                          f"{tuple(o.shape)} do {tuple(do.shape)} lse "
                          f"{tuple(lse.shape)}")
+    if _fake(q, do):
+        return torch.ops.repro_torch.prefill_attention_bwd(
+            q, k, v, o, lse, do, offset, window or 0, causal)
     if not _on_card("prefill_attention_bwd", q, k, v, o, lse, do, offset):
         return ref.prefill_attention_bwd_ref(q, k, v, o, lse, do, offset,
                                              window=window, causal=causal)
@@ -580,6 +585,33 @@ def _(x, w_gate, w_up, w_down):
     return torch.empty_like(x)
 
 
+@torch.library.custom_op("repro_torch::prefill_attention_bwd",
+                         mutates_args=())
+def _prefill_attention_bwd_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
+                              lse: Tensor, do: Tensor, offset: Tensor,
+                              window: int, causal: bool
+                              ) -> Tuple[Tensor, Tensor, Tensor]:
+    return prefill_attention_bwd(q, k, v, o, lse, do, offset,
+                                 window=window or None, causal=causal)
+
+
+@_prefill_attention_bwd_op.register_fake
+def _(q, k, v, o, lse, do, offset, window, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@torch.library.custom_op("repro_torch::moe_gmm_bwd", mutates_args=())
+def _moe_gmm_bwd_op(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor,
+                    dy: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    return moe_gmm_bwd(x, w_gate, w_up, w_down, dy)
+
+
+@_moe_gmm_bwd_op.register_fake
+def _(x, w_gate, w_up, w_down, dy):
+    return (torch.empty_like(x), torch.empty_like(w_gate),
+            torch.empty_like(w_up), torch.empty_like(w_down))
+
+
 # --------------------------------------------------------------------- K4
 
 def _row_tile(c: int) -> int:
@@ -628,8 +660,6 @@ def moe_gmm(x: Tensor, w_gate: Tensor, w_up: Tensor,
     Differentiable (``MoeGmm``) where grad mode is on and an input
     requires grad."""
     _check_moe_shapes("moe_gmm", x, w_gate, w_up, w_down)
-    if _fake(x, w_gate):
-        return torch.ops.repro_torch.moe_gmm(x, w_gate, w_up, w_down)
     if _needs_grad(x, w_gate, w_up, w_down):
         return MoeGmm.apply(x, w_gate, w_up, w_down)
     return _moe_gmm_forward(x, w_gate, w_up, w_down)
@@ -637,6 +667,8 @@ def moe_gmm(x: Tensor, w_gate: Tensor, w_up: Tensor,
 
 def _moe_gmm_forward(x: Tensor, w_gate: Tensor, w_up: Tensor,
                      w_down: Tensor) -> Tensor:
+    if _fake(x, w_gate):
+        return torch.ops.repro_torch.moe_gmm(x, w_gate, w_up, w_down)
     e, c, d = x.shape
     if not _on_card("moe_gmm", x, w_gate, w_up, w_down):
         return ref.moe_gmm_ref(x, w_gate, w_up, w_down)
@@ -684,6 +716,8 @@ def moe_gmm_bwd(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor,
     if dy.shape != x.shape:
         raise ValueError(f"moe_gmm_bwd: dy {tuple(dy.shape)} against x "
                          f"{tuple(x.shape)}")
+    if _fake(x, dy):
+        return torch.ops.repro_torch.moe_gmm_bwd(x, w_gate, w_up, w_down, dy)
     if not _on_card("moe_gmm_bwd", x, w_gate, w_up, w_down, dy):
         return ref.moe_gmm_bwd_ref(x, w_gate, w_up, w_down, dy)
     _check_bf16("moe_gmm_bwd", x, w_gate, w_up, w_down, dy)

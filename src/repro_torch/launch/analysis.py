@@ -13,8 +13,8 @@ The numbers come from tracing rank 0's step on fake tensors
 (``launch/dryrun.py``), not from a compiler:
 
 - flops: ``torch.utils.flop_counter.FlopCounterMode`` over the aten ops,
-  with the formulas below for the four kernels' custom ops (K1-K4 as
-  ``kernels/ops.py`` registers them);
+  with the formulas below for the kernels' custom ops (K1-K4 and the
+  backward kernels of K2 and K4, as ``kernels/ops.py`` registers them);
 - bytes: each op's operands and results summed on rank 0, unfused (every
   elementwise op counts its own reads and writes; a fused program moves
   less); views move nothing, a gather the rows it reads, an in-place
@@ -81,6 +81,26 @@ def _decode_flops(q_shape, k_shape, v_shape, len_shape, window, want_lse,
                   *args, out_shape=None, **kw) -> int:
     b, h, dk = q_shape
     return 2 * b * h * k_shape[1] * (dk + v_shape[3])
+
+
+@register_flop_formula(torch.ops.repro_torch.prefill_attention_bwd)
+def _prefill_bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape,
+                       do_shape, off_shape, window, causal, *args,
+                       out_shape=None, **kw) -> int:
+    # five products a query-key pair: S = Q K^T again, dP = dO V^T,
+    # dV += P^T dO, dQ += dS K, dK += dS^T Q
+    b, p, h, dk = q_shape
+    return 2 * b * h * _pairs(p, k_shape[1], causal) * (3 * dk
+                                                        + 2 * v_shape[3])
+
+
+@register_flop_formula(torch.ops.repro_torch.moe_gmm_bwd)
+def _moe_gmm_bwd_flops(x_shape, wg_shape, wu_shape, wd_shape, dy_shape,
+                       *args, out_shape=None, **kw) -> int:
+    # eight GEMMs of the forward's size: G and U again, dH = dY Wd^T,
+    # dWd = H^T dY, dX from dG and dU, dWg, dWu
+    e, c, d = x_shape
+    return 2 * e * c * d * wg_shape[-1] * 8
 
 
 # ---------------------------------------------------------------- bytes

@@ -9,18 +9,22 @@ No card and no compiler: a fake process group (``torch.testing``'s
 the production mesh's ``DeviceMesh`` and groups are built on it, and rank
 0's step runs on fake tensors (``FakeTensorMode``: shapes, no data) of
 its local shards (``partition.param_specs``/``cache_specs``).  The
-tensors are fake CUDA tensors where this torch is built for CUDA, so the
-trace is the card's path, kernels included (K1-K4 propagate shapes as
-custom ops, ``kernels/ops.py``); a torch built without CUDA traces the
-same path on fake CPU tensors and says so (``"device"``).  Every layer is
+tensors are fake CUDA tensors where this torch is built for CUDA and a
+card is visible, so the trace is the card's path, kernels included
+(K1-K4 and the backward kernels propagate shapes as custom ops,
+``kernels/ops.py``); elsewhere it traces the same path on fake CPU
+tensors and says so (``"device"``).  Every layer is
 traced.  Collectives run against the fake group and are recorded
 (``sharding/collectives.RECORD``); flops, bytes and peak memory are
 ``launch/analysis.py``'s.
 
 This slice shards the paper's family (GQA attention with a dense MLP or
-routed experts) at the serve shapes; MLA (deepseek-v2-236b), the
-recurrent mixers, whisper and ``train_4k`` are written as skipped, with
-the ROADMAP.md item that ports them.  The process group is torn down
+routed experts) at the serve shapes and at ``train_4k``: the train step's
+forward and backward (remat per block, K2's and K4's backward kernels as
+custom ops) and its ZeRO-1 AdamW update over fake shards of the
+parameters and the moments; MLA (deepseek-v2-236b), the recurrent mixers
+and whisper are written as skipped, with the ROADMAP.md item that ports
+them.  The process group is torn down
 before returning, unless the caller set one up itself.
 
 Usage:
@@ -53,13 +57,12 @@ from repro_torch.sharding.partition import (cache_specs, default_rules,
                                             local_shape, map_with_specs,
                                             param_specs, sharding_context)
 
-_TRAIN = ("the sharded training step, launch/train.py --production-mesh "
-          "(ROADMAP.md §1 item 2, step 1: train_4k)")
-
-
 def trace_device() -> str:
-    """The fake tensors' device: the card's where torch is built for it."""
-    return "cuda" if torch.version.cuda else "cpu"
+    """The fake tensors' device: the card's where torch is built for it and
+    a card is visible (a train step's backward runs on autograd's device
+    threads, which need one), else the CPU."""
+    return ("cuda" if torch.version.cuda and torch.cuda.is_available()
+            else "cpu")
 
 
 def _fake_group(world: int) -> bool:
@@ -76,49 +79,60 @@ def _fake_group(world: int) -> bool:
     return True
 
 
-def _param_shapes(model: DecoderModel):
-    """The parameter tree at full size on fake tensors (no memory)."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-    with FakeTensorMode():
-        return model.init_params(torch.Generator().manual_seed(0))
-
-
 def trace_step(cfg, shape, mesh, device: str) -> dict:
     """Rank ``mesh.rank``'s step of (cfg, shape) on fake local shards:
     flops, bytes, collective bytes, peak memory, and the local shards'
-    parameter and cache bytes."""
+    parameter and cache bytes (for ``train_4k``: the forward and backward
+    with remat per block, as the JAX dry-run lowers it, and the ZeRO-1
+    update; the moments' bytes stand where the cache's do)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.training.train import train_plan
     rules = default_rules(mesh)
-    model = DecoderModel(cfg, device="cpu")
-    shapes = _param_shapes(model)
+    train = shape.kind == "train"
+    model = DecoderModel(cfg, device="cpu", remat=train)
+    shapes = model.param_shapes()
     b = shape.global_batch
     b_n = mesh.size(rules.get("batch"))
     b_loc = b // b_n if b % b_n == 0 else b
+    plan = None
+    if train:
+        with sharding_context(mesh, rules):
+            plan = train_plan(model)
     with FakeTensorMode():
-        cache_g = model.init_cache(b, cache_len_for(cfg, shape))
-
         def local(x, spec):
             return torch.empty(local_shape(tuple(x.shape), spec, mesh),
                                dtype=x.dtype, device=device)
         params = map_with_specs(local, shapes, param_specs(shapes, mesh))
-        cache = map_with_specs(local, cache_g, cache_specs(cache_g, mesh, b))
-        del cache_g
-        batch = input_specs(cfg, shape, batch=b_loc, device=device)
         step = make_step_fn(model, shape)
+        if train:
+            # the train step takes the global batch and cuts its rows
+            state = step.opt.init(params, plan)
+            batch = input_specs(cfg, shape, device=device)
+            held = [params, state, batch]
+        else:
+            cache_g = model.init_cache(b, cache_len_for(cfg, shape))
+            state = map_with_specs(local, cache_g,
+                                   cache_specs(cache_g, mesh, b))
+            del cache_g
+            batch = input_specs(cfg, shape, batch=b_loc, device=device)
+            held = [params, state, batch]
         col.reset_record()
         cost = analysis.StepCost()
         param_bytes = sum(t.numel() * t.element_size()
                           for t in _leaves(params))
-        cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(cache))
+        state_bytes = sum(t.numel() * t.element_size() for t in _leaves(
+            (state.mu, state.nu) if train else state))
         with cost, FlopCounterMode(display=False) as fc:
-            cost.track([params, cache, batch])
+            cost.track(held)
             with sharding_context(mesh, rules):
-                out = step(params, cache, batch)
+                out = step(params, state, batch)
             del out
-        return {"flops": float(fc.get_total_flops()), "bytes": float(cost.bytes),
-                "coll": col.record_totals(), "peak": float(cost.peak),
-                "param_bytes": param_bytes, "cache_bytes": cache_bytes}
+        rec = {"flops": float(fc.get_total_flops()),
+               "bytes": float(cost.bytes), "coll": col.record_totals(),
+               "peak": float(cost.peak), "param_bytes": param_bytes}
+        rec["moment_bytes" if train else "cache_bytes"] = state_bytes
+        return rec
 
 
 def _leaves(tree):
@@ -139,8 +153,6 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     mesh_name = "2x16x16" if multi_pod else "16x16"
     head = {"arch": arch, "shape": shape_name, "mesh": mesh_name}
     ok, reason = applicable(cfg, shape)
-    if ok and shape.kind == "train":
-        ok, reason = False, _TRAIN
     if ok:
         gaps = [g for g in (unported(cfg, sp) for sp in cfg.block_specs())
                 if g]
@@ -175,7 +187,9 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     out = {**head, "status": "ok", "device": f"fake {device}",
            "compile_s": trace_s, **rep.to_dict(),
            "param_bytes_per_device": m["param_bytes"],
-           "cache_bytes_per_device": m["cache_bytes"],
+           **({"moment_bytes_per_device": m["moment_bytes"]}
+              if "moment_bytes" in m else
+              {"cache_bytes_per_device": m["cache_bytes"]}),
            "total_s": time.time() - t0}
     if verbose:
         print(f"[dryrun] {arch} x {shape_name} x {mesh_name}: ok "

@@ -1,13 +1,18 @@
 """Step functions of the dry-run and the sharded runs (the JAX package's
 ``repro/launch/steps.py``):
 
+  train   : (params, opt_state, batch) -> (params, opt_state, metrics)
   prefill : (params, cache, batch) -> (last_logits, cache, aux)
   decode  : (params, cache, batch) -> (logits, cache, aux)
   layered : (params, cache, batch) -> (logits, h_out, cache, aux)
 
 Mesh-agnostic: outside a ``sharding_context`` they run the whole model;
 inside one, as one rank over its shards (params, cache and batch rows),
-with the logits gathered over the vocab.  Unlike JAX's steps they also
+with the logits gathered over the vocab.  The train step is
+``training.train.make_train_step`` with JAX's AdamW (cosine, lr 3e-4,
+1000 steps, 100 of warmup): under a context it takes the global batch,
+runs its rank's rows and ZeRO-1 moments, and never gathers the logits.
+Unlike JAX's steps the serve steps also
 return the forward's ``aux`` (expert counts, drops), and they take the
 last position's logits from its hidden state alone (the same values).
 The port's ``DecoderModel.forward`` defaults to the ragged dispatch; the
@@ -45,10 +50,11 @@ def make_step_fn(model: DecoderModel, shape: InputShape,
                  dropless: bool = False) -> Callable:
     cfg = model.cfg
     if shape.kind == "train":
-        raise NotImplementedError(
-            "train_4k (the sharded training step, launch/train.py "
-            "--production-mesh) is the next slice of the multi-device port "
-            "(ROADMAP.md §1)")
+        from repro_torch.training.optimizer import adamw
+        from repro_torch.training.train import make_train_step
+        return make_train_step(model, adamw(lr=3e-4, schedule="cosine",
+                                            total_steps=1000, warmup=100),
+                               cfg.encoder.enabled)
     cache_len = cache_len_for(cfg, shape)
     gb = shape.global_batch
 

@@ -12,10 +12,20 @@ one ``--ckpt`` wrote, or the JAX package's parameters converted through
 is on unless ``--smoke``, as in the JAX launcher.  It prints the JAX
 launcher's ``[train]`` lines with the device in place of the mesh; a
 logged step reads its metrics back in one transfer, other steps read
-nothing.  Multi-device training (``--production-mesh``, the train_4k
-step over the production mesh) is the next slice of the multi-device
-port; the serve steps already shard (``launch/steps.py``,
-``launch/dryrun.py``).
+nothing.
+
+``--production-mesh`` trains over the JAX launcher's 16x16 ``(data,
+model)`` mesh: one process a GPU, 256 of them, which the caller starts
+(``torchrun``: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and the rendezvous
+in the environment; NCCL on the card, gloo with ``--device cpu``).
+Without such a process group it raises and says so.  Each rank draws the
+whole model from seed 0 on its device, keeps its shards
+(``partition.param_specs``) and ZeRO-1 moments (``moment_specs``), and
+runs ``train_sharded``, the per-rank body, which takes any mesh (the
+tests drive it at (2, 2) on gloo CPU ranks); rank 0 prints the ``[train]``
+lines with the mesh, and ``--ckpt`` writes whole leaves, gathered by
+their specs, under the JAX package's leaf names (the one-device
+``--init`` reads them).
 
 Usage:
   # on the card, full minicpm-2b (2.7 B parameters), 8 x 256 tokens a step:
@@ -25,6 +35,11 @@ Usage:
   # on the CPU, reduced model (the kernels' plain versions run):
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 3 [--batch 8] [--seq 256] [--ckpt /path/ck.pt]
+
+  # 256 GPUs (32 nodes of 8), the production mesh:
+  torchrun --nnodes 32 --nproc-per-node 8 --rdzv-backend c10d \\
+      --rdzv-endpoint HOST:PORT -m repro_torch.launch.train \\
+      --arch qwen3-30b-a3b --production-mesh --steps 50
 """
 
 from __future__ import annotations
@@ -57,8 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["wsd", "cosine", "const"])
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the 16x16 mesh of the JAX launcher: not yet "
-                         "ported for training")
+                    help="the 16x16 mesh (a process group of 256 ranks "
+                         "that torchrun starts)")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without CUDA) or cpu")
     ap.add_argument("--init", default=None,
@@ -66,18 +81,115 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _optimizer(args):
+    return adamw(lr=args.lr, schedule=args.schedule, total_steps=args.steps,
+                 warmup=max(args.steps // 10, 1))
+
+
+def train_sharded(args, mesh, device=None) -> dict:
+    """The per-rank body of ``--production-mesh`` over any ``mesh`` built
+    with its process groups (``collectives.Mesh(..., distributed=True)``):
+    this rank's shards of the seed-0 model (or ``--init``'s), ZeRO-1
+    moments, the JAX launcher's data and schedule; rank 0 prints the
+    ``[train]`` lines.  Returns ``history`` (every step's metrics, read
+    back at the end; every rank holds the same), and the rank's
+    ``params`` and ``opt_state``."""
+    from repro_torch.convert import gather_params, shard_params
+    from repro_torch.sharding.partition import (moment_specs, param_specs,
+                                                sharding_context)
+    from repro_torch.training.optimizer import AdamWState
+    from repro_torch.training.train import train_plan
+    cfg = (get_smoke_config(args.arch) if args.smoke
+           else get_config(args.arch))
+    model = DecoderModel(cfg, device=device, remat=not args.smoke)
+    dev = model.device
+    opt = _optimizer(args)
+    whole = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    if args.init:
+        whole = ckpt_io.restore(args.init, {"params": whole})["params"]
+    # this rank's own copies: nothing it updates aliases the whole tree
+    params = ops.tree_map(torch.clone, shard_params(whole, mesh))
+    del whole
+    shapes = model.param_shapes()
+    lead = mesh.rank == 0
+    kept = []
+    with sharding_context(mesh):
+        opt_state = opt.init(params, train_plan(model))
+        step_fn = make_train_step(model, opt, cfg.encoder.enabled)
+        n = sum(p.numel() for p in tree_leaves(shapes))
+        if lead:
+            print(f"[train] {cfg.name}: {n / 1e6:.1f}M params on mesh "
+                  f"{dict(mesh.shape)}", flush=True)
+        corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seed=0)
+        ds = iter(PackedDataset(corpus, seq_len=args.seq,
+                                batch_size=args.batch, seed=0))
+        t0 = time.time()
+        for step in range(1, args.steps + 1):
+            batch = device_batch(model, *next(ds))
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            kept.append(metrics)
+            if step % 10 == 0 or step == 1:
+                m = read_metrics({"loss": metrics["loss"],
+                                  "lr": metrics["lr"]})
+                if lead:
+                    print(f"[train] step {step:>5} loss={m['loss']:.3f} "
+                          f"lr={m['lr']:.2e} "
+                          f"({(time.time() - t0) / step:.2f}s/step)",
+                          flush=True)
+        if args.ckpt:
+            tree = {"params": gather_params(params, mesh,
+                                            param_specs(shapes, mesh)),
+                    "opt": AdamWState(
+                        step=opt_state.step,
+                        mu=gather_params(opt_state.mu, mesh,
+                                         moment_specs(shapes, mesh)),
+                        nu=gather_params(opt_state.nu, mesh,
+                                         moment_specs(shapes, mesh)))}
+            if lead:
+                ckpt_io.save(args.ckpt, tree)
+                print(f"[train] checkpoint -> {args.ckpt}", flush=True)
+    return {"history": [read_metrics(m) for m in kept], "params": params,
+            "opt_state": opt_state}
+
+
+def _production_mesh(args):
+    """The 16x16 mesh on the process group ``torchrun`` describes in the
+    environment; raises without one of 256 ranks."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_production_mesh, production_shape
+    dims, _ = production_shape(False)
+    need = dims[0] * dims[1]
+    world = int(os.environ.get("WORLD_SIZE", "0"))
+    if world != need:
+        raise SystemExit(
+            f"--production-mesh needs a process group of {need} ranks, one a "
+            f"GPU, started by torchrun (WORLD_SIZE={world or 'unset'}): "
+            f"torchrun --nnodes 32 --nproc-per-node 8 ... -m "
+            f"repro_torch.launch.train --production-mesh")
+    cpu = args.device == "cpu"
+    if not cpu:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("gloo" if cpu else "nccl")
+    return make_production_mesh(rank=dist.get_rank(), distributed=True)
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.production_mesh:
-        raise SystemExit("--production-mesh: multi-device training is not "
-                         "ported yet (the next slice of the multi-device "
-                         "port); the port trains on one device")
+        import torch.distributed as dist
+        mesh = _production_mesh(args)
+        try:
+            train_sharded(args, mesh, device=args.device
+                          or torch.device("cuda", torch.cuda.current_device()))
+        finally:
+            dist.destroy_process_group()
+        return
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
     model = DecoderModel(cfg, device=args.device, remat=not args.smoke)
     dev = model.device
-    opt = adamw(lr=args.lr, schedule=args.schedule, total_steps=args.steps,
-                warmup=max(args.steps // 10, 1))
+    opt = _optimizer(args)
     params = model.init_params(torch.Generator(device=dev).manual_seed(0))
     if args.init:
         params = ckpt_io.restore(args.init, {"params": params})["params"]

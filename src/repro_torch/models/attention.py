@@ -34,7 +34,9 @@ their columns into whole heads (column shards cut heads: minicpm-2b's 144
 q columns a rank on 16 ranks are 2.25 heads), then one of two schemes, and
 the row-parallel ``w_o`` summed back into the residual layout.
 ``_attn_shard_plan`` makes the JAX package's decision; where it gives
-"gqa", or where the cache's kv heads are split over ``model`` or whole,
+"gqa", where there is no cache (training: K2 causal at offset 0 over the
+full sequence of the rank's rows, differentiated by its backward kernel),
+or where the cache's kv heads are split over ``model`` or whole,
 attention is head-parallel (``_head_sets``: each rank a set of query heads
 over the kv heads they read; K/V whole over ``model`` in the "gqa"
 region, a sequence-split cache gathered there as the JAX region gathers
@@ -335,10 +337,6 @@ def _apply_gqa_sharded(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
     residual layout; positions, valid (B_local, S) at every position;
     the cache's leaves this rank's block (``cache_specs``)."""
     mesh, rules = active_context()
-    if cache is None:
-        raise NotImplementedError(
-            "sharded attention without a cache is the training path "
-            "(train_4k), the next slice of the multi-device port")
     tp = rules.get("tp")
     n, j = mesh.size(tp), mesh.index(tp)
     h_, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -350,7 +348,12 @@ def _apply_gqa_sharded(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
     o_partial = p["w_o"].shape[0] != h_ * hd
     o_sets = spmd.block_sets(h_ * hd, o_partial, n)
     plan = _attn_shard_plan(cfg, lay.b, lay.s)
-    mode = kv_cache_mode(mesh, rules, hkv, lay.cache_len or 0)
+    if cache is not None:
+        mode = kv_cache_mode(mesh, rules, hkv, lay.cache_len or 0)
+    else:
+        # no cache (training): kv heads split over model where they
+        # divide, else whole; never the split softmax
+        mode = "heads" if n > 1 and hkv % n == 0 else "rep"
 
     def rope(t):
         if cfg.pos_emb == "mrope":
@@ -377,7 +380,10 @@ def _apply_gqa_sharded(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
         q = rope(q.reshape(b, s, len(qh), hd))
         k = rope(k.reshape(b, s, len(kvh), hd))
         v = v.reshape(b, s, len(kvh), hd)
-        if mode == "seq":      # "gqa" region: the cache whole over TP
+        if cache is None:
+            # causal at offset 0 over the full sequence of the rank's rows
+            kb, vb = k, v
+        elif mode == "seq":    # "gqa" region: the cache whole over TP
             lo = j * cache["k"].shape[1]
             kb = col.all_gather(mesh, _write_slice(
                 cache["k"], k, offset, lo, valid), tp, dim=1)
@@ -386,7 +392,7 @@ def _apply_gqa_sharded(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
         else:
             kb = _write_cache(cache["k"], k, offset, valid)
             vb = _write_cache(cache["v"], v, offset, valid)
-        o = _attend(q, kb, vb, offset, True, None)
+        o = _attend(q, kb, vb, offset, cache is not None, None)
         out = spmd.regroup(mesh, tp, o.reshape(b, s, -1),
                            [_head_cols(qs, hd) for qs, _ in sets], o_sets)
     y = out @ p["w_o"]

@@ -194,10 +194,34 @@ def embed_tokens(cfg: ModelConfig, p, tokens: Tensor) -> Tensor:
 
 def unembed(cfg: ModelConfig, p, x: Tensor) -> Tensor:
     """Matmul in ``x.dtype``, logits in fp32.  On vocab-split shards the
-    logits are this rank's vocab columns (gathered by the caller)."""
+    logits are this rank's vocab columns (the serve steps gather the last
+    position's; the training loss reads them where they lie,
+    ``token_nll``)."""
     w = p["tok"].t() if cfg.tie_embeddings else p["lm_head"]
     logits = (x @ w.to(x.dtype)).float()
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+def token_nll(logits: Tensor, targets: Tensor, mesh, axes) -> Tensor:
+    """-log softmax(logits)[target] per token, fp32: logits (..., V_loc)
+    fp32, targets (...), vocab parallel over ``axes`` of ``mesh`` (None:
+    the whole vocab).  The logits are this rank's block of the vocab
+    columns (rank j of n holds [j V_loc, (j + 1) V_loc)) and are never
+    gathered: the row maximum comes from an all-reduce max (detached: a
+    constant shift), the sum of exponentials from an all-reduce sum, and
+    the target's logit from the rank that owns its column, all-reduced.
+    Every rank of ``axes`` returns the same values."""
+    from repro_torch.sharding import collectives as col
+    v_loc = logits.shape[-1]
+    m = col.all_reduce_max(mesh, logits.max(dim=-1).values, axes)
+    z = logits - m[..., None]
+    loc = targets.long() - mesh.index(axes) * v_loc
+    ok = (loc >= 0) & (loc < v_loc)
+    zt = torch.gather(z, -1, loc.clamp(0, v_loc - 1)[..., None])[..., 0]
+    zt = torch.where(ok, zt, torch.zeros((), dtype=zt.dtype,
+                                         device=zt.device))
+    se = col.all_reduce(mesh, torch.exp(z).sum(dim=-1), axes)
+    return torch.log(se) - col.all_reduce(mesh, zt, axes)

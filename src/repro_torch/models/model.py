@@ -52,7 +52,8 @@ from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention, blocks, layers
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.sharding import spmd
-from repro_torch.sharding.partition import active_context, shard_seq_hint
+from repro_torch.sharding.partition import (active_context, shard_seq_hint,
+                                            sharding_context)
 
 Tensor = torch.Tensor
 
@@ -61,6 +62,20 @@ def _index(tree, r: int):
     if isinstance(tree, dict):
         return {k: _index(v, r) for k, v in tree.items()}
     return tree[r]
+
+
+def _in_context(fn, ctx):
+    """``fn`` run inside the sharding context ``ctx`` (or none): the
+    recompute of a checkpointed block runs in the backward pass, on
+    autograd's device thread for CUDA tensors, where the caller's
+    thread-local context is not installed."""
+    if ctx is None:
+        return fn
+
+    def run(*args):
+        with sharding_context(*ctx):
+            return fn(*args)
+    return run
 
 
 def sinusoidal_positions(n: int, d: int, device) -> Tensor:
@@ -217,6 +232,14 @@ class DecoderModel:
 
     # -- execution -----------------------------------------------------------
 
+    def param_shapes(self) -> dict:
+        """The parameter tree at full size on fake tensors (shapes and
+        dtypes, no memory): what the spec functions read."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            return DecoderModel(self.cfg, device="cpu").init_params(
+                torch.Generator().manual_seed(0))
+
     def block_params(self, params, b: int) -> dict:
         s, r, p_idx = self.index_map[b]
         return _index(params["segments"][s]["pattern"][p_idx], r)
@@ -248,7 +271,8 @@ class DecoderModel:
                 offset=offset, cache=c, enc_out=enc_out, valid=valid,
                 dropless=dropless, moe_dispatch=moe_dispatch, lay=lay)
             if self.remat and cache is None:
-                x, _, aux = checkpoint(fn, x, use_reentrant=False)
+                x, _, aux = checkpoint(_in_context(fn, active_context()), x,
+                                       use_reentrant=False)
             else:
                 x, _, aux = fn(x)
             auxes.append(aux)
@@ -263,7 +287,8 @@ class DecoderModel:
                 valid: Optional[Tensor] = None, dropless: bool = False,
                 moe_dispatch: str = "ragged", last_only: bool = False,
                 global_batch: Optional[int] = None,
-                cache_len: Optional[int] = None):
+                cache_len: Optional[int] = None,
+                return_hidden: bool = False):
         """tokens (B, S) -> (logits (B, S', V) fp32, cache, aux) with
         ``aux["expert_counts"]`` of shape (L, E).  ``extra_embeds`` (B, N,
         D) are prepended (S' = N + S, at positions offset + arange(S'),
@@ -271,7 +296,10 @@ class DecoderModel:
         ``enc_out`` (B, T, D) feeds every cross-attention block.
         ``last_only``: the logits of the last position only, (B, 1, V).
         Under a sharding context (see the module docstring) the logits are
-        this rank's vocab columns."""
+        this rank's vocab columns.  ``return_hidden``: the last block's
+        output (B, S, D) in place of the logits, before the final norm
+        (under a context, this rank's block of the residual; the training
+        loss takes the head from there, ``training/train.py``)."""
         b, s = tokens.shape
         dev = tokens.device
         if offset is None and cache is not None:
@@ -294,14 +322,16 @@ class DecoderModel:
             cache=cache, enc_out=enc_out, valid=valid, dropless=dropless,
             moe_dispatch=moe_dispatch, global_batch=global_batch,
             cache_len=cache_len)
-        if lay is not None:
-            x = (spmd.gather_seq(mesh, rules, x[:, -1:], lay)[:, -1:]
-                 if last_only else spmd.gather_seq(mesh, rules, x, lay))
-        elif last_only:
-            x = x[:, -1:]
         aux = {
             "expert_counts": torch.stack([a["expert_counts"] for a in auxes]),
             "aux_loss": sum(a["aux_loss"] for a in auxes),
             "dropped": sum(a["dropped"] for a in auxes),
         }
+        if return_hidden:
+            return x, cache, aux
+        if lay is not None:
+            x = (spmd.gather_seq(mesh, rules, x[:, -1:], lay)[:, -1:]
+                 if last_only else spmd.gather_seq(mesh, rules, x, lay))
+        elif last_only:
+            x = x[:, -1:]
         return self.logits(params, x), cache, aux

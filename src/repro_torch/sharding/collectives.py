@@ -16,11 +16,27 @@ concatenates what arrives along ``concat_dim``.  ``all_to_all_v`` moves
 rows in uneven counts (``torch.distributed.all_to_all_single`` with
 split sizes).
 
-``RECORD`` notes each call's kind and result bytes on this rank (the
-counterpart of the JAX package's ``analysis.collective_bytes``, which sums
-result-shape bytes of the compiled program's collectives); ``reset_record``
-clears it.  Under ``gloo`` the collectives take CUDA tensors as they are
-(gloo stages them through the host itself).
+The collectives are differentiable (``torch.autograd.Function``s whose
+backward is the forward's transpose): all-gather and reduce-scatter are
+each other's, all-reduce is its own, an all-to-all's is the reverse
+all-to-all (``split_dim`` and ``concat_dim`` swapped) and
+``all_to_all_v``'s the same call with the send and receive counts
+swapped.  The convention that makes those transposes the gradient: a
+sharded step minimises the SUM over ranks of each rank's loss term, and
+a term that every rank of an axis computes alike (the MoE aux loss,
+which every rank holds; the cross entropy where the residual is whole
+over ``model``) enters each rank's term divided by that axis's size.  A
+parameter that a rank holds whole over some axes then has, on each
+rank, its share of the gradient; the train step sums the shares over
+those axes (``training/train.py``).  Integer tensors (counts, drops)
+never require grad and stay outside autograd.
+
+``RECORD`` notes each call's kind and result bytes on this rank, forward
+and backward calls alike (the counterpart of the JAX package's
+``analysis.collective_bytes``, which sums result-shape bytes of the
+compiled program's collectives); ``reset_record`` clears it.  Under
+``gloo`` the collectives take CUDA tensors as they are (gloo stages them
+through the host itself).
 """
 
 from __future__ import annotations
@@ -144,21 +160,14 @@ def _run(kind: str, fn, out: Tensor, *inputs: Tensor) -> Tensor:
     return out
 
 
-def all_reduce(mesh: Mesh, x: Tensor, axes) -> Tensor:
-    """Sum over ``axes``; returns a new tensor (``x`` is not changed)."""
-    if mesh.size(axes) <= 1:
-        return x
+def _all_reduce(mesh: Mesh, x: Tensor, axes) -> Tensor:
     g = mesh.group(axes)
     return _run("all-reduce", lambda o: dist.all_reduce(o, group=g),
                 x.contiguous().clone())
 
 
-def all_gather(mesh: Mesh, x: Tensor, axes, dim: int = 0) -> Tensor:
-    """Concatenate the ranks' ``x`` along ``dim`` in rank order."""
-    n = mesh.size(axes)
-    if n <= 1:
-        return x
-    g = mesh.group(axes)
+def _all_gather(mesh: Mesh, x: Tensor, axes, dim: int) -> Tensor:
+    n, g = mesh.size(axes), mesh.group(axes)
     src = x.movedim(dim, 0).contiguous()
     out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
     _run("all-gather",
@@ -166,12 +175,8 @@ def all_gather(mesh: Mesh, x: Tensor, axes, dim: int = 0) -> Tensor:
     return out.movedim(0, dim).contiguous()
 
 
-def reduce_scatter(mesh: Mesh, x: Tensor, axes, dim: int = 0) -> Tensor:
-    """Sum over ``axes`` and keep this rank's block of ``dim``."""
-    n = mesh.size(axes)
-    if n <= 1:
-        return x
-    g = mesh.group(axes)
+def _reduce_scatter(mesh: Mesh, x: Tensor, axes, dim: int) -> Tensor:
+    n, g = mesh.size(axes), mesh.group(axes)
     src = x.movedim(dim, 0).contiguous()
     if src.shape[0] % n:
         raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
@@ -182,15 +187,9 @@ def reduce_scatter(mesh: Mesh, x: Tensor, axes, dim: int = 0) -> Tensor:
     return out.movedim(0, dim).contiguous()
 
 
-def all_to_all(mesh: Mesh, x: Tensor, axes, split_dim: int,
-               concat_dim: int) -> Tensor:
-    """``jax.lax.all_to_all(..., tiled=True)``: block j of ``split_dim``
-    goes to rank j; the blocks received are concatenated along
-    ``concat_dim`` in source order."""
-    n = mesh.size(axes)
-    if n <= 1:
-        return x
-    g = mesh.group(axes)
+def _all_to_all(mesh: Mesh, x: Tensor, axes, split_dim: int,
+                concat_dim: int) -> Tensor:
+    n, g = mesh.size(axes), mesh.group(axes)
     if x.shape[split_dim] % n:
         raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
                          f"does not divide over {n}")
@@ -203,13 +202,8 @@ def all_to_all(mesh: Mesh, x: Tensor, axes, split_dim: int,
         concat_dim, concat_dim + 1).contiguous()
 
 
-def all_to_all_v(mesh: Mesh, x: Tensor, axes, send_counts: Sequence[int],
-                 recv_counts: Sequence[int]) -> Tensor:
-    """Rows of ``x`` (dim 0) in uneven counts: the first ``send_counts[0]``
-    rows go to rank 0, the next to rank 1, ...; the result holds
-    ``recv_counts[j]`` rows from each rank j, in source order."""
-    if mesh.size(axes) <= 1:
-        return x
+def _all_to_all_v(mesh: Mesh, x: Tensor, axes, send_counts: Sequence[int],
+                  recv_counts: Sequence[int]) -> Tensor:
     g = mesh.group(axes)
     src = x.contiguous()
     out = src.new_empty((int(sum(recv_counts)),) + tuple(src.shape[1:]))
@@ -219,3 +213,116 @@ def all_to_all_v(mesh: Mesh, x: Tensor, axes, send_counts: Sequence[int],
              input_split_sizes=[int(c) for c in send_counts], group=g),
          out, src)
     return out
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _all_reduce(mesh, x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(ctx.mesh, g, ctx.axes), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _all_gather(mesh, x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_reduce_scatter(ctx.mesh, g, ctx.axes, ctx.dim), None, None,
+                None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _reduce_scatter(mesh, x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(ctx.mesh, g, ctx.axes, ctx.dim), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, split_dim, concat_dim):
+        ctx.args = (mesh, axes, split_dim, concat_dim)
+        return _all_to_all(mesh, x, axes, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, split_dim, concat_dim = ctx.args
+        return (_all_to_all(mesh, g, axes, concat_dim, split_dim), None, None,
+                None, None)
+
+
+class _AllToAllV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, send_counts, recv_counts):
+        ctx.args = (mesh, axes, send_counts, recv_counts)
+        return _all_to_all_v(mesh, x, axes, send_counts, recv_counts)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, send_counts, recv_counts = ctx.args
+        return (_all_to_all_v(mesh, g, axes, recv_counts, send_counts), None,
+                None, None, None)
+
+
+def all_reduce(mesh: Mesh, x: Tensor, axes) -> Tensor:
+    """Sum over ``axes``; returns a new tensor (``x`` is not changed)."""
+    if mesh.size(axes) <= 1:
+        return x
+    return _AllReduce.apply(x, mesh, axes)
+
+
+def all_reduce_max(mesh: Mesh, x: Tensor, axes) -> Tensor:
+    """Elementwise maximum over ``axes``, outside autograd (a detached
+    result: the callers use it as a constant shift)."""
+    if mesh.size(axes) <= 1:
+        return x.detach()
+    g = mesh.group(axes)
+    return _run("all-reduce",
+                lambda o: dist.all_reduce(o, op=dist.ReduceOp.MAX, group=g),
+                x.detach().contiguous().clone())
+
+
+def all_gather(mesh: Mesh, x: Tensor, axes, dim: int = 0) -> Tensor:
+    """Concatenate the ranks' ``x`` along ``dim`` in rank order."""
+    if mesh.size(axes) <= 1:
+        return x
+    return _AllGather.apply(x, mesh, axes, dim)
+
+
+def reduce_scatter(mesh: Mesh, x: Tensor, axes, dim: int = 0) -> Tensor:
+    """Sum over ``axes`` and keep this rank's block of ``dim``."""
+    if mesh.size(axes) <= 1:
+        return x
+    return _ReduceScatter.apply(x, mesh, axes, dim)
+
+
+def all_to_all(mesh: Mesh, x: Tensor, axes, split_dim: int,
+               concat_dim: int) -> Tensor:
+    """``jax.lax.all_to_all(..., tiled=True)``: block j of ``split_dim``
+    goes to rank j; the blocks received are concatenated along
+    ``concat_dim`` in source order."""
+    if mesh.size(axes) <= 1:
+        return x
+    return _AllToAll.apply(x, mesh, axes, split_dim, concat_dim)
+
+
+def all_to_all_v(mesh: Mesh, x: Tensor, axes, send_counts: Sequence[int],
+                 recv_counts: Sequence[int]) -> Tensor:
+    """Rows of ``x`` (dim 0) in uneven counts: the first ``send_counts[0]``
+    rows go to rank 0, the next to rank 1, ...; the result holds
+    ``recv_counts[j]`` rows from each rank j, in source order."""
+    if mesh.size(axes) <= 1:
+        return x
+    return _AllToAllV.apply(x, mesh, axes, tuple(send_counts),
+                            tuple(recv_counts))

@@ -33,6 +33,7 @@ from __future__ import annotations
 import re
 import threading
 from contextlib import contextmanager
+from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 _TLS = threading.local()
@@ -312,35 +313,95 @@ def kv_cache_mode(mesh, rules, n_kv: int, cache_len: int) -> str:
 # Optimizer-state partition specs (ZeRO-1)
 # ---------------------------------------------------------------------------
 
+# ``moment_specs`` is the JAX package's; ``zero1_plan`` says, leaf by leaf,
+# how the sharded train step moves a gradient into its moment's layout
+# (``training/train.py``) and how the optimizer updates the moment's slice
+# of the parameter and gathers it back (``training/optimizer.py``).
+
 
 def moment_specs(params, mesh, rules: Optional[dict] = None):
     """Adam moments: the parameter spec, then the largest still-replicated
     dim over the data axis where it divides (ZeRO-1)."""
     rules = rules or default_rules(mesh)
+    return tree_map_with_path(
+        lambda path, x: _moment_spec(path, x, mesh, rules), params)
+
+
+def _moment_spec(path, x, mesh, rules) -> Spec:
     data_axes = rules.get("data")
     data_n = _axes_size(mesh, data_axes)
+    shape = tuple(getattr(x, "shape", ()))
+    nd = len(shape)
+    base = _guard(spec_for_path(path_str(path), nd, rules), shape, mesh)
+    if data_n <= 1 or nd == 0:
+        return base
+    spec = list(base) + [None] * (nd - len(base))
+    if any(a in spec_axes(spec) for a in (data_axes or ())):
+        return tuple(spec)
+    cand = [i for i in range(nd)
+            if spec[i] is None and shape[i] % data_n == 0]
+    if cand:
+        i = max(cand, key=lambda j: shape[j])
+        spec[i] = _entry(data_axes)
+    return tuple(spec)
+
+
+def spec_axes(spec) -> set:
+    """The mesh axes a spec names."""
+    out = set()
+    for e in spec:
+        if e is not None:
+            out.update((e,) if isinstance(e, str) else e)
+    return out
+
+
+@dataclass(frozen=True)
+class Zero1Leaf:
+    """How one parameter (spec ``spec``, moments ``moment``) has its
+    gradient reach its ZeRO-1 moment shard on this rank: summed over
+    ``reduce`` (the axes its spec leaves it whole on, but the one its
+    moment cuts), and reduce-scattered over ``scatter`` along ``dim``
+    where the moment spec cuts the leaf further than the parameter spec
+    (``n`` blocks there, this rank's the ``j``-th; ``dim`` None where it
+    does not); ``copies`` ranks hold each element of the moment shard
+    (the global norm counts it once)."""
+    spec: Spec
+    moment: Spec
+    reduce: Tuple[str, ...]
+    scatter: Tuple[str, ...]
+    dim: Optional[int]
+    n: int
+    j: int
+    copies: int
+
+
+def zero1_plan(shapes, mesh, rules: Optional[dict] = None):
+    """A ``Zero1Leaf`` for every leaf of the parameter tree ``shapes``
+    (global shapes, e.g. ``DecoderModel.param_shapes()``), seen from
+    ``mesh``'s rank."""
+    rules = rules or default_rules(mesh)
+    data = tuple(a for a in (rules.get("data") or ()) if a in mesh.shape)
 
     def leaf(path, x):
-        shape = tuple(getattr(x, "shape", ()))
-        nd = len(shape)
-        base = _guard(spec_for_path(path_str(path), nd, rules), shape, mesh)
-        if data_n <= 1 or nd == 0:
-            return base
-        spec = list(base) + [None] * (nd - len(base))
-        used = set()
-        for s_ in spec:
-            for a in ((s_,) if isinstance(s_, str) else (s_ or ())):
-                used.add(a)
-        if any(a in used for a in (data_axes or ())):
-            return tuple(spec)
-        cand = [i for i in range(nd)
-                if spec[i] is None and shape[i] % data_n == 0]
-        if cand:
-            i = max(cand, key=lambda j: shape[j])
-            spec[i] = _entry(data_axes)
-        return tuple(spec)
-
-    return tree_map_with_path(leaf, params)
+        shape = tuple(x.shape)
+        pspec = _guard(spec_for_path(path_str(path), len(shape), rules),
+                       shape, mesh)
+        mspec = _moment_spec(path, x, mesh, rules)
+        whole = [a for a in mesh.axis_names
+                 if a not in spec_axes(pspec) and mesh.shape[a] > 1]
+        dim = next((i for i, e in enumerate(mspec)
+                    if e != (pspec[i] if i < len(pspec) else None)), None)
+        scatter = data if dim is not None else ()
+        copies = 1
+        for a in mesh.axis_names:
+            if a not in spec_axes(mspec):
+                copies *= mesh.shape[a]
+        return Zero1Leaf(spec=pspec, moment=mspec,
+                         reduce=tuple(a for a in whole if a not in scatter),
+                         scatter=scatter, dim=dim,
+                         n=_axes_size(mesh, scatter),
+                         j=axes_index(mesh, scatter), copies=copies)
+    return tree_map_with_path(leaf, shapes)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,9 @@ over the sequence: Megatron sequence parallelism).
 static assignments of items to ranks: every rank names the items it holds
 and the items it needs, and each needed item travels once, from the rank
 that holds it (its own copy where it has one), by one uneven all-to-all.
+Every move here is differentiable (``collectives.py`` states the
+convention): the slices' backward pads with zeros, the collectives'
+is their transpose, ``regroup``'s the reverse regroup.
 Attention uses it to turn column shards that cut heads into whole heads
 (never gathering a weight); the MoE's a2a regime uses it to group tokens
 as the JAX package's ``shard_map`` groups them.
@@ -57,13 +60,13 @@ def unported(cfg, spec) -> Optional[str]:
     if spec.mixer == MIXER_MLA or (spec.ffn == FFN_MOE
                                    and cfg.moe.n_shared_experts):
         return ("multi-head latent attention and shared experts under a "
-                "mesh (ROADMAP.md §1 item 2, step 2: MLA)")
+                "mesh (ROADMAP.md §1 item 2, step 1: MLA)")
     if spec.is_recurrent() or spec.window is not None:
         return ("the recurrent mixers and local attention under a mesh "
-                "(ROADMAP.md §1 item 2, step 3)")
+                "(ROADMAP.md §1 item 2, step 2)")
     if spec.cross_attn:
         return ("whisper's encoder and cross-attention under a mesh "
-                "(ROADMAP.md §1 item 2, step 3)")
+                "(ROADMAP.md §1 item 2, step 2)")
     return None
 
 
@@ -171,7 +174,10 @@ def regroup(mesh, axes, x: Tensor, src: Sequence[Sequence[int]],
             dst: Sequence[Sequence[int]], dim: int = -1) -> Tensor:
     """``x`` holds, on the rank of index j over ``axes``, the items
     ``src[j]`` along ``dim`` (in that order); returns the items ``dst[j]``
-    (in that order).  The sets are static and the same on every rank."""
+    (in that order).  The sets are static and the same on every rank.
+    Differentiable: the backward is the reverse regroup, and an item
+    that went to several ranks (or to several places) gets the sum of
+    their gradients."""
     src = tuple(tuple(int(i) for i in s) for s in src)
     dst = tuple(tuple(int(i) for i in s) for s in dst)
     n = mesh.size(axes)
@@ -183,17 +189,45 @@ def regroup(mesh, axes, x: Tensor, src: Sequence[Sequence[int]],
     if (n > 1 and all(d == everything for d in dst)
             and src == block_sets(len(everything), True, n)):
         return col.all_gather(mesh, x, axes, dim=dim)
-    send_idx, send_n, recv_n, local_src, local_dst, order = _plan(src, dst, me)
-    xm = x.movedim(dim, 0)
-    out = xm.new_empty((len(dst[me]),) + tuple(xm.shape[1:]))
-    if len(local_src):
-        out[_index(local_dst, x)] = xm[_index(local_src, x)]
-    if n > 1:
-        sent = xm[_index(send_idx, x)]
-        got = col.all_to_all_v(mesh, sent, axes, send_n, recv_n)
-        if len(order):
-            out[_index(order, x)] = got
-    return out.movedim(0, dim).contiguous()
+    return _Regroup.apply(x, mesh, axes, _plan(src, dst, me), len(dst[me]),
+                          dim, n)
+
+
+class _Regroup(torch.autograd.Function):
+    """``regroup``'s general case: the rank's own items copied, the others
+    moved by one uneven all-to-all; backward the same moves reversed, the
+    gradients of an item summed over the places it went."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, plan, n_out, dim, n):
+        send_idx, send_n, recv_n, local_src, local_dst, order = plan
+        ctx.args = (mesh, axes, plan, x.shape[dim], dim, n)
+        xm = x.movedim(dim, 0)
+        out = xm.new_empty((n_out,) + tuple(xm.shape[1:]))
+        if len(local_src):
+            out[_index(local_dst, x)] = xm[_index(local_src, x)]
+        if n > 1:
+            got = col._all_to_all_v(mesh, xm[_index(send_idx, x)], axes,
+                                    send_n, recv_n)
+            if len(order):
+                out[_index(order, x)] = got
+        return out.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, plan, n_in, dim, n = ctx.args
+        send_idx, send_n, recv_n, local_src, local_dst, order = plan
+        gm = g.movedim(dim, 0)
+        gx = gm.new_zeros((n_in,) + tuple(gm.shape[1:]))
+        if len(local_src):
+            gx.index_add_(0, _index(local_src, g), gm[_index(local_dst, g)])
+        if n > 1:
+            back = col._all_to_all_v(mesh, gm[_index(order, g)], axes,
+                                     recv_n, send_n)
+            if len(send_idx):
+                gx.index_add_(0, _index(send_idx, g), back)
+        return (gx.movedim(0, dim).contiguous(), None, None, None, None,
+                None, None)
 
 
 def _index(a: np.ndarray, like: Tensor) -> Tensor:

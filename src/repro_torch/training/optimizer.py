@@ -15,6 +15,12 @@ same order of operations.  JAX's leaf-wise formula makes several fp32
 temporaries of a whole leaf, and a stacked expert leaf of qwen3-30b-a3b
 (reps, 128, 2048, 768) holds 201 M elements a layer: the transients alone
 would outgrow the card.  The grad norm is summed per chunk the same way.
+
+Under a sharding context the train step passes a ZeRO-1 plan
+(``partition.zero1_plan``): the moments are the rank's ``moment_specs``
+shards and ``update_zero1`` updates the moment shard's slice of each
+parameter, then gathers it back.  Without one, ``update`` is the one-device
+update, bit for bit.
 """
 
 from __future__ import annotations
@@ -29,6 +35,9 @@ Tensor = torch.Tensor
 
 # elements of a leaf updated at once: fp32 temporaries of 256 MB each
 CHUNK = 1 << 26
+# the same under ZeRO-1, where every rank of a card's pool holds its own
+# temporaries beside its shards: 16 MB each
+ZERO_CHUNK = 1 << 22
 
 
 class AdamWState(NamedTuple):
@@ -63,8 +72,8 @@ def tree_unflatten(template, leaves):
     return build(template)
 
 
-def _chunks(t: Tensor):
-    return t.view(-1).split(CHUNK)
+def _chunks(t: Tensor, n: int = CHUNK):
+    return t.view(-1).split(n)
 
 
 def _as_step(step, device=None) -> Tensor:
@@ -82,22 +91,32 @@ class AdamW:
     weight_decay: float = 0.1
     grad_clip: float = 1.0
 
-    def init(self, params) -> AdamWState:
+    def init(self, params, plan=None) -> AdamWState:
+        """Zero moments; with ``plan`` (``partition.zero1_plan``, under a
+        sharding context) each the rank's ZeRO-1 shard of its parameter's
+        local block."""
         leaves = tree_leaves(params)
         dev = leaves[0].device if leaves else torch.device("cpu")
+        shapes = [p.shape for p in leaves]
+        if plan is not None:
+            shapes = [_moment_shape(p, lp)
+                      for p, lp in zip(leaves, tree_leaves(plan))]
 
         def z():
             return tree_unflatten(params, [
-                torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for p in leaves])
+                torch.zeros(sh, dtype=torch.float32, device=p.device)
+                for p, sh in zip(leaves, shapes)])
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                           mu=z(), nu=z())
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, plan=None):
         """-> (params, state, {"grad_norm", "lr"}).  ``params`` and the
         state's moments are updated in place and returned; nothing is read
-        back to the host."""
+        back to the host.  ``plan`` (``partition.zero1_plan``, under a
+        sharding context): ZeRO-1, ``update_zero1``."""
+        if plan is not None:
+            return self.update_zero1(grads, state, params, plan)
         step = state.step + 1
         ps, gs = tree_leaves(params), tree_leaves(grads)
         ms, vs = tree_leaves(state.mu), tree_leaves(state.nu)
@@ -125,6 +144,65 @@ class AdamW:
                 pc.copy_(pc.float() - lr * delta)
         return params, AdamWState(step=step, mu=state.mu, nu=state.nu), {
             "grad_norm": gnorm, "lr": lr}
+
+
+    @torch.no_grad()
+    def update_zero1(self, grads, state: AdamWState, params, plan):
+        """ZeRO-1 over this rank's shards, inside a sharding context:
+        ``grads`` are already in the moments' layout (each leaf summed over
+        the axes its spec leaves it whole on and cut like its moment,
+        ``training/train.py``), ``state``'s moments the rank's
+        ``moment_specs`` shards.  The global-norm clip counts each element
+        of the global gradient once (a shard's square sum over its
+        ``copies``, all-reduced over the mesh); each leaf's update is
+        computed on the moment shard's slice of the local parameter with
+        the same formula, chunk by chunk, and the new values are
+        all-gathered over ``data`` back into the parameter's block."""
+        from repro_torch.sharding import collectives as col
+        from repro_torch.sharding.partition import active_context
+        mesh, _ = active_context()
+        step = state.step + 1
+        ps, gs = tree_leaves(params), tree_leaves(grads)
+        ms, vs = tree_leaves(state.mu), tree_leaves(state.nu)
+        plans = tree_leaves(plan)
+        sq = torch.zeros((), dtype=torch.float32, device=step.device)
+        for g, lp in zip(gs, plans):
+            part = torch.zeros((), dtype=torch.float32, device=step.device)
+            for gc in _chunks(g.contiguous(), ZERO_CHUNK):
+                part = part + torch.sum(torch.square(gc.float()))
+            sq = sq + part / lp.copies
+        gnorm = torch.sqrt(col.all_reduce(mesh, sq, mesh.axis_names))
+        scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
+        sf = step.to(torch.float32)
+        bc1 = 1 - self.b1 ** sf
+        bc2 = 1 - self.b2 ** sf
+        lr = self.lr_fn(step)
+        for p, g, m, v, lp in zip(ps, gs, ms, vs, plans):
+            decay = p.dim() >= 2
+            mine = p if lp.dim is None else p.narrow(
+                lp.dim, lp.j * (p.shape[lp.dim] // lp.n),
+                p.shape[lp.dim] // lp.n).contiguous()
+            for pc, gc, mc, vc in zip(*(_chunks(t, ZERO_CHUNK) for t in (
+                    mine, g.contiguous(), m, v))):
+                gf = gc.float() * scale
+                mc.mul_(self.b1).add_((1 - self.b1) * gf)
+                vc.mul_(self.b2).add_((1 - self.b2) * torch.square(gf))
+                delta = (mc / bc1) / (torch.sqrt(vc / bc2) + self.eps)
+                if decay:
+                    delta = delta + self.weight_decay * pc.float()
+                pc.copy_(pc.float() - lr * delta)
+            if lp.dim is not None:
+                p.copy_(col.all_gather(mesh, mine, lp.scatter, dim=lp.dim))
+        return params, AdamWState(step=step, mu=state.mu, nu=state.nu), {
+            "grad_norm": gnorm, "lr": lr}
+
+
+def _moment_shape(p: Tensor, lp) -> tuple:
+    """The ZeRO-1 moment shard's shape of local parameter block ``p``."""
+    if lp.dim is None:
+        return tuple(p.shape)
+    return tuple(n // lp.n if i == lp.dim else n
+                 for i, n in enumerate(p.shape))
 
 
 def adamw(lr: float = 3e-4, schedule: str = "cosine", total_steps: int = 1000,

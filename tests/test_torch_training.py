@@ -538,6 +538,9 @@ def test_train_small_example_config_matches_jax():
 
 
 def test_launcher_refuses_production_mesh():
+    """Without the 256-rank process group torchrun starts, the launcher's
+    ``--production-mesh`` refuses and says what it needs (its per-rank
+    body runs in tests/test_torch_sharded_train.py)."""
     from repro_torch.launch import train as tlaunch
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(SystemExit, match="needs a process group of 256"):
         tlaunch.main(["--smoke", "--device", "cpu", "--production-mesh"])
