@@ -172,7 +172,7 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    chunked), and the open-loop trace on the iteration clock through the
    card's engine and through ``SimExecutor``: the same plans, the modelled
    ms/iter (h100x2 preset) printed beside the measured one.  Then profile
-   the ragged layered serve once more at its first 16 of 48 layers
+   the ragged layered serve once more at its first 8 of 48 layers
    (``PROFILE_LAYERS``: device time by kernel, the device's busy share).
 5. free qwen3 and serve gpt-oss-20b at full width (d_model 2880, 64/8
    heads of 64, 32 experts top-4 of d_ff 2880, 24 layers): the long trace
@@ -240,8 +240,9 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    of minicpm-2b and of qwen3-30b-a3b runs under torch.profiler: device
    time by kernel, the two backward kernels' share, the optimizer's share
    and the device's idle share of the step.
-10. the multi-device code on this card: qwen3-30b-a3b at full width, 4
-   of 48 layers (8 until phase 10b joined), seed-0 bf16 weights made once on the card and handed to
+10. the multi-device code on this card: qwen3-30b-a3b at full width, 2
+   of 48 layers (4 until phase 10c joined, 8 until phase 10b joined),
+   seed-0 bf16 weights made once on the card and handed to
    16 ranks by CUDA IPC, sharded over the (2, 8) ``(data, model)`` mesh
    (gloo; every kernel built before any rank starts): a prefill step (2 x
    512 tokens, dense and ragged: the a2a MoE and the "gqa" attention
@@ -272,6 +273,18 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    collectives forward and backward, wall time and peak memory a rank
    printed.  Phase 2 adds K2, K4 and both backwards at the ranks' shapes
    (``sharded_train_shapes``).
+   10c. a second pool of 16 ranks on the same mesh: deepseek-v2-236b at
+   full width, 2 of 60 layers (its dense block 0 and one MoE block with
+   160 routed and 2 shared experts), the same serve steps and checks as
+   phase 10: multi-head latent attention with the latent split over the
+   sequence (gathered over ``model`` for the prefill and the layered row:
+   K2 at g 1 over each rank's 16 heads at (192, 128); the split softmax
+   at decode: K3 with its log-sum-exp over each rank's 128 positions for
+   all 128 heads), the shared experts column/row-parallel; then one
+   sharded training step of its block 0 (the depth the card holds beside
+   the pool, reckoned and logged as in 10b: K2 and its backward on every
+   rank).  Phase 2 adds K3 with its log-sum-exp, K2, K1, K4 and K2's
+   backward at these ranks' shapes.
 11. beside phases 9 and 10, on the host: ``python -m
    repro_torch.launch.dryrun`` for qwen3-moe-235b-a22b at prefill_32k
    (16x16) and decode_32k (2x16x16), and for qwen3-30b-a3b at train_4k
@@ -3020,12 +3033,12 @@ def serve_qwen2_vl(times: dict) -> dict:
     return {"runs": runs, "depth": depth}
 
 
-# the profiled serve runs the first 16 of qwen3's 48 layers: the
-# training phase's 64-90 s were paid for by halving this 107 s phase, and
-# the two profiled training steps' ~17 s (the backward rows' ~14 s on top)
-# by a third of what was left (the serves whose streams are compared
-# across trees keep their depth)
-PROFILE_LAYERS = 16
+# the profiled serve runs the first 8 of qwen3's 48 layers: the
+# training phase's 64-90 s were paid for by halving this 107 s phase, the
+# two profiled training steps' ~17 s (the backward rows' ~14 s on top)
+# by a third of what was left, and phase 10c by halving it again (the
+# serves whose streams are compared across trees keep their depth)
+PROFILE_LAYERS = 8
 
 
 def first_layers(model, params, n: int):
@@ -3904,12 +3917,26 @@ def train_models(times: dict) -> dict:
 # ---------------------------------------------------------------- phase 10
 
 SHARD_MESH = (2, 8)                    # (data, model): 16 ranks on one card
-# of qwen3-30b-a3b's 48, full width (8 until phase 10b joined the pool)
-SHARD_LAYERS = 4
 SHARD_B, SHARD_S, SHARD_CACHE = 2, 512, 1024
-SHARD_DECODES, SHARD_P, SHARD_GROUP = 8, 256, (0, 4)
+SHARD_DECODES, SHARD_P = 8, 256
 SHARD_KERNELS = ("moe_gmm_ragged", "prefill_attention", "decode_attention",
                  "moe_gmm")
+
+
+# a sharded phase's model: its serve depth, the layered row's block group
+# and the deepest training step reckoned beside the pool (a named tuple:
+# the card's tests load this file without registering it as a module,
+# which a dataclass needs)
+ShardPhase = collections.namedtuple(
+    "ShardPhase", ("arch", "layers", "group", "train_max_layers"))
+# phase 10 (qwen3-30b-a3b: 2 of 48 layers since phase 10c joined, 4
+# before, 8 before phase 10b; it trains 1, 2 before phase 10c: the card
+# holds 3 beside 2 serve layers, at the script's time) and
+# phase 10c (deepseek-v2-236b: its dense block 0 and one MoE block; a
+# block with routed experts does not train beside the pool,
+# ``sharded_train_depth`` reckons it)
+QWEN3_SHARD = ShardPhase("qwen3-30b-a3b", 2, (0, 2), 1)
+DEEPSEEK_SHARD = ShardPhase("deepseek-v2-236b", 2, (0, 2), 2)
 # the ranks' routes are pinned to the unsharded run's (``_pin_route``):
 # each of a rank's MoE tokens takes the expert ids of the reference token
 # nearest to it, which must lie within PIN_NEAR of that token's norm and
@@ -3932,26 +3959,32 @@ LSE_SLICE = 128
 LSE_ATOL = 1e-4
 # K3's bf16 output, and the fp32 merge of its slices, against the plain
 # version rounded to bf16: one bf16 ulp (2^-7 of the value) apart at most,
-# atol for values near 0
+# atol for values near 0 (qwen3-30b-a3b's widths).  At MLA's (192, 128)
+# the output is held to the kernel's contract, ATTN_TOL, as every other
+# K3 row at those widths: K3 rounds P to bf16 before P.V
+# (decode_attention.cu:249), which reached 2 ulps there (7.8e-3 over the
+# 128-key slices, PERF.md §6)
 OUT_TOL = dict(atol=1e-3, rtol=2 ** -7)
 
 
-def check_decode_lse(gen) -> dict:
-    """K3 with its log-sum-exp output at qwen3-30b-a3b's decode shapes:
+def check_decode_lse(gen, tag: str = "qwen3", heads=QWEN3_ATTN,
+                     rows=(300, 1000), out_tol=OUT_TOL) -> dict:
+    """K3 with its log-sum-exp output at qwen3-30b-a3b's decode shapes
+    (deepseek-v2-236b's: ``heads`` H = Hkv = 128 at (192, 128)):
     (a) the 8-slot serve step (S_max 2048), where the output must keep the
     bits of the call without the log-sum-exp; (b) the sharded decode
-    step's slices (``LSE_SLICE`` positions, lengths clamped to the slice,
-    some 0: output 0 and log-sum-exp -inf), each against the plain
-    version; and the two halves of a split row merged from their (o, lse)
-    against the unsplit call."""
+    step's slices (``LSE_SLICE`` positions of two rows of ``rows``
+    tokens, lengths clamped to the slice, some 0: output 0 and log-sum-exp
+    -inf), each against the plain version; and the slices of a split row
+    merged from their (o, lse) against the unsplit call."""
     import torch
     from repro_torch.kernels import ops, ref
-    h, hkv, hd, _ = _heads(QWEN3_ATTN)
+    h, hkv, hd, hd_v = _heads(heads)
     dev = torch.device("cuda")
     b, s_max = 8, 2048
     q = torch.randn((b, h, hd), device=dev, generator=gen).to(torch.bfloat16)
-    kc, vc = (torch.randn((b, s_max, hkv, hd), device=dev, generator=gen)
-              .to(torch.bfloat16) for _ in range(2))
+    kc, vc = (torch.randn((b, s_max, hkv, w), device=dev, generator=gen)
+              .to(torch.bfloat16) for w in (hd, hd_v))
     lens = torch.randint(601, 1517, (b,), device=dev, generator=gen,
                          dtype=torch.int32)
     plain_out = ops.decode_attention(q, kc, vc, lens)
@@ -3963,16 +3996,16 @@ def check_decode_lse(gen) -> dict:
     want_lse = ref.decode_attention_lse_ref(q, kc, lens)
 
     def excess(got, want):
-        """max |got - want| and whether it lies within ``OUT_TOL``."""
+        """max |got - want| and whether it lies within ``out_tol``."""
         d = (got.float() - want.float()).abs()
-        ok = bool((d <= OUT_TOL["atol"] + OUT_TOL["rtol"]
+        ok = bool((d <= out_tol["atol"] + out_tol["rtol"]
                    * want.float().abs()).all())
         return d.max().item(), ok
     err, ok_out = excess(out, want)
     err_lse = (lse - want_lse).abs().max().item()
     # the sharded decode's slices: rank j holds positions [j*128, ...)
     n_sl = SHARD_CACHE // LSE_SLICE
-    rows = torch.tensor([300, 1000], dtype=torch.int64, device=dev)
+    rows = torch.tensor(rows, dtype=torch.int64, device=dev)
     errs, errs_lse, zero_ok = [], [], True
     kq, vq = kc[:2, :SHARD_CACHE].contiguous(), vc[:2, :SHARD_CACHE].contiguous()
     parts = []
@@ -4003,18 +4036,19 @@ def check_decode_lse(gen) -> dict:
     err_merge, ok_merge = excess(merged, whole)
     err_lse = max([err_lse] + errs_lse)
     max_abs = max([err, err_lse, err_merge] + errs)
-    log(f"decode_attention[qwen3 sharded lse]: serve step B{b} S_max {s_max}"
+    name = f"decode_attention[{tag} sharded lse]"
+    log(f"{name}: serve step B{b} S_max {s_max}"
         f" out max abs {err:.3e}, lse max abs {err_lse:.3e} over it and the "
         f"slices (tol {LSE_ATOL}; bits of the call without it kept); {n_sl} "
         f"slices of {LSE_SLICE}: out max abs {max(errs):.3e}, empty slices "
         f"0 / -inf: {zero_ok}; merged slices vs unsplit {err_merge:.3e} "
-        f"(out and merge tol {OUT_TOL})")
+        f"(out and merge tol {out_tol})")
     if not (zero_ok and ok_out and ok_merge and err_lse <= LSE_ATOL):
         raise AssertionError("decode_attention with log-sum-exp disagrees")
     used = [int(n) for n in lens.tolist()]
     nbytes = (q.numel() * 2 + out.numel() * 2 + lse.numel() * 4
-              + sum(used) * hkv * 2 * hd * 2 + b * 4)
-    b_ms, b_by = bound_ms(nbytes, 4 * hd * h * sum(used))
+              + sum(used) * hkv * (hd + hd_v) * 2 + b * 4)
+    b_ms, b_by = bound_ms(nbytes, 2 * (hd + hd_v) * h * sum(used))
     # timed as check_decode_attention's ms_hot: CUDA graph replay over
     # one cache copy, beside the serve call without the log-sum-exp
     ms = cuda_time_cold(lambda i: ops.decode_attention(
@@ -4024,17 +4058,28 @@ def check_decode_lse(gen) -> dict:
     plain = cuda_time_cold(lambda i: (
         ref.decode_attention_ref(q, kc, vc, lens),
         ref.decode_attention_lse_ref(q, kc, lens)), 1, rounds=4)
-    log(f"decode_attention[qwen3 sharded lse]: {ms:.4f} ms with the "
-        f"log-sum-exp, {ms_serve:.4f} ms without (graph, hot)")
-    return {"name": "decode_attention[qwen3 sharded lse]", "route": "cuda",
+    # SDPA gives no log-sum-exp: beside the row, timed as the kernel is,
+    # on the serve step's output alone
+    g = h // hkv
+    kt, vt = (t.transpose(1, 2).repeat(1, g, 1, 1) for t in (kc, vc))
+    mask = (torch.arange(s_max, device=dev)[None, :]
+            < lens.clamp(max=s_max).long()[:, None])[:, None, None, :]
+    sdpa = cuda_time_cold(lambda i: _sdpa_gmajor(q[:, :, None], kt, vt, mask),
+                          1, rounds=48)
+    del kt, vt
+    log(f"{name}: {ms:.4f} ms with the "
+        f"log-sum-exp, {ms_serve:.4f} ms without (graph, hot); SDPA "
+        f"without it {sdpa:.4f} ms")
+    return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:85",
             "max_abs_err": max_abs, "ms": ms, "ms_without_lse": ms_serve,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,
+            "library_ms": None, "sdpa_ms_without_lse": sdpa,
             "timing": "CUDA graph replay, hot (one cache copy)",
             "shape": {"B": b, "S_max": s_max, "lengths": used, "H": h,
-                      "Hkv": hkv, "hd": hd, "lse": True}}
+                      "Hkv": hkv, "hd": hd, "hd_v": hd_v, "lse": True,
+                      "slice_rows": rows.tolist()}}
 
 
 def _pin_route(route, queue: list, seen: dict):
@@ -4076,7 +4121,8 @@ def _matched(x, probs, xr, ir, seen: dict):
 def _teacher_forced(model, lp, mesh, rules, cases, queue) -> dict:
     """Each block of each case run alone over this rank's shards from the
     unsharded run's input to that block (its rows and positions, in the
-    residual layout) with that block's routes pinned: the prefill (dense,
+    residual layout) with that block's MoE calls (none in a dense block)
+    pinned: the prefill (dense,
     then ragged, each into a fresh cache), the first decode step over the
     dense prefill's cache, and the layered row over slot 0's row.  Returns
     each block's output block."""
@@ -4103,13 +4149,14 @@ def _teacher_forced(model, lp, mesh, rules, cases, queue) -> dict:
         outs = []
         for i, x, pin in zip(case["blocks"], case["x"], case["pins"]):
             xl = spmd.take_seq(mesh, rules, x[r0:r0 + b_r], lay)
-            queue[:] = [pin]
+            queue[:] = pin
             y, _, _ = model.run_blocks(
                 lp, xl, i, 1, positions=pos, offset=off, cache=cache,
                 moe_dispatch=case["dispatch"], dropless=True, global_batch=b,
                 cache_len=SHARD_CACHE)
             if queue:
-                raise AssertionError(f"{key} block {i}: no MoE call")
+                raise AssertionError(f"{key} block {i}: {len(queue)} MoE "
+                                     "calls of the unsharded run not made")
             outs.append(y.float().cpu())
         out[key] = outs
     torch.cuda.synchronize()
@@ -4122,9 +4169,10 @@ def _teacher_forced(model, lp, mesh, rules, cases, queue) -> dict:
 # rank pool: the training launcher's 8 x 256 tokens (attention's "gqa"
 # region, the a2a dense MoE), its WSD optimizer at step 1, remat per block
 TRAIN_SHARD_B, TRAIN_SHARD_S = 8, 256
-TRAIN_SHARD_MAX_LAYERS = 4
-TRAIN_SHARD_KERNELS = ("prefill_attention", "prefill_attention_bwd",
-                       "moe_gmm", "moe_gmm_bwd")
+# every rank launches K2 and its backward, and where the depth holds a
+# block with routed experts K4 and its backward (and no other kernel)
+TRAIN_SHARD_KERNELS = ("prefill_attention", "prefill_attention_bwd")
+TRAIN_SHARD_MOE_KERNELS = ("moe_gmm", "moe_gmm_bwd")
 # per rank beside its shards, gradients and moments and its CUDA context
 # (measured on the parent): one block's recompute, the vocab-split logits
 # (4 rows x 256 x 18992 fp32) and their temporaries, the experts gathered
@@ -4146,24 +4194,25 @@ TRAIN_SHARD_NU_REL = 1e-1
 TRAIN_SHARD_PARAM_SHARE = 5e-2
 
 
-def sharded_train_config(n_layers: int):
-    """qwen3-30b-a3b at full width, ``n_layers`` deep, its capacity raised
-    to E / top_k so that neither the unsharded step nor the sharded one
+def sharded_train_config(arch: str, n_layers: int):
+    """``arch`` at full width, ``n_layers`` deep, its capacity raised to E
+    / top_k so that neither the unsharded step nor the sharded one
     (group-wise capacity, JAX's semantics) drops an assignment."""
     from repro_torch.configs import get_config
-    cfg = get_config("qwen3-30b-a3b")
+    cfg = get_config(arch)
     return dataclasses.replace(cfg, n_layers=n_layers, moe=dataclasses.replace(
         cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
 
 
-def sharded_train_depth() -> tuple:
-    """The depth phase 10b's card holds beside the pool, reckoned from the
-    specs and the card's free memory: each rank's parameter blocks and
+def sharded_train_depth(ph: ShardPhase) -> tuple:
+    """The depth of ``ph.arch`` the card holds beside phase 10b's (or
+    10c's) pool, reckoned from the specs and the card's free memory: each
+    rank's parameter blocks and
     bf16 gradients, its ZeRO-1 fp32 gradients and moments, a CUDA context
     (this process's: the card's use less what its allocator reserves) and
     ``TRAIN_SHARD_SLACK``; the parent's two whole copies shared with the
     ranks (the weights and the unsharded step's gradients).  The deepest
-    up to ``TRAIN_SHARD_MAX_LAYERS`` within 0.9 of the free memory.
+    up to ``ph.train_max_layers`` within 0.9 of the free memory.
     Returns (depth, the reckoning)."""
     import numpy as np
     import torch
@@ -4177,8 +4226,8 @@ def sharded_train_depth() -> tuple:
     free, card = torch.cuda.mem_get_info()
     ctx = card - free - torch.cuda.memory_reserved()
     best, rows = 1, []
-    for n in range(1, TRAIN_SHARD_MAX_LAYERS + 1):
-        shapes = DecoderModel(sharded_train_config(n),
+    for n in range(1, ph.train_max_layers + 1):
+        shapes = DecoderModel(sharded_train_config(ph.arch, n),
                               device="cpu").param_shapes()
 
         def count(specs):
@@ -4205,7 +4254,7 @@ def sharded_train_shapes() -> tuple:
     hd) a rank, K4's widths (E_loc, top-k, d, F), the a2a buffer's C tp),
     from the config, the mesh and the plans' rules."""
     from repro_torch.models import moe
-    cfg = sharded_train_config(1)
+    cfg = sharded_train_config("qwen3-30b-a3b", 1)
     dn, tn = SHARD_MESH
     t_loc = TRAIN_SHARD_B * TRAIN_SHARD_S // (dn * tn)
     e = cfg.moe
@@ -4213,6 +4262,29 @@ def sharded_train_shapes() -> tuple:
                                   cfg.head_dim_),
             (e.n_experts // tn, e.top_k, cfg.d_model, e.expert_d_ff),
             moe.capacity(cfg, t_loc) * tn)
+
+
+def deepseek_shard_shapes() -> dict:
+    """What phase 10c's ranks give the kernels, from the config, the mesh
+    and the plans' rules: K2's and K3's heads a rank (H / tp, g 1, (192,
+    128)), the serve and training rows a rank, the a2a regime's tokens a
+    rank (its experts' share of the call's assignments, for K1's ragged
+    row) and dense buffer C (C tp: dropless, all its tokens), the
+    gathered decode's C (every rank takes the call's 2 tokens), and K1's
+    and K4's widths: (E_loc, top-k, d, F) at full F (the a2a regime
+    gathers the F shards) and at the F shard over ``data``."""
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v2-236b")
+    dn, tn = SHARD_MESH
+    e, m = cfg.moe, cfg.mla
+    t_loc = SHARD_B * SHARD_S // (dn * tn)
+    e_loc = e.n_experts // tn
+    return {"heads": (cfg.n_heads // tn, cfg.n_heads // tn,
+                      m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim),
+            "rows": SHARD_B // dn, "train_rows": TRAIN_SHARD_B // dn,
+            "a2a_tokens": t_loc, "a2a_c": t_loc * tn, "decode_c": SHARD_B,
+            "moe_full": (e_loc, e.top_k, cfg.d_model, e.expert_d_ff),
+            "moe_shard": (e_loc, e.top_k, cfg.d_model, e.expert_d_ff // dn)}
 
 
 def world_of(shape) -> int:
@@ -4264,26 +4336,31 @@ def _train_opt():
     return adamw(lr=6e-4, schedule="wsd", total_steps=10, warmup=1)
 
 
-def sharded_train_reference(times: dict) -> dict:
-    """Phase 10b's yardstick: the unsharded port's train step (remat, the
+def sharded_train_reference(times: dict, ph: ShardPhase) -> dict:
+    """Phase 10b's (10c's) yardstick: the unsharded port's train step of
+    ``ph.arch`` (remat, the
     dense dispatch) on the card at ``sharded_train_depth``'s depth, seed-1
     bf16 weights, the launcher's first 8 x 256 batch; every MoE block's
     (input, expert ids) recorded for the ranks' pinning.  Returns what the
     ranks read: the weights and the step's gradients (on the card, shared
     with the ranks), its new weights (on the host), its metrics, the pins
-    and the batch."""
+    and the batch, the kernels every rank must launch, and the model's
+    name."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import moe
+    from repro_torch.models.config import FFN_MOE
     from repro_torch.models.model import DecoderModel
     from repro_torch.training.data import PackedDataset, SyntheticCorpus
     from repro_torch.training.optimizer import tree_leaves
     from repro_torch.training.train import device_batch, make_train_step
     t0 = time.perf_counter()
-    depth, reckoning = sharded_train_depth()
-    log(f"sharded training depth: {depth} of 48 layers, reckoned "
-        + json.dumps(reckoning))
-    cfg = sharded_train_config(depth)
+    depth, reckoning = sharded_train_depth(ph)
+    total = get_config(ph.arch).n_layers
+    log(f"{ph.arch} sharded training depth: {depth} of {total} layers, "
+        f"reckoned " + json.dumps(reckoning))
+    cfg = sharded_train_config(ph.arch, depth)
     model = DecoderModel(cfg, device="cuda", remat=True)
     params = model.init_params(torch.Generator(device="cuda").manual_seed(1))
     ds = iter(PackedDataset(SyntheticCorpus(vocab_size=cfg.vocab_size,
@@ -4322,13 +4399,16 @@ def sharded_train_reference(times: dict) -> dict:
         raise AssertionError(f"unsharded train step dropped {metrics}")
     gc.collect()
     torch.cuda.empty_cache()
-    _phase("sharded train reference", t0, times)
-    log(f"sharded train yardstick (unsharded, {depth} layers): "
+    _phase(f"sharded {ph.arch} train reference", t0, times)
+    log(f"sharded {ph.arch} train yardstick (unsharded, {depth} layers): "
         + json.dumps(metrics) + f"; step {wall:.3f} s")
+    routed = any(sp.ffn == FFN_MOE for sp in cfg.block_specs())
     return {"cfg": cfg, "params": params, "grads": grads[0],
             "new": new, "metrics": metrics, "pins": pins,
-            "batch": host, "wall": wall, "depth": depth,
-            "leaves": len(tree_leaves(params))}
+            "batch": host, "wall": wall, "depth": depth, "total": total,
+            "arch": ph.arch, "leaves": len(tree_leaves(params)),
+            "kernels": TRAIN_SHARD_KERNELS
+            + (TRAIN_SHARD_MOE_KERNELS if routed else ())}
 
 
 def _train_rank(mesh, rules, tin, route) -> dict:
@@ -4404,18 +4484,21 @@ def _train_rank(mesh, rules, tin, route) -> dict:
             c = ps[lp_.dim] // lp_.n
             ref_g = ref_g.narrow(lp_.dim, lp_.j * c, c)
         ref_g = ref_g.contiguous().view(-1)
-        row = {key: [0.0, 0.0] for key in ("grad", "mu", "nu")}
+        # (grad, mu, nu) x (squared error, squared reference), summed on
+        # the card and read back once for every leaf
+        row = torch.zeros((3, 2), dtype=torch.float64, device=g.device)
         # in chunks: sixteen ranks compare at once beside their state
         for a in range(0, ref_g.numel(), 1 << 22):
             r = ref_g[a:a + (1 << 22)].float() * scale
-            for key, got, want in (
-                    ("grad", g.view(-1)[a:a + (1 << 22)] * scale, r),
-                    ("mu", mu.view(-1)[a:a + (1 << 22)], 0.1 * r),
-                    ("nu", nu.view(-1)[a:a + (1 << 22)], 0.05 * r * r)):
-                row[key][0] += float((got - want).double().square().sum())
-                row[key][1] += float(want.double().square().sum())
-        sums.append({k: (v[0] / lp_.copies, v[1] / lp_.copies)
-                     for k, v in row.items()})
+            for k, (got, want) in enumerate((
+                    (g.view(-1)[a:a + (1 << 22)] * scale, r),
+                    (mu.view(-1)[a:a + (1 << 22)], 0.1 * r),
+                    (nu.view(-1)[a:a + (1 << 22)], 0.05 * r * r))):
+                row[k, 0] += (got - want).double().square().sum()
+                row[k, 1] += want.double().square().sum()
+        sums.append(row / lp_.copies)
+    sums = [{key: tuple(v) for key, v in zip(("grad", "mu", "nu"), row)}
+            for row in torch.stack(sums).tolist()]
     return {"metrics": {k: float(v) for k, v in m.items()},
             "launches": launches, "coll": coll, "wall": wall, "mem": mem,
             "free": free, "sums": sums, "pins": seen, "coords": mesh.coords,
@@ -4426,9 +4509,11 @@ def check_sharded_train(res: list, tin: dict) -> dict:
     """Phase 10b's gate over the ranks' results (``_train_rank``): the
     metrics equal on every rank and against the unsharded step, each
     leaf's gradient and moments and its parameters within the stated
-    tolerances, routes pinned within ``PIN_NEAR``/``PIN_APART``, K2, K4
-    and both backward kernels launched on every rank and no other kernel
-    of the six; logs launches, collectives, wall and peak memory."""
+    tolerances, routes pinned within ``PIN_NEAR``/``PIN_APART``, the
+    reference's kernels (K2 and its backward, K4 and its backward where
+    the depth holds routed experts) launched on every rank and no other
+    kernel of the six; logs launches, collectives, wall and peak
+    memory."""
     import torch
     world = len(res)
     ref_m = tin["metrics"]
@@ -4440,7 +4525,8 @@ def check_sharded_train(res: list, tin: dict) -> dict:
         if m["dropped"] != 0:
             bad.append(f"sharded train step dropped {m['dropped']}")
     m = res[0]["metrics"]
-    rel = {k: abs(m[k] - ref_m[k]) / abs(ref_m[k])
+    # aux_loss is 0 where the depth holds no routed experts
+    rel = {k: abs(m[k] - ref_m[k]) / (abs(ref_m[k]) or 1.0)
            for k in ("loss", "ce", "aux_loss", "grad_norm")}
     for k, lim in (("loss", TRAIN_LOSS_REL), ("ce", TRAIN_LOSS_REL),
                    ("aux_loss", TRAIN_LOSS_REL),
@@ -4492,11 +4578,11 @@ def check_sharded_train(res: list, tin: dict) -> dict:
     launches = collections.Counter()
     for r in res:
         launches.update(r["launches"])
-        for k in TRAIN_SHARD_KERNELS:
+        for k in tin["kernels"]:
             if not r["launches"][k]:
                 bad.append(f"a rank never launched {k}")
         others = {k: v for k, v in r["launches"].items()
-                  if k not in TRAIN_SHARD_KERNELS and v}
+                  if k not in tin["kernels"] and v}
         if others:
             bad.append(f"a rank launched other kernels: {others}")
     coll = {k: {"calls": sum(r["coll"][k]["calls"] for r in res),
@@ -4505,7 +4591,8 @@ def check_sharded_train(res: list, tin: dict) -> dict:
     wall = max(r["wall"] for r in res)
     mem = max(r["mem"] for r in res)
     free = min(r["free"] for r in res)
-    log(f"sharded train step (qwen3-30b-a3b, {tin['depth']} of 48 layers, "
+    log(f"sharded train step ({tin['arch']}, {tin['depth']} of "
+        f"{tin['total']} layers, "
         f"{TRAIN_SHARD_B} x {TRAIN_SHARD_S} tokens, mesh {SHARD_MESH}, "
         f"{world} ranks on one card over gloo, routes pinned) against the "
         f"unsharded step: metrics {json.dumps(m)}; rel "
@@ -4515,7 +4602,8 @@ def check_sharded_train(res: list, tin: dict) -> dict:
         f"{TRAIN_SHARD_NU_REL}); parameters more than one bf16 step apart: "
         f"worst share {worst['param']:.3e} (limit {TRAIN_SHARD_PARAM_SHARE}); "
         f"pins {near:.3e} / {apart:.3f}")
-    log(f"sharded train step: launches {dict(launches)} (over {world} "
+    log(f"sharded {tin['arch']} train step: launches {dict(launches)} "
+        f"(over {world} "
         f"ranks); collectives forward and backward {json.dumps(coll)}; wall "
         f"{wall:.3f} s (the unsharded step {tin['wall']:.3f} s); peak memory "
         f"a rank {mem / 1e9:.2f} GB (the card's free memory before the step "
@@ -4524,16 +4612,21 @@ def check_sharded_train(res: list, tin: dict) -> dict:
     if bad:
         raise AssertionError(f"sharded train step disagrees with the "
                              f"unsharded port: {bad}")
-    return {"qwen3-30b-a3b sharded train": {
-        "arch": "qwen3-30b-a3b sharded train", "launches": dict(launches),
+    key = f"{tin['arch']} sharded train"
+    return {key: {
+        "arch": key, "launches": dict(launches),
         "iterations": 1, "wall_s": wall, "peak_rank_GB": mem / 1e9,
         "collectives": coll, "rel": rel, "worst": worst,
         "depth": tin["depth"]}}
 
 
-def _shard_rank(rank: int, world: int, tmp: str, params, cfg, inputs) -> None:
-    """One rank of the sharded phase: its shards of ``params`` (the
-    parent's tensors on the card, shared by CUDA IPC), the prefill (dense
+def _shard_rank(rank: int, world: int, tmp: str, shared: list, cfg,
+                group) -> None:
+    """One rank of the sharded phase: ``shared`` holds ``params`` and
+    ``inputs``, the parent's tensors on the card (CUDA IPC), in a list the
+    rank empties (the parent keeps a tensor's memory until every
+    reference to it in the ranks is gone); its shards of ``params``, the
+    prefill (dense
     and ragged), the decode steps and the layered step under the (2, 8)
     mesh, each MoE call's routes pinned to the unsharded run's; per step
     the kernels' launches, the collectives and the wall time; results to
@@ -4541,6 +4634,9 @@ def _shard_rank(rank: int, world: int, tmp: str, params, cfg, inputs) -> None:
     import os
     import torch
     import torch.distributed as dist
+    marks = {"entered": time.time()}
+    params, inputs = shared
+    shared.clear()
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method="file://" + os.path.join(
         tmp, "rendezvous"), rank=rank, world_size=world)
@@ -4563,6 +4659,7 @@ def _shard_rank(rank: int, world: int, tmp: str, params, cfg, inputs) -> None:
         del params
         torch.cuda.synchronize()
         model = DecoderModel(cfg, device="cuda")
+        marks["shards"] = time.time()
         b_r = SHARD_B // SHARD_MESH[0]
         r0 = mesh.coords["data"] * b_r
         queue, seen = [], {"near": 0.0, "apart": math.inf}
@@ -4613,7 +4710,7 @@ def _shard_rank(rank: int, world: int, tmp: str, params, cfg, inputs) -> None:
                 out[f"decode {i}"] = (lg.float().cpu(),
                                       aux["expert_counts"].cpu())
             lstep = steps.make_layered_step_fn(
-                model, group=SHARD_GROUP, prefill_len=SHARD_P,
+                model, group=group, prefill_len=SHARD_P,
                 global_batch=SHARD_B, cache_len=SHARD_CACHE, dropless=True)
             lay1 = spmd.layout(mesh, rules, 1, SHARD_P)
             lg, h_out, cache, aux = timed("layered", lambda: lstep(
@@ -4625,29 +4722,41 @@ def _shard_rank(rank: int, world: int, tmp: str, params, cfg, inputs) -> None:
             out["layered"] = (lg.float().cpu(), aux["expert_counts"].cpu(),
                               h_out.float().cpu(),
                               aux["prefill_expert_counts"].cpu())
+            marks["steps"] = time.time()
             out["blocks"] = _teacher_forced(model, lp, mesh, rules,
                                             inputs["blocks"], queue)
-        # phase 10b in the same pool: the serve weights' shards go first
+            marks["teacher-forced"] = time.time()
+        # the train step in the same pool: the serve weights' shards go
+        # first
         serve_mem = torch.cuda.max_memory_allocated()
         del lp, cache, model
         out["train"] = _train_rank(mesh, rules, inputs["train"], route0)
+        marks["train"] = time.time()
+        del inputs
+        gc.collect()
+        torch.cuda.synchronize()
         torch.save({"coords": mesh.coords, "out": out, "stats": stats,
+                    "marks": marks,
                     "pins": seen, "mem": serve_mem},
                    os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
-def serve_sharded(times: dict) -> dict:
-    """Phase 10: qwen3-30b-a3b at full width, ``SHARD_LAYERS`` layers,
+def serve_sharded(times: dict, ph: ShardPhase) -> dict:
+    """Phase 10 (qwen3-30b-a3b) and 10c (deepseek-v2-236b): ``ph.arch`` at
+    full width, ``ph.layers`` layers,
     bf16, seed-0 weights made once on the card, sharded over the (2, 8)
     mesh as 16 ranks on this one card (gloo: NCCL refuses two ranks on one
-    device).  The plans take every regime this model has at serve shapes:
-    "gqa" attention over a sequence-split cache and the a2a MoE (dense and
-    ragged) at the prefill (2 x 512), the split softmax (K3 with its
-    log-sum-exp) and the gathered MoE at the 8 decode steps, and the split
-    softmax (K2 with its log-sum-exp) with the psum MoE at the layered
-    step's 256-token row.  Held against the unsharded port on the same
+    device).  The plans take every regime qwen3-30b-a3b has at serve
+    shapes: "gqa" attention over a sequence-split cache and the a2a MoE
+    (dense and ragged) at the prefill (2 x 512), the split softmax (K3 with
+    its log-sum-exp) and the gathered MoE at the 8 decode steps, and the
+    split softmax (K2 with its log-sum-exp) with the psum MoE at the
+    layered step's 256-token row; deepseek-v2-236b's MLA gathers the
+    sequence-split latent for the prefill and the row, splits the softmax
+    at decode (K3 with its log-sum-exp at H = Hkv = 128), and its shared
+    experts run column/row-parallel beside the routed ones.  Held against the unsharded port on the same
     card and weights (decode inputs teacher-forced: the unsharded run's
     tokens), with every rank's MoE calls pinned to the unsharded run's
     routes (``_pin_route``: at seed-0 random weights the smallest router
@@ -4662,7 +4771,8 @@ def serve_sharded(times: dict) -> dict:
     Per step: K1-K4 launches summed over ranks (every rank must launch
     each of the path's kernels), the collectives by kind and bytes, and
     the wall time: 16 processes on one card over gloo, the harness, not
-    a cluster."""
+    a cluster.  The train step of ``ph`` (``sharded_train_reference``)
+    runs in the same ranks after the serve steps."""
     import tempfile
     import torch
     import torch.multiprocessing as mp
@@ -4672,8 +4782,8 @@ def serve_sharded(times: dict) -> dict:
     from repro_torch.models import blocks, moe
     from repro_torch.models.model import DecoderModel
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("qwen3-30b-a3b"),
-                              n_layers=SHARD_LAYERS)
+    total = get_config(ph.arch).n_layers
+    cfg = dataclasses.replace(get_config(ph.arch), n_layers=ph.layers)
     model = DecoderModel(cfg, device="cuda")
     params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
     g = torch.Generator().manual_seed(3)
@@ -4693,9 +4803,10 @@ def serve_sharded(times: dict) -> dict:
     apply_block, io = blocks.apply_block, []
 
     def recording_block(*args, **kw):
-        x = args[3]
+        x, n0 = args[3], len(pins)
         y = apply_block(*args, **kw)
-        io.append((x.detach().clone(), y[0].detach().float().cpu()))
+        io.append((x.detach().clone(), y[0].detach().float().cpu(),
+                   pins[n0:]))
         return y
 
     def run(key, fn):
@@ -4716,8 +4827,8 @@ def serve_sharded(times: dict) -> dict:
         inputs["blocks"][key] = {
             "b": b, "dispatch": dispatch, "positions": positions,
             "offset": offset, "blocks": list(range(first, first + len(io))),
-            "x": [x for x, _ in io], "pins": pins[-len(io):]}
-        per_block[key] = [(x.float().cpu(), y) for x, y in io]
+            "x": [x for x, _, _ in io], "pins": [p_ for _, _, p_ in io]}
+        per_block[key] = [(x.float().cpu(), y) for x, y, _ in io]
     want, per_block = {}, {}
     inputs["blocks"], inputs["pins"] = {}, {}
     dev = torch.device("cuda")
@@ -4751,42 +4862,53 @@ def serve_sharded(times: dict) -> dict:
     inputs["valid"] = torch.tensor([False, True])
     inputs["hidden"] = (torch.randn((1, SHARD_P, cfg.d_model), generator=g)
                         .to(torch.bfloat16))
-    lstep = steps.make_layered_step_fn(model, group=SHARD_GROUP,
+    lstep = steps.make_layered_step_fn(model, group=ph.group,
                                        prefill_len=SHARD_P,
                                        global_batch=SHARD_B,
                                        cache_len=SHARD_CACHE, dropless=True)
     lg, h_out, cache, aux = run("layered", lambda: lstep(params, cache, {
         "tokens": tok.cuda(), "offsets": off.cuda(),
         "valid": inputs["valid"].cuda(), "hidden": inputs["hidden"].cuda()}))
-    # the decode part's SHARD_LAYERS blocks, then the row's group
-    del io[:SHARD_LAYERS]
+    # the decode part's ph.layers blocks, then the row's group
+    del io[:ph.layers]
     forced("layered row", 1, torch.arange(SHARD_P, device=dev)[None],
            torch.zeros((1,), dtype=torch.int32, device=dev), "dense",
-           first=SHARD_GROUP[0])
+           first=ph.group[0])
     want["layered"] = (lg.float().cpu(), aux["expert_counts"].cpu(),
                        h_out.float().cpu(),
                        aux["prefill_expert_counts"].cpu())
     del cache
     torch.cuda.synchronize()
-    t_ref = _phase("sharded qwen3 reference", t0, times)
-    inputs["train"] = tin = sharded_train_reference(times)
+    t_ref = _phase(f"sharded {ph.arch} reference", t0, times)
+    inputs["train"] = tin = sharded_train_reference(times, ph)
     t_ref = time.perf_counter()
     world = SHARD_MESH[0] * SHARD_MESH[1]
+    t_spawn = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         mp.start_processes(_shard_rank,
-                           args=(world, tmp, params, cfg, inputs),
+                           args=(world, tmp, [params, inputs], cfg, ph.group),
                            nprocs=world, start_method="spawn")
         res = [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
-    _phase("sharded qwen3 16 ranks (serve steps and train step)", t_ref,
-           times)
+    t_end = time.time()
+    _phase(f"sharded {ph.arch} 16 ranks (serve steps and train step)",
+           t_ref, times)
+    log(f"sharded {ph.arch} pool, seconds from the spawn (the last rank): "
+        + json.dumps({k: round(max(r["marks"][k] for r in res) - t_spawn, 1)
+                      for k in res[0]["marks"]})
+        + f", results loaded {t_end - t_spawn:.1f}")
     train_run = check_sharded_train([r["out"]["train"] for r in res], tin)
     del params, inputs, tin
     gc.collect()
+    # the weights the ranks opened by CUDA IPC stay held until collected:
+    # the next pool needs their memory
+    torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
+    log(f"sharded {ph.arch}: the card's free memory after the pool "
+        f"{torch.cuda.mem_get_info()[0] / 1e9:.2f} GB")
     bad = []
     near = max(r["pins"]["near"] for r in res)
     apart = min(r["pins"]["apart"] for r in res)
-    log(f"sharded routes pinned: farthest match {near:.3e} of the "
+    log(f"sharded {ph.arch} routes pinned: farthest match {near:.3e} of the "
         f"reference token's norm (limit {PIN_NEAR}), next nearest at least "
         f"{apart:.3f} times as far (limit {PIN_APART})")
     if not (near <= PIN_NEAR and apart >= PIN_APART):
@@ -4828,7 +4950,8 @@ def serve_sharded(times: dict) -> dict:
         report[key] = rep
         if not ok:
             bad.append(f"{key}: {rep}")
-    log(f"sharded against unsharded, end to end (routes pinned; logits "
+    log(f"sharded {ph.arch} against unsharded, end to end (routes pinned; "
+        f"logits "
         f"tol {E2E_REL_FRO}, greedy tokens may part only below "
         f"{NEAR_TIE_ULPS} ulps) " + json.dumps(report))
     # each block alone from the unsharded run's input to it: its update
@@ -4851,11 +4974,12 @@ def serve_sharded(times: dict) -> dict:
             if not torch.isfinite(got).all() or not rel <= BLOCK_TOL:
                 bad.append(f"{key} block {j}: update rel {rel}")
         forced_rep[key] = rows_
-    log(f"sharded against unsharded, each block teacher-forced: update "
+    log(f"sharded {ph.arch} against unsharded, each block teacher-forced: "
+        f"update "
         f"rel Frobenius a block (tol {BLOCK_TOL}) " + json.dumps(forced_rep))
     if bad:
-        raise AssertionError(f"sharded phase disagrees with the unsharded "
-                             f"port: {bad}")
+        raise AssertionError(f"sharded {ph.arch} disagrees with the "
+                             f"unsharded port: {bad}")
     steps_rep, launches = [], collections.Counter()
     for i, st in enumerate(res[0]["stats"]):
         per = collections.Counter()
@@ -4869,7 +4993,8 @@ def serve_sharded(times: dict) -> dict:
         wall = max(r["stats"][i]["s"] for r in res)
         steps_rep.append({"step": st["step"], "launches": dict(per),
                           "collectives": coll, "wall_s": wall})
-        log(f"sharded {st['step']}: launches {dict(per)} (over {world} "
+        log(f"sharded {ph.arch} {st['step']}: launches {dict(per)} (over "
+            f"{world} "
             f"ranks); collectives {json.dumps(coll)}; wall {wall:.3f} s")
         launches.update(per)
     for k in SHARD_KERNELS:
@@ -4877,7 +5002,7 @@ def serve_sharded(times: dict) -> dict:
             if not sum(st["launches"][k] for st in r["stats"]):
                 raise AssertionError(f"rank {r['coords']}: {k} never "
                                      "launched in the sharded phase")
-    log(f"sharded qwen3-30b-a3b ({SHARD_LAYERS} of 48 layers, mesh "
+    log(f"sharded {ph.arch} ({ph.layers} of {total} layers, mesh "
         f"{SHARD_MESH}, {world} ranks on one card over gloo): against the "
         f"unsharded port, routes pinned: logits of {len(want)} steps within "
         f"{E2E_REL_FRO}, {parted} of {n_tokens} greedy tokens parted at "
@@ -4886,8 +5011,8 @@ def serve_sharded(times: dict) -> dict:
         f"peak memory a rank {max(r['mem'] for r in res) / 1e9:.2f} GB.  "
         f"Wall times are the harness (16 processes on one card, gloo "
         f"through the host), not a cluster")
-    return {"runs": {"qwen3-30b-a3b sharded": {
-        "arch": "qwen3-30b-a3b sharded", "launches": dict(launches),
+    return {"runs": {f"{ph.arch} sharded": {
+        "arch": f"{ph.arch} sharded", "launches": dict(launches),
         "iterations": len(steps_rep), "steps": steps_rep,
         "against_unsharded": report, "teacher_forced": forced_rep,
         "pinning": {"near": near, "apart": apart}}, **train_run}}
@@ -4905,7 +5030,8 @@ def start_dryruns() -> list:
     group, fake CUDA tensors, every layer traced) of qwen3-moe-235b-a22b
     at prefill_32k on 16x16 and at decode_32k on 2x16x16, and of
     qwen3-30b-a3b's sharded training step at train_4k on 16x16, each in
-    its own process, started beside phase 9 (they use no card)."""
+    its own process, started beside phase 4's serves (they use no card,
+    and the serves keep one core busy)."""
     procs = []
     for arch, shape, multi in DRYRUNS:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -4934,14 +5060,17 @@ def finish_dryruns(procs: list, times: dict, t0: float) -> list:
                     raise AssertionError(f"dry-run {arch} {shape}: {rec}")
                 recs.append(rec)
                 log("dry-run " + line[len("[dryrun] json "):])
-    _phase("dry-runs (beside phases 9 and 10)", t0, times)
+    _phase("dry-runs (beside phases 4-10c)", t0, times)
     return recs
 
 
 def model_of(row: str) -> str:
     """The model whose serves (or training run) a kernel row's shapes
     come from."""
-    for key, arch in (("sharded train", "qwen3-30b-a3b sharded train"),
+    for key, arch in (("deepseek sharded train",
+                       "deepseek-v2-236b sharded train"),
+                      ("deepseek sharded", "deepseek-v2-236b sharded"),
+                      ("sharded train", "qwen3-30b-a3b sharded train"),
                       ("sharded", "qwen3-30b-a3b sharded"),
                       ("minicpm", "minicpm-2b train"),
                       ("qwen3 train", "qwen3-30b-a3b train"),
@@ -5209,6 +5338,34 @@ def main() -> None:
                 check_moe_gmm_bwd(f"sharded train C {c_tp}", c_tp, gen,
                                   moe_w)]
     torch.cuda.empty_cache()
+    # phase 10c's shapes on each rank (``deepseek_shard_shapes``): K3 with
+    # its log-sum-exp for all 128 heads over a rank's 128-position slice
+    # of the 1024-row latent (rows of 520 and 1000 tokens: some slices
+    # empty); K2 at g 1 over a rank's heads, its row of the prefill over
+    # the gathered latent, and its backward at the training step's rows;
+    # K1 and K4 over a rank's experts: the a2a prefill at full F (the
+    # rank's share of the assignments ragged, its dense buffer) and the
+    # gathered decode over its F shard
+    ds = deepseek_shard_shapes()
+    kernels += [check_decode_lse(gen, "deepseek", DEEPSEEK_ATTN,
+                                 rows=(520, 1000), out_tol=ATTN_TOL),
+                check_prefill_attention("deepseek sharded prefill", gen,
+                                        b=ds["rows"], p=SHARD_S,
+                                        s_max=SHARD_CACHE, heads=ds["heads"])]
+    torch.cuda.empty_cache()
+    kernels += [check_moe_gmm("deepseek sharded prefill", ds["a2a_tokens"],
+                              gen, ds["moe_full"]),
+                check_moe_gmm_dense(f"deepseek sharded prefill C "
+                                    f"{ds['a2a_c']}", ds["a2a_c"], gen,
+                                    ds["moe_full"]),
+                check_moe_gmm_dense("deepseek sharded decode C "
+                                    f"{ds['decode_c']}", ds["decode_c"], gen,
+                                    ds["moe_shard"])]
+    torch.cuda.empty_cache()
+    kernels += check_prefill_attention_bwd("deepseek sharded train", gen,
+                                           ds["train_rows"], TRAIN_SHARD_S,
+                                           ds["heads"])
+    torch.cuda.empty_cache()
     digest = k2_bwd_digest()
     log(f"prefill_attention_bwd at (64, 64) and (128, 128): gradients sha256 "
         f"{digest} (pinned: {K2_BWD_SHA256})")
@@ -5236,33 +5393,38 @@ def main() -> None:
         raise SystemExit("[chip_smoke] --skip-serve: stopped after the kernel "
                          "checks; no result")
 
-    qwen = serve_qwen3(times, explain="--explain-divergence" in sys.argv[1:])
-    gc.collect()
-    torch.cuda.empty_cache()
-    oss = serve_gpt_oss(times)
-    gc.collect()
-    torch.cuda.empty_cache()
-    large = serve_large_moe(times)
-    gc.collect()
-    torch.cuda.empty_cache()
-    dense = serve_dense(times)
-    gc.collect()
-    torch.cuda.empty_cache()
-    recurrent = serve_recurrent(times)
-    gc.collect()
-    torch.cuda.empty_cache()
-    whisper = serve_whisper(times)
-    vl = serve_qwen2_vl(times)
-    gc.collect()
-    torch.cuda.empty_cache()
-    # the dry-runs use the host only: they start beside phase 9
+    # the dry-runs use the host only: they start beside the serves, which
+    # each keep one core busy, and are read after phase 10c
     t_dry = time.perf_counter()
     dry_procs = start_dryruns()
     try:
+        qwen = serve_qwen3(times,
+                           explain="--explain-divergence" in sys.argv[1:])
+        gc.collect()
+        torch.cuda.empty_cache()
+        oss = serve_gpt_oss(times)
+        gc.collect()
+        torch.cuda.empty_cache()
+        large = serve_large_moe(times)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dense = serve_dense(times)
+        gc.collect()
+        torch.cuda.empty_cache()
+        recurrent = serve_recurrent(times)
+        gc.collect()
+        torch.cuda.empty_cache()
+        whisper = serve_whisper(times)
+        vl = serve_qwen2_vl(times)
+        gc.collect()
+        torch.cuda.empty_cache()
         train = train_models(times)
         gc.collect()
         torch.cuda.empty_cache()
-        sharded = serve_sharded(times)
+        sharded = serve_sharded(times, QWEN3_SHARD)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sharded_mla = serve_sharded(times, DEEPSEEK_SHARD)
         dry = finish_dryruns(dry_procs, times, t_dry)
     finally:
         for _, _, proc in dry_procs:
@@ -5271,7 +5433,7 @@ def main() -> None:
                 proc.wait()
     runs = {**qwen["runs"], **oss["runs"], **large["runs"], **dense["runs"],
             **recurrent["runs"], **whisper["runs"], **vl["runs"], **train,
-            **sharded["runs"]}
+            **sharded["runs"], **sharded_mla["runs"]}
     # each kernel row's launches: the sum over its own model's serves,
     # each counted from 0 just before it and read just after
     launches, iters = {}, collections.Counter()

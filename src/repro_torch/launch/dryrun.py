@@ -19,13 +19,13 @@ traced.  Collectives run against the fake group and are recorded
 ``launch/analysis.py``'s.
 
 This slice shards the paper's family (GQA attention with a dense MLP or
-routed experts) at the serve shapes and at ``train_4k``: the train step's
+routed experts) and deepseek-v2-236b (multi-head latent attention, shared
+experts) at the serve shapes and at ``train_4k``: the train step's
 forward and backward (remat per block, K2's and K4's backward kernels as
 custom ops) and its ZeRO-1 AdamW update over fake shards of the
-parameters and the moments; MLA (deepseek-v2-236b), the recurrent mixers
-and whisper are written as skipped, with the ROADMAP.md item that ports
-them.  The process group is torn down
-before returning, unless the caller set one up itself.
+parameters and the moments; the recurrent mixers and whisper are written
+as skipped, with the ROADMAP.md item that ports them.  The process group
+is torn down before returning, unless the caller set one up itself.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-34b \\
@@ -192,11 +192,15 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
               {"cache_bytes_per_device": m["cache_bytes"]}),
            "total_s": time.time() - t0}
     if verbose:
+        kinds = ", ".join(f"{k} {v / 1e9:.3f}" for k, v in
+                          m["coll"].items() if k != "total")
         print(f"[dryrun] {arch} x {shape_name} x {mesh_name}: ok "
               f"trace={trace_s:.0f}s flops/dev={out['hlo_flops']:.3e} "
+              f"({out['hlo_flops'] / 1e12:.1f} TFLOP) "
               f"bytes/dev={out['hlo_bytes']:.3e} "
-              f"coll/dev={out['collective_bytes']:.3e} "
-              f"bottleneck={out['bottleneck']} "
+              f"({out['hlo_bytes'] / 1e9:.1f} GB) "
+              f"coll/dev={out['collective_bytes']:.3e} (GB by kind: "
+              f"{kinds}) bottleneck={out['bottleneck']} "
               f"mem/dev={out['peak_memory_per_device'] / 1e9:.2f}GB",
               flush=True)
     return out

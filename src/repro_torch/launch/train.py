@@ -19,7 +19,9 @@ model)`` mesh: one process a GPU, 256 of them, which the caller starts
 (``torchrun``: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and the rendezvous
 in the environment; NCCL on the card, gloo with ``--device cpu``).
 Without such a process group it raises and says so.  Each rank draws the
-whole model from seed 0 on its device, keeps its shards
+whole model from seed 0 on its device (it refuses, before drawing, a
+model whose weights exceed the device's free memory: deepseek-v2-236b's
+471 GB need a sharded init, ROADMAP.md §1 item 2), keeps its shards
 (``partition.param_specs``) and ZeRO-1 moments (``moment_specs``), and
 runs ``train_sharded``, the per-rank body, which takes any mesh (the
 tests drive it at (2, 2) on gloo CPU ranks); rank 0 prints the ``[train]``
@@ -104,13 +106,21 @@ def train_sharded(args, mesh, device=None) -> dict:
     model = DecoderModel(cfg, device=device, remat=not args.smoke)
     dev = model.device
     opt = _optimizer(args)
+    shapes = model.param_shapes()
+    need = sum(p.numel() * p.element_size() for p in tree_leaves(shapes))
+    free = _free_bytes(dev)
+    if need > free:
+        raise SystemExit(
+            f"--production-mesh draws the whole model on each rank before "
+            f"keeping its shards: {cfg.name}'s weights take {need / 1e9:.1f} "
+            f"GB, the rank has {free / 1e9:.1f} GB free; models this large "
+            f"need a sharded init (ROADMAP.md §1 item 2, step 2)")
     whole = model.init_params(torch.Generator(device=dev).manual_seed(0))
     if args.init:
         whole = ckpt_io.restore(args.init, {"params": whole})["params"]
     # this rank's own copies: nothing it updates aliases the whole tree
     params = ops.tree_map(torch.clone, shard_params(whole, mesh))
     del whole
-    shapes = model.param_shapes()
     lead = mesh.rank == 0
     kept = []
     with sharding_context(mesh):
@@ -150,6 +160,15 @@ def train_sharded(args, mesh, device=None) -> dict:
                 print(f"[train] checkpoint -> {args.ckpt}", flush=True)
     return {"history": [read_metrics(m) for m in kept], "params": params,
             "opt_state": opt_state}
+
+
+def _free_bytes(dev: torch.device) -> int:
+    """The memory free for the whole model on ``dev``: the card's, or the
+    host's available memory for the CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.mem_get_info(dev)[0]
+    import os
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
 
 
 def _production_mesh(args):

@@ -44,6 +44,10 @@ it).  Where the plan gives None over a sequence-split cache, the softmax
 is split across ranks (``_split_softmax``): each rank attends over its
 slice of the positions with the kernels' log-sum-exp output, and the
 partial (o, lse) are merged in fp32; no rank reads another's cache.
+``apply_mla`` does the same over MLA's latent (``_apply_mla_sharded``):
+the compressions whole on every rank, the decompressions for the rank's
+heads only, the latent gathered for several new tokens and the softmax
+split for one.
 """
 
 from __future__ import annotations
@@ -432,60 +436,200 @@ def _split_softmax(mesh, rules, cfg, qc, kc, vc, q_src, k_src, o_sets, rope,
         o, lse = ops.prefill_attention(q.contiguous(), kb, vb,
                                        rel.clamp(-s, s_c).to(torch.int32),
                                        return_lse=True)
+    return _merge_slices(mesh, tp, o, lse, o_sets, hd).to(qc.dtype)
+
+
+def _merge_slices(mesh, tp, o: Tensor, lse: Tensor, o_sets, hd_v: int
+                  ) -> Tensor:
+    """The ranks' partial attention over their slices of the positions,
+    ``o`` (B, S, H, hd_v) and ``lse`` (B, H, S), merged in fp32 into the
+    columns this rank's ``w_o`` rows take, ``o_sets[j]``: (B, S, C) fp32
+    (0 where no slice saw a key)."""
+    j = mesh.index(tp)
+    b, s, h_ = o.shape[:3]
     lse_all = col.all_gather(mesh, lse[None], tp, dim=0)   # (n,B,H,S)
-    o = o.reshape(b, s, h_ * hd)
+    o = o.reshape(b, s, h_ * hd_v)
     if o_sets[0] == o_sets[-1]:
         parts = col.all_gather(mesh, o[None], tp, dim=0)
     else:
         parts = col.all_to_all(mesh, o[None], tp, split_dim=3,
                                     concat_dim=0)          # (n, B, S, C)
     cols = torch.arange(o_sets[j][0], o_sets[j][-1] + 1, device=o.device)
-    lse_c = lse_all.index_select(2, cols // hd).transpose(2, 3)  # (n,B,S,C)
+    lse_c = lse_all.index_select(2, cols // hd_v).transpose(2, 3)  # (n,B,S,C)
     m = lse_c.max(dim=0).values
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     w = torch.exp(lse_c - m[None])
     den = w.sum(dim=0)
     num = (w * parts.float()).sum(dim=0)
-    out = torch.where(den > 0, num / den.clamp(min=1e-30),
-                      torch.zeros_like(num))
-    return out.to(qc.dtype)
+    return torch.where(den > 0, num / den.clamp(min=1e-30),
+                       torch.zeros_like(num))
 
 
 def apply_mla(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
               positions: Tensor, offset: Optional[Tensor] = None,
               cache: Optional[dict] = None,
-              valid: Optional[Tensor] = None) -> Tuple[Tensor, Optional[dict]]:
+              valid: Optional[Tensor] = None,
+              positions3: Optional[Tensor] = None,
+              lay: Optional[spmd.Layout] = None
+              ) -> Tuple[Tensor, Optional[dict]]:
     """DeepSeek-V2 multi-head latent attention.  x: (B, S, D).  The cache
     keeps the compressed latent ``ckv`` (kv_lora) and the one shared rope
     key ``kr`` per token, written IN PLACE at ``offset``; attention
     decompresses the whole row (the JAX package's naive path): k = [ckv
     W_uk, kr] of width nope + rope per head, v = ckv W_uv, H = Hkv, scaled
     by 1/sqrt(nope + rope).  The decompressed K/V are transients of this
-    call."""
+    call.  ``positions3`` is ignored, as the JAX package's MLA ignores
+    it.  ``lay`` (under a sharding context): as ``apply_gqa``'s
+    (``_apply_mla_sharded``)."""
     _check_spec(spec)
+    if lay is not None:
+        return _apply_mla_sharded(cfg, p, x, positions=positions,
+                                  offset=offset, cache=cache, valid=valid,
+                                  lay=lay)
     m = cfg.mla
     b, s, _ = x.shape
     h, nope = cfg.n_heads, m.qk_nope_dim
-    if m.q_lora_rank:
-        cq = layers.apply_norm(cfg, p["q_norm"], x @ p["w_dq"])
-        q = (cq @ p["w_uq"]).reshape(b, s, h, nope + m.qk_rope_dim)
-    else:
-        q = (x @ p["w_q"]).reshape(b, s, h, nope + m.qk_rope_dim)
+    q, ckv, kr = _mla_compress(cfg, p, x, positions)
+    q = q.reshape(b, s, h, nope + m.qk_rope_dim)
     q = torch.cat([q[..., :nope],
                    layers.apply_rope(q[..., nope:], positions,
                                      cfg.rope_theta)], dim=-1)
-    ckv = layers.apply_norm(cfg, p["kv_norm"], x @ p["w_dkv"])     # (B,S,r)
-    kr = layers.apply_rope((x @ p["w_kr"])[:, :, None], positions,
-                           cfg.rope_theta)[:, :, 0]                  # (B,S,rope)
     if cache is not None:
         ckv = _write_cache(cache["ckv"], ckv, offset, valid)
         kr = _write_cache(cache["kr"], kr, offset, valid)
-    s_kv = ckv.shape[1]
-    k = torch.cat([(ckv @ p["w_uk"]).reshape(b, s_kv, h, nope),
-                   kr[:, :, None].expand(b, s_kv, h, m.qk_rope_dim)], dim=-1)
-    v = (ckv @ p["w_uv"]).reshape(b, s_kv, h, m.v_head_dim)
+    k, v = _mla_decompress(cfg, ckv, kr, p["w_uk"], p["w_uv"])
     out = _attend(q, k, v, offset, cache is not None, spec.window)
     return out.reshape(b, s, -1) @ p["w_o"], cache
+
+
+def _mla_compress(cfg: ModelConfig, p, x: Tensor, positions: Tensor):
+    """MLA's projections of x (B, S, D) that every head shares, and the
+    query's decompression by the columns of ``w_uq`` (or ``w_q``) given:
+    (q columns, the latent ``ckv`` (B, S, kv_lora), the rope key ``kr``
+    (B, S, rope), rotated)."""
+    m = cfg.mla
+    if m.q_lora_rank:
+        cq = layers.apply_norm(cfg, p["q_norm"], x @ p["w_dq"])
+        q = cq @ p["w_uq"]
+    else:
+        q = x @ p["w_q"]
+    ckv = layers.apply_norm(cfg, p["kv_norm"], x @ p["w_dkv"])     # (B,S,r)
+    kr = layers.apply_rope((x @ p["w_kr"])[:, :, None], positions,
+                           cfg.rope_theta)[:, :, 0]                  # (B,S,rope)
+    return q, ckv, kr
+
+
+def _mla_decompress(cfg: ModelConfig, ckv: Tensor, kr: Tensor, w_uk: Tensor,
+                    w_uv: Tensor) -> Tuple[Tensor, Tensor]:
+    """K (B, S, H', nope + rope) and V (B, S, H', dv) of the heads whose
+    columns ``w_uk``/``w_uv`` hold, from the latent and the rope key."""
+    m = cfg.mla
+    b, s_kv = ckv.shape[:2]
+    kn = (ckv @ w_uk).reshape(b, s_kv, -1, m.qk_nope_dim)
+    h = kn.shape[2]
+    k = torch.cat([kn, kr[:, :, None].expand(b, s_kv, h, m.qk_rope_dim)],
+                  dim=-1)
+    return k, (ckv @ w_uv).reshape(b, s_kv, h, m.v_head_dim)
+
+
+def _mla_regime(n: int, cached: bool, cache_len: Optional[int],
+                s: int) -> str:
+    """The regime of ``_apply_mla_sharded`` a call of ``s`` new tokens
+    takes on ``n`` ranks over ``model``: "heads" (no cache, or a latent
+    whole over ``model``: ``cache_specs`` splits its positions where
+    ``n`` divides ``cache_len``), "gather" (a split latent, several new
+    tokens) or "split" (a split latent, one new token)."""
+    if not cached or n <= 1 or (cache_len or 0) % n:
+        return "heads"
+    return "split" if s == 1 else "gather"
+
+
+def _apply_mla_sharded(cfg: ModelConfig, p, x: Tensor, *, positions: Tensor,
+                       offset: Optional[Tensor], cache: Optional[dict],
+                       valid: Optional[Tensor], lay: spmd.Layout):
+    """``apply_mla`` on this rank's shards (x, positions, valid and the
+    cache as ``_apply_gqa_sharded`` takes them).  The compressions
+    (``w_dq``, ``w_dkv``, ``w_kr`` and their norms, whole on every rank)
+    run over the rank's rows at every position; the decompressions
+    (column blocks of ``w_uq``, ``w_uk``, ``w_uv``: whole heads where
+    the heads divide over ``model``, else regrouped into them) only for
+    the heads the rank's ``w_o`` rows take.  Three regimes, as the cache
+    lies (``cache_specs`` splits the latent's positions over ``model``
+    where they divide):
+
+    - no cache (training), or a latent whole over ``model``: K/V of the
+      rank's heads decompressed over every position, K2 (or K3) at g = 1,
+      the ``w_o`` row block's partial sums reduced; nothing else moves,
+      and every gradient the compressions get is its heads' share;
+    - a sequence-split latent and several new tokens (prefill, the
+      layered row): the latent's slices gathered over ``model`` (kv_lora
+      + rope values a token), then as above;
+    - a sequence-split latent and one new token (decode): the softmax
+      split over the slices: ``w_uk``/``w_uv`` gathered whole, every
+      head's query, the rank's slice decompressed for every head, K3 with
+      its log-sum-exp, and the (o, lse) merged in fp32 into the rank's
+      ``w_o`` columns (``_merge_slices``)."""
+    mesh, rules = active_context()
+    tp = rules.get("tp")
+    n, j = mesh.size(tp), mesh.index(tp)
+    m, h = cfg.mla, cfg.n_heads
+    nope, dq, dv = m.qk_nope_dim, m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
+    hx = spmd.gather_seq(mesh, rules, x, lay)               # (B_l, S, D)
+    b, s, _ = hx.shape
+    qc, ckv, kr = _mla_compress(cfg, p, hx, positions)
+    q_src = spmd.block_sets(h * dq, qc.shape[-1] != h * dq, n)
+    k_src = spmd.block_sets(h * nope, p["w_uk"].shape[-1] != h * nope, n)
+    v_src = spmd.block_sets(h * dv, p["w_uv"].shape[-1] != h * dv, n)
+    o_partial = p["w_o"].shape[0] != h * dv
+    o_sets = spmd.block_sets(h * dv, o_partial, n)
+
+    def rope_q(q):
+        return torch.cat([q[..., :nope], layers.apply_rope(
+            q[..., nope:], positions, cfg.rope_theta)], dim=-1)
+    regime = _mla_regime(n, cache is not None, lay.cache_len, s)
+    if regime != "heads":
+        lo = j * cache["ckv"].shape[1]
+        ckv = _write_slice(cache["ckv"], ckv, offset, lo, valid)
+        kr = _write_slice(cache["kr"], kr, offset, lo, valid)
+        if regime == "split":
+            every = [tuple(range(h * dq))] * n
+            q = rope_q(spmd.regroup(mesh, tp, qc, q_src, every)
+                       .reshape(b, 1, h, dq))
+            k, v = _mla_decompress(
+                cfg, ckv, kr,
+                spmd.regroup(mesh, tp, p["w_uk"], k_src,
+                             [tuple(range(h * nope))] * n),
+                spmd.regroup(mesh, tp, p["w_uv"], v_src,
+                             [tuple(range(h * dv))] * n))
+            lengths = (offset.long() - lo + 1).clamp(
+                0, ckv.shape[1]).to(torch.int32)
+            o, lse = ops.decode_attention(q[:, 0].contiguous(), k, v,
+                                          lengths, return_lse=True)
+            out = _merge_slices(mesh, tp, o[:, None], lse[:, :, None],
+                                o_sets, dv).to(qc.dtype)
+            return spmd.reduce_rows(mesh, rules, out @ p["w_o"], lay,
+                                    o_partial), cache
+        ckv = col.all_gather(mesh, ckv, tp, dim=1)
+        kr = col.all_gather(mesh, kr, tp, dim=1)
+    elif cache is not None:
+        ckv = _write_cache(cache["ckv"], ckv, offset, valid)
+        kr = _write_cache(cache["kr"], kr, offset, valid)
+    # the heads the rank's w_o rows take, widened to whole heads
+    heads = [tuple(range(min(o) // dv, max(o) // dv + 1)) for o in o_sets]
+    hl = len(heads[j])
+    q = rope_q(spmd.regroup(mesh, tp, qc, q_src,
+                            [_head_cols(hs, dq) for hs in heads])
+               .reshape(b, s, hl, dq))
+    wk = spmd.regroup(mesh, tp, p["w_uk"], k_src,
+                      [_head_cols(hs, nope) for hs in heads])
+    wv = spmd.regroup(mesh, tp, p["w_uv"], v_src,
+                      [_head_cols(hs, dv) for hs in heads])
+    k, v = _mla_decompress(cfg, ckv, kr, wk, wv)
+    o = _attend(q, k, v, offset, cache is not None, None)
+    out = spmd.regroup(mesh, tp, o.reshape(b, s, -1),
+                       [_head_cols(hs, dv) for hs in heads], o_sets)
+    return spmd.reduce_rows(mesh, rules, out @ p["w_o"], lay,
+                            o_partial), cache
 
 
 def apply_cross_attn(cfg: ModelConfig, p, x: Tensor, xc: dict) -> Tensor:

@@ -68,8 +68,8 @@ def apply_block(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
     attention block attends over ``enc_out``'s K/V when it is given, else
     over the cache's ``xk``/``xv``.  ``lay`` (under a sharding context,
     ``sharding/spmd.py``): x is this rank's block of the residual and the
-    block runs over the rank's shards; attention (GQA) with a dense MLP or
-    routed experts only (``spmd.unported``)."""
+    block runs over the rank's shards; attention (GQA or MLA) with a
+    dense MLP or routed and shared experts only (``spmd.unported``)."""
     if lay is not None and spmd.unported(cfg, spec):
         raise NotImplementedError(spmd.unported(cfg, spec))
     h = layers.apply_norm(cfg, p["ln1"], x)

@@ -34,7 +34,9 @@ tokens, decode), the port's own scheme (``_moe_gathered``): every rank
 takes all the call's tokens, runs its experts over its FFN-width shard
 (SwiGLU is a sum over that width), and the partial outputs are summed over
 ``data`` and ``model`` — no expert weight moves.  K4 and K1 run on the
-rank's local experts in every regime.
+rank's local experts in every regime.  Shared experts (DeepSeek-V2) run
+beside them as a column/row-parallel SwiGLU over ``model``
+(``shared_experts``), their partial output summed into the layout.
 """
 
 from __future__ import annotations
@@ -263,8 +265,11 @@ def apply_moe(cfg: ModelConfig, p, x: Tensor, *,
     if moe_dispatch not in ("dense", "ragged"):
         raise ValueError(f"unknown moe_dispatch {moe_dispatch!r}")
     if lay is not None:
-        return _apply_moe_sharded(cfg, p, x, valid, dropless, moe_dispatch,
-                                  lay)
+        out, aux = _apply_moe_sharded(cfg, p, x, valid, dropless,
+                                      moe_dispatch, lay)
+        if cfg.moe.n_shared_experts:
+            out = out + shared_experts(cfg, p["shared"], x, lay)
+        return out, aux
     e = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -280,8 +285,7 @@ def apply_moe(cfg: ModelConfig, p, x: Tensor, *,
         out, counts, dropped = _dispatch_gmm_combine(p, xf, idx, w, cap,
                                                      e.n_experts)
     if e.n_shared_experts:
-        sp = p["shared"]
-        out = out + (F.silu(xf @ sp["w_gate"]) * (xf @ sp["w_up"])) @ sp["w_down"]
+        out = out + shared_experts(cfg, p["shared"], xf)
     # Switch load-balance loss: E * sum_i f_i * P_i
     f = counts.float() / max(t * e.top_k, 1)
     aux_loss = e.n_experts * torch.sum(f * probs.mean(dim=0)) * e.router_aux_coef
@@ -292,6 +296,24 @@ def apply_moe(cfg: ModelConfig, p, x: Tensor, *,
         "aux_loss": aux_loss,
     }
     return out.reshape(b, s, d).to(x.dtype), aux
+
+
+def shared_experts(cfg: ModelConfig, sp, x: Tensor,
+                   lay: Optional[spmd.Layout] = None) -> Tensor:
+    """The shared experts' SwiGLU, on SiLU whatever ``cfg.activation``
+    says (as the JAX package's).  ``lay`` (under a sharding context): x is
+    this rank's block of the residual and ``w_gate``/``w_up`` column and
+    ``w_down`` row blocks of the shared width (``moe/shared/*``), so the
+    rank reads its rows at every position and its partial output is
+    summed back into the layout.  Whether that output is partial follows
+    the shared width, not ``cfg.d_ff`` as in ``layers.apply_mlp``."""
+    if lay is None:
+        return (F.silu(x @ sp["w_gate"]) * (x @ sp["w_up"])) @ sp["w_down"]
+    mesh, rules = active_context()
+    width = cfg.moe.shared_d_ff * cfg.moe.n_shared_experts
+    y = shared_experts(cfg, sp, spmd.gather_seq(mesh, rules, x, lay))
+    return spmd.reduce_rows(mesh, rules, y, lay,
+                            sp["w_down"].shape[0] != width)
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,6 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.config import FFN_MOE, MIXER_MLA
 from repro_torch.sharding import collectives as col
 from repro_torch.sharding.partition import seq_layout
 
@@ -55,18 +54,15 @@ class Layout:
 def unported(cfg, spec) -> Optional[str]:
     """Why this slice of the multi-device port cannot run block ``spec``
     of ``cfg`` over a rank's shards, naming the ROADMAP.md item that ports
-    it; None where it can (GQA attention with a dense MLP or routed
-    experts).  The blocks refuse by it and the dry-run skips by it."""
-    if spec.mixer == MIXER_MLA or (spec.ffn == FFN_MOE
-                                   and cfg.moe.n_shared_experts):
-        return ("multi-head latent attention and shared experts under a "
-                "mesh (ROADMAP.md §1 item 2, step 1: MLA)")
+    it; None where it can (GQA or multi-head latent attention with a dense
+    MLP, or routed and shared experts).  The blocks refuse by it and the
+    dry-run skips by it."""
     if spec.is_recurrent() or spec.window is not None:
         return ("the recurrent mixers and local attention under a mesh "
-                "(ROADMAP.md §1 item 2, step 2)")
+                "(ROADMAP.md §1 item 2, step 1)")
     if spec.cross_attn:
         return ("whisper's encoder and cross-attention under a mesh "
-                "(ROADMAP.md §1 item 2, step 2)")
+                "(ROADMAP.md §1 item 2, step 1)")
     return None
 
 

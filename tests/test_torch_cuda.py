@@ -193,10 +193,34 @@ def test_decode_attention_lse_matches_plain(cuda, b, s_max, lens):
     """K3's optional log-sum-exp at qwen3's heads (32/4 of 128) against
     its plain version (-inf where a query sees no key, and output 0); the
     output keeps the bits of the serve call without it."""
+    _check_decode_lse(cuda, b, s_max, lens, 32, 4, 128, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s_max,lens", [
+    # deepseek-v2-236b's sharded decode step on (2, 8): a rank's row over
+    # its 128-position slice of a 1024-row latent, every head (the split
+    # softmax), lengths clamped to the slice, 0 past the row
+    (1, 128, [0]), (2, 128, [0, 128]), (4, 128, [1, 0, 37, 128]),
+    # the unsharded 8-slot decode step (split > 1)
+    (8, 2048, [601, 700, 1516, 2048, 2049, 1, 64, 1000])])
+def test_decode_attention_lse_mla_widths(cuda, b, s_max, lens):
+    """K3's log-sum-exp at multi-head latent attention's widths (H = Hkv
+    = 128, query/key 192, value 128) against its plain version, as
+    ``test_decode_attention_lse_matches_plain`` holds it at qwen3's; the
+    output within the file's attention tolerance (K3 rounds P to bf16
+    before P.V: 2 bf16 ulps at these widths, where qwen3's stay within
+    one)."""
+    _check_decode_lse(cuda, b, s_max, lens, 128, 128, 192, 128,
+                      dict(atol=2e-2, rtol=2e-2))
+
+
+def _check_decode_lse(cuda, b, s_max, lens, h, hkv, hd, hd_v,
+                      out_tol=dict(atol=1e-3, rtol=2 ** -7)):
     rng = np.random.default_rng(20)
-    h, hkv, hd = 32, 4, 128
     q = _bf16(rng, (b, h, hd), cuda)
-    k, v = _bf16(rng, (b, s_max, hkv, hd), cuda), _bf16(rng, (b, s_max, hkv, hd), cuda)
+    k = _bf16(rng, (b, s_max, hkv, hd), cuda)
+    v = _bf16(rng, (b, s_max, hkv, hd_v), cuda)
     lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
     serve = ops.decode_attention(q, k, v, lengths)
     got, lse = ops.decode_attention(q, k, v, lengths, return_lse=True)
@@ -211,8 +235,9 @@ def test_decode_attention_lse_matches_plain(cuda, b, s_max, lens):
     empty = lengths == 0
     assert not got[empty].any()
     # bf16 against the plain version rounded to bf16: one ulp apart at most
+    # at qwen3's widths
     torch.testing.assert_close(got.float(), ref.decode_attention_ref(
-        q, k, v, lengths).float(), atol=1e-3, rtol=2 ** -7)
+        q, k, v, lengths).float(), **out_tol)
 
 
 @pytest.mark.cuda

@@ -89,14 +89,14 @@ def test_dryrun_runs_with_jax_blocked(tmp_path):
             "from repro_torch.launch import dryrun, steps, analysis, mesh\n"
             "from repro_torch.configs import shapes\n"
             "from repro_torch.sharding import collectives, partition, spmd\n"
-            "dryrun.main(['--arch', 'deepseek-v2-236b', '--shape',\n"
+            "dryrun.main(['--arch', 'recurrentgemma-9b', '--shape',\n"
             "             'decode_32k', '--out', sys.argv[1]])\n")
     out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
                          env=_env(), cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "deepseek-v2-236b x decode_32k x 16x16: skipped" in out.stdout
-    assert (tmp_path / "deepseek-v2-236b_decode_32k_16x16.json").exists()
+    assert "recurrentgemma-9b x decode_32k x 16x16: skipped" in out.stdout
+    assert (tmp_path / "recurrentgemma-9b_decode_32k_16x16.json").exists()
 
 
 def test_entry_point_without_cpu_flag_raises_without_cuda(monkeypatch):

@@ -36,7 +36,7 @@ import pytest
 import torch
 
 from conftest import tiny_dense, tiny_moe
-from repro.models.config import MoEConfig
+from repro.models.config import MLAConfig, MoEConfig
 from repro_torch.launch import train as tlaunch
 from repro_torch.sharding import partition as tpart
 from repro_torch.training import checkpoint as ckpt_io
@@ -76,6 +76,8 @@ def _cfg(factory, kw):
     kw = dict(kw)
     if "moe" in kw:
         kw["moe"] = MoEConfig(**kw["moe"])
+    if "mla" in kw:
+        kw["mla"] = MLAConfig(**kw["mla"])
     return factory(**kw)
 
 
@@ -94,7 +96,7 @@ jax.config.update("jax_default_matmul_precision", "highest")
 from jax.sharding import Mesh
 sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
 import conftest
-from repro.models.config import MoEConfig
+from repro.models.config import MLAConfig, MoEConfig
 from repro.models.model import DecoderModel
 from repro.sharding.partition import sharding_context
 from repro.training.optimizer import AdamW, adamw
@@ -118,6 +120,8 @@ for run in spec["runs"]:
     kw = dict(run["kw"])
     if "moe" in kw:
         kw["moe"] = MoEConfig(**kw["moe"])
+    if "mla" in kw:
+        kw["mla"] = MLAConfig(**kw["mla"])
     cfg = getattr(conftest, run["factory"])(**kw)
     model = DecoderModel(cfg, remat=True)
     params = jax.jit(model.init)(jax.random.PRNGKey(0))
@@ -152,11 +156,12 @@ print("JAX-TRAIN-OK")
 """
 
 
-@pytest.fixture(scope="module")
-def train_results(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("train")
+def run_train(tmp, runs_spec, extra=()):
+    """JAX's steps of ``runs_spec`` (``RUNS``' rows) in a subprocess with 4
+    forced host devices, and the port's on 4 gloo ranks (with the jobs
+    ``extra`` after them): (JAX's results, the ranks' results)."""
     runs, jax_runs = [], []
-    for name, factory, kw, mesh, axes, b, s in RUNS:
+    for name, factory, kw, mesh, axes, b, s in runs_spec:
         cfg = _cfg(factory, kw)
         batches = [_batch(cfg, b, s, seed) for seed in (0, 1)]
         jax_runs.append({"factory": factory.__name__, "kw": kw,
@@ -174,7 +179,7 @@ def train_results(tmp_path_factory):
     with open(out_path, "rb") as f:
         jax_out = pickle.load(f)
     for (name, factory, kw, mesh, axes, b, s), jr, ref in zip(
-            RUNS, jax_runs, jax_out):
+            runs_spec, jax_runs, jax_out):
         cfg = _cfg(factory, kw)
         path = str(tmp / f"{name}.pt")
         torch.save(tpart.tree_map_with_path(
@@ -185,16 +190,27 @@ def train_results(tmp_path_factory):
                                   if k != "mask" else torch.from_numpy(v)
                                   for k, v in bt.items()}
                                  for bt in jr["batches"]]})
-    runs.append({"kind": "colls", "mesh": (2, 2), "axes": DM,
-                 **_COLL_JOB})
+    runs.extend(extra)
     return jax_out, worker.run_ranks(4, str(tmp), {"runs": runs})
+
+
+@pytest.fixture(scope="module")
+def train_results(tmp_path_factory):
+    return run_train(tmp_path_factory.mktemp("train"), RUNS, [
+        {"kind": "colls", "mesh": (2, 2), "axes": DM, **_COLL_JOB}])
 
 
 @pytest.mark.parametrize("i", range(len(RUNS)), ids=[r[0] for r in RUNS])
 def test_sharded_train_step_matches_jax(train_results, i):
     jax_out, results = train_results
-    name, factory, kw, mesh_shape, axes, b, s = RUNS[i]
-    ref = jax_out[i]
+    check_train_run(RUNS[i], jax_out[i], [r[i] for r in results])
+
+
+def check_train_run(run, ref, ranks):
+    """One run's steps on every rank (``ranks``) against JAX's (``ref``):
+    the metrics, the first step's gradient shards, the moment shards and
+    the parameter blocks after each step."""
+    name, factory, kw, mesh_shape, axes, b, s = run
     mesh = StandIn(mesh_shape, axes or DM)
     plan = topt.tree_leaves(tpart.zero1_plan(ref["init"], mesh))
     pspecs = [lp.spec for lp in plan]
@@ -209,9 +225,9 @@ def test_sharded_train_step_matches_jax(train_results, i):
             assert wm["dropped"] > 0, "capacity must bind"
         for n_, g in zip(noisy, want["grads"]):
             n_ += np.abs(g) <= 1e-5
-        for rank in results:
-            got = rank[i]["steps"][k]
-            coords = rank[i]["coords"]
+        for rank in ranks:
+            got = rank["steps"][k]
+            coords = rank["coords"]
             gm = got["metrics"]
             for key in ("loss", "ce", "aux_loss", "grad_norm", "lr"):
                 close(np.float32(gm[key]), np.float32(wm[key]))

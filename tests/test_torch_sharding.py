@@ -314,11 +314,12 @@ def test_step_runs_cover_every_regime():
             "cache rep"} <= seen, seen
 
 
-@pytest.fixture(scope="module")
-def step_results(tmp_path_factory):
-    tmp = str(tmp_path_factory.mktemp("ranks"))
+def run_steps(tmp: str, step_runs):
+    """JAX's unsharded references of ``step_runs`` (``STEP_RUNS``' rows)
+    and the port's sharded steps on 4 gloo ranks: (references, the
+    ranks' results)."""
     runs, refs = [], []
-    for name, cfg, mesh, b, s, clen, disp, group, p_len in STEP_RUNS:
+    for name, cfg, mesh, b, s, clen, disp, group, p_len in step_runs:
         jp = jax.jit(JaxModel(cfg).init)(jax.random.PRNGKey(0))
         r, inputs = _jax_run(cfg, jp, b, s, clen, disp, group, p_len)
         path = os.path.join(tmp, f"{name}.pt")
@@ -329,6 +330,11 @@ def step_results(tmp_path_factory):
                      "dispatch": disp, "group": group, "inputs": inputs})
         refs.append(r)
     return refs, worker.run_ranks(4, tmp, {"runs": runs})
+
+
+@pytest.fixture(scope="module")
+def step_results(tmp_path_factory):
+    return run_steps(str(tmp_path_factory.mktemp("ranks")), STEP_RUNS)
 
 
 def _rows_of(res, key, idx, mesh, b):
@@ -347,8 +353,14 @@ def _rows_of(res, key, idx, mesh, b):
                          ids=[r[0] for r in STEP_RUNS])
 def test_sharded_steps_match_jax(step_results, i):
     refs, results = step_results
-    name, cfg, mesh, b, s, clen, disp, group, p_len = STEP_RUNS[i]
-    ref_ = refs[i]
+    check_step_run(STEP_RUNS[i], refs[i], results, i)
+
+
+def check_step_run(run, ref_, results, i):
+    """Run ``i`` of the ranks' ``results`` against JAX's unsharded
+    forward (``ref_``): the logits, expert counts and drops of every step,
+    the layered row's output, and the ranks' cache blocks put together."""
+    name, cfg, mesh, b, s, clen, disp, group, p_len = run
     res = [r[i] for r in results]
     for key in ("prefill", "decode"):
         close(_rows_of(res, key, 0, mesh, b), ref_[key][0])
@@ -445,19 +457,31 @@ def test_dryrun_subprocess_multipod(tmp_path):
     """``python -m repro_torch.launch.dryrun`` on yi-34b x decode_32k at
     (2, 16, 16): exits 0, writes its JSON; the parameter bytes a device are
     the local shards' the specs give, and model_flops is JAX's estimate."""
+    _check_dryrun(tmp_path, "yi-34b", "2x16x16")
+
+
+def test_dryrun_subprocess_mla(tmp_path):
+    """The same for deepseek-v2-236b x decode_32k at 16x16: multi-head
+    latent attention (the split softmax over the sequence-split latent)
+    and the shared experts under the production mesh."""
+    _check_dryrun(tmp_path, "deepseek-v2-236b", "16x16")
+
+
+def _check_dryrun(tmp_path, arch: str, mesh_name: str):
     env = dict(os.environ, PYTHONPATH="src")
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "yi-34b", "--shape", "decode_32k", "--multi-pod", "--out",
-         str(tmp_path)], env=env, cwd=ROOT, capture_output=True, text=True,
-        timeout=900)
+         arch, "--shape", "decode_32k", "--out", str(tmp_path)]
+        + (["--multi-pod"] if mesh_name == "2x16x16" else []), env=env,
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
     assert r.returncode == 0, r.stderr[-2000:]
     assert "all requested combinations traced" in r.stdout
-    rec = json.loads((tmp_path / "yi-34b_decode_32k_2x16x16.json").read_text())
-    assert rec["status"] == "ok" and rec["n_chips"] == 512
-    tcfg = get_config("yi-34b")
-    shapes, _ = _port_shapes(tcfg, 1, 8)
-    mesh = StandIn(*MESHES["2x16x16"])
+    rec = json.loads((tmp_path / f"{arch}_decode_32k_{mesh_name}.json")
+                     .read_text())
+    mesh = StandIn(*MESHES[mesh_name])
+    assert rec["status"] == "ok"
+    assert rec["n_chips"] == int(np.prod(list(mesh.shape.values())))
+    shapes, _ = _port_shapes(get_config(arch), 1, 8)
     want = 0
     for (path, x), (_, spec) in zip(
             _flat(shapes), _flat(tpart.param_specs(shapes, mesh))):
@@ -465,7 +489,7 @@ def test_dryrun_subprocess_multipod(tmp_path):
             * x.element_size()
     assert rec["param_bytes_per_device"] == want
     assert rec["model_flops"] == janalysis.model_flops_estimate(
-        jax_get_config("yi-34b"), JSHAPES["decode_32k"])
+        jax_get_config(arch), JSHAPES["decode_32k"])
     assert rec["peak_memory_per_device"] >= want + rec["cache_bytes_per_device"]
     for k in ("hlo_flops", "hlo_bytes", "collective_bytes"):
         assert rec[k] > 0, k
@@ -478,11 +502,21 @@ def test_decode_lse_and_two_slice_merge():
     """The plain K3's log-sum-exp is logsumexp of the visible scaled
     scores (-inf at length 0), and merging two sequence slices' (o, lse)
     gives one unsplit call's output."""
+    _check_lse_merge(8, 2, 32, 32)
+
+
+def test_decode_lse_and_two_slice_merge_mla():
+    """The same at multi-head latent attention's widths: H = Hkv = 128,
+    query/key 192, value 128 (deepseek-v2-236b's split-softmax decode)."""
+    _check_lse_merge(128, 128, 192, 128)
+
+
+def _check_lse_merge(h, hkv, hd, hd_v):
     g = torch.Generator().manual_seed(0)
-    b, h, hkv, hd, s_max = 3, 8, 2, 32, 40
+    b, s_max = 3, 40
     q = torch.randn((b, h, hd), generator=g)
     k = torch.randn((b, s_max, hkv, hd), generator=g)
-    v = torch.randn((b, s_max, hkv, hd), generator=g)
+    v = torch.randn((b, s_max, hkv, hd_v), generator=g)
     lengths = torch.tensor([40, 17, 0], dtype=torch.int32)
     out, lse = ops.decode_attention(q, k, v, lengths, return_lse=True)
     close(out, ref.decode_attention_ref(q, k, v, lengths))
