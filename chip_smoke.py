@@ -172,7 +172,7 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    chunked), and the open-loop trace on the iteration clock through the
    card's engine and through ``SimExecutor``: the same plans, the modelled
    ms/iter (h100x2 preset) printed beside the measured one.  Then profile
-   the ragged layered serve once more at its first 8 of 48 layers
+   the ragged layered serve once more at its first 4 of 48 layers
    (``PROFILE_LAYERS``: device time by kernel, the device's busy share).
 5. free qwen3 and serve gpt-oss-20b at full width (d_model 2880, 64/8
    heads of 64, 32 experts top-4 of d_ff 2880, 24 layers): the long trace
@@ -189,7 +189,7 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    qwen3-moe-235b-a22b (d_model 4096, 64/4 heads: g 16, 128 experts
    top-8 of d_ff 1536) on the long trace layered and chunked.
 6. free gpt-oss and serve the dense decoders at full width, which launch
-   K2 and K3 and no MoE kernel: phi4-mini-3.8b (32 layers, 24/8 heads:
+   K2 and K3 and no MoE kernel: phi4-mini-3.8b (16 of 32 layers, 24/8 heads:
    g 3) on the short trace layered and chunked and the n-gram serves of
    phase 4; then yi-34b (60 layers, 56/8 heads:
    g 7, 68.8 GB of bf16 weights, drawn on the card) on the short trace,
@@ -205,8 +205,8 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    stream of the reuse and the swap serve must equal the request's
    stream alone or part at a near-tie (``NEAR_TIE_ULPS``, the gap from
    one bf16 prefill as ``--explain-divergence`` computes it: a stale
-   state would part at the first token).  Then xlstm-1.3b (42 mLSTM + 6
-   sLSTM blocks, 5.65 GB of state at 8 slots) on the short trace,
+   state would part at the first token).  Then xlstm-1.3b (16 of 48
+   blocks: 14 mLSTM + 2 sLSTM) on the short trace,
    layered and chunked, launching none of the six kernels.  Each serve
    logs the recurrent state bytes a slot.
 8. free them and serve whisper-base at full width and depth (6 encoder
@@ -220,7 +220,7 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    145 GB at 80 layers), text-only, the long trace layered and chunked.
 9. free them and train as ``python -m repro_torch.launch.train``
    does (8 x 256 tokens of ``PackedDataset``, WSD, remat): minicpm-2b at
-   full width and depth (2.73 B parameters; K2 and its backward) 20
+   full width, 12 of 40 layers (K2 and its backward) 20
    steps, then qwen3-30b-a3b at full width and the depth the card holds
    at 12 B a parameter (the reckoning logged; K2 at g 8, K4 and their
    backwards) 10 steps; whisper-base at full depth (K2 causal and
@@ -234,7 +234,7 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    step, and step 1's loss, ce and grad norm within ``TRAIN_LOSS_REL`` /
    ``TRAIN_GNORM_REL`` of the same step in fp32 through the plain
    versions on the card (the yardstick; the trainer's path never calls a
-   plain version); minicpm's state (32.7 GB) saved and restored, the next
+   plain version); minicpm's state saved and restored, the next
    step bit for bit the step without the round trip.  Seconds a step,
    peak memory and the checkpoint's seconds are printed.  One more step
    of minicpm-2b and of qwen3-30b-a3b runs under torch.profiler: device
@@ -273,7 +273,8 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    collectives forward and backward, wall time and peak memory a rank
    printed.  Phase 2 adds K2, K4 and both backwards at the ranks' shapes
    (``sharded_train_shapes``).
-   10c. a second pool of 16 ranks on the same mesh: deepseek-v2-236b at
+   10c. in the same pool of 16 ranks (the ranks take each model's job
+   from a queue; a second pool cost 30 s to start): deepseek-v2-236b at
    full width, 2 of 60 layers (its dense block 0 and one MoE block with
    160 routed and 2 shared experts), the same serve steps and checks as
    phase 10: multi-head latent attention with the latent split over the
@@ -285,10 +286,29 @@ Phases (each raises on failure; nothing is caught and turned into exit 0):
    the pool, reckoned and logged as in 10b: K2 and its backward on every
    rank).  Phase 2 adds K3 with its log-sum-exp, K2, K1, K4 and K2's
    backward at these ranks' shapes.
+   10d. in the same pool after deepseek, each model's seed-0 bf16 weights
+   handed to the ranks by CUDA IPC and dropped after use, with the same
+   steps and checks (no experts: no routes to pin): recurrentgemma-9b at
+   full width, 3 of 38 layers (two RG-LRU blocks, one local-attention
+   block), a 4096-row cache (512 positions a rank), prefill 2 x 2816
+   (K2 under the 2048-key window over the gathered cache), 8 decodes at
+   positions 2816-2823 (the split softmax under the window, K3 with its
+   log-sum-exp: slice 0 lies before the window, slice 1 is cut by it) and
+   the layered row (K2 with its log-sum-exp over the slices);
+   xlstm-1.3b, 8 of 48 layers (seven mLSTM blocks, one sLSTM), prefill 2
+   x 512 (chunkwise), decodes and the layered row (no kernel);
+   whisper-base whole (6 + 6): each row's 1500 seeded frames through the
+   encoder at the prefill (K2 non-causal on each rank's head), decodes
+   over the cross cache (one kv head a rank), the layered row, and its
+   encoder output against the unsharded one; then one sharded training
+   step of whisper-base at full depth, held as in 10b (K2 and its
+   backward on every rank).  Phase 2 adds K2, K3 with its log-sum-exp
+   and K2's backward at these ranks' shapes.
 11. beside phases 9 and 10, on the host: ``python -m
    repro_torch.launch.dryrun`` for qwen3-moe-235b-a22b at prefill_32k
-   (16x16) and decode_32k (2x16x16), and for qwen3-30b-a3b at train_4k
-   (16x16); each JSON line printed.
+   (16x16) and decode_32k (2x16x16), for qwen3-30b-a3b at train_4k
+   (16x16), recurrentgemma-9b at long_500k (16x16) and whisper-base at
+   prefill_32k (2x16x16); each JSON line printed.
    Each phase's seconds are printed.
 
 It prints a JSON ``kernels`` line (each row's ``launches`` summed over
@@ -1331,11 +1351,7 @@ def check_small_encdec_end_to_end() -> None:
             if cfg.encoder.enabled:
                 enc = model.encode(p_, frames.to(dev))
                 out["encode"] = enc
-                for seg, seg_kv in zip(cache, model.precompute_cross_kv(p_,
-                                                                        enc)):
-                    for c, kv in zip(seg, seg_kv):
-                        c["xk"].copy_(kv["xk"])
-                        c["xv"].copy_(kv["xv"])
+                model.install_cross_kv(p_, cache, enc)
                 out["cross K"] = cache[0][0]["xk"]
             out["prefill"], cache, _ = model.forward(
                 p_, toks[:, :48].to(dev), offset=off.to(dev), cache=cache)
@@ -2745,9 +2761,15 @@ def dense_param_bytes(cfg, n_layers=None) -> int:
     return 2 * ((n_layers or cfg.n_layers) * per_layer + head)
 
 
+# phi4-mini-3.8b serves at 16 of its 32 layers (full depth until phase
+# 10d joined: 21.0 s of the script)
+PHI4_SERVE_LAYERS = 16
+
+
 def serve_dense(times: dict) -> dict:
     """Phase 6: the dense GQA decoders at full width, after the MoE
-    models are freed.  phi4-mini-3.8b (32 layers, 24/8 heads of 128: K2
+    models are freed.  phi4-mini-3.8b (``PHI4_SERVE_LAYERS`` of 32 layers,
+    24/8 heads of 128: K2
     and K3 at g 3) serves the short trace layered and chunked and the
     n-gram serves of ``ngram_serves``; then yi-34b (56/8 heads of
     128: g 7; 68.8 GB of bf16 weights) serves the short trace layered, at
@@ -2757,7 +2779,8 @@ def serve_dense(times: dict) -> dict:
     from repro_torch.configs import get_config
     runs = {}
     _, short = serve_configs("phi4-mini-3.8b")
-    model, params, t0 = build_logged(short, "phi4-mini", times)
+    model, params, t0 = build_logged(short, "phi4-mini", times,
+                                     n_layers=PHI4_SERVE_LAYERS)
     for sched in ("layered", "chunked"):
         runs[f"phi4-mini short/{sched}"] = run_serve(
             dataclasses.replace(short, scheduler=sched), model, params)
@@ -2807,6 +2830,11 @@ def serve_dense(times: dict) -> dict:
 NEAR_TIE_ULPS = 8.0
 
 
+# xlstm-1.3b serves at 16 of its 48 layers (14 mLSTM + 2 sLSTM blocks;
+# full depth until phase 10d joined: 26.4 s of the script)
+XLSTM_SERVE_LAYERS = 16
+
+
 def serve_recurrent(times: dict) -> dict:
     """Phase 7: the recurrent models at full width and depth, after the
     earlier models are freed.  recurrentgemma-9b (26 RG-LRU + 12 local
@@ -2818,9 +2846,9 @@ def serve_recurrent(times: dict) -> dict:
     first 8 requests, swap preemption), and each of the 12 requests alone
     on a fresh engine: every stream of the reuse and the swap serve must
     equal its stream alone or part at a near-tie (the gap recomputed by
-    one bf16 prefill, in ulps).  Then xlstm-1.3b (42 mLSTM + 6 sLSTM
-    blocks) serves the short trace layered and chunked, launching none of
-    the six kernels."""
+    one bf16 prefill, in ulps).  Then xlstm-1.3b (``XLSTM_SERVE_LAYERS``
+    of its 48 blocks) serves the short trace layered and chunked,
+    launching none of the six kernels."""
     import torch
     from repro_torch.serving.traffic import TraceRequest
     runs = {}
@@ -2890,7 +2918,8 @@ def serve_recurrent(times: dict) -> dict:
     torch.cuda.empty_cache()
 
     _, short = serve_configs("xlstm-1.3b")
-    model, params, t0 = build_logged(short, "xlstm", times)
+    model, params, t0 = build_logged(short, "xlstm", times,
+                                     n_layers=XLSTM_SERVE_LAYERS)
     for sched in ("layered", "chunked"):
         runs[f"xlstm short/{sched}"] = run_serve(
             dataclasses.replace(short, scheduler=sched), model, params)
@@ -3036,9 +3065,10 @@ def serve_qwen2_vl(times: dict) -> dict:
 # the profiled serve runs the first 8 of qwen3's 48 layers: the
 # training phase's 64-90 s were paid for by halving this 107 s phase, the
 # two profiled training steps' ~17 s (the backward rows' ~14 s on top)
-# by a third of what was left, and phase 10c by halving it again (the
-# serves whose streams are compared across trees keep their depth)
-PROFILE_LAYERS = 8
+# by a third of what was left, phase 10c by halving it again and phase
+# 10d by halving it once more (14.4 s at 8; the serves whose streams are
+# compared across trees keep their depth)
+PROFILE_LAYERS = 4
 
 
 def first_layers(model, params, n: int):
@@ -3889,8 +3919,14 @@ def train_depth(arch: str, period: int = 1) -> int:
     return depth
 
 
+# minicpm-2b trains at 12 of its 40 layers (full depth until phase 10d
+# joined: 65.1 s of the script, the checkpoint round trip 32.7 s of it)
+MINICPM_TRAIN_LAYERS = 12
+
+
 def train_models(times: dict) -> dict:
-    """Phase 9: minicpm-2b at full width and depth (K2 and its backward,
+    """Phase 9: minicpm-2b at full width and ``MINICPM_TRAIN_LAYERS``
+    layers (K2 and its backward,
     with a checkpoint round trip), then at full width and the depth the
     card holds: qwen3-30b-a3b (K2 at g 8 and K4, with their backwards),
     whisper-base (full depth; K2 causal and over the 1500 frames),
@@ -3900,15 +3936,21 @@ def train_models(times: dict) -> dict:
     minicpm-2b and qwen3-30b-a3b each profile one more step."""
     import torch
     runs = {}
-    for arch, steps, period, ckpt in (("minicpm-2b", 20, None, True),
-                                      ("qwen3-30b-a3b", 10, 1, False),
-                                      ("whisper-base", 20, None, False),
-                                      ("recurrentgemma-9b", 10, 3, False),
-                                      ("deepseek-v2-236b", 10, 1, False)):
+    # (arch, steps, its depth: full, cut, or the depth the card holds at
+    # a multiple of the pattern's period, checkpoint round trip)
+    for arch, steps, depth, ckpt in (
+            ("minicpm-2b", 20, lambda: MINICPM_TRAIN_LAYERS, True),
+            ("qwen3-30b-a3b", 10, lambda: train_depth("qwen3-30b-a3b", 1),
+             False),
+            ("whisper-base", 20, lambda: None, False),
+            ("recurrentgemma-9b", 10,
+             lambda: train_depth("recurrentgemma-9b", 3), False),
+            ("deepseek-v2-236b", 10,
+             lambda: train_depth("deepseek-v2-236b", 1), False)):
         runs[f"{arch} train"] = train_model(
             arch, times, steps=steps, ckpt=ckpt,
             profile=arch in ("minicpm-2b", "qwen3-30b-a3b"),
-            n_layers=train_depth(arch, period) if period else None)
+            n_layers=depth())
         gc.collect()
         torch.cuda.empty_cache()
     return runs
@@ -3928,7 +3970,13 @@ SHARD_KERNELS = ("moe_gmm_ragged", "prefill_attention", "decode_attention",
 # the card's tests load this file without registering it as a module,
 # which a dataclass needs)
 ShardPhase = collections.namedtuple(
-    "ShardPhase", ("arch", "layers", "group", "train_max_layers"))
+    "ShardPhase", ("arch", "layers", "group", "train_max_layers", "s",
+                   "cache", "dispatches", "kernels", "frames"),
+    # the prefill's tokens a row and the cache rows; the MoE dispatches
+    # its prefill runs; the kernels every rank must launch; whether the
+    # prefill encodes frames (whisper)
+    defaults=(SHARD_S, SHARD_CACHE, ("ragged", "dense"), SHARD_KERNELS,
+              False))
 # phase 10 (qwen3-30b-a3b: 2 of 48 layers since phase 10c joined, 4
 # before, 8 before phase 10b; it trains 1, 2 before phase 10c: the card
 # holds 3 beside 2 serve layers, at the script's time) and
@@ -3937,6 +3985,30 @@ ShardPhase = collections.namedtuple(
 # ``sharded_train_depth`` reckons it)
 QWEN3_SHARD = ShardPhase("qwen3-30b-a3b", 2, (0, 2), 1)
 DEEPSEEK_SHARD = ShardPhase("deepseek-v2-236b", 2, (0, 2), 2)
+# phase 10d, in the same pool after deepseek: recurrentgemma-9b's two
+# RG-LRU blocks and its local-attention block over a 4096-row cache (512
+# positions a rank on model 8), 2 x 2816 prompt tokens (JAX's "gqa"
+# region: K2 under the window over the gathered cache), decodes at 2816-
+# 2823 (the window starts at key 769: slice 0 sees nothing, slice 1 is
+# cut; the split softmax, K3 with its log-sum-exp) and the layered row
+# (K2 with its log-sum-exp over the slices); xlstm-1.3b's seven mLSTM
+# blocks and its sLSTM block (2 x 512: chunkwise; no kernel); whisper-base
+# whole (6 + 6), its 2 x 1500 seeded frames through the encoder at the
+# prefill (K2 non-causal on each rank's head), decodes over the cross
+# cache (one kv head a rank), and its training step at full depth (K2
+# and its backward).  recurrentgemma and xlstm train on the CPU against
+# JAX and in the dry-run only: a pool step at the three blocks that reach
+# the local attention needs about 70 GB (the 2.1 B parameters of
+# recurrentgemma's embedding and head, twice whole on the parent)
+ATTN_KERNELS = ("prefill_attention", "decode_attention")
+RECURRENTGEMMA_SHARD = ShardPhase("recurrentgemma-9b", 3, (0, 3), 0, s=2816,
+                                  cache=4096, dispatches=("dense",),
+                                  kernels=ATTN_KERNELS)
+XLSTM_SHARD = ShardPhase("xlstm-1.3b", 8, (0, 8), 0, dispatches=("dense",),
+                         kernels=())
+WHISPER_SHARD = ShardPhase("whisper-base", 6, (0, 6), 6,
+                           dispatches=("dense",), kernels=ATTN_KERNELS,
+                           frames=True)
 # the ranks' routes are pinned to the unsharded run's (``_pin_route``):
 # each of a rank's MoE tokens takes the expert ids of the reference token
 # nearest to it, which must lie within PIN_NEAR of that token's norm and
@@ -3968,32 +4040,38 @@ OUT_TOL = dict(atol=1e-3, rtol=2 ** -7)
 
 
 def check_decode_lse(gen, tag: str = "qwen3", heads=QWEN3_ATTN,
-                     rows=(300, 1000), out_tol=OUT_TOL) -> dict:
+                     rows=(300, 1000), out_tol=OUT_TOL, s_max=2048,
+                     len_range=(601, 1517), cache=SHARD_CACHE,
+                     slice_len=LSE_SLICE, window=None) -> dict:
     """K3 with its log-sum-exp output at qwen3-30b-a3b's decode shapes
-    (deepseek-v2-236b's: ``heads`` H = Hkv = 128 at (192, 128)):
-    (a) the 8-slot serve step (S_max 2048), where the output must keep the
-    bits of the call without the log-sum-exp; (b) the sharded decode
-    step's slices (``LSE_SLICE`` positions of two rows of ``rows``
-    tokens, lengths clamped to the slice, some 0: output 0 and log-sum-exp
-    -inf), each against the plain version; and the slices of a split row
-    merged from their (o, lse) against the unsplit call."""
+    (deepseek-v2-236b's: ``heads`` H = Hkv = 128 at (192, 128);
+    recurrentgemma-9b's under its ``window``):
+    (a) the 8-slot serve step (S_max ``s_max``), where the output must
+    keep the bits of the call without the log-sum-exp; (b) the sharded
+    decode step's slices (``slice_len`` positions of a ``cache``-row
+    cache, two rows of ``rows`` tokens, lengths taken relative to the
+    slice: clamped to it without a window, past it under one, so that the
+    window's edge stays put; a slice that sees no key gives output 0 and
+    log-sum-exp -inf), each against the plain version; and the slices of
+    a split row merged from their (o, lse) against the unsplit call."""
     import torch
     from repro_torch.kernels import ops, ref
     h, hkv, hd, hd_v = _heads(heads)
     dev = torch.device("cuda")
-    b, s_max = 8, 2048
+    b = 8
     q = torch.randn((b, h, hd), device=dev, generator=gen).to(torch.bfloat16)
     kc, vc = (torch.randn((b, s_max, hkv, w), device=dev, generator=gen)
               .to(torch.bfloat16) for w in (hd, hd_v))
-    lens = torch.randint(601, 1517, (b,), device=dev, generator=gen,
+    lens = torch.randint(*len_range, (b,), device=dev, generator=gen,
                          dtype=torch.int32)
-    plain_out = ops.decode_attention(q, kc, vc, lens)
-    out, lse = ops.decode_attention(q, kc, vc, lens, return_lse=True)
+    plain_out = ops.decode_attention(q, kc, vc, lens, window=window)
+    out, lse = ops.decode_attention(q, kc, vc, lens, window=window,
+                                    return_lse=True)
     if not torch.equal(out, plain_out):
         raise AssertionError("decode_attention: asking for the log-sum-exp "
                              "changed the output's bits")
-    want = ref.decode_attention_ref(q, kc, vc, lens)
-    want_lse = ref.decode_attention_lse_ref(q, kc, lens)
+    want = ref.decode_attention_ref(q, kc, vc, lens, window=window)
+    want_lse = ref.decode_attention_lse_ref(q, kc, lens, window=window)
 
     def excess(got, want):
         """max |got - want| and whether it lies within ``out_tol``."""
@@ -4003,28 +4081,33 @@ def check_decode_lse(gen, tag: str = "qwen3", heads=QWEN3_ATTN,
         return d.max().item(), ok
     err, ok_out = excess(out, want)
     err_lse = (lse - want_lse).abs().max().item()
-    # the sharded decode's slices: rank j holds positions [j*128, ...)
-    n_sl = SHARD_CACHE // LSE_SLICE
+    # the sharded decode's slices: rank j holds positions [j*slice, ...)
+    n_sl = cache // slice_len
     rows = torch.tensor(rows, dtype=torch.int64, device=dev)
     errs, errs_lse, zero_ok = [], [], True
-    kq, vq = kc[:2, :SHARD_CACHE].contiguous(), vc[:2, :SHARD_CACHE].contiguous()
-    parts = []
+    kq, vq = kc[:2, :cache].contiguous(), vc[:2, :cache].contiguous()
+    parts, empty = [], 0
     for j in range(n_sl):
-        lo = j * LSE_SLICE
-        ln = (rows - lo).clamp(0, LSE_SLICE).to(torch.int32)
-        ks = kq[:, lo:lo + LSE_SLICE].contiguous()
-        vs = vq[:, lo:lo + LSE_SLICE].contiguous()
-        o_j, l_j = ops.decode_attention(q[:2], ks, vs, ln, return_lse=True)
-        e_j, ok_j = excess(o_j, ref.decode_attention_ref(q[:2], ks, vs, ln))
+        lo = j * slice_len
+        ln = (rows - lo).clamp(0, None if window else slice_len).to(
+            torch.int32)
+        ks = kq[:, lo:lo + slice_len].contiguous()
+        vs = vq[:, lo:lo + slice_len].contiguous()
+        o_j, l_j = ops.decode_attention(q[:2], ks, vs, ln, window=window,
+                                        return_lse=True)
+        e_j, ok_j = excess(o_j, ref.decode_attention_ref(q[:2], ks, vs, ln,
+                                                         window=window))
         errs.append(e_j)
         ok_out = ok_out and ok_j
-        wl_j = ref.decode_attention_lse_ref(q[:2], ks, ln)
+        wl_j = ref.decode_attention_lse_ref(q[:2], ks, ln, window=window)
         fin = torch.isfinite(wl_j)
         if not torch.equal(fin, torch.isfinite(l_j)):
             zero_ok = False
         if fin.any():
             errs_lse.append((l_j[fin] - wl_j[fin]).abs().max().item())
-        if (ln == 0).any() and not (o_j[ln == 0] == 0).all():
+        seen_none = ~fin.any(-1)
+        empty += int(seen_none.sum())
+        if seen_none.any() and not (o_j[seen_none] == 0).all():
             zero_ok = False
         parts.append((o_j.float(), l_j))
     ls = torch.stack([p_[1] for p_ in parts])
@@ -4032,38 +4115,46 @@ def check_decode_lse(gen, tag: str = "qwen3", heads=QWEN3_ATTN,
     wts = torch.exp(ls - torch.where(torch.isfinite(m), m, 0.0))
     merged = (wts[..., None] * torch.stack([p_[0] for p_ in parts])).sum(0) \
         / wts.sum(0)[..., None]
-    whole = ref.decode_attention_ref(q[:2], kq, vq, (rows + 0).to(torch.int32))
+    whole = ref.decode_attention_ref(q[:2], kq, vq, rows.to(torch.int32),
+                                     window=window)
     err_merge, ok_merge = excess(merged, whole)
     err_lse = max([err_lse] + errs_lse)
     max_abs = max([err, err_lse, err_merge] + errs)
     name = f"decode_attention[{tag} sharded lse]"
-    log(f"{name}: serve step B{b} S_max {s_max}"
+    log(f"{name}: serve step B{b} S_max {s_max} window {window}"
         f" out max abs {err:.3e}, lse max abs {err_lse:.3e} over it and the "
         f"slices (tol {LSE_ATOL}; bits of the call without it kept); {n_sl} "
-        f"slices of {LSE_SLICE}: out max abs {max(errs):.3e}, empty slices "
-        f"0 / -inf: {zero_ok}; merged slices vs unsplit {err_merge:.3e} "
-        f"(out and merge tol {out_tol})")
+        f"slices of {slice_len}: out max abs {max(errs):.3e}, {empty} "
+        f"(row, slice) pairs seeing no key, 0 / -inf: {zero_ok}; merged "
+        f"slices vs unsplit {err_merge:.3e} (out and merge tol {out_tol})")
     if not (zero_ok and ok_out and ok_merge and err_lse <= LSE_ATOL):
         raise AssertionError("decode_attention with log-sum-exp disagrees")
-    used = [int(n) for n in lens.tolist()]
+    # the keys each row sees: its length (clamped to S_max), from the
+    # window's edge on
+    used = [min(int(n), s_max) - (max(0, int(n) - window) if window else 0)
+            for n in lens.tolist()]
     nbytes = (q.numel() * 2 + out.numel() * 2 + lse.numel() * 4
               + sum(used) * hkv * (hd + hd_v) * 2 + b * 4)
     b_ms, b_by = bound_ms(nbytes, 2 * (hd + hd_v) * h * sum(used))
     # timed as check_decode_attention's ms_hot: CUDA graph replay over
     # one cache copy, beside the serve call without the log-sum-exp
     ms = cuda_time_cold(lambda i: ops.decode_attention(
-        q, kc, vc, lens, return_lse=True), 1, rounds=48)
+        q, kc, vc, lens, window=window, return_lse=True), 1, rounds=48)
     ms_serve = cuda_time_cold(lambda i: ops.decode_attention(
-        q, kc, vc, lens), 1, rounds=48)
+        q, kc, vc, lens, window=window), 1, rounds=48)
     plain = cuda_time_cold(lambda i: (
-        ref.decode_attention_ref(q, kc, vc, lens),
-        ref.decode_attention_lse_ref(q, kc, lens)), 1, rounds=4)
+        ref.decode_attention_ref(q, kc, vc, lens, window=window),
+        ref.decode_attention_lse_ref(q, kc, lens, window=window)), 1,
+        rounds=4)
     # SDPA gives no log-sum-exp: beside the row, timed as the kernel is,
     # on the serve step's output alone
     g = h // hkv
     kt, vt = (t.transpose(1, 2).repeat(1, g, 1, 1) for t in (kc, vc))
-    mask = (torch.arange(s_max, device=dev)[None, :]
-            < lens.clamp(max=s_max).long()[:, None])[:, None, None, :]
+    pos = torch.arange(s_max, device=dev)[None, :]
+    mask = pos < lens.clamp(max=s_max).long()[:, None]
+    if window:
+        mask = mask & (pos >= lens.long()[:, None] - window)
+    mask = mask[:, None, None, :]
     sdpa = cuda_time_cold(lambda i: _sdpa_gmajor(q[:, :, None], kt, vt, mask),
                           1, rounds=48)
     del kt, vt
@@ -4077,8 +4168,11 @@ def check_decode_lse(gen, tag: str = "qwen3", heads=QWEN3_ATTN,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "sdpa_ms_without_lse": sdpa,
             "timing": "CUDA graph replay, hot (one cache copy)",
-            "shape": {"B": b, "S_max": s_max, "lengths": used, "H": h,
+            "shape": {"B": b, "S_max": s_max,
+                      "lengths": [int(n) for n in lens.tolist()],
+                      "keys_seen": used, "H": h,
                       "Hkv": hkv, "hd": hd, "hd_v": hd_v, "lse": True,
+                      "window": window, "slice": slice_len,
                       "slice_rows": rows.tolist()}}
 
 
@@ -4118,46 +4212,58 @@ def _matched(x, probs, xr, ir, seen: dict):
     return idx, w / w.sum(dim=-1, keepdim=True), probs
 
 
-def _teacher_forced(model, lp, mesh, rules, cases, queue) -> dict:
+def _teacher_forced(model, lp, mesh, rules, cases, queue, ph) -> dict:
     """Each block of each case run alone over this rank's shards from the
     unsharded run's input to that block (its rows and positions, in the
     residual layout) with that block's MoE calls (none in a dense block)
     pinned: the prefill (dense,
-    then ragged, each into a fresh cache), the first decode step over the
-    dense prefill's cache, and the layered row over slot 0's row.  Returns
-    each block's output block."""
+    then ragged, each into a fresh cache; whisper's with the unsharded
+    run's encoder output, whose cross K/V are installed after it), the
+    first decode step over the dense prefill's cache, and the layered row
+    over the unsharded run's slot-0 row as the row found it.  Returns each
+    block's output block."""
     import torch
     from repro_torch.convert import shard_cache
-    from repro_torch.launch import steps
+    from repro_torch.kernels import ops
     from repro_torch.sharding import spmd
     out = {}
     caches = {}
     for key, case in cases.items():
         b, s = case["b"], case["x"][0].shape[1]
-        lay = spmd.layout(mesh, rules, b, s, SHARD_CACHE)
+        lay = spmd.layout(mesh, rules, b, s, ph.cache)
         if key.startswith("prefill"):
             cache = caches[key] = shard_cache(
-                model.init_cache(SHARD_B, SHARD_CACHE), mesh, SHARD_B)
+                model.init_cache(SHARD_B, ph.cache), mesh, SHARD_B)
         elif key.startswith("decode"):
             cache = caches["prefill dense"]
         else:
-            cache = steps.slice_row(caches["prefill dense"], 0, SHARD_B)
+            # the unsharded run's row before it (recurrent state carries
+            # every decode step, not only the first replayed here), the
+            # rank's own copy: a block of the parent's tensor may be a view
+            # of it, which every data rank would write
+            cache = ops.tree_map(torch.clone,
+                                 shard_cache(case["row"], mesh, 1))
         b_r = b // SHARD_MESH[0] if lay.b_split else b
         r0 = mesh.coords["data"] * b_r if lay.b_split else 0
         pos = case["positions"][r0:r0 + b_r]
         off = case["offset"][r0:r0 + b_r]
+        enc = case.get("enc")
+        if enc is not None:
+            enc = enc[r0:r0 + b_r]
         outs = []
         for i, x, pin in zip(case["blocks"], case["x"], case["pins"]):
             xl = spmd.take_seq(mesh, rules, x[r0:r0 + b_r], lay)
             queue[:] = pin
             y, _, _ = model.run_blocks(
                 lp, xl, i, 1, positions=pos, offset=off, cache=cache,
-                moe_dispatch=case["dispatch"], dropless=True, global_batch=b,
-                cache_len=SHARD_CACHE)
+                enc_out=enc, moe_dispatch=case["dispatch"], dropless=True,
+                global_batch=b, cache_len=ph.cache)
             if queue:
                 raise AssertionError(f"{key} block {i}: {len(queue)} MoE "
                                      "calls of the unsharded run not made")
             outs.append(y.float().cpu())
+        if enc is not None:
+            model.install_cross_kv(lp, cache, enc)
         out[key] = outs
     torch.cuda.synchronize()
     return out
@@ -4199,12 +4305,14 @@ def sharded_train_config(arch: str, n_layers: int):
     / top_k so that neither the unsharded step nor the sharded one
     (group-wise capacity, JAX's semantics) drops an assignment."""
     from repro_torch.configs import get_config
-    cfg = get_config(arch)
-    return dataclasses.replace(cfg, n_layers=n_layers, moe=dataclasses.replace(
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    if not cfg.moe.enabled:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
 
 
-def sharded_train_depth(ph: ShardPhase) -> tuple:
+def sharded_train_depth(ph: ShardPhase, pool_alive: bool = False) -> tuple:
     """The depth of ``ph.arch`` the card holds beside phase 10b's (or
     10c's) pool, reckoned from the specs and the card's free memory: each
     rank's parameter blocks and
@@ -4212,8 +4320,10 @@ def sharded_train_depth(ph: ShardPhase) -> tuple:
     (this process's: the card's use less what its allocator reserves) and
     ``TRAIN_SHARD_SLACK``; the parent's two whole copies shared with the
     ranks (the weights and the unsharded step's gradients).  The deepest
-    up to ``ph.train_max_layers`` within 0.9 of the free memory.
-    Returns (depth, the reckoning)."""
+    up to ``ph.train_max_layers`` within 0.9 of the free memory.  With the
+    pool alive (``pool_alive``: a later model of the pool) the ranks'
+    contexts already hold their memory, outside the free memory, and are
+    not counted again.  Returns (depth, the reckoning)."""
     import numpy as np
     import torch
     from repro_torch.models.model import DecoderModel
@@ -4224,7 +4334,7 @@ def sharded_train_depth(ph: ShardPhase) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     free, card = torch.cuda.mem_get_info()
-    ctx = card - free - torch.cuda.memory_reserved()
+    ctx = 0 if pool_alive else card - free - torch.cuda.memory_reserved()
     best, rows = 1, []
     for n in range(1, ph.train_max_layers + 1):
         shapes = DecoderModel(sharded_train_config(ph.arch, n),
@@ -4246,7 +4356,8 @@ def sharded_train_depth(ph: ShardPhase) -> tuple:
         if need <= 0.9 * free:
             best = n
     return best, {"card_GB": card / 1e9, "free_GB": free / 1e9,
-                  "context_GB": ctx / 1e9, "rows": rows}
+                  "context_GB": ctx / 1e9, "pool_alive": pool_alive,
+                  "rows": rows}
 
 
 def sharded_train_shapes() -> tuple:
@@ -4285,6 +4396,23 @@ def deepseek_shard_shapes() -> dict:
             "a2a_tokens": t_loc, "a2a_c": t_loc * tn, "decode_c": SHARD_B,
             "moe_full": (e_loc, e.top_k, cfg.d_model, e.expert_d_ff),
             "moe_shard": (e_loc, e.top_k, cfg.d_model, e.expert_d_ff // dn)}
+
+
+def phase10d_shapes() -> dict:
+    """What phase 10d's ranks give K2 and K3, from the configs and the
+    mesh: the rows a rank (the batch over ``data``), recurrentgemma-9b's
+    heads a rank in JAX's "gqa" region (H / tp over its one kv head of
+    256) and its cache slice a rank, whisper-base's heads a rank (its 8
+    kv heads over 8 ranks: one, g 1) and the training step's rows a
+    rank."""
+    from repro_torch.configs import get_config
+    dn, tn = SHARD_MESH
+    rg, wh = get_config("recurrentgemma-9b"), get_config("whisper-base")
+    return {"rows": SHARD_B // dn, "train_rows": TRAIN_SHARD_B // dn,
+            "rg_heads": (rg.n_heads // tn, rg.n_kv_heads, rg.head_dim_),
+            "rg_slice": RECURRENTGEMMA_SHARD.cache // tn,
+            "wh_heads": (wh.n_heads // tn, wh.n_kv_heads // tn,
+                         wh.head_dim_)}
 
 
 def world_of(shape) -> int:
@@ -4336,7 +4464,8 @@ def _train_opt():
     return adamw(lr=6e-4, schedule="wsd", total_steps=10, warmup=1)
 
 
-def sharded_train_reference(times: dict, ph: ShardPhase) -> dict:
+def sharded_train_reference(times: dict, ph: ShardPhase,
+                            pool_alive: bool = False) -> dict:
     """Phase 10b's (10c's) yardstick: the unsharded port's train step of
     ``ph.arch`` (remat, the
     dense dispatch) on the card at ``sharded_train_depth``'s depth, seed-1
@@ -4356,7 +4485,7 @@ def sharded_train_reference(times: dict, ph: ShardPhase) -> dict:
     from repro_torch.training.optimizer import tree_leaves
     from repro_torch.training.train import device_batch, make_train_step
     t0 = time.perf_counter()
-    depth, reckoning = sharded_train_depth(ph)
+    depth, reckoning = sharded_train_depth(ph, pool_alive)
     total = get_config(ph.arch).n_layers
     log(f"{ph.arch} sharded training depth: {depth} of {total} layers, "
         f"reckoned " + json.dumps(reckoning))
@@ -4380,7 +4509,7 @@ def sharded_train_reference(times: dict, ph: ShardPhase) -> dict:
     grads: list = []
     opt = _recording(_train_opt(), grads)
     state = opt.init(work)
-    step = make_train_step(model, opt)
+    step = make_train_step(model, opt, cfg.encoder.enabled)
     moe.route = recorded
     try:
         torch.cuda.synchronize()
@@ -4450,7 +4579,7 @@ def _train_rank(mesh, rules, tin, route) -> dict:
     with sharding_context(mesh, rules):
         plan = train_plan(model)
         state = opt.init(lp, plan)
-        step = make_train_step(model, opt)
+        step = make_train_step(model, opt, cfg.encoder.enabled)
         ops.reset_launches()
         col.reset_record()
         torch.cuda.synchronize()
@@ -4620,135 +4749,186 @@ def check_sharded_train(res: list, tin: dict) -> dict:
         "depth": tin["depth"]}}
 
 
-def _shard_rank(rank: int, world: int, tmp: str, shared: list, cfg,
-                group) -> None:
-    """One rank of the sharded phase: ``shared`` holds ``params`` and
-    ``inputs``, the parent's tensors on the card (CUDA IPC), in a list the
-    rank empties (the parent keeps a tensor's memory until every
-    reference to it in the ranks is gone); its shards of ``params``, the
-    prefill (dense
-    and ragged), the decode steps and the layered step under the (2, 8)
-    mesh, each MoE call's routes pinned to the unsharded run's; per step
-    the kernels' launches, the collectives and the wall time; results to
-    ``tmp/rank<r>.pt``."""
+def _shard_rank(rank: int, world: int, tmp: str, jobs, done) -> None:
+    """One rank of a sharded pool: every job the parent puts in ``jobs``
+    (one copy a rank; None ends the pool) runs over the (2, 8) mesh
+    (``_shard_job``), its results go to ``tmp/rank<r>_<i>.pt``, and the
+    rank says so in ``done``.  The jobs' tensors are the parent's, on the
+    card (CUDA IPC); the rank drops its references before it reports, so
+    that the parent can free them for the next model."""
     import os
     import torch
     import torch.distributed as dist
-    marks = {"entered": time.time()}
-    params, inputs = shared
-    shared.clear()
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method="file://" + os.path.join(
         tmp, "rendezvous"), rank=rank, world_size=world)
     try:
-        from repro_torch.configs.shapes import InputShape
-        from repro_torch.convert import shard_cache, shard_params
-        from repro_torch.kernels import ops
-        from repro_torch.launch import steps
         from repro_torch.launch.mesh import make_mesh
         from repro_torch.models import moe
-        from repro_torch.models.model import DecoderModel
-        from repro_torch.sharding import collectives as col
-        from repro_torch.sharding import spmd
-        from repro_torch.sharding.partition import (default_rules,
-                                                    sharding_context)
+        from repro_torch.sharding.partition import default_rules
         mesh = make_mesh(SHARD_MESH, ("data", "model"), rank=rank,
                          distributed=True)
         rules = default_rules(mesh)
-        lp = shard_params(params, mesh)
-        del params
-        torch.cuda.synchronize()
-        model = DecoderModel(cfg, device="cuda")
-        marks["shards"] = time.time()
-        b_r = SHARD_B // SHARD_MESH[0]
-        r0 = mesh.coords["data"] * b_r
-        queue, seen = [], {"near": 0.0, "apart": math.inf}
         route0 = moe.route
-        moe.route = _pin_route(route0, queue, seen)
-
-        def rows(t):
-            return t[r0:r0 + b_r].cuda()
-        pre = InputShape("prefill", "prefill", SHARD_CACHE, SHARD_B)
-        dec = InputShape("decode", "decode", SHARD_CACHE, SHARD_B)
-        stats, out = [], {}
-
-        def timed(label, fn):
-            queue[:] = inputs["pins"][label]
-            ops.reset_launches()
-            col.reset_record()
+        i = 0
+        while True:
+            job = jobs.get()
+            if job is None:
+                break
+            try:
+                res = _shard_job(mesh, rules, job, route0)
+            finally:
+                moe.route = route0
+            del job
+            torch.save(res, os.path.join(tmp, f"rank{rank}_{i}.pt"))
+            del res
+            gc.collect()
             torch.cuda.synchronize()
-            dist.barrier()
-            t0 = time.perf_counter()
-            res = fn()
-            torch.cuda.synchronize()
-            dist.barrier()
-            stats.append({"step": label,
-                          "s": time.perf_counter() - t0,
-                          "launches": {k: ops.LAUNCHES[k]
-                                       for k in SHARD_KERNELS},
-                          "coll": {k: dict(v) for k, v in
-                                   col.RECORD.items()}})
-            if queue:
-                raise AssertionError(f"{label}: {len(queue)} MoE calls of "
-                                     "the unsharded run not made")
-            return res
-        with sharding_context(mesh, rules):
-            for disp in ("ragged", "dense"):
-                cache = shard_cache(model.init_cache(SHARD_B, SHARD_CACHE),
-                                    mesh, SHARD_B)
-                step = steps.make_step_fn(model, pre, moe_dispatch=disp,
-                                          dropless=True)
-                lg, cache, aux = timed(f"prefill {disp}", lambda: step(
-                    lp, cache, {"tokens": rows(inputs["tokens"])}))
-                out[f"prefill {disp}"] = (lg.float().cpu(),
-                                          aux["expert_counts"].cpu())
-            dstep = steps.make_step_fn(model, dec, dropless=True)
-            for i in range(SHARD_DECODES):
-                lg, cache, aux = timed(f"decode {i}", lambda: dstep(
-                    lp, cache, {"tokens": rows(inputs["decode"][i]),
-                                "offsets": rows(inputs["offsets"][i])}))
-                out[f"decode {i}"] = (lg.float().cpu(),
-                                      aux["expert_counts"].cpu())
-            lstep = steps.make_layered_step_fn(
-                model, group=group, prefill_len=SHARD_P,
-                global_batch=SHARD_B, cache_len=SHARD_CACHE, dropless=True)
-            lay1 = spmd.layout(mesh, rules, 1, SHARD_P)
-            lg, h_out, cache, aux = timed("layered", lambda: lstep(
-                lp, cache, {"tokens": rows(inputs["layered_tokens"]),
-                            "offsets": rows(inputs["layered_offsets"]),
-                            "valid": rows(inputs["valid"]),
-                            "hidden": spmd.take_seq(
-                                mesh, rules, inputs["hidden"].cuda(), lay1)}))
-            out["layered"] = (lg.float().cpu(), aux["expert_counts"].cpu(),
-                              h_out.float().cpu(),
-                              aux["prefill_expert_counts"].cpu())
-            marks["steps"] = time.time()
-            out["blocks"] = _teacher_forced(model, lp, mesh, rules,
-                                            inputs["blocks"], queue)
-            marks["teacher-forced"] = time.time()
-        # the train step in the same pool: the serve weights' shards go
-        # first
-        serve_mem = torch.cuda.max_memory_allocated()
-        del lp, cache, model
-        out["train"] = _train_rank(mesh, rules, inputs["train"], route0)
-        marks["train"] = time.time()
-        del inputs
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.save({"coords": mesh.coords, "out": out, "stats": stats,
-                    "marks": marks,
-                    "pins": seen, "mem": serve_mem},
-                   os.path.join(tmp, f"rank{rank}.pt"))
+            torch.cuda.empty_cache()
+            done.put(rank)
+            i += 1
     finally:
         dist.destroy_process_group()
 
 
-def serve_sharded(times: dict, ph: ShardPhase) -> dict:
-    """Phase 10 (qwen3-30b-a3b) and 10c (deepseek-v2-236b): ``ph.arch`` at
-    full width, ``ph.layers`` layers,
-    bf16, seed-0 weights made once on the card, sharded over the (2, 8)
-    mesh as 16 ranks on this one card (gloo: NCCL refuses two ranks on one
-    device).  The plans take every regime qwen3-30b-a3b has at serve
+def _shard_job(mesh, rules, job: dict, route0) -> dict:
+    """One model on this rank (``job``: its phase, config, the parent's
+    ``params`` and ``inputs``): its shards of ``params``, the prefill
+    (each of the phase's dispatches; whisper's with its frames, then the
+    cross K/V installed), the decode steps and the layered step, each MoE
+    call's routes pinned to the unsharded run's; the teacher-forced
+    blocks; the train step where the phase has one; per step the
+    kernels' launches, the collectives and the wall time."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.convert import shard_cache, shard_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.sharding import collectives as col
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.partition import sharding_context
+    marks = {"entered": time.time()}
+    ph, cfg = job["ph"], job["cfg"]
+    params, inputs = job.pop("params"), job.pop("inputs")
+    lp = shard_params(params, mesh)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = DecoderModel(cfg, device="cuda")
+    marks["shards"] = time.time()
+    b_r = SHARD_B // SHARD_MESH[0]
+    r0 = mesh.coords["data"] * b_r
+    queue, seen = [], {"near": 0.0, "apart": math.inf}
+    moe.route = _pin_route(route0, queue, seen)
+
+    def rows(t):
+        return t[r0:r0 + b_r].cuda()
+    pre = InputShape("prefill", "prefill", ph.cache, SHARD_B)
+    dec = InputShape("decode", "decode", ph.cache, SHARD_B)
+    stats, out = [], {}
+
+    def timed(label, fn):
+        queue[:] = inputs["pins"].get(label, [])
+        ops.reset_launches()
+        col.reset_record()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        stats.append({"step": label,
+                      "s": time.perf_counter() - t0,
+                      "launches": dict(ops.LAUNCHES),
+                      "coll": {k: dict(v) for k, v in
+                               col.RECORD.items()}})
+        if queue:
+            raise AssertionError(f"{label}: {len(queue)} MoE calls of "
+                                 "the unsharded run not made")
+        return res
+    with sharding_context(mesh, rules):
+        for disp in ph.dispatches:
+            cache = shard_cache(model.init_cache(SHARD_B, ph.cache), mesh,
+                                SHARD_B)
+            step = steps.make_step_fn(model, pre, moe_dispatch=disp,
+                                      dropless=True)
+            batch = {"tokens": rows(inputs["tokens"])}
+            if ph.frames:
+                batch["enc_out"] = rows(inputs["frames"])
+            lg, cache, aux = timed(f"prefill {disp}", lambda: step(
+                lp, cache, batch))
+            out[f"prefill {disp}"] = (lg.float().cpu(),
+                                      aux["expert_counts"].cpu())
+        if ph.frames:
+            def admit():
+                enc = model.encode(lp, batch["enc_out"],
+                                   global_batch=SHARD_B)
+                model.install_cross_kv(lp, cache, enc)
+                return enc
+            out["encoder"] = (timed("encode, cross K/V",
+                                    admit).float().cpu(),)
+        dstep = steps.make_step_fn(model, dec, dropless=True)
+        for i in range(SHARD_DECODES):
+            lg, cache, aux = timed(f"decode {i}", lambda: dstep(
+                lp, cache, {"tokens": rows(inputs["decode"][i]),
+                            "offsets": rows(inputs["offsets"][i])}))
+            out[f"decode {i}"] = (lg.float().cpu(),
+                                  aux["expert_counts"].cpu())
+        lstep = steps.make_layered_step_fn(
+            model, group=ph.group, prefill_len=SHARD_P,
+            global_batch=SHARD_B, cache_len=ph.cache, dropless=True)
+        lay1 = spmd.layout(mesh, rules, 1, SHARD_P)
+        lg, h_out, cache, aux = timed("layered", lambda: lstep(
+            lp, cache, {"tokens": rows(inputs["layered_tokens"]),
+                        "offsets": rows(inputs["layered_offsets"]),
+                        "valid": rows(inputs["valid"]),
+                        "hidden": spmd.take_seq(
+                            mesh, rules, inputs["hidden"].cuda(), lay1)}))
+        out["layered"] = (lg.float().cpu(), aux["expert_counts"].cpu(),
+                          h_out.float().cpu(),
+                          aux["prefill_expert_counts"].cpu())
+        marks["steps"] = time.time()
+        out["blocks"] = _teacher_forced(model, lp, mesh, rules,
+                                        inputs["blocks"], queue, ph)
+        marks["teacher-forced"] = time.time()
+    serve_mem = torch.cuda.max_memory_allocated()
+    del lp, cache, model
+    if inputs.get("train") is not None:
+        # the train step in the same pool: the serve weights' shards go
+        # first
+        out["train"] = _train_rank(mesh, rules, inputs["train"], route0)
+        marks["train"] = time.time()
+    del inputs
+    return {"coords": mesh.coords, "out": out, "stats": stats,
+            "marks": marks, "pins": seen, "mem": serve_mem}
+
+
+def _wait_ranks(pool, done, world: int) -> None:
+    """Until every rank of ``pool`` has reported in ``done``; a rank that
+    failed raises its error here."""
+    import queue as queue_
+    got = 0
+    while got < world:
+        try:
+            done.get(timeout=5)
+            got += 1
+        except queue_.Empty:
+            if pool.join(timeout=0.1):
+                raise AssertionError("the sharded pool ended early")
+
+
+def serve_sharded(times: dict, ph: ShardPhase, then=()) -> dict:
+    """Phase 10 (qwen3-30b-a3b, ``ph``) and, in the same pool (``then``),
+    10c (deepseek-v2-236b) and 10d (recurrentgemma-9b, xlstm-1.3b,
+    whisper-base): each model at full width, its phase's layers,
+    bf16, seed-0 weights made on the card, sharded over the (2, 8)
+    mesh by 16 ranks on this one card (gloo: NCCL refuses two ranks on one
+    device), one pool for ``ph`` and every model of ``then`` after it,
+    each model's weights handed over by CUDA IPC and dropped after use.
+    The plans take every regime qwen3-30b-a3b has at serve
     shapes: "gqa" attention over a sequence-split cache and the a2a MoE
     (dense and ragged) at the prefill (2 x 512), the split softmax (K3 with
     its log-sum-exp) and the gathered MoE at the 8 decode steps, and the
@@ -4756,28 +4936,96 @@ def serve_sharded(times: dict, ph: ShardPhase) -> dict:
     layered step's 256-token row; deepseek-v2-236b's MLA gathers the
     sequence-split latent for the prefill and the row, splits the softmax
     at decode (K3 with its log-sum-exp at H = Hkv = 128), and its shared
-    experts run column/row-parallel beside the routed ones.  Held against the unsharded port on the same
-    card and weights (decode inputs teacher-forced: the unsharded run's
-    tokens), with every rank's MoE calls pinned to the unsharded run's
+    experts run column/row-parallel beside the routed ones; phase 10d's
+    regimes are at ``RECURRENTGEMMA_SHARD``.  Held against the unsharded
+    port on the same card and weights (decode inputs teacher-forced: the
+    unsharded run's tokens), with every rank's MoE calls pinned to the
+    unsharded run's
     routes (``_pin_route``: at seed-0 random weights the smallest router
     margin over 8 blocks is about 1e-4, the size of the bf16 sums' other
     order over 8 ranks, so unpinned routing parts after a few blocks):
-    every step's logits (and the layered row's output) within
+    every step's logits (and the layered row's output, and whisper's
+    encoder output) within
     ``E2E_REL_FRO``, expert counts equal, greedy tokens equal except at a
     near-tie of the unsharded logits (``NEAR_TIE_ULPS``); and every block
     of the prefills, the first decode step and the layered row, run alone
     on the ranks from the unsharded run's input to it, with its update
     (output less input) within ``BLOCK_TOL`` of the unsharded block's.
-    Per step: K1-K4 launches summed over ranks (every rank must launch
-    each of the path's kernels), the collectives by kind and bytes, and
-    the wall time: 16 processes on one card over gloo, the harness, not
-    a cluster.  The train step of ``ph`` (``sharded_train_reference``)
-    runs in the same ranks after the serve steps."""
+    Per step: the kernels' launches summed over ranks (every rank must
+    launch each of the phase's kernels), the collectives by kind and
+    bytes, and the wall time: 16 processes on one card over gloo, the
+    harness, not a cluster.  The train step of a phase with one
+    (``sharded_train_reference``) runs in the same ranks after its serve
+    steps."""
     import tempfile
     import torch
     import torch.multiprocessing as mp
+    world = SHARD_MESH[0] * SHARD_MESH[1]
+    runs = {}
+    ctx = mp.get_context("spawn")
+    jobs, done = ctx.Queue(), ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        pool = None
+        try:
+            for i, phase in enumerate((ph,) + tuple(then)):
+                job, ref = _shard_reference(times, phase, pool is not None)
+                t_ref = time.perf_counter()
+                t_spawn = time.time()
+                if pool is None:
+                    pool = mp.start_processes(
+                        _shard_rank, args=(world, tmp, jobs, done),
+                        nprocs=world, start_method="spawn", join=False)
+                for _ in range(world):
+                    jobs.put(job)
+                _wait_ranks(pool, done, world)
+                res = [torch.load(f"{tmp}/rank{r}_{i}.pt")
+                       for r in range(world)]
+                t_end = time.time()
+                _phase(f"sharded {phase.arch} 16 ranks"
+                       + (" (start, serve steps and train step)" if not i
+                          else " (serve steps"
+                          + (" and train step)" if phase.train_max_layers
+                             else ")")), t_ref, times)
+                log(f"sharded {phase.arch} pool, seconds from the job (the "
+                    f"last rank): " + json.dumps(
+                        {k: round(max(r["marks"][k] for r in res) - t_spawn,
+                                  1) for k in res[0]["marks"]})
+                    + f", results loaded {t_end - t_spawn:.1f}")
+                del job
+                gc.collect()
+                # the weights the ranks opened by CUDA IPC stay held until
+                # collected: the next model needs their memory
+                torch.cuda.ipc_collect()
+                torch.cuda.empty_cache()
+                runs.update(_check_shard(phase, res, ref)["runs"])
+                del ref, res
+                gc.collect()
+                torch.cuda.ipc_collect()
+                torch.cuda.empty_cache()
+                log(f"sharded {phase.arch}: the card's free memory after it "
+                    f"{torch.cuda.mem_get_info()[0] / 1e9:.2f} GB")
+            for _ in range(world):
+                jobs.put(None)
+            pool.join()
+        finally:
+            if pool is not None:
+                for p_ in pool.processes:
+                    if p_.is_alive():
+                        p_.kill()
+                        p_.join()
+    return {"runs": runs}
+
+
+def _shard_reference(times: dict, ph: ShardPhase,
+                     pool_alive: bool) -> tuple:
+    """The unsharded run of ``ph`` on the card, every MoE call's (input,
+    expert ids) and every block's (input, output) recorded: (the ranks'
+    job, what ``_check_shard`` holds them to); ``pool_alive``: the
+    ranks' contexts are already on the card (``sharded_train_depth``)."""
+    import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels import ops
     from repro_torch.launch import steps
     from repro_torch.models import blocks, moe
     from repro_torch.models.model import DecoderModel
@@ -4787,12 +5035,19 @@ def serve_sharded(times: dict, ph: ShardPhase) -> dict:
     model = DecoderModel(cfg, device="cuda")
     params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
     g = torch.Generator().manual_seed(3)
-    inputs = {"tokens": torch.randint(1, cfg.vocab_size, (SHARD_B, SHARD_S),
+    inputs = {"tokens": torch.randint(1, cfg.vocab_size, (SHARD_B, ph.s),
                                       generator=g)}
+    enc = None
+    if ph.frames:
+        # whisper: each row's seeded frames, encoded at the prefill
+        inputs["frames"] = torch.randn(
+            (SHARD_B, cfg.encoder.n_frames, cfg.d_model),
+            generator=g).to(torch.bfloat16)
+        enc = model.encode(params, inputs["frames"].cuda())
     # the unsharded reference on the card: every MoE call's (input, expert
     # ids) and every block's (input, output), recorded
-    pre = InputShape("prefill", "prefill", SHARD_CACHE, SHARD_B)
-    dec = InputShape("decode", "decode", SHARD_CACHE, SHARD_B)
+    pre = InputShape("prefill", "prefill", ph.cache, SHARD_B)
+    dec = InputShape("decode", "decode", ph.cache, SHARD_B)
     route, pins = moe.route, []
 
     def recorded(*args):
@@ -4821,31 +5076,40 @@ def serve_sharded(times: dict, ph: ShardPhase) -> dict:
         inputs["pins"][key] = list(pins)
         return res
 
-    def forced(key, b, positions, offset, dispatch, first=0):
+    def forced(key, b, positions, offset, dispatch, first=0, enc_out=None):
         """The teacher-forced per-block check's case, from the blocks and
         MoE calls of the run just recorded (from block ``first`` on)."""
         inputs["blocks"][key] = {
             "b": b, "dispatch": dispatch, "positions": positions,
             "offset": offset, "blocks": list(range(first, first + len(io))),
             "x": [x for x, _, _ in io], "pins": [p_ for _, _, p_ in io]}
+        if enc_out is not None:
+            inputs["blocks"][key]["enc"] = enc_out
         per_block[key] = [(x.float().cpu(), y) for x, y, _ in io]
     want, per_block = {}, {}
     inputs["blocks"], inputs["pins"] = {}, {}
     dev = torch.device("cuda")
-    pos_pre = torch.arange(SHARD_S, device=dev)[None].expand(SHARD_B, -1)
+    pos_pre = torch.arange(ph.s, device=dev)[None].expand(SHARD_B, -1)
     zeros = torch.zeros((SHARD_B,), dtype=torch.int32, device=dev)
-    for disp in ("ragged", "dense"):
-        cache = model.init_cache(SHARD_B, SHARD_CACHE)
+    batch = {"tokens": inputs["tokens"].cuda()}
+    if ph.frames:
+        batch["enc_out"] = inputs["frames"].cuda()
+    for disp in ph.dispatches:
+        cache = model.init_cache(SHARD_B, ph.cache)
         step = steps.make_step_fn(model, pre, moe_dispatch=disp,
                                   dropless=True)
         lg, cache, aux = run(f"prefill {disp}", lambda: step(
-            params, cache, {"tokens": inputs["tokens"].cuda()}))
+            params, cache, batch))
         want[f"prefill {disp}"] = (lg.float().cpu(),
                                    aux["expert_counts"].cpu())
-        forced(f"prefill {disp}", SHARD_B, pos_pre, zeros, disp)
+        forced(f"prefill {disp}", SHARD_B, pos_pre, zeros, disp,
+               enc_out=enc)
+    if ph.frames:
+        model.install_cross_kv(params, cache, enc)
+        want["encoder"] = (enc.float().cpu(),)
     dstep = steps.make_step_fn(model, dec, dropless=True)
     tok = want["prefill dense"][0].argmax(-1)[:, None].to(torch.int32)
-    off = torch.full((SHARD_B,), SHARD_S, dtype=torch.int32)
+    off = torch.full((SHARD_B,), ph.s, dtype=torch.int32)
     inputs["decode"], inputs["offsets"] = [], []
     for i in range(SHARD_DECODES):
         inputs["decode"].append(tok)
@@ -4860,12 +5124,21 @@ def serve_sharded(times: dict, ph: ShardPhase) -> dict:
         off = off + 1
     inputs["layered_tokens"], inputs["layered_offsets"] = tok, off
     inputs["valid"] = torch.tensor([False, True])
-    inputs["hidden"] = (torch.randn((1, SHARD_P, cfg.d_model), generator=g)
-                        .to(torch.bfloat16))
+    # the row's carry into its first layer group (block 0): the embedded
+    # prompt, as the engine gives it (a unit-scale random carry lies far
+    # from a residual: an mLSTM block's update is 4e-4 of it, below its
+    # bf16 step, so the teacher-forced update measures rounding)
+    row_tokens = torch.randint(1, cfg.vocab_size, (1, SHARD_P), generator=g)
+    inputs["hidden"] = model.embed(
+        params, row_tokens.cuda(),
+        positions=torch.arange(SHARD_P, device=dev)[None]).cpu()
     lstep = steps.make_layered_step_fn(model, group=ph.group,
                                        prefill_len=SHARD_P,
                                        global_batch=SHARD_B,
-                                       cache_len=SHARD_CACHE, dropless=True)
+                                       cache_len=ph.cache, dropless=True)
+    # slot 0's row as the row's prefill finds it (the step's decode part
+    # masks slot 0): recurrent state carries the decodes before it
+    row0 = ops.tree_map(lambda a: a[:, :1].clone(), cache)
     lg, h_out, cache, aux = run("layered", lambda: lstep(params, cache, {
         "tokens": tok.cuda(), "offsets": off.cuda(),
         "valid": inputs["valid"].cuda(), "hidden": inputs["hidden"].cuda()}))
@@ -4874,37 +5147,30 @@ def serve_sharded(times: dict, ph: ShardPhase) -> dict:
     forced("layered row", 1, torch.arange(SHARD_P, device=dev)[None],
            torch.zeros((1,), dtype=torch.int32, device=dev), "dense",
            first=ph.group[0])
+    inputs["blocks"]["layered row"]["row"] = row0
     want["layered"] = (lg.float().cpu(), aux["expert_counts"].cpu(),
                        h_out.float().cpu(),
                        aux["prefill_expert_counts"].cpu())
-    del cache
+    del cache, enc
     torch.cuda.synchronize()
-    t_ref = _phase(f"sharded {ph.arch} reference", t0, times)
-    inputs["train"] = tin = sharded_train_reference(times, ph)
-    t_ref = time.perf_counter()
-    world = SHARD_MESH[0] * SHARD_MESH[1]
-    t_spawn = time.time()
-    with tempfile.TemporaryDirectory() as tmp:
-        mp.start_processes(_shard_rank,
-                           args=(world, tmp, [params, inputs], cfg, ph.group),
-                           nprocs=world, start_method="spawn")
-        res = [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
-    t_end = time.time()
-    _phase(f"sharded {ph.arch} 16 ranks (serve steps and train step)",
-           t_ref, times)
-    log(f"sharded {ph.arch} pool, seconds from the spawn (the last rank): "
-        + json.dumps({k: round(max(r["marks"][k] for r in res) - t_spawn, 1)
-                      for k in res[0]["marks"]})
-        + f", results loaded {t_end - t_spawn:.1f}")
-    train_run = check_sharded_train([r["out"]["train"] for r in res], tin)
-    del params, inputs, tin
-    gc.collect()
-    # the weights the ranks opened by CUDA IPC stay held until collected:
-    # the next pool needs their memory
-    torch.cuda.ipc_collect()
-    torch.cuda.empty_cache()
-    log(f"sharded {ph.arch}: the card's free memory after the pool "
-        f"{torch.cuda.mem_get_info()[0] / 1e9:.2f} GB")
+    _phase(f"sharded {ph.arch} reference", t0, times)
+    inputs["train"] = tin = (sharded_train_reference(times, ph, pool_alive)
+                             if ph.train_max_layers else None)
+    return ({"ph": ph, "cfg": cfg, "params": params, "inputs": inputs},
+            {"want": want, "per_block": per_block, "tin": tin,
+             "total": total})
+
+
+def _check_shard(ph: ShardPhase, res: list, ref: dict) -> dict:
+    """``ph``'s ranks' results (``_shard_job``) against the unsharded run
+    (``_shard_reference``): the gates of ``serve_sharded``; logs each
+    step's launches, collectives and wall time."""
+    import torch
+    want, per_block, tin = ref["want"], ref["per_block"], ref["tin"]
+    total = ref["total"]
+    world = len(res)
+    train_run = (check_sharded_train([r["out"]["train"] for r in res], tin)
+                 if tin is not None else {})
     bad = []
     near = max(r["pins"]["near"] for r in res)
     apart = min(r["pins"]["apart"] for r in res)
@@ -4924,12 +5190,13 @@ def serve_sharded(times: dict, ph: ShardPhase) -> dict:
              for key in want}
     pairs["layered h_out"] = (torch.cat([h for _, h in h_parts], dim=1)[0],
                               want["layered"][2][0])
+    whole_only = {"layered h_out", "encoder"}
     report, n_tokens, parted = {}, 0, 0
     for key, (got, ref_) in pairs.items():
         rel = ((got - ref_).norm() / ref_.norm()).item()
         rep = {"rel_fro": rel}
         ok = bool(torch.isfinite(got).all()) and rel <= E2E_REL_FRO
-        if key != "layered h_out":
+        if key not in whole_only:
             a, b_ = got.argmax(-1), ref_.argmax(-1)
             top2 = ref_.topk(2, dim=-1).values
             gaps = [(float(top2[i, 0] - top2[i, 1])
@@ -4997,11 +5264,16 @@ def serve_sharded(times: dict, ph: ShardPhase) -> dict:
             f"{world} "
             f"ranks); collectives {json.dumps(coll)}; wall {wall:.3f} s")
         launches.update(per)
-    for k in SHARD_KERNELS:
-        for r in res:
+    for r in res:
+        for k in ph.kernels:
             if not sum(st["launches"][k] for st in r["stats"]):
                 raise AssertionError(f"rank {r['coords']}: {k} never "
                                      "launched in the sharded phase")
+        others = {k: sum(st["launches"][k] for st in r["stats"])
+                  for k in r["stats"][0]["launches"] if k not in ph.kernels}
+        if any(others.values()):
+            raise AssertionError(f"rank {r['coords']}: kernels off the "
+                                 f"phase's path launched: {others}")
     log(f"sharded {ph.arch} ({ph.layers} of {total} layers, mesh "
         f"{SHARD_MESH}, {world} ranks on one card over gloo): against the "
         f"unsharded port, routes pinned: logits of {len(want)} steps within "
@@ -5022,7 +5294,9 @@ def serve_sharded(times: dict, ph: ShardPhase) -> dict:
 
 DRYRUNS = (("qwen3-moe-235b-a22b", "prefill_32k", False),
            ("qwen3-moe-235b-a22b", "decode_32k", True),
-           ("qwen3-30b-a3b", "train_4k", False))
+           ("qwen3-30b-a3b", "train_4k", False),
+           ("recurrentgemma-9b", "long_500k", False),
+           ("whisper-base", "prefill_32k", True))
 
 
 def start_dryruns() -> list:
@@ -5060,7 +5334,7 @@ def finish_dryruns(procs: list, times: dict, t0: float) -> list:
                     raise AssertionError(f"dry-run {arch} {shape}: {rec}")
                 recs.append(rec)
                 log("dry-run " + line[len("[dryrun] json "):])
-    _phase("dry-runs (beside phases 4-10c)", t0, times)
+    _phase("dry-runs (beside phases 4-10d)", t0, times)
     return recs
 
 
@@ -5069,6 +5343,11 @@ def model_of(row: str) -> str:
     come from."""
     for key, arch in (("deepseek sharded train",
                        "deepseek-v2-236b sharded train"),
+                      ("recurrentgemma sharded", "recurrentgemma-9b sharded"),
+                      ("whisper sharded train", "whisper-base sharded train"),
+                      ("whisper sharded cross train",
+                       "whisper-base sharded train"),
+                      ("whisper sharded", "whisper-base sharded"),
                       ("deepseek sharded", "deepseek-v2-236b sharded"),
                       ("sharded train", "qwen3-30b-a3b sharded train"),
                       ("sharded", "qwen3-30b-a3b sharded"),
@@ -5366,6 +5645,49 @@ def main() -> None:
                                            ds["train_rows"], TRAIN_SHARD_S,
                                            ds["heads"])
     torch.cuda.empty_cache()
+    # phase 10d's shapes on each rank (``phase10d_shapes``):
+    # recurrentgemma-9b's local attention, K2 under the window over the
+    # gathered 4096-row cache (a rank's 2 of 16 heads, its row of the
+    # 2816-token prefill) and over a 512-position slice (the layered row,
+    # all 16 heads, with its log-sum-exp); K3 with its log-sum-exp under
+    # the window over the slices, rows at 2817 and 2824 (slice 0 before
+    # the window's edge, slice 1 cut by it); whisper-base on a rank's one
+    # head: K2 non-causal over 1500 frames (the encoder) and for its row
+    # of the cross prefill, K3 over the cross cache, K2 and its backward
+    # at the training step's rows (self-attention and cross-attention)
+    sh = phase10d_shapes()
+    kernels += [check_prefill_attention(
+                    "recurrentgemma sharded prefill", gen, b=sh["rows"],
+                    p=RECURRENTGEMMA_SHARD.s, s_max=RECURRENTGEMMA_SHARD.cache,
+                    heads=sh["rg_heads"], window=2048),
+                check_decode_lse(gen, "recurrentgemma", RECURRENTGEMMA_ATTN,
+                                 rows=(RECURRENTGEMMA_SHARD.s + 1,
+                                       RECURRENTGEMMA_SHARD.s + SHARD_DECODES),
+                                 out_tol=ATTN_TOL, s_max=4096,
+                                 len_range=(2100, 4097),
+                                 cache=RECURRENTGEMMA_SHARD.cache,
+                                 slice_len=sh["rg_slice"], window=2048)]
+    kernels += check_prefill_attention_bwd(
+        "recurrentgemma sharded layered", gen, 1, SHARD_P,
+        RECURRENTGEMMA_ATTN, window=2048, s_max=sh["rg_slice"])[:1]
+    torch.cuda.empty_cache()
+    kernels += [check_prefill_attention("whisper sharded encoder", gen, b=sh["rows"],
+                                        p=WHISPER_FRAMES, s_max=WHISPER_FRAMES,
+                                        heads=sh["wh_heads"], causal=False),
+                check_prefill_attention("whisper sharded cross prefill", gen,
+                                        b=sh["rows"], p=SHARD_S,
+                                        s_max=WHISPER_FRAMES,
+                                        heads=sh["wh_heads"], causal=False),
+                check_decode_attention(gen, "whisper sharded cross decode",
+                                       b=sh["rows"], s_max=WHISPER_FRAMES,
+                                       heads=sh["wh_heads"], full=True)]
+    kernels += check_prefill_attention_bwd("whisper sharded train", gen,
+                                           sh["train_rows"], TRAIN_SHARD_S,
+                                           sh["wh_heads"])
+    kernels += check_prefill_attention_bwd(
+        "whisper sharded cross train", gen, sh["train_rows"], TRAIN_SHARD_S,
+        sh["wh_heads"], s_max=WHISPER_FRAMES, causal=False)
+    torch.cuda.empty_cache()
     digest = k2_bwd_digest()
     log(f"prefill_attention_bwd at (64, 64) and (128, 128): gradients sha256 "
         f"{digest} (pinned: {K2_BWD_SHA256})")
@@ -5394,7 +5716,7 @@ def main() -> None:
                          "checks; no result")
 
     # the dry-runs use the host only: they start beside the serves, which
-    # each keep one core busy, and are read after phase 10c
+    # each keep one core busy, and are read after phase 10d
     t_dry = time.perf_counter()
     dry_procs = start_dryruns()
     try:
@@ -5421,10 +5743,11 @@ def main() -> None:
         train = train_models(times)
         gc.collect()
         torch.cuda.empty_cache()
-        sharded = serve_sharded(times, QWEN3_SHARD)
-        gc.collect()
-        torch.cuda.empty_cache()
-        sharded_mla = serve_sharded(times, DEEPSEEK_SHARD)
+        # phases 10, 10b, 10c and 10d: one pool of 16 ranks, one model
+        # after the other
+        sharded = serve_sharded(times, QWEN3_SHARD, then=(
+            DEEPSEEK_SHARD, RECURRENTGEMMA_SHARD, XLSTM_SHARD,
+            WHISPER_SHARD))
         dry = finish_dryruns(dry_procs, times, t_dry)
     finally:
         for _, _, proc in dry_procs:
@@ -5433,7 +5756,7 @@ def main() -> None:
                 proc.wait()
     runs = {**qwen["runs"], **oss["runs"], **large["runs"], **dense["runs"],
             **recurrent["runs"], **whisper["runs"], **vl["runs"], **train,
-            **sharded["runs"], **sharded_mla["runs"]}
+            **sharded["runs"]}
     # each kernel row's launches: the sum over its own model's serves,
     # each counted from 0 just before it and read just after
     launches, iters = {}, collections.Counter()

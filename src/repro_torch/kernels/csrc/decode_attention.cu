@@ -17,7 +17,13 @@
 // Query head h reads
 // kv head h % Hkv (g-major grouping).  ``length`` is clamped to S_max: an
 // idle slot of the engine's full-pool decode step may carry a stale offset
-// equal to max_len.  A query that sees no key outputs 0.
+// equal to max_len, and a rank's slice of a sequence-split cache passes
+// the query's position relative to the slice, past S_max where the query
+// lies beyond it.  The window counts back from that unclamped length, so
+// the query sees keys [max(0, length - window), min(length, S_max)): a
+// slice wholly before the window sees none, one cut by it sees its keys
+// from the window's edge on.  A query that sees no key outputs 0 (and
+// -inf as its log-sum-exp).
 //
 // Bound on an H100 SXM (3.35 TB/s): the valid K and V rows must be read
 // once, 2 * Hkv * hd * 2 B = 2 KB per cached token at qwen3-30b-a3b (Hkv 4,

@@ -472,7 +472,9 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     of ``DECODE_WIDE_DIMS``.  ``return_lse``: also each query's natural-
     log log-sum-exp (B, H) fp32 (-inf where it sees no key), the kernel's
     optional output, which the serve paths never ask for: ``(out,
-    lse)``."""
+    lse)``.  A length past S_max puts the query beyond the cache (a
+    rank's slice of a sequence-split one): it sees keys ``[max(0, length
+    - window), min(length, S_max))``, none where that range is empty."""
     b, h, dk = q.shape
     _check_kv("decode_attention", q, k_cache, v_cache)
     if lengths.shape != (b,):

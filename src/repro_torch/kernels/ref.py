@@ -131,7 +131,9 @@ def decode_attention_ref(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     Hkv, hd) and v (B, S_max, Hkv, hd_v), lengths (B,) valid entries
     INCLUDING the new token's K/V -> (B, H, hd_v).  The
     query sits at position ``length - 1``; with a window it sees keys
-    ``>= length - window``."""
+    ``>= length - window``.  A length past S_max (the query beyond a
+    slice of the cache) sees ``[max(0, length - window), S_max)``; a
+    query that sees no key outputs 0."""
     s_max = k_cache.shape[1]
     ln = lengths.to(device=q.device, dtype=torch.int64)
     kv_pos = torch.arange(s_max, device=q.device)
@@ -145,8 +147,9 @@ def decode_attention_lse_ref(q: Tensor, k_cache: Tensor, lengths: Tensor, *,
                              window: Optional[int] = None) -> Tensor:
     """(B, H) fp32: the natural-log log-sum-exp of each query's scaled
     scores over the keys ``decode_attention_ref`` lets it see (``j <
-    length``, with a window ``j >= length - window``); -inf for a query
-    that sees none (length 0)."""
+    min(length, S_max)``, with a window ``j >= length - window``); -inf
+    for a query that sees none (length 0, or a window that ends before
+    the cache starts)."""
     s_max = k_cache.shape[1]
     ln = lengths.to(device=q.device, dtype=torch.int64)
     kv_pos = torch.arange(s_max, device=q.device)

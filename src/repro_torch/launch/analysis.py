@@ -14,7 +14,9 @@ The numbers come from tracing rank 0's step on fake tensors
 
 - flops: ``torch.utils.flop_counter.FlopCounterMode`` over the aten ops,
   with the formulas below for the kernels' custom ops (K1-K4 and the
-  backward kernels of K2 and K4, as ``kernels/ops.py`` registers them);
+  backward kernels of K2 and K4, as ``kernels/ops.py`` registers them)
+  and for the xLSTM recurrences, which the dry-run traces as one op each
+  (``one_op_recurrences``);
 - bytes: each op's operands and results summed on rank 0, unfused (every
   elementwise op counts its own reads and writes; a fused program moves
   less); views move nothing, a gather the rows it reads, an in-place
@@ -28,9 +30,10 @@ The numbers come from tracing rank 0's step on fake tensors
 
 from __future__ import annotations
 
+import contextlib
 import weakref
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -38,6 +41,9 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ops  # noqa: F401  (registers K1-K4's ops)
+from repro_torch.models import xlstm
+
+Tensor = torch.Tensor
 
 PEAK_FLOPS = 989e12         # bf16 dense / H100 SXM (datasheet)
 HBM_BW = 3.35e12            # bytes/s / H100 SXM HBM3 (datasheet)
@@ -61,11 +67,16 @@ def _moe_gmm_ragged_flops(rows_shape, wg_shape, wu_shape, wd_shape,
     return 2 * rows_shape[0] * rows_shape[1] * wg_shape[-1] * 3
 
 
-def _pairs(p: int, s_max: int, causal: bool) -> int:
+def _pairs(p: int, s_max: int, causal: bool, window: int = 0) -> int:
     """Query-key pairs of a prefill call from offset 0 (the dry-run's
-    prefill); a causal call over a longer cache counts every key."""
+    prefill); a causal call over a longer cache counts every key; a
+    window bounds the keys of each query."""
     if causal and p == s_max:
+        if window and window < p:
+            return window * (window + 1) // 2 + (p - window) * window
         return p * (p + 1) // 2
+    if causal and window:
+        return p * min(s_max, window)
     return p * s_max
 
 
@@ -73,14 +84,16 @@ def _pairs(p: int, s_max: int, causal: bool) -> int:
 def _prefill_flops(q_shape, k_shape, v_shape, off_shape, window, causal,
                    want_lse, *args, out_shape=None, **kw) -> int:
     b, p, h, dk = q_shape
-    return 2 * b * h * _pairs(p, k_shape[1], causal) * (dk + v_shape[3])
+    return 2 * b * h * _pairs(p, k_shape[1], causal, window) * (
+        dk + v_shape[3])
 
 
 @register_flop_formula(torch.ops.repro_torch.decode_attention)
 def _decode_flops(q_shape, k_shape, v_shape, len_shape, window, want_lse,
                   *args, out_shape=None, **kw) -> int:
     b, h, dk = q_shape
-    return 2 * b * h * k_shape[1] * (dk + v_shape[3])
+    keys = min(k_shape[1], window) if window else k_shape[1]
+    return 2 * b * h * keys * (dk + v_shape[3])
 
 
 @register_flop_formula(torch.ops.repro_torch.prefill_attention_bwd)
@@ -90,8 +103,8 @@ def _prefill_bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape,
     # five products a query-key pair: S = Q K^T again, dP = dO V^T,
     # dV += P^T dO, dQ += dS K, dK += dS^T Q
     b, p, h, dk = q_shape
-    return 2 * b * h * _pairs(p, k_shape[1], causal) * (3 * dk
-                                                        + 2 * v_shape[3])
+    return 2 * b * h * _pairs(p, k_shape[1], causal, window) * (
+        3 * dk + 2 * v_shape[3])
 
 
 @register_flop_formula(torch.ops.repro_torch.moe_gmm_bwd)
@@ -101,6 +114,149 @@ def _moe_gmm_bwd_flops(x_shape, wg_shape, wu_shape, wd_shape, dy_shape,
     # dWd = H^T dY, dX from dG and dU, dWg, dWu
     e, c, d = x_shape
     return 2 * e * c * d * wg_shape[-1] * 8
+
+
+# ------------------------------------------- the recurrences as one op each
+# ``models/xlstm.py`` runs sLSTM's S steps and the chunkwise mLSTM's S/128
+# chunks as Python loops.  On fake tensors every op of them costs a
+# dispatch (xlstm-1.3b's ``train_4k`` traced in 318 s as loops, 17 s as one
+# op each), so the dry-run swaps each loop for one op with a backward op
+# (``one_op_recurrences``): shapes propagate, flops are the formulas below,
+# bytes are the op's inputs and outputs (as one fused scan would move),
+# and the backward's working memory is not seen.  Their real
+# implementations refuse: real tensors never reach them.
+
+
+def _all_valid(like: Tensor, valid: Optional[Tensor]) -> Tensor:
+    return valid.bool() if valid is not None else torch.ones(
+        like.shape[:2], dtype=torch.bool, device=like.device)
+
+
+def _slstm_shapes(wx, r, c, n, h, m, valid):
+    b, s, _ = wx.shape
+    return [wx.new_empty((b, s, c.shape[-1]))] + [
+        torch.empty_like(t) for t in (c, n, h, m)]
+
+
+def _mlstm_shapes(q, k, v, log_i, log_f, C, n, m, valid):
+    return [torch.empty_like(t) for t in (C, n, m, q)]
+
+
+# each op's outputs from its inputs: sLSTM (hs, c, n, h, m) from (wx, r,
+# c, n, h, m, valid); mLSTM (C, n, m, h) from (q, k, v, log_i, log_f, C,
+# n, m, valid)
+_ONE_OP = {"slstm_scan": _slstm_shapes, "mlstm_chunkwise": _mlstm_shapes}
+
+
+def _define(name: str) -> None:
+    shapes = _ONE_OP[name]
+
+    @torch.library.custom_op(f"repro_torch::{name}", mutates_args=())
+    def fwd(xs: List[Tensor]) -> List[Tensor]:
+        raise RuntimeError(f"repro_torch::{name} is traced on fake "
+                           "tensors only")
+
+    @fwd.register_fake
+    def _(xs):
+        return shapes(*xs)
+
+    @torch.library.custom_op(f"repro_torch::{name}_bwd", mutates_args=())
+    def bwd(xs: List[Tensor], gs: List[Tensor]) -> List[Tensor]:
+        raise RuntimeError(f"repro_torch::{name}_bwd is traced on fake "
+                           "tensors only")
+
+    @bwd.register_fake
+    def _(xs, gs):
+        return [torch.empty_like(x) for x in xs]
+
+
+for _name in _ONE_OP:
+    _define(_name)
+
+
+class _OneOp(torch.autograd.Function):
+    """A recurrence's op with its backward op, so that the dry-run's train
+    step traces the backward too."""
+
+    @staticmethod
+    def forward(ctx, name, *xs):
+        ctx.name = name
+        ctx.save_for_backward(*xs)
+        return tuple(getattr(torch.ops.repro_torch, name)(list(xs)))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        xs = ctx.saved_tensors
+        outs = _ONE_OP[ctx.name](*xs)
+        gs = [torch.zeros_like(o) if g is None else g
+              for o, g in zip(outs, gs)]
+        grads = getattr(torch.ops.repro_torch, ctx.name + "_bwd")(
+            list(xs), gs)
+        return (None,) + tuple(
+            g if x.is_floating_point() else None for x, g in zip(xs, grads))
+
+
+def _slstm_one_op(wx, r, state, valid):
+    hs, *st = _OneOp.apply("slstm_scan", wx, r, *state,
+                           _all_valid(wx, valid))
+    return tuple(st), hs
+
+
+def _mlstm_one_op(q, k, v, log_i, log_f, state, valid=None):
+    *st, h = _OneOp.apply("mlstm_chunkwise", q, k, v, log_i, log_f, *state,
+                          _all_valid(q, valid))
+    return tuple(st), h
+
+
+@contextlib.contextmanager
+def one_op_recurrences():
+    """Within it, ``models/xlstm.py``'s ``slstm_scan`` and
+    ``mlstm_chunkwise`` are one op each (for fake tensors only)."""
+    saved = xlstm.slstm_scan, xlstm.mlstm_chunkwise
+    xlstm.slstm_scan, xlstm.mlstm_chunkwise = _slstm_one_op, _mlstm_one_op
+    try:
+        yield
+    finally:
+        xlstm.slstm_scan, xlstm.mlstm_chunkwise = saved
+
+
+def _slstm_flops(xs_shapes) -> int:
+    """sLSTM's recurrent product of every step: h (B, H, dh) by the four
+    gates' (H, dh, dh) weights (no elementwise op is counted, as
+    FlopCounterMode counts none)."""
+    (b, s, _), (g, hh, dh, _) = xs_shapes[0], xs_shapes[1]
+    return 2 * b * s * g * hh * dh * dh
+
+
+def _mlstm_flops(xs_shapes) -> int:
+    """The chunkwise mLSTM's products: within each chunk of W steps the
+    scores and their values (2 W^2 dk a head each), and across chunks the
+    carried state's read and update (2 W dk^2 each)."""
+    b, s, hh, dk = xs_shapes[0]
+    return 4 * b * s * hh * dk * (xlstm.CHUNK_W + dk)
+
+
+@register_flop_formula(torch.ops.repro_torch.slstm_scan)
+def _slstm_scan_flops(xs_shapes, *args, out_shape=None, **kw) -> int:
+    return _slstm_flops(xs_shapes)
+
+
+@register_flop_formula(torch.ops.repro_torch.slstm_scan_bwd)
+def _slstm_scan_bwd_flops(xs_shapes, gs_shapes, *args, out_shape=None,
+                          **kw) -> int:
+    # the forward recomputed, then the two transposed products
+    return 3 * _slstm_flops(xs_shapes)
+
+
+@register_flop_formula(torch.ops.repro_torch.mlstm_chunkwise)
+def _mlstm_chunkwise_flops(xs_shapes, *args, out_shape=None, **kw) -> int:
+    return _mlstm_flops(xs_shapes)
+
+
+@register_flop_formula(torch.ops.repro_torch.mlstm_chunkwise_bwd)
+def _mlstm_chunkwise_bwd_flops(xs_shapes, gs_shapes, *args, out_shape=None,
+                               **kw) -> int:
+    return 3 * _mlstm_flops(xs_shapes)
 
 
 # ---------------------------------------------------------------- bytes

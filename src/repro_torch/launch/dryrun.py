@@ -18,14 +18,18 @@ traced.  Collectives run against the fake group and are recorded
 (``sharding/collectives.RECORD``); flops, bytes and peak memory are
 ``launch/analysis.py``'s.
 
-This slice shards the paper's family (GQA attention with a dense MLP or
-routed experts) and deepseek-v2-236b (multi-head latent attention, shared
-experts) at the serve shapes and at ``train_4k``: the train step's
-forward and backward (remat per block, K2's and K4's backward kernels as
-custom ops) and its ZeRO-1 AdamW update over fake shards of the
-parameters and the moments; the recurrent mixers and whisper are written
-as skipped, with the ROADMAP.md item that ports them.  The process group
-is torn down before returning, unless the caller set one up itself.
+Every registry config shards, at the serve shapes and at ``train_4k``:
+the train step's forward and backward (remat per block, K2's and K4's
+backward kernels as custom ops) and its ZeRO-1 AdamW update over fake
+shards of the parameters and the moments.  Only the ``long_500k``
+combinations that ``applicable`` refuses (full attention at 524k
+positions) are written as skipped.  The sLSTM and chunkwise mLSTM
+recurrences trace as one op each (``analysis.one_op_recurrences``): their
+bytes are their inputs and outputs, as one fused scan would move, and
+their backward's working memory is not seen.  ``flops_by_op`` gives each
+op's share of the flops.
+The process group is torn down before returning, unless the caller set
+one up itself.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-34b \\
@@ -52,7 +56,6 @@ from repro_torch.launch.mesh import make_production_mesh, production_shape
 from repro_torch.launch.steps import make_step_fn
 from repro_torch.models.model import DecoderModel
 from repro_torch.sharding import collectives as col
-from repro_torch.sharding.spmd import unported
 from repro_torch.sharding.partition import (cache_specs, default_rules,
                                             local_shape, map_with_specs,
                                             param_specs, sharding_context)
@@ -99,7 +102,7 @@ def trace_step(cfg, shape, mesh, device: str) -> dict:
     if train:
         with sharding_context(mesh, rules):
             plan = train_plan(model)
-    with FakeTensorMode():
+    with FakeTensorMode(), analysis.one_op_recurrences():
         def local(x, spec):
             return torch.empty(local_shape(tuple(x.shape), spec, mesh),
                                dtype=x.dtype, device=device)
@@ -128,7 +131,9 @@ def trace_step(cfg, shape, mesh, device: str) -> dict:
             with sharding_context(mesh, rules):
                 out = step(params, state, batch)
             del out
-        rec = {"flops": float(fc.get_total_flops()),
+        by_op = {str(k): float(v)
+                 for k, v in fc.get_flop_counts()["Global"].items()}
+        rec = {"flops": float(fc.get_total_flops()), "flops_by_op": by_op,
                "bytes": float(cost.bytes), "coll": col.record_totals(),
                "peak": float(cost.peak), "param_bytes": param_bytes}
         rec["moment_bytes" if train else "cache_bytes"] = state_bytes
@@ -153,11 +158,6 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     mesh_name = "2x16x16" if multi_pod else "16x16"
     head = {"arch": arch, "shape": shape_name, "mesh": mesh_name}
     ok, reason = applicable(cfg, shape)
-    if ok:
-        gaps = [g for g in (unported(cfg, sp) for sp in cfg.block_specs())
-                if g]
-        if gaps:
-            ok, reason = False, gaps[0]
     if not ok:
         if verbose:
             print(f"[dryrun] {arch} x {shape_name} x {mesh_name}: skipped "
@@ -186,6 +186,7 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         peak_memory_per_device=m["peak"])
     out = {**head, "status": "ok", "device": f"fake {device}",
            "compile_s": trace_s, **rep.to_dict(),
+           "flops_by_op": m["flops_by_op"],
            "param_bytes_per_device": m["param_bytes"],
            **({"moment_bytes_per_device": m["moment_bytes"]}
               if "moment_bytes" in m else

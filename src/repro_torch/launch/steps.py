@@ -3,6 +3,9 @@
 
   train   : (params, opt_state, batch) -> (params, opt_state, metrics)
   prefill : (params, cache, batch) -> (last_logits, cache, aux)
+            (whisper's ``batch["enc_out"]`` holds the frames: encoded
+            first, as JAX's step does; the cross K/V are not written to
+            the cache, which ``precompute_cross_kv`` fills)
   decode  : (params, cache, batch) -> (logits, cache, aux)
   layered : (params, cache, batch) -> (logits, h_out, cache, aux)
 
@@ -61,13 +64,14 @@ def make_step_fn(model: DecoderModel, shape: InputShape,
     if shape.kind == "prefill":
         def prefill_step(params, cache, batch):
             tokens = batch["tokens"]
-            if batch.get("enc_out") is not None:
-                raise NotImplementedError("sharded encoder-decoder steps "
-                                          "are a later slice")
             offset = torch.zeros((tokens.shape[0],), dtype=torch.int32,
                                  device=tokens.device)
+            # whisper: the frames through the encoder, as JAX's step does
+            frames = batch.get("enc_out")
+            enc_out = (model.encode(params, frames, global_batch=gb)
+                       if frames is not None else None)
             logits, cache, aux = model.forward(
-                params, tokens, cache=cache, offset=offset,
+                params, tokens, cache=cache, offset=offset, enc_out=enc_out,
                 extra_embeds=batch.get("extra_embeds"),
                 moe_dispatch=moe_dispatch, dropless=dropless, last_only=True,
                 global_batch=gb, cache_len=cache_len)

@@ -47,7 +47,11 @@ partial (o, lse) are merged in fp32; no rank reads another's cache.
 ``apply_mla`` does the same over MLA's latent (``_apply_mla_sharded``):
 the compressions whole on every rank, the decompressions for the rank's
 heads only, the latent gathered for several new tokens and the softmax
-split for one.
+split for one.  A local block's window reaches every sharded kernel call
+(over a slice, the query's position relative to the slice is passed
+unclamped, so the window's edge stays put); the encoder's self-attention
+runs with ``causal=False``; whisper's cross-attention runs on the rank's
+heads (``_cross_attn_sharded``) over the cross K/V in the cache's layout.
 """
 
 from __future__ import annotations
@@ -186,7 +190,8 @@ def apply_gqa(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
     if lay is not None:
         return _apply_gqa_sharded(cfg, spec, p, x, positions=positions,
                                   offset=offset, cache=cache, valid=valid,
-                                  positions3=positions3, lay=lay)
+                                  positions3=positions3, causal=causal,
+                                  lay=lay)
     b, s, _ = x.shape
     hd = cfg.head_dim_
     q = (x @ p["w_q"]).reshape(b, s, cfg.n_heads, hd)
@@ -275,7 +280,8 @@ def _head_cols(heads, hd: int) -> Tuple[int, ...]:
     return tuple(h * hd + c for h in heads for c in range(hd))
 
 
-def _head_sets(cfg: ModelConfig, n: int, plan, mode: str, out_sets):
+def _head_sets(cfg: ModelConfig, n: int, plan, mode: str, out_sets,
+               whole_kv: bool = False):
     """Per rank r of ``n`` over ``model``: (query heads, kv heads) it
     attends with, ordered so its local query head l reads its local kv
     head ``l % len(kv heads)`` (the kernels' g-major grouping).
@@ -284,9 +290,13 @@ def _head_sets(cfg: ModelConfig, n: int, plan, mode: str, out_sets):
       head (the block starts at a multiple of Hkv);
     - kv heads split over ``model``: its Hkv/n kv heads and the g query
       heads of each, h = gi * Hkv + kv (strided, gi-major);
-    - otherwise (kv heads whole): every kv head, and the query heads that
-      the rank's ``w_o`` rows ``out_sets[r]`` cover, widened to whole
-      groups of Hkv (a few heads are computed on two ranks)."""
+    - otherwise (kv heads whole): the query heads that the rank's ``w_o``
+      rows ``out_sets[r]`` cover (a head cut between two ranks is computed
+      on both), over the kv head each reads where they are at most Hkv
+      and ``whole_kv`` is off (g 1: whisper's 8 heads on 16 ranks take one
+      head a rank), else widened to whole groups of Hkv over every kv
+      head in order.  ``whole_kv`` is for a whole cache that the call
+      writes and reads: every rank keeps every kv head of it."""
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     g = h // hkv
     sets = []
@@ -300,8 +310,12 @@ def _head_sets(cfg: ModelConfig, n: int, plan, mode: str, out_sets):
             q = [gi * hkv + k for gi in range(g) for k in kv]
         else:
             h0, h1 = min(out_sets[r]) // hd, max(out_sets[r]) // hd + 1
-            q = range(h0 // hkv * hkv, -(-h1 // hkv) * hkv)
-            kv = range(hkv)
+            if h1 - h0 <= hkv and not whole_kv:
+                q = range(h0, h1)
+                kv = [hq % hkv for hq in q]
+            else:
+                q = range(h0 // hkv * hkv, -(-h1 // hkv) * hkv)
+                kv = range(hkv)
         sets.append((tuple(q), tuple(kv)))
     return sets
 
@@ -336,10 +350,13 @@ def _write_slice(buf: Tensor, new: Tensor, offset: Tensor, lo: int,
 def _apply_gqa_sharded(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
                        positions: Tensor, offset: Optional[Tensor],
                        cache: Optional[dict], valid: Optional[Tensor],
-                       positions3: Optional[Tensor], lay: spmd.Layout):
+                       positions3: Optional[Tensor], lay: spmd.Layout,
+                       causal: bool = True):
     """``apply_gqa`` on this rank's shards: x (B_local, S_local, D) in the
     residual layout; positions, valid (B_local, S) at every position;
-    the cache's leaves this rank's block (``cache_specs``)."""
+    the cache's leaves this rank's block (``cache_specs``).  The window of
+    ``spec`` reaches every kernel call, over a gathered cache and over a
+    slice alike; ``causal=False`` is the encoder's self-attention."""
     mesh, rules = active_context()
     tp = rules.get("tp")
     n, j = mesh.size(tp), mesh.index(tp)
@@ -368,13 +385,17 @@ def _apply_gqa_sharded(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
         if cfg.pos_emb in ("rope", "rope_partial"):
             pct = cfg.rotary_pct if cfg.pos_emb == "rope_partial" else 1.0
             return layers.apply_rope(t, positions, cfg.rope_theta, pct)
+        if cfg.pos_emb in ("learned", "none"):
+            return t            # learned positions enter at the embedding
         raise NotImplementedError(f"sharded pos_emb {cfg.pos_emb!r}")
 
     if plan is None and mode == "seq":
         out = _split_softmax(mesh, rules, cfg, qc, kc, vc, q_src, k_src,
-                             o_sets, rope, offset, cache, valid, lay)
+                             o_sets, rope, offset, cache, valid, lay,
+                             spec.window)
     else:
-        sets = _head_sets(cfg, n, plan, mode, o_sets)
+        sets = _head_sets(cfg, n, plan, mode, o_sets,
+                          whole_kv=cache is not None and mode == "rep")
         qh, kvh = sets[j]
         q = spmd.regroup(mesh, tp, qc, q_src,
                          [_head_cols(qs, hd) for qs, _ in sets])
@@ -396,7 +417,8 @@ def _apply_gqa_sharded(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
         else:
             kb = _write_cache(cache["k"], k, offset, valid)
             vb = _write_cache(cache["v"], v, offset, valid)
-        o = _attend(q, kb, vb, offset, cache is not None, None)
+        o = _attend(q, kb, vb, offset, cache is not None, spec.window,
+                    causal)
         out = spmd.regroup(mesh, tp, o.reshape(b, s, -1),
                            [_head_cols(qs, hd) for qs, _ in sets], o_sets)
     y = out @ p["w_o"]
@@ -404,14 +426,18 @@ def _apply_gqa_sharded(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
 
 
 def _split_softmax(mesh, rules, cfg, qc, kc, vc, q_src, k_src, o_sets, rope,
-                   offset, cache, valid, lay):
+                   offset, cache, valid, lay, window=None):
     """Attention over a sequence-split cache with the softmax split across
     ranks: every rank attends with all query heads over its slice of the
     positions (K3, or K2 for several new tokens, each with its log-sum-
     exp: lengths and offsets taken relative to the slice, so a slice past
     a row's end sees nothing), writes the new keys that fall in its
     slice, and the partial (o, lse) are merged in fp32 into the columns
-    its ``w_o`` rows take."""
+    its ``w_o`` rows take.  A query past the slice keeps its true
+    relative position (a length or offset past the slice's S_max, the
+    kernels' contract), so a window's lower edge stays where it is: a
+    slice wholly before the window sees nothing, one cut by it sees its
+    keys from the edge on."""
     tp = rules.get("tp")
     n, j = mesh.size(tp), mesh.index(tp)
     h_, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -428,14 +454,14 @@ def _split_softmax(mesh, rules, cfg, qc, kc, vc, q_src, k_src, o_sets, rope,
     vb = _write_slice(cache["v"], v, offset, lo, valid)
     rel = offset.long() - lo
     if s == 1:
-        lengths = (rel + 1).clamp(0, s_c).to(torch.int32)
+        lengths = (rel + 1).clamp(min=0).to(torch.int32)
         o, lse = ops.decode_attention(q[:, 0].contiguous(), kb, vb, lengths,
-                                      return_lse=True)
+                                      window=window, return_lse=True)
         o, lse = o[:, None], lse[:, :, None]                # lse (B, H, 1)
     else:
         o, lse = ops.prefill_attention(q.contiguous(), kb, vb,
-                                       rel.clamp(-s, s_c).to(torch.int32),
-                                       return_lse=True)
+                                       rel.clamp(min=-s).to(torch.int32),
+                                       window=window, return_lse=True)
     return _merge_slices(mesh, tp, o, lse, o_sets, hd).to(qc.dtype)
 
 
@@ -632,24 +658,73 @@ def _apply_mla_sharded(cfg: ModelConfig, p, x: Tensor, *, positions: Tensor,
                             o_partial), cache
 
 
-def apply_cross_attn(cfg: ModelConfig, p, x: Tensor, xc: dict) -> Tensor:
+def apply_cross_attn(cfg: ModelConfig, p, x: Tensor, xc: dict,
+                     lay: Optional[spmd.Layout] = None) -> Tensor:
     """Whisper's decoder cross-attention of x (B, S, D) over the encoder
     K/V ``xc["xk"]``/``xc["xv"]`` (B, n_frames, Hkv, hd): every frame is
     visible.  One token takes decode attention at lengths = n_frames;
-    more take prefill attention with ``causal=False``."""
+    more take prefill attention with ``causal=False``.  ``lay`` (under a
+    sharding context): ``_cross_attn_sharded``."""
+    if lay is not None:
+        return _cross_attn_sharded(cfg, p, x, xc, lay)
     b, s, _ = x.shape
     q = (x @ p["x_q"]).reshape(b, s, cfg.n_heads, cfg.head_dim_)
-    xk, xv = xc["xk"].contiguous(), xc["xv"].contiguous()
+    return _attend_frames(q, xc["xk"], xc["xv"]).reshape(b, s, -1) @ p["x_o"]
+
+
+def _attend_frames(q: Tensor, xk: Tensor, xv: Tensor) -> Tensor:
+    """q (B, S, H, hd) over every frame of xk/xv (B, T, Hkv, hd)."""
+    b, s = q.shape[:2]
+    xk, xv = xk.contiguous(), xv.contiguous()
     if s == 1:
         lengths = torch.full((b,), xk.shape[1], dtype=torch.int32,
-                             device=x.device)
+                             device=q.device)
         out = ops.decode_attention(q[:, 0].contiguous(), xk, xv,
                                    lengths)[:, None]
     else:
-        zeros = torch.zeros((b,), dtype=torch.int32, device=x.device)
+        zeros = torch.zeros((b,), dtype=torch.int32, device=q.device)
         out = ops.prefill_attention(q.contiguous(), xk, xv, zeros,
                                     causal=False)
-    return out.reshape(b, s, -1) @ p["x_o"]
+    return out
+
+
+def _cross_attn_sharded(cfg: ModelConfig, p, x: Tensor, xc: dict,
+                        lay: spmd.Layout) -> Tensor:
+    """``apply_cross_attn`` on this rank's shards: x (B_local, S_local, D)
+    in the residual layout, ``x_q`` a column block and ``x_o`` a row block,
+    the cross K/V as ``cache_specs`` lays them (``encode_cross_kv`` under a
+    context gives the same layout): kv heads split over ``model`` where
+    they divide (the rank's query heads over its kv heads), else whole
+    (the query heads its ``x_o`` rows cover, ``_head_sets``, over the kv
+    heads they read).  The frames are never split: 1500 divides over
+    neither 8 nor 16 ranks, and a frame-split cross cache is refused."""
+    mesh, rules = active_context()
+    tp = rules.get("tp")
+    n, j = mesh.size(tp), mesh.index(tp)
+    h_, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    xk, xv = xc["xk"], xc["xv"]
+    if xk.shape[1] != cfg.encoder.n_frames:
+        raise NotImplementedError(
+            f"cross-attention over a frame-split cache ({xk.shape[1]} of "
+            f"{cfg.encoder.n_frames} frames a rank)")
+    hx = spmd.gather_seq(mesh, rules, x, lay)
+    b, s, _ = hx.shape
+    qc = hx @ p["x_q"]
+    q_src = spmd.block_sets(h_ * hd, qc.shape[-1] != h_ * hd, n)
+    o_partial = p["x_o"].shape[0] != h_ * hd
+    o_sets = spmd.block_sets(h_ * hd, o_partial, n)
+    sets = _head_sets(cfg, n, None, "heads" if xk.shape[2] != hkv else "rep",
+                      o_sets)
+    qh, kvh = sets[j]
+    q = spmd.regroup(mesh, tp, qc, q_src,
+                     [_head_cols(qs, hd) for qs, _ in sets])
+    if xk.shape[2] == hkv and kvh != tuple(range(hkv)):
+        idx = torch.tensor(kvh, device=xk.device)
+        xk, xv = xk.index_select(2, idx), xv.index_select(2, idx)
+    o = _attend_frames(q.reshape(b, s, len(qh), hd), xk, xv)
+    out = spmd.regroup(mesh, tp, o.reshape(b, s, -1),
+                       [_head_cols(qs, hd) for qs, _ in sets], o_sets)
+    return spmd.reduce_rows(mesh, rules, out @ p["x_o"], lay, o_partial)
 
 
 def encode_cross_kv(cfg: ModelConfig, p, enc_out: Tensor
@@ -657,14 +732,29 @@ def encode_cross_kv(cfg: ModelConfig, p, enc_out: Tensor
     """Project the encoder output (B, T, D) once, at admission, to the
     cross K/V (B, T, Hkv, hd) that the cache keeps.  ``p["x_k"]`` may
     carry a leading axis of reps (a segment's stack): the K/V then do too,
-    (reps, B, T, Hkv, hd)."""
+    (reps, B, T, Hkv, hd).  Under a sharding context ``enc_out`` is the
+    rank's rows (whole over ``model``) and ``x_k``/``x_v`` column blocks:
+    the K/V come out in the cross cache's layout, the rank's kv heads
+    where they divide over ``model`` (its column block, no move), else
+    every kv head (the column blocks gathered)."""
     b, t, _ = enc_out.shape
-    shape = p["x_k"].shape[:-2] + (b, t, cfg.n_kv_heads, cfg.head_dim_)
     lead = p["x_k"].dim() - 2
     x = enc_out.reshape((1,) * lead + tuple(enc_out.shape))
     w_k = p["x_k"].reshape(p["x_k"].shape[:-2] + (1,) + p["x_k"].shape[-2:])
     w_v = p["x_v"].reshape(p["x_v"].shape[:-2] + (1,) + p["x_v"].shape[-2:])
-    return (x @ w_k).reshape(shape), (x @ w_v).reshape(shape)
+    k, v = x @ w_k, x @ w_v
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim_
+    ctx = active_context()
+    if ctx is not None and k.shape[-1] != hkv * hd:
+        mesh, rules = ctx
+        tp = rules.get("tp")
+        n = mesh.size(tp)
+        src = spmd.block_sets(hkv * hd, True, n)
+        dst = spmd.block_sets(hkv * hd, hkv % n == 0, n)
+        k = spmd.regroup(mesh, tp, k, src, dst)
+        v = spmd.regroup(mesh, tp, v, src, dst)
+    shape = p["x_k"].shape[:-2] + (b, t, k.shape[-1] // hd, hd)
+    return k.reshape(shape), v.reshape(shape)
 
 
 def apply_mixer_attn(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, **kw):

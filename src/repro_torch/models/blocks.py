@@ -17,7 +17,6 @@ from repro_torch.models import attention, layers, moe, rglru, xlstm
 from repro_torch.models.config import (FFN_MOE, FFN_NONE, MIXER_MLSTM,
                                        MIXER_RGLRU, MIXER_SLSTM, BlockSpec,
                                        ModelConfig)
-from repro_torch.sharding import spmd
 
 Tensor = torch.Tensor
 
@@ -68,20 +67,18 @@ def apply_block(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
     attention block attends over ``enc_out``'s K/V when it is given, else
     over the cache's ``xk``/``xv``.  ``lay`` (under a sharding context,
     ``sharding/spmd.py``): x is this rank's block of the residual and the
-    block runs over the rank's shards; attention (GQA or MLA) with a
-    dense MLP or routed and shared experts only (``spmd.unported``)."""
-    if lay is not None and spmd.unported(cfg, spec):
-        raise NotImplementedError(spmd.unported(cfg, spec))
+    block runs over the rank's shards, every mixer, the cross-attention
+    and every FFN alike."""
     h = layers.apply_norm(cfg, p["ln1"], x)
     if spec.mixer == MIXER_RGLRU:
         out, new_cache = rglru.apply_rglru(cfg, p["rglru"], h, cache=cache,
-                                           valid=valid)
+                                           valid=valid, lay=lay)
     elif spec.mixer == MIXER_MLSTM:
         out, new_cache = xlstm.apply_mlstm(cfg, p["lstm"], h, cache=cache,
-                                           valid=valid)
+                                           valid=valid, lay=lay)
     elif spec.mixer == MIXER_SLSTM:
         out, new_cache = xlstm.apply_slstm(cfg, p["lstm"], h, cache=cache,
-                                           valid=valid)
+                                           valid=valid, lay=lay)
     else:
         kw = {} if positions3 is None else {"positions3": positions3}
         if lay is not None:
@@ -100,7 +97,7 @@ def apply_block(cfg: ModelConfig, spec: BlockSpec, p, x: Tensor, *,
             xc = cache
         else:
             raise ValueError("cross-attention needs enc_out or cached K/V")
-        x = x + attention.apply_cross_attn(cfg, p["attn"], hx, xc)
+        x = x + attention.apply_cross_attn(cfg, p["attn"], hx, xc, lay=lay)
     aux = moe.empty_moe_aux(cfg, x.device)
     if spec.ffn != FFN_NONE:
         h2 = layers.apply_norm(cfg, p["ln2"], x)

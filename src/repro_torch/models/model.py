@@ -37,7 +37,12 @@ the call's global rows and cache length, the residual lies between
 blocks as ``sharding/spmd.py`` lays it (rows over the batch axes, the
 sequence over ``model`` where they divide), and the logits are the
 rank's vocab columns.  Every width a block reshapes by (heads, kv heads,
-F, vocab) is read from the rank's shards.
+F, vocab) is read from the rank's shards.  ``encode`` and
+``precompute_cross_kv`` take ``global_batch`` there too: the encoder's
+residual lies as ``spmd.layout`` lays it (1500 frames divide over neither
+8 nor 16 ranks, so whisper-base's stays whole over ``model``), its output
+is the rank's rows whole over ``model``, and the cross K/V come out in
+the cross cache's layout.
 """
 
 from __future__ import annotations
@@ -163,13 +168,16 @@ class DecoderModel:
 
     # -- encoder (whisper) ---------------------------------------------------
 
-    def encode(self, params, frames: Tensor) -> Tensor:
+    def encode(self, params, frames: Tensor,
+               global_batch: Optional[int] = None) -> Tensor:
         """frames (B, T, D), precomputed frame embeddings (the audio
         frontend is a stub) -> the encoder's output (B, T, D): fixed
         sinusoidal positions, then each block's bidirectional self-
         attention (prefill attention with ``causal=False``; the JAX
         package gets the same mask by giving every query the last
-        position, which it passes here too) and MLP, then a final norm."""
+        position, which it passes here too) and MLP, then a final norm.
+        Under a sharding context ``frames`` and the output are the rank's
+        rows, whole over ``model`` (the module docstring)."""
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         b, t, _ = frames.shape
@@ -177,25 +185,52 @@ class DecoderModel:
                                                  frames.device).to(dt)
         full_pos = torch.full((b, t), t - 1, dtype=torch.long,
                               device=frames.device)
+        lay = self._layout(global_batch, t, None)
+        if lay is not None:
+            x = shard_seq_hint(x, global_batch)
         for bp in params["encoder"]["blocks"]:
             h = layers.apply_norm(cfg, bp["ln1"], x)
             out, _ = attention.apply_gqa(cfg, ENCODER_SPEC, bp["attn"], h,
-                                         positions=full_pos, causal=False)
+                                         positions=full_pos, causal=False,
+                                         lay=lay)
             x = x + out
             h2 = layers.apply_norm(cfg, bp["ln2"], x)
-            x = x + layers.apply_mlp(cfg, bp["mlp"], h2)
+            x = x + layers.apply_mlp(cfg, bp["mlp"], h2, lay=lay)
+        if lay is not None:
+            mesh, rules = active_context()
+            x = spmd.gather_seq(mesh, rules, x, lay)
         return layers.apply_norm(cfg, params["encoder"]["final_norm"], x)
 
     def precompute_cross_kv(self, params, enc_out: Tensor) -> list:
         """Every cross-attention block's encoder K/V, in segment layout:
         ``out[s][p]`` is ``{"xk", "xv"}`` of shape (reps, B, T, Hkv, hd),
-        or None for a block without cross-attention."""
+        or None for a block without cross-attention (under a sharding
+        context the rank's rows and the cross cache's kv heads,
+        ``attention.encode_cross_kv``)."""
         return [[dict(zip(attention.CROSS_LEAVES, attention.encode_cross_kv(
                      self.cfg, pp["attn"], enc_out)))
                  if sp.cross_attn else None
                  for sp, pp in zip(pattern, seg["pattern"])]
                 for (pattern, _), seg in zip(self.segments,
                                              params["segments"])]
+
+    def install_cross_kv(self, params, cache, enc_out: Tensor,
+                         slot: Optional[int] = None) -> None:
+        """Write the cross K/V of the encoder output ``enc_out`` into every
+        cross-attention block's cache leaves, IN PLACE: every row, or with
+        ``slot`` that slot's row from ``enc_out``'s one row (the engine's
+        admission).  Under a sharding context the rank's rows and the
+        cross cache's kv heads (``precompute_cross_kv``)."""
+        for seg, seg_kv in zip(cache, self.precompute_cross_kv(params,
+                                                               enc_out)):
+            for c, kv in zip(seg, seg_kv):
+                if kv is None:
+                    continue
+                for key in attention.CROSS_LEAVES:
+                    if slot is None:
+                        c[key].copy_(kv[key])
+                    else:
+                        c[key][:, slot].copy_(kv[key][:, 0])
 
     # -- embedding / head ----------------------------------------------------
 

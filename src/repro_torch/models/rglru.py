@@ -15,6 +15,19 @@ State per block: conv tail (B, conv_width-1, W) in the model dtype and the
 LRU hidden (B, W) in fp32.  As with the attention caches
 (models/attention.py), ``apply_rglru`` writes the new state IN PLACE into
 the dict it is given (views into the engine's pool) and returns it.
+
+Under a sharding context (``lay``) the block runs on the rank's W columns
+(``_rank_params``): ``w_x`` and ``w_gate`` are column blocks, the cache's
+``conv`` and ``h`` the same columns, and the replicated ``conv_w``,
+``conv_b``, ``a_param`` and ``w_rec_gate`` are sliced to them (whole gate
+blocks).  The spec splits ``w_input_gate`` (16, W/16, W/16) by output
+column inside every block, so the rank's whole blocks come from one
+all-to-all of the weight (2 MB a layer at recurrentgemma-9b, against the
+(B, S, W) activations a regroup of the other side would move); its
+backward is the reverse all-to-all, so the gradient lands in the spec's
+layout.  The residual is gathered over the sequence first, the scan runs
+over the whole sequence of the rank's rows, and ``w_out``'s row block
+gives a partial sum for ``spmd.reduce_rows``.
 """
 
 from __future__ import annotations
@@ -27,6 +40,9 @@ import torch.nn.functional as F
 from repro_torch.device import torch_dtype
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import collectives as col
+from repro_torch.sharding import spmd
+from repro_torch.sharding.partition import active_context
 
 Tensor = torch.Tensor
 _C = 8.0
@@ -117,14 +133,48 @@ def lru_scan(a: Tensor, b: Tensor, h0: Tensor) -> Tensor:
     return b
 
 
+def _rank_params(cfg: ModelConfig, p, mesh, tp) -> dict:
+    """The block's parameters for the rank's W columns (its ``w_x``
+    block): the replicated leaves sliced to them, ``w_input_gate``'s
+    whole blocks by an all-to-all.  Unchanged where the guard kept W
+    whole."""
+    w, c = lru_width(cfg), p["w_x"].shape[-1]
+    if c == w:
+        return p
+    bw = w // _N_GATE_BLOCKS
+    if c % bw:
+        raise NotImplementedError(
+            f"RG-LRU under a mesh: the rank's {c} of {w} columns do not "
+            f"cover whole gate blocks of {bw}")
+    j = mesh.index(tp)
+    cols, blocks = slice(j * c, (j + 1) * c), slice(j * c // bw,
+                                                     (j + 1) * c // bw)
+    ig = p["w_input_gate"]
+    ig = (ig[blocks] if ig.shape[-1] == bw
+          else col.all_to_all(mesh, ig, tp, split_dim=0, concat_dim=2))
+    return dict(p, conv_w=p["conv_w"][:, cols], conv_b=p["conv_b"][cols],
+                a_param=p["a_param"][cols],
+                w_rec_gate=p["w_rec_gate"][blocks], w_input_gate=ig)
+
+
 def apply_rglru(cfg: ModelConfig, p, x: Tensor, *,
                 cache: Optional[dict] = None,
-                valid: Optional[Tensor] = None
+                valid: Optional[Tensor] = None, lay=None
                 ) -> Tuple[Tensor, Optional[dict]]:
     """x: (B, S, D) -> (out (B, S, D), cache written in place).  ``valid``
     (B, S) turns masked timesteps into identity state updates (a = 1,
     b = 0), so padding and idle rows never perturb the state: a fully
-    masked row keeps ``conv`` and ``h`` bit for bit."""
+    masked row keeps ``conv`` and ``h`` bit for bit.  ``lay`` (under a
+    sharding context): x is the rank's block of the residual and the
+    block runs on its W columns (the module docstring)."""
+    if lay is not None:
+        mesh, rules = active_context()
+        tp = rules.get("tp")
+        y, cache = apply_rglru(
+            cfg, _rank_params(cfg, p, mesh, tp),
+            spmd.gather_seq(mesh, rules, x, lay), cache=cache, valid=valid)
+        return spmd.reduce_rows(mesh, rules, y, lay,
+                                p["w_out"].shape[0] != lru_width(cfg)), cache
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")      # (B, S, W)
     xin = x @ p["w_x"]
     xc, new_tail = causal_conv(p, xin, cache["conv"] if cache is not None

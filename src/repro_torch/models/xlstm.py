@@ -14,6 +14,30 @@ no Pallas kernel here; the port runs plain PyTorch, the large products
 through ``torch.matmul``.  As with the attention caches, ``apply_mlstm``
 and ``apply_slstm`` write the new state IN PLACE into the dict they are
 given and return it.
+
+Under a sharding context (``lay``) the JAX package's specs keep every
+recurrent weight whole and split only the up and down projections:
+
+- mLSTM: ``w_up`` is a column block, so the rank computes its columns of
+  ``xin`` and of the depthwise conv (the cache's ``conv`` tail holds the
+  same columns); ``w_q``/``w_k``/``w_if`` read the whole conv output and
+  ``w_v`` the whole ``xin``, so both are gathered over ``model`` and the
+  recurrence runs whole on every rank (``C``, ``n``, ``m`` are whole over
+  ``model``).  ``h * silu(z)`` is cut to the rank's ``w_down`` rows (``z``
+  computed for those columns only) and summed by ``spmd.reduce_rows``.
+- sLSTM: the recurrence runs whole on every rank; the cache's ``h`` lies
+  split over ``model`` (the JAX rule for RG-LRU's ``h`` catches it by
+  name), so it is gathered on entry and cut on exit.  The GLU pairs
+  column c of ``h @ w_up`` with column d + c, which lie on different
+  ranks of a column-split ``w_up``: one regroup brings the rank the two
+  halves its ``w_down`` rows take.
+
+A rank's gradient of a recurrent weight is then its share, through its
+own columns of the output (``sharding/collectives.py``'s convention).
+
+The two recurrences are Python loops (sLSTM's S steps of a few dozen
+small ops, the chunkwise mLSTM's S/128 chunks of a few hundred); the
+dry-run traces each as one op (``launch/analysis.one_op_recurrences``).
 """
 
 from __future__ import annotations
@@ -27,6 +51,9 @@ from repro_torch.device import torch_dtype
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rglru import causal_conv
+from repro_torch.sharding import collectives as col
+from repro_torch.sharding import spmd
+from repro_torch.sharding.partition import active_context
 
 Tensor = torch.Tensor
 _NEG = -1e30        # the stabilizer's start: "no input yet"
@@ -186,17 +213,41 @@ def mlstm_stepwise(q, k, v, log_i, log_f, state, valid=None):
     return state, torch.stack(hs, dim=1)
 
 
+def _rank_cols(mesh, tp, c: int) -> slice:
+    """The rank's block of ``c`` columns over ``model``."""
+    j = mesh.index(tp)
+    return slice(j * c, (j + 1) * c)
+
+
 def apply_mlstm(cfg: ModelConfig, p, x: Tensor, *,
                 cache: Optional[dict] = None,
-                valid: Optional[Tensor] = None
+                valid: Optional[Tensor] = None, lay=None
                 ) -> Tuple[Tensor, Optional[dict]]:
-    b, s, _ = x.shape
+    """x: (B, S, D) -> (out, cache written in place); ``lay`` (under a
+    sharding context): x is the rank's block of the residual (the module
+    docstring)."""
     di, hh = _inner(cfg), _heads(cfg)
     dk = di // hh
+    split = None
+    if lay is not None:
+        mesh, rules = active_context()
+        tp = rules.get("tp")
+        x = spmd.gather_seq(mesh, rules, x, lay)
+        if p["w_up"].shape[-1] != di:
+            split = _rank_cols(mesh, tp, p["w_up"].shape[-1])
+    b, s, _ = x.shape
     xin = x @ p["w_up"]
-    z = x @ p["w_z"]
-    xc, new_tail = _conv4(p, xin, cache["conv"] if cache is not None
+    pc = p
+    if split is not None:
+        pc = dict(p, conv_w=p["conv_w"][:, split], conv_b=p["conv_b"][split])
+        z = x @ p["w_z"][:, split]
+    else:
+        z = x @ p["w_z"]
+    xc, new_tail = _conv4(pc, xin, cache["conv"] if cache is not None
                           else None, valid)
+    if split is not None:
+        xin = col.all_gather(mesh, xin, tp, dim=-1)
+        xc = col.all_gather(mesh, xc, tp, dim=-1)
     q = (xc @ p["w_q"]).reshape(b, s, hh, dk).float() / (dk ** 0.5)
     k = (xc @ p["w_k"]).reshape(b, s, hh, dk).float() / (dk ** 0.5)
     v = (xin @ p["w_v"]).reshape(b, s, hh, dk).float()
@@ -215,10 +266,14 @@ def apply_mlstm(cfg: ModelConfig, p, x: Tensor, *,
             else mlstm_stepwise)
     state, h = form(q, k, v, log_i, log_f, state, valid)
     h = h.reshape(b, s, di).to(x.dtype)
+    if split is not None:
+        h = h[..., split]
     out = (h * F.silu(z)) @ p["w_down"]
     if cache is not None:
         _store(cache, {"C": state[0], "n": state[1], "m": state[2],
                        "conv": new_tail})
+    if lay is not None:
+        out = spmd.reduce_rows(mesh, rules, out, lay, split is not None)
     return out, cache
 
 
@@ -257,15 +312,15 @@ def init_cache_slstm(cfg: ModelConfig, batch: int, device,
             "m": torch.full((batch, d), _NEG, **f32)}
 
 
-def _slstm_step(cfg: ModelConfig, p, xt: Tensor, state):
-    """xt: (B, D).  Sequential by construction (recurrent gate
-    connections)."""
+def _slstm_step(wx: Tensor, r: Tensor, state):
+    """One timestep from its input projection ``wx`` (B, 4D) fp32 (bias
+    included) and the per-head recurrent weights ``r`` (4, H, dh, dh)
+    fp32.  Sequential by construction (recurrent gate connections)."""
     c, n, h, m = state
-    b, d = xt.shape
-    hh = _heads(cfg)
-    wx = xt.float() @ p["w_zifo"].float() + p["b_zifo"].float()
+    b, d = c.shape
+    hh = r.shape[1]
     rec = torch.einsum("bhd,ghde->gbhe", h.reshape(b, hh, d // hh),
-                       p["r_zifo"].float()).reshape(4, b, d)
+                       r).reshape(4, b, d)
     z_raw, i_raw, f_raw, o_raw = torch.split(wx, d, dim=-1)
     z = torch.tanh(z_raw + rec[0])
     log_i = i_raw + rec[1]
@@ -279,28 +334,61 @@ def _slstm_step(cfg: ModelConfig, p, xt: Tensor, state):
     return (c, n, o * c / torch.clamp(n, min=1.0), m_new)
 
 
-def apply_slstm(cfg: ModelConfig, p, x: Tensor, *,
-                cache: Optional[dict] = None,
-                valid: Optional[Tensor] = None
-                ) -> Tuple[Tensor, Optional[dict]]:
-    b, s, d = x.shape
-    if cache is not None:
-        state = (cache["c"], cache["n"], cache["h"], cache["m"])
-    else:
-        f32 = dict(dtype=torch.float32, device=x.device)
-        state = (torch.zeros((b, d), **f32), torch.zeros((b, d), **f32),
-                 torch.zeros((b, d), **f32), torch.full((b, d), _NEG, **f32))
+def slstm_scan(wx: Tensor, r: Tensor, state, valid: Optional[Tensor]):
+    """The recurrence over S: wx (B, S, 4D) fp32, the input projection of
+    every step; masked steps keep the state verbatim.  Returns (state',
+    hs (B, S, D) fp32)."""
     hs = []
-    for t in range(s):
-        new = _slstm_step(cfg, p, x[:, t], state)
+    for t in range(wx.shape[1]):
+        new = _slstm_step(wx[:, t], r, state)
         if valid is not None:
             ok = valid[:, t].bool()
             new = tuple(_where_rows(ok, nw, old) for nw, old in zip(new, state))
         state = new
         hs.append(state[2])
-    h = torch.stack(hs, dim=1).to(x.dtype)                  # (B, S, D)
-    a, g = torch.chunk(h @ p["w_up"], 2, dim=-1)            # the GLU
+    return state, torch.stack(hs, dim=1)
+
+
+def apply_slstm(cfg: ModelConfig, p, x: Tensor, *,
+                cache: Optional[dict] = None,
+                valid: Optional[Tensor] = None, lay=None
+                ) -> Tuple[Tensor, Optional[dict]]:
+    """x: (B, S, D) -> (out, cache written in place); ``lay`` (under a
+    sharding context): x is the rank's block of the residual (the module
+    docstring)."""
+    d = cfg.d_model
+    if lay is not None:
+        mesh, rules = active_context()
+        tp = rules.get("tp")
+        x = spmd.gather_seq(mesh, rules, x, lay)
+    b, s, _ = x.shape
+    if cache is not None:
+        h0 = cache["h"]
+        if h0.shape[-1] != d:               # split over model
+            h0 = col.all_gather(mesh, h0, tp, dim=-1)
+        state = (cache["c"], cache["n"], h0, cache["m"])
+    else:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        state = (torch.zeros((b, d), **f32), torch.zeros((b, d), **f32),
+                 torch.zeros((b, d), **f32), torch.full((b, d), _NEG, **f32))
+    wx = x.float() @ p["w_zifo"].float() + p["b_zifo"].float()
+    state, hs = slstm_scan(wx, p["r_zifo"].float(), state, valid)
+    h = hs.to(x.dtype)                                      # (B, S, D)
+    u = h @ p["w_up"]
+    partial = p["w_down"].shape[0] != d
+    if lay is not None and u.shape[-1] != 2 * d:
+        # the GLU's halves of the rank's w_down rows: columns c and d + c
+        n = mesh.size(tp)
+        rows = spmd.block_sets(d, partial, n)
+        u = spmd.regroup(mesh, tp, u, spmd.block_sets(2 * d, True, n),
+                         [r + tuple(d + i for i in r) for r in rows])
+    a, g = torch.chunk(u, 2, dim=-1)                        # the GLU
     out = (a * torch.sigmoid(g)) @ p["w_down"]
     if cache is not None:
-        _store(cache, dict(zip(("c", "n", "h", "m"), state)))
+        c, n_, h_last, m = state
+        if cache["h"].shape[-1] != d:
+            h_last = h_last[..., _rank_cols(mesh, tp, cache["h"].shape[-1])]
+        _store(cache, {"c": c, "n": n_, "h": h_last, "m": m})
+    if lay is not None:
+        out = spmd.reduce_rows(mesh, rules, out, lay, partial)
     return out, cache

@@ -910,7 +910,7 @@ class Engine:
 
     def _install_cross_kv(self, rid: int, slot: int) -> None:
         """Write ``rid``'s cross K/V into ``slot``: its frames go up with
-        one non-blocking copy, then ``encode`` and ``precompute_cross_kv``
+        one non-blocking copy, then ``encode`` and ``install_cross_kv``
         at batch 1 (no host sync); a request without frames gets zeros."""
         frames = self.enc_frames.get(rid)
         if frames is None:
@@ -921,12 +921,7 @@ class Engine:
                         c["xv"][:, slot].zero_()
         else:
             enc = self.model.encode(self.params, self._h2d(frames[None]))
-            xkv = self.model.precompute_cross_kv(self.params, enc)
-            for seg, seg_kv in zip(self.cache, xkv):
-                for c, kv in zip(seg, seg_kv):
-                    if kv is not None:
-                        c["xk"][:, slot].copy_(kv["xk"][:, 0])
-                        c["xv"][:, slot].copy_(kv["xv"][:, 0])
+            self.model.install_cross_kv(self.params, self.cache, enc, slot)
         self.n_cross_installs += 1
 
     def _pack_slices(self, slices: List[PrefillSlice]):

@@ -51,21 +51,6 @@ class Layout:
     cache_len: Optional[int] = None
 
 
-def unported(cfg, spec) -> Optional[str]:
-    """Why this slice of the multi-device port cannot run block ``spec``
-    of ``cfg`` over a rank's shards, naming the ROADMAP.md item that ports
-    it; None where it can (GQA or multi-head latent attention with a dense
-    MLP, or routed and shared experts).  The blocks refuse by it and the
-    dry-run skips by it."""
-    if spec.is_recurrent() or spec.window is not None:
-        return ("the recurrent mixers and local attention under a mesh "
-                "(ROADMAP.md §1 item 2, step 1)")
-    if spec.cross_attn:
-        return ("whisper's encoder and cross-attention under a mesh "
-                "(ROADMAP.md §1 item 2, step 1)")
-    return None
-
-
 def layout(mesh, rules, b: int, s: int,
            cache_len: Optional[int] = None) -> Layout:
     b_split, s_split = seq_layout(mesh, rules, b, s)

@@ -47,7 +47,7 @@ def loss_fn(model: DecoderModel, params, tokens: Tensor, targets: Tensor,
     sharding context: ``_sharded_loss``, this rank's term."""
     if active_context() is not None:
         return _sharded_loss(model, params, tokens, targets, mask,
-                             global_batch)
+                             global_batch, enc_out)
     logits, _, aux = model.forward(params, tokens, enc_out=enc_out,
                                    moe_dispatch="dense")
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -60,7 +60,8 @@ def loss_fn(model: DecoderModel, params, tokens: Tensor, targets: Tensor,
 
 
 def _sharded_loss(model: DecoderModel, params, tokens: Tensor,
-                  targets: Tensor, mask: Tensor, global_batch: int):
+                  targets: Tensor, mask: Tensor, global_batch: int,
+                  enc_out: Optional[Tensor] = None):
     """This rank's term of the sharded loss (the convention of
     ``sharding/collectives.py``: the step minimises the sum of the ranks'
     terms) from its rows of the batch: its masked cross-entropy sum over
@@ -69,13 +70,16 @@ def _sharded_loss(model: DecoderModel, params, tokens: Tensor,
     over the world size.  Vocab-split logits are read where they lie
     (``layers.token_nll``: the rank's rows at every position, the same on
     every rank of ``model``); a head the guard keeps whole takes the
-    plain loss at the rank's own positions.  The metrics are the global
-    ones, equal on every rank."""
+    plain loss at the rank's own positions; a softcap (recurrentgemma's)
+    is elementwise, so it applies to the rank's columns as they lie.
+    ``enc_out`` (whisper) is the rank's rows, whole over ``model``.  The
+    metrics are the global ones, equal on every rank."""
     from repro_torch.models import layers
     mesh, rules = active_context()
     cfg = model.cfg
     s = tokens.shape[1]
-    x, _, aux = model.forward(params, tokens, moe_dispatch="dense",
+    x, _, aux = model.forward(params, tokens, enc_out=enc_out,
+                              moe_dispatch="dense",
                               global_batch=global_batch, return_hidden=True)
     lay = spmd.layout(mesh, rules, global_batch, s)
     tp, batch_axes = rules.get("tp"), rules.get("batch")
@@ -150,6 +154,8 @@ def make_train_step(model: DecoderModel, opt: AdamW,
             p.requires_grad_(True)
         try:
             enc_out = batch.get("enc_out") if has_encoder else None
+            if enc_out is not None:
+                enc_out = shard_hint(enc_out, "batch", None, None)
             loss, metrics = loss_fn(model, params, tokens, targets, mask,
                                     enc_out, global_batch=gb)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)

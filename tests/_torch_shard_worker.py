@@ -51,10 +51,15 @@ def _steps(rank: int, mesh, job: dict) -> dict:
                                  moe_dispatch=job["dispatch"])
         dec = steps.make_step_fn(model, InputShape("d", "decode", s, b),
                                  moe_dispatch=job["dispatch"])
-        logits, cache, aux = pre(params, cache,
-                                 {"tokens": _rows(mesh, inp["tokens"],
-                                                  lay.b_split)})
+        batch = {"tokens": _rows(mesh, inp["tokens"], lay.b_split)}
+        if "frames" in inp:
+            batch["enc_out"] = _rows(mesh, inp["frames"], lay.b_split)
+        logits, cache, aux = pre(params, cache, batch)
         out["prefill"] = (logits, aux["expert_counts"], aux["dropped"])
+        if "frames" in inp:
+            # whisper: the cross K/V installed, as the engine's admission
+            enc = model.encode(params, batch["enc_out"], global_batch=b)
+            model.install_cross_kv(params, cache, enc)
         logits, cache, aux = dec(params, cache, {
             "tokens": _rows(mesh, inp["tokens2"], lay.b_split),
             "offsets": _rows(mesh, inp["offsets2"], lay.b_split)})
@@ -134,7 +139,7 @@ def _train(rank: int, mesh, job: dict) -> dict:
         for a, b in zip(topt.tree_leaves(state.mu), topt.tree_leaves(
                 opt.init(params, plan).mu)):
             assert a.shape == b.shape
-        step = make_train_step(model, opt)
+        step = make_train_step(model, opt, cfg.encoder.enabled)
         for batch in job["batches"]:
             params, state, m = step(params, state, batch)
             steps.append({

@@ -215,29 +215,48 @@ def test_decode_attention_lse_mla_widths(cuda, b, s_max, lens):
                       dict(atol=2e-2, rtol=2e-2))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,lens", [
+    # recurrentgemma-9b's sharded decode (2, 8): a rank's 512-position
+    # slice of a 4096-row cache, the query past it (a length past S_max):
+    # slice 0 at position 2816 lies wholly before the 2048-key window,
+    # slice 1 (2816 - 512) is cut by it, one inside, one past the row
+    (2048, [2817, 2305, 300, 0]),
+    # without a window a length past S_max sees the whole slice
+    (None, [2817, 513, 300, 0])])
+def test_decode_attention_past_the_slice(cuda, window, lens):
+    """K3's contract for a query beyond its slice: it sees keys
+    ``[max(0, length - window), min(length, S_max))``, with its log-sum-
+    exp; an empty range gives 0 and -inf; at recurrentgemma-9b's heads
+    (16/1 of 256) against the plain version."""
+    _check_decode_lse(cuda, 4, 512, lens, 16, 1, 256, 256,
+                      dict(atol=2e-2, rtol=2e-2), window=window)
+
+
 def _check_decode_lse(cuda, b, s_max, lens, h, hkv, hd, hd_v,
-                      out_tol=dict(atol=1e-3, rtol=2 ** -7)):
+                      out_tol=dict(atol=1e-3, rtol=2 ** -7), window=None):
     rng = np.random.default_rng(20)
     q = _bf16(rng, (b, h, hd), cuda)
     k = _bf16(rng, (b, s_max, hkv, hd), cuda)
     v = _bf16(rng, (b, s_max, hkv, hd_v), cuda)
     lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
-    serve = ops.decode_attention(q, k, v, lengths)
-    got, lse = ops.decode_attention(q, k, v, lengths, return_lse=True)
+    serve = ops.decode_attention(q, k, v, lengths, window=window)
+    got, lse = ops.decode_attention(q, k, v, lengths, window=window,
+                                    return_lse=True)
     assert torch.equal(got, serve)
-    want = ref.decode_attention_lse_ref(q, k, lengths)
+    want = ref.decode_attention_lse_ref(q, k, lengths, window=window)
     fin = torch.isfinite(want)
     assert torch.equal(fin, torch.isfinite(lse))
     # fp32, about ln of the keys seen: a 16-key tile missed among 1000
     # keys would move it by about 0.016
     torch.testing.assert_close(lse[fin], want[fin], atol=1e-4, rtol=0)
     assert (lse[~fin] < 0).all()
-    empty = lengths == 0
+    empty = ~fin.any(-1)
     assert not got[empty].any()
     # bf16 against the plain version rounded to bf16: one ulp apart at most
     # at qwen3's widths
     torch.testing.assert_close(got.float(), ref.decode_attention_ref(
-        q, k, v, lengths).float(), **out_tol)
+        q, k, v, lengths, window=window).float(), **out_tol)
 
 
 @pytest.mark.cuda

@@ -5,6 +5,7 @@ its entry points refuse to run without CUDA unless told to use the CPU."""
 from __future__ import annotations
 
 import ast
+import json
 import os
 import runpy
 import shutil
@@ -80,23 +81,26 @@ def test_recurrent_smoke_serves_run_with_jax_blocked():
 
 def test_dryrun_runs_with_jax_blocked(tmp_path):
     """The multi-device dry-run (``repro_torch.launch.dryrun``) imports
-    neither ``jax`` nor ``repro``: with both blocked it writes its JSON for
-    a combination this slice skips, and its mesh, shapes, steps and
-    analysis modules import."""
+    neither ``jax`` nor ``repro``: with both blocked it traces
+    xlstm-1.3b's ``long_500k`` decode at 16x16 (mLSTM and sLSTM under the
+    mesh) and writes its JSON, and its mesh, shapes, steps and analysis
+    modules import."""
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[m] = None\n"
             "from repro_torch.launch import dryrun, steps, analysis, mesh\n"
             "from repro_torch.configs import shapes\n"
             "from repro_torch.sharding import collectives, partition, spmd\n"
-            "dryrun.main(['--arch', 'recurrentgemma-9b', '--shape',\n"
-            "             'decode_32k', '--out', sys.argv[1]])\n")
+            "dryrun.main(['--arch', 'xlstm-1.3b', '--shape',\n"
+            "             'long_500k', '--out', sys.argv[1]])\n")
     out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
                          env=_env(), cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "recurrentgemma-9b x decode_32k x 16x16: skipped" in out.stdout
-    assert (tmp_path / "recurrentgemma-9b_decode_32k_16x16.json").exists()
+    assert "xlstm-1.3b x long_500k x 16x16: ok" in out.stdout
+    rec = json.loads((tmp_path / "xlstm-1.3b_long_500k_16x16.json")
+                     .read_text())
+    assert rec["status"] == "ok" and rec["n_chips"] == 256
 
 
 def test_entry_point_without_cpu_flag_raises_without_cuda(monkeypatch):

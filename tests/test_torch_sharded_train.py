@@ -82,15 +82,22 @@ def _cfg(factory, kw):
 
 
 def _batch(cfg, b, s, seed):
+    """A seeded global batch; whisper's ``enc_out`` seeded frames too
+    (the launchers feed zeros, under which cross-attention passes no
+    gradient)."""
     rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(1, cfg.vocab_size, (b, s)).astype(np.int32),
-            "targets": rng.integers(0, cfg.vocab_size, (b, s)).astype(
-                np.int32),
-            "mask": rng.random((b, s)) > 0.2}
+    out = {"tokens": rng.integers(1, cfg.vocab_size, (b, s)).astype(np.int32),
+           "targets": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+               np.int32),
+           "mask": rng.random((b, s)) > 0.2}
+    if cfg.encoder.enabled:
+        out["enc_out"] = rng.normal(size=(b, cfg.encoder.n_frames,
+                                          cfg.d_model)).astype(np.float32)
+    return out
 
 
 _JAX_TRAIN = r"""
-import contextlib, dataclasses, os, pickle, sys
+import contextlib, dataclasses, importlib, os, pickle, sys
 import jax, numpy as np
 jax.config.update("jax_default_matmul_precision", "highest")
 from jax.sharding import Mesh
@@ -122,7 +129,8 @@ for run in spec["runs"]:
         kw["moe"] = MoEConfig(**kw["moe"])
     if "mla" in kw:
         kw["mla"] = MLAConfig(**kw["mla"])
-    cfg = getattr(conftest, run["factory"])(**kw)
+    cfg = getattr(importlib.import_module(run["module"]),
+                  run["factory"])(**kw)
     model = DecoderModel(cfg, remat=True)
     params = jax.jit(model.init)(jax.random.PRNGKey(0))
     base = adamw(**spec["opt"])
@@ -130,7 +138,7 @@ for run in spec["runs"]:
                        for f in dataclasses.fields(base)})
     state = opt.init(params)
     init = jax.tree_util.tree_map(np.asarray, params)
-    step = jax.jit(make_train_step(model, opt))
+    step = jax.jit(make_train_step(model, opt, cfg.encoder.enabled))
     if run["axes"] is None:
         ctx = contextlib.nullcontext
     else:
@@ -164,7 +172,8 @@ def run_train(tmp, runs_spec, extra=()):
     for name, factory, kw, mesh, axes, b, s in runs_spec:
         cfg = _cfg(factory, kw)
         batches = [_batch(cfg, b, s, seed) for seed in (0, 1)]
-        jax_runs.append({"factory": factory.__name__, "kw": kw,
+        jax_runs.append({"factory": factory.__name__,
+                         "module": factory.__module__, "kw": kw,
                          "mesh": mesh, "axes": axes, "batches": batches})
     spec_path, out_path = tmp / "spec.pkl", tmp / "jax.pkl"
     with open(spec_path, "wb") as f:
@@ -187,7 +196,8 @@ def run_train(tmp, runs_spec, extra=()):
         runs.append({"kind": "train", "mesh": mesh, "axes": axes or DM,
                      "cfg": port_cfg(cfg), "params": path, "opt": OPT,
                      "batches": [{k: torch.from_numpy(v).long()
-                                  if k != "mask" else torch.from_numpy(v)
+                                  if k in ("tokens", "targets")
+                                  else torch.from_numpy(v)
                                   for k, v in bt.items()}
                                  for bt in jr["batches"]]})
     runs.extend(extra)

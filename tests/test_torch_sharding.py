@@ -186,18 +186,33 @@ def _jax_run(cfg, jp, b, s, clen, dispatch, group=None, p_len=None,
     ``group``) its layered step; returns the references and the inputs
     the ranks replay."""
     jm = JaxModel(cfg)
-    fwd = jax.jit(lambda p_, t_, c_, o_, v_: jm.forward(
-        p_, t_, cache=c_, offset=o_, valid=v_, moe_dispatch=dispatch))
+    fwd = jax.jit(lambda p_, t_, c_, o_, v_, e_=None: jm.forward(
+        p_, t_, cache=c_, offset=o_, valid=v_, enc_out=e_,
+        moe_dispatch=dispatch))
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    enc = None
+    if cfg.encoder.enabled:
+        # whisper: the prefill encodes seeded frames (JAX's prefill step),
+        # then the cross K/V are installed for the decodes
+        frames = rng.normal(size=(b, cfg.encoder.n_frames, cfg.d_model)
+                            ).astype(np.float32)
+        enc = jax.jit(jm.encode)(jp, frames)
     lg, cache, aux = fwd(jp, toks, jm.init_cache(b, clen),
-                         np.zeros((b,), np.int32), None)
+                         np.zeros((b,), np.int32), None, enc)
+    if enc is not None:
+        kv = jm.precompute_cross_kv(jp, enc)
+        cache = [[c if kv[si][pi] is None else dict(c, **kv[si][pi])
+                  for pi, c in enumerate(seg)]
+                 for si, seg in enumerate(cache)]
     refs = {"prefill": (lg[:, -1], aux["expert_counts"], aux["dropped"])}
     toks2 = np.asarray(jnp.argmax(lg[:, -1], -1))[:, None].astype(np.int32)
     off2 = np.full((b,), s, np.int32)
     lg, cache, aux = fwd(jp, toks2, cache, off2, None)
     refs["decode"] = (lg[:, -1], aux["expert_counts"], aux["dropped"])
     inputs = {"tokens": toks, "tokens2": toks2, "offsets2": off2}
+    if enc is not None:
+        inputs["frames"] = frames
     if group is not None:
         toks3 = np.asarray(jnp.argmax(lg[:, -1], -1))[:, None].astype(
             np.int32)
@@ -224,14 +239,20 @@ def _jax_run(cfg, jp, b, s, clen, dispatch, group=None, p_len=None,
 
 
 def _gather_cache(results, i, mesh_shape, axes, cache_ref, b):
-    """The ranks' cache blocks of run ``i`` put together."""
+    """The ranks' cache blocks of run ``i`` put together; ranks that hold
+    the same block of a leaf (a replica) must hold the same values."""
     mesh = StandIn(mesh_shape, axes)
     specs = tpart.cache_specs(cache_ref, mesh, b)
     whole = jax.tree_util.tree_map(lambda a: np.zeros(a.shape, np.float32),
                                    cache_ref)
+    placed = {}
 
-    def place(dst, spec, src, coords):
+    def place(path, dst, spec, src, coords):
         sl = tpart.local_slices(dst.shape, spec, mesh, coords)
+        key = (path, repr(sl))
+        if key in placed:
+            close(src, placed[key])
+        placed[key] = src.numpy()
         dst[sl] = src.numpy()
     for res in results:
         r = res[i]
@@ -239,7 +260,7 @@ def _gather_cache(results, i, mesh_shape, axes, cache_ref, b):
         flat_s = dict(_flat(specs))
         flat_l = dict(_flat(r["cache"]))
         for path, dst in flat_w:
-            place(dst, flat_s[path], flat_l[path], r["coords"])
+            place(path, dst, flat_s[path], flat_l[path], r["coords"])
     return whole
 
 
@@ -281,6 +302,11 @@ STEP_RUNS = [
     # a 4-way model axis over 1 data rank: heads cut by columns
     ("dense-tp4", tiny_dense(n_heads=6, n_kv_heads=2, d_model=48), (1, 4),
      2, 16, 32, "dense", (0, 2), 16),
+    # the same heads over a whole cache (33 rows over 4): a rank's w_o
+    # rows cover at most Hkv heads, cut between ranks, and every rank
+    # writes and reads every kv head
+    ("dense-tp4-whole", tiny_dense(n_heads=6, n_kv_heads=2, d_model=48),
+     (1, 4), 2, 16, 33, "dense", (0, 2), 16),
 ]
 
 
@@ -288,7 +314,7 @@ def test_step_runs_cover_every_regime():
     """The step runs below take, between them, every regime of this slice:
     the MoE's a2a, psum and gathered (JAX: None) regimes, the "gqa"
     attention region, the split softmax, and kv-head-split, sequence-split
-    and whole caches."""
+    and whole caches (one where a rank's heads are at most Hkv)."""
     seen = set()
     for name, cfg, mesh, b, s, clen, disp, group, p_len in STEP_RUNS:
         m = StandIn(mesh, ("data", "model"))
@@ -297,6 +323,11 @@ def test_step_runs_cover_every_regime():
             rules = tpart.default_rules(m)
             mode = tpart.kv_cache_mode(m, rules, cfg.n_kv_heads, clen)
             seen.add(f"cache {mode}")
+            hd, cols = cfg.head_dim_, cfg.n_heads * cfg.head_dim_ // mesh[1]
+            if mode == "rep" and any(
+                    ((r + 1) * cols - 1) // hd + 1 - r * cols // hd
+                    <= cfg.n_kv_heads for r in range(mesh[1])):
+                seen.add("cache rep, a rank's heads within Hkv")
             calls = [(b, s), (b, 1)] + ([(1, p_len)] if group else [])
             for cb, cs in calls:
                 plan = tmoe._sharded_moe_plan(tcfg, cb, cs)
@@ -311,7 +342,7 @@ def test_step_runs_cover_every_regime():
             "moe psum ragged", "moe gathered dense", "moe gathered ragged",
             "attn gqa",
             "attn split softmax", "attn heads", "cache heads", "cache seq",
-            "cache rep"} <= seen, seen
+            "cache rep", "cache rep, a rank's heads within Hkv"} <= seen, seen
 
 
 def run_steps(tmp: str, step_runs):
@@ -467,16 +498,17 @@ def test_dryrun_subprocess_mla(tmp_path):
     _check_dryrun(tmp_path, "deepseek-v2-236b", "16x16")
 
 
-def _check_dryrun(tmp_path, arch: str, mesh_name: str):
+def _check_dryrun(tmp_path, arch: str, mesh_name: str,
+                  shape: str = "decode_32k"):
     env = dict(os.environ, PYTHONPATH="src")
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         arch, "--shape", "decode_32k", "--out", str(tmp_path)]
+         arch, "--shape", shape, "--out", str(tmp_path)]
         + (["--multi-pod"] if mesh_name == "2x16x16" else []), env=env,
         cwd=ROOT, capture_output=True, text=True, timeout=900)
     assert r.returncode == 0, r.stderr[-2000:]
     assert "all requested combinations traced" in r.stdout
-    rec = json.loads((tmp_path / f"{arch}_decode_32k_{mesh_name}.json")
+    rec = json.loads((tmp_path / f"{arch}_{shape}_{mesh_name}.json")
                      .read_text())
     mesh = StandIn(*MESHES[mesh_name])
     assert rec["status"] == "ok"
@@ -489,7 +521,7 @@ def _check_dryrun(tmp_path, arch: str, mesh_name: str):
             * x.element_size()
     assert rec["param_bytes_per_device"] == want
     assert rec["model_flops"] == janalysis.model_flops_estimate(
-        jax_get_config(arch), JSHAPES["decode_32k"])
+        jax_get_config(arch), JSHAPES[shape])
     assert rec["peak_memory_per_device"] >= want + rec["cache_bytes_per_device"]
     for k in ("hlo_flops", "hlo_bytes", "collective_bytes"):
         assert rec[k] > 0, k

@@ -2,9 +2,8 @@
 repro_torch.launch.dryrun`` traces qwen3-30b-a3b's sharded training step
 (rank 0 of 16x16 on fake tensors: forward and backward with remat, K2's and
 K4's backward kernels as custom ops, the ZeRO-1 update) in a subprocess;
-deepseek-v2-236b's traces in process; the architectures whose mixers a
-mesh does not take yet are written as skipped with the ROADMAP.md item
-that ports them."""
+deepseek-v2-236b's, recurrentgemma-9b's, xlstm-1.3b's and whisper-base's
+trace in process."""
 
 from __future__ import annotations
 
@@ -14,6 +13,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 from repro_torch.launch import dryrun
 from repro_torch.configs import get_config
@@ -54,18 +54,48 @@ def test_dryrun_train_4k_subprocess(tmp_path):
                  "all-to-all"):
         assert rec["collective_by_kind"][kind] > 0, kind
     assert rec["hlo_flops"] > 0 and rec["hlo_bytes"] > 0
+    for op in BACKWARD_OPS["qwen3-30b-a3b"]:
+        assert rec["flops_by_op"].get(op, 0) > 0, (op, rec["flops_by_op"])
 
 
-def test_dryrun_train_4k_skips_name_their_roadmap_item():
-    """deepseek-v2-236b (multi-head latent attention, shared experts)
-    traces at ``train_4k`` within the card's 80 GB a device; the archs
-    whose mixers a mesh does not take yet skip, naming their item."""
-    rec = dryrun.dryrun_one("deepseek-v2-236b", "train_4k", verbose=False)
-    assert rec["status"] == "ok", rec
-    assert (rec["param_bytes_per_device"] + rec["moment_bytes_per_device"]
-            < rec["peak_memory_per_device"] < 80e9), rec
-    for arch in ("recurrentgemma-9b", "xlstm-1.3b", "whisper-base"):
-        rec = dryrun.dryrun_one(arch, "train_4k", verbose=False)
-        assert rec["status"] == "skipped", rec
-        assert "ROADMAP.md §1 item 2" in rec["reason"], rec
-        assert "step 1" in rec["reason"], rec
+# the backward custom ops each arch's train step reaches (the kernels' and
+# the recurrences' one-op forms)
+BACKWARD_OPS = {
+    "qwen3-30b-a3b": ("repro_torch.prefill_attention_bwd",
+                      "repro_torch.moe_gmm_bwd"),
+    "deepseek-v2-236b": ("repro_torch.prefill_attention_bwd",
+                         "repro_torch.moe_gmm_bwd"),
+    "recurrentgemma-9b": ("repro_torch.prefill_attention_bwd",),
+    "xlstm-1.3b": ("repro_torch.slstm_scan_bwd",
+                   "repro_torch.mlstm_chunkwise_bwd"),
+    "whisper-base": ("repro_torch.prefill_attention_bwd",),
+}
+
+
+@pytest.fixture(scope="module")
+def train_recs():
+    return {arch: dryrun.dryrun_one(arch, "train_4k", verbose=False)
+            for arch in ("deepseek-v2-236b", "recurrentgemma-9b",
+                         "xlstm-1.3b", "whisper-base")}
+
+
+def test_dryrun_train_4k_counts_backward_flops(train_recs):
+    """Every backward custom op a ``train_4k`` step reaches counts its
+    flops (``launch/analysis.py``'s formulas): none is counted as 0."""
+    for arch, rec in train_recs.items():
+        for op in BACKWARD_OPS[arch]:
+            assert rec["flops_by_op"].get(op, 0) > 0, (arch, op,
+                                                       rec["flops_by_op"])
+
+
+def test_dryrun_train_4k_skips_name_their_roadmap_item(train_recs):
+    """deepseek-v2-236b (multi-head latent attention, shared experts) and
+    the archs that were skipped before their mixers took a mesh
+    (recurrentgemma-9b, xlstm-1.3b, whisper-base) trace at ``train_4k``
+    within the card's 80 GB a device: no ``train_4k`` combination is
+    skipped any more."""
+    for arch, rec in train_recs.items():
+        assert rec["status"] == "ok", rec
+        assert (rec["param_bytes_per_device"]
+                + rec["moment_bytes_per_device"]
+                < rec["peak_memory_per_device"] < 80e9), rec
