@@ -395,6 +395,15 @@ DEEPSEEK_MOE = (160, 6, 5120, 1536)
 QWEN3_235B_MOE = (128, 8, 4096, 1536)
 
 
+def expert_weights(shape, gen):
+    """A stack of expert weights for a kernel check, bf16 on the card:
+    normal x 1/sqrt(shape[0]) from the check's sequential generator (the
+    model's init draws by leaf path; the checks keep their own stream)."""
+    import torch
+    w = torch.randn(shape, dtype=torch.bfloat16, device="cuda", generator=gen)
+    return w.mul_(1.0 / math.sqrt(shape[0]))
+
+
 def check_moe_gmm(tag: str, n_tokens: int, gen, widths=QWEN3_MOE) -> dict:
     """K1 at the ragged layout the model builds for ``n_tokens`` routed
     tokens at qwen3-30b-a3b widths (E 128, top-8, d 2048, F 768),
@@ -404,12 +413,11 @@ def check_moe_gmm(tag: str, n_tokens: int, gen, widths=QWEN3_MOE) -> dict:
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.models import moe
-    from repro_torch.models.layers import dense_init
     e, k, d, f = widths
     dev = torch.device("cuda")
-    w_gate = dense_init((e, d, f), torch.bfloat16, dev, gen)
-    w_up = dense_init((e, d, f), torch.bfloat16, dev, gen)
-    w_down = dense_init((e, f, d), torch.bfloat16, dev, gen)
+    w_gate = expert_weights((e, d, f), gen)
+    w_up = expert_weights((e, d, f), gen)
+    w_down = expert_weights((e, f, d), gen)
     x = torch.randn((n_tokens, d), device=dev, generator=gen).to(torch.bfloat16)
     router = torch.randn((d, e), device=dev, generator=gen) * 0.02
     probs = torch.softmax(x.float() @ router, dim=-1)
@@ -810,12 +818,11 @@ def check_moe_gmm_dense(tag: str, c: int, gen, widths=QWEN3_MOE) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    from repro_torch.models.layers import dense_init
     e, _, d, f = widths
     dev = torch.device("cuda")
-    w_gate = dense_init((e, d, f), torch.bfloat16, dev, gen)
-    w_up = dense_init((e, d, f), torch.bfloat16, dev, gen)
-    w_down = dense_init((e, f, d), torch.bfloat16, dev, gen)
+    w_gate = expert_weights((e, d, f), gen)
+    w_up = expert_weights((e, d, f), gen)
+    w_down = expert_weights((e, f, d), gen)
     x = torch.randn((e, c, d), device=dev, generator=gen).to(torch.bfloat16)
     args = (x, w_gate, w_up, w_down)
     got = ops.moe_gmm(*args)
@@ -3141,6 +3148,29 @@ TRAIN_LOSS_REL = 1e-2
 TRAIN_GNORM_REL = 5e-2
 MINICPM_TRAIN_ATTN = (36, 36, 64)      # MHA: g 1
 TRAIN_B, TRAIN_SEQ = 8, 256            # the training launcher's defaults
+# the batches after the run's that phase 9 holds out: the trained model's
+# mean ce over them must lie below the initial model's.  Each step's own
+# ce is another batch's, and between two batches it moves by as much as
+# 20 steps lower it (minicpm-2b at 12 layers: step 1 against step 20 fell
+# at two of four seeds of the draw before the counter-based one and at
+# three of four of this one; over these batches every run fell, by 0.022
+# to 0.156; PERF.md §6)
+TRAIN_HELD_OUT = 8
+
+
+def held_out_ce(model, params, batches) -> float:
+    """The mean masked next-token ce of ``params`` over ``batches`` (host
+    batches), without gradients."""
+    import torch
+    from repro_torch.training.train import device_batch, loss_fn
+    total = 0.0
+    with torch.no_grad():
+        for b in batches:
+            d = device_batch(model, *b)
+            _, m = loss_fn(model, params, d["tokens"], d["targets"],
+                           d["mask"], enc_out=d.get("enc_out"))
+            total += float(m["ce"])
+    return total / len(batches)
 # qwen3's dense dispatch at the launcher's 2048 tokens: C = ceil(2048 * 8
 # / 128 * 1.25) = 160
 QWEN3_TRAIN_C = 160
@@ -3334,13 +3364,11 @@ def check_moe_gmm_bwd(tag: str, c: int, gen, widths=QWEN3_MOE) -> dict:
     the cuBLAS chain (bf16 torch.bmm calls with the elementwise steps)."""
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.models.layers import dense_init
     e, _, d, f = widths
     dev = torch.device("cuda")
     args = (torch.randn((e, c, d), device=dev, generator=gen).to(torch.bfloat16),
-            dense_init((e, d, f), torch.bfloat16, dev, gen),
-            dense_init((e, d, f), torch.bfloat16, dev, gen),
-            dense_init((e, f, d), torch.bfloat16, dev, gen))
+            expert_weights((e, d, f), gen), expert_weights((e, d, f), gen),
+            expert_weights((e, f, d), gen))
     dy = torch.randn((e, c, d), device=dev, generator=gen).to(torch.bfloat16)
     padded = ops.PAD_COPIES["moe_gmm_bwd"]
     got = ops.moe_gmm_bwd(*args, dy)
@@ -3641,7 +3669,8 @@ def train_model(arch: str, times: dict, steps: int, n_layers=None,
     ``steps`` steps as ``python -m repro_torch.launch.train`` does (batch 8
     x 256 tokens of ``PackedDataset``, WSD at lr 6e-4, remat on), through
     ``Trainer.fit`` logging every step.  Checks: every loss finite, the
-    last ce below step 1's, the weight matrices moved, launches of the training
+    mean ce over ``TRAIN_HELD_OUT`` batches no step trains on lower after
+    the steps than before them, the weight matrices moved, launches of the training
     path's kernels only, host syncs one per logged step, and step 1's
     loss, ce and grad norm against ``fp32_yardstick``.  With ``ckpt``: the
     state after the last step saved and restored, and the next step taken
@@ -3665,7 +3694,8 @@ def train_model(arch: str, times: dict, steps: int, n_layers=None,
     n_params = sum(p_.numel() for p_ in tree_leaves(params))
     ds = iter(PackedDataset(SyntheticCorpus(cfg.vocab_size, seed=0),
                             seq_len=TRAIN_SEQ, batch_size=TRAIN_B, seed=0))
-    host = [next(ds) for _ in range(steps + 1)]
+    host = [next(ds) for _ in range(steps + 1 + TRAIN_HELD_OUT)]
+    held = host[steps + 1:]
     torch.cuda.synchronize()
     log(f"train {cfg.name}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
         f"params ({torch.cuda.memory_allocated() / 1e9:.1f} GB bf16) in "
@@ -3673,6 +3703,7 @@ def train_model(arch: str, times: dict, steps: int, n_layers=None,
     t1 = time.perf_counter()
     yard, unreached = fp32_yardstick(cfg, params, host[0])
     t_yard = time.perf_counter() - t1
+    ce_before = held_out_ce(model, params, held)
     opt = adamw(lr=6e-4, schedule="wsd", total_steps=steps + 1,
                 warmup=max((steps + 1) // 10, 1))
     trainer = Trainer(model=model, opt=opt, params=params)
@@ -3715,9 +3746,14 @@ def train_model(arch: str, times: dict, steps: int, n_layers=None,
         f"{TRAIN_LOSS_REL}, grad norm {TRAIN_GNORM_REL})")
     if not all(math.isfinite(h_["loss"]) for h_ in hist):
         raise AssertionError(f"train {cfg.name}: a loss is not finite")
-    if not last["ce"] < first["ce"]:
-        raise AssertionError(f"train {cfg.name}: ce did not fall "
-                             f"({first['ce']} -> {last['ce']})")
+    ce_after = held_out_ce(model, trainer.params, held)
+    log(f"train {cfg.name}: ce over {len(held)} held-out batches "
+        f"{ce_before:.5f} before, {ce_after:.5f} after {steps} steps (each "
+        f"step's own batch: step 1 {first['ce']:.5f}, the last "
+        f"{last['ce']:.5f})")
+    if not ce_after < ce_before:
+        raise AssertionError(f"train {cfg.name}: ce did not fall over the "
+                             f"held-out batches ({ce_before} -> {ce_after})")
     if (rel["loss"] > TRAIN_LOSS_REL or rel["ce"] > TRAIN_LOSS_REL
             or rel["grad_norm"] > TRAIN_GNORM_REL):
         raise AssertionError(f"train {cfg.name}: step 1 off its fp32 "
@@ -3741,7 +3777,7 @@ def train_model(arch: str, times: dict, steps: int, n_layers=None,
            "params_b": n_params / 1e9, "s_per_step": (float(np.median(s_step))
                                                      if s_step else wall),
            "peak_gb": peak, "step1": first, "last": last, "yardstick": yard,
-           "step1_rel": rel}
+           "step1_rel": rel, "held_out_ce": (ce_before, ce_after)}
     if ckpt:
         run["checkpoint"] = checkpoint_round_trip(trainer, host[steps])
     if profile:
@@ -3942,7 +3978,9 @@ def train_models(times: dict) -> dict:
             ("minicpm-2b", 20, lambda: MINICPM_TRAIN_LAYERS, True),
             ("qwen3-30b-a3b", 10, lambda: train_depth("qwen3-30b-a3b", 1),
              False),
-            ("whisper-base", 20, lambda: None, False),
+            # 100 steps: over 20 its held-out ce moves by +-0.015 (no
+            # learning to measure), over 100 it falls 0.036-0.050 (PERF.md)
+            ("whisper-base", 100, lambda: None, False),
             ("recurrentgemma-9b", 10,
              lambda: train_depth("recurrentgemma-9b", 3), False),
             ("deepseek-v2-236b", 10,
@@ -4298,6 +4336,8 @@ TRAIN_SHARD_SLACK = 0.5e9
 TRAIN_SHARD_GRAD_REL = 5e-2
 TRAIN_SHARD_NU_REL = 1e-1
 TRAIN_SHARD_PARAM_SHARE = 5e-2
+# the seeds of the pool's serve and training weights
+SERVE_SEED, TRAIN_SEED = 0, 1
 
 
 def sharded_train_config(arch: str, n_layers: int):
@@ -4491,7 +4531,8 @@ def sharded_train_reference(times: dict, ph: ShardPhase,
         f"reckoned " + json.dumps(reckoning))
     cfg = sharded_train_config(ph.arch, depth)
     model = DecoderModel(cfg, device="cuda", remat=True)
-    params = model.init_params(torch.Generator(device="cuda").manual_seed(1))
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(TRAIN_SEED))
     ds = iter(PackedDataset(SyntheticCorpus(vocab_size=cfg.vocab_size,
                                             seed=0),
                             seq_len=TRAIN_SHARD_S, batch_size=TRAIN_SHARD_B,
@@ -4540,6 +4581,91 @@ def sharded_train_reference(times: dict, ph: ShardPhase,
             + (TRAIN_SHARD_MOE_KERNELS if routed else ())}
 
 
+# a rank's draw of its shards may hold, beside the shards it keeps, this
+# many of the model's largest chunks (the one being drawn and cut, and the
+# allocator's rounding)
+INIT_PEAK_CHUNKS = 3
+
+
+def _draw_shards(cfg, seed: int, mesh, rules, whole) -> tuple:
+    """This rank's shards of ``cfg``'s seed-``seed`` model drawn alone
+    (``DecoderModel.init_shards``, timed after a spec pass of its own),
+    each leaf held with ``torch.equal`` against its block of the parent's
+    whole draw ``whole`` (CUDA IPC; the views are dropped here).  Returns
+    (the shards, the draw's seconds, its peak allocated bytes above what
+    was allocated before it and what it left allocated (the allocator's
+    rounding of the shards), the kept bytes, the reckoning's drawn bytes
+    and largest chunk, the leaves that differ)."""
+    import torch
+    from repro_torch.convert import shard_params
+    from repro_torch.launch.train import rank_bytes
+    from repro_torch.models.model import DecoderModel
+    from repro_torch.training.checkpoint import leaf_names
+    from repro_torch.training.optimizer import tree_leaves
+    model = DecoderModel(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    # the spec pass alone (meta tensors on the host), then the draw
+    t0 = time.perf_counter()
+    model.param_shapes()
+    specs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lp = model.init_shards(gen, mesh, rules=rules)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    held = torch.cuda.memory_allocated() - before
+    want = shard_params(whole, mesh, rules=rules)
+    unequal = [name for name, a, b in zip(
+        leaf_names(lp), tree_leaves(lp), tree_leaves(want))
+        if a.shape != b.shape or not torch.equal(a, b)]
+    del want
+    need = rank_bytes(cfg, mesh, rules=rules)
+    kept = sum(x.numel() * x.element_size() for x in tree_leaves(lp))
+    return lp, {"seed": seed, "layers": cfg.n_layers, "s": secs,
+                "specs_s": specs, "peak": peak, "held": held, "kept": kept,
+                "drawn": need["drawn"], "chunk": need["chunk"],
+                "leaves": len(tree_leaves(lp)), "unequal": unequal}
+
+
+def check_init(arch: str, inits: list, total: int) -> dict:
+    """The gate of the ranks' own draws (``_draw_shards``): every leaf of
+    every rank equal to its block of the whole draw, each rank's peak
+    during its draw within its kept bytes and ``INIT_PEAK_CHUNKS`` chunks;
+    logs one line: kept, drawn, seconds and peak a rank."""
+    bad = [f"rank {i}: {d['unequal']}" for i, d in enumerate(inits)
+           if d["unequal"]]
+    over = [(i, d["peak"], d["kept"]) for i, d in enumerate(inits)
+            if d["peak"] > d["kept"] + INIT_PEAK_CHUNKS * d["chunk"]]
+    d0 = inits[0]
+    rep = {"seed": d0["seed"], "layers": d0["layers"], "total": total,
+           "leaves": d0["leaves"],
+           "kept_GB": max(d["kept"] for d in inits) / 1e9,
+           "drawn_GB": max(d["drawn"] for d in inits) / 1e9,
+           "s": max(d["s"] for d in inits),
+           "specs_s": max(d["specs_s"] for d in inits),
+           "peak_GB": max(d["peak"] for d in inits) / 1e9,
+           "held_GB": max(d["held"] for d in inits) / 1e9,
+           "peak_over_kept_chunks": max((d["peak"] - d["kept"]) / d["chunk"]
+                                        for d in inits)}
+    log(f"sharded {arch} init (seed {d0['seed']}, {d0['layers']} of {total} "
+        f"layers): each of {len(inits)} ranks drew only its shards "
+        f"(init_shards), every leaf equal to its block of the whole draw: "
+        f"{not bad}; a rank keeps {rep['kept_GB']:.3f} GB, draws "
+        f"{rep['drawn_GB']:.3f} GB in {rep['s']:.3f} s (a spec pass before "
+        f"it {rep['specs_s']:.3f} s), peak "
+        f"{rep['peak_GB']:.3f} GB, held after {rep['held_GB']:.3f} GB "
+        f"(peak limit kept + {INIT_PEAK_CHUNKS} chunks of "
+        f"{d0['chunk'] / 2 ** 20:.0f} MiB; worst {rep['peak_over_kept_chunks']:.2f} "
+        f"chunks over)")
+    if bad or over:
+        raise AssertionError(f"sharded {arch} init: leaves unequal {bad}; "
+                             f"peak over kept + chunks {over}")
+    return rep
+
+
 def _train_rank(mesh, rules, tin, route) -> dict:
     """Phase 10b on this rank: its own copies of its shards of the
     weights, one sharded train step (routes pinned block by block to the
@@ -4554,7 +4680,6 @@ def _train_rank(mesh, rules, tin, route) -> dict:
     free memory before the step."""
     import torch
     import torch.distributed as dist
-    from repro_torch.convert import shard_params
     from repro_torch.kernels import ops
     from repro_torch.models import moe
     from repro_torch.models.model import DecoderModel
@@ -4565,8 +4690,8 @@ def _train_rank(mesh, rules, tin, route) -> dict:
     from repro_torch.training.train import (device_batch, make_train_step,
                                             train_plan)
     cfg = tin["cfg"]
+    lp, init = _draw_shards(cfg, TRAIN_SEED, mesh, rules, tin["params"])
     model = DecoderModel(cfg, device="cuda", remat=True)
-    lp = ops.tree_map(torch.clone, shard_params(tin["params"], mesh))
     seen = {"near": 0.0, "apart": math.inf}
     moe.route = _pin_block_route(route, tin["pins"],
                                  _router_blocks(model, lp), seen)
@@ -4631,7 +4756,7 @@ def _train_rank(mesh, rules, tin, route) -> dict:
     return {"metrics": {k: float(v) for k, v in m.items()},
             "launches": launches, "coll": coll, "wall": wall, "mem": mem,
             "free": free, "sums": sums, "pins": seen, "coords": mesh.coords,
-            "blocks": blocks}
+            "blocks": blocks, "init": init}
 
 
 def check_sharded_train(res: list, tin: dict) -> dict:
@@ -4749,13 +4874,17 @@ def check_sharded_train(res: list, tin: dict) -> dict:
         "depth": tin["depth"]}}
 
 
-def _shard_rank(rank: int, world: int, tmp: str, jobs, done) -> None:
+def _shard_rank(rank: int, world: int, tmp: str, jobs, drawn, done) -> None:
     """One rank of a sharded pool: every job the parent puts in ``jobs``
     (one copy a rank; None ends the pool) runs over the (2, 8) mesh
     (``_shard_job``), its results go to ``tmp/rank<r>_<i>.pt``, and the
-    rank says so in ``done``.  The jobs' tensors are the parent's, on the
-    card (CUDA IPC); the rank drops its references before it reports, so
-    that the parent can free them for the next model."""
+    rank says so in ``done`` (and in ``drawn`` once it has drawn its serve
+    shards and dropped the parent's whole draw, which the parent then
+    frees).  The jobs' tensors are the
+    parent's, on the card (CUDA IPC); the rank drops its references before
+    it reports, so that the parent can free them for the next model.  A
+    rank's error is printed here (the pool reports only the first rank's
+    that it sees, often another's lost connection)."""
     import os
     import torch
     import torch.distributed as dist
@@ -4776,7 +4905,12 @@ def _shard_rank(rank: int, world: int, tmp: str, jobs, done) -> None:
             if job is None:
                 break
             try:
-                res = _shard_job(mesh, rules, job, route0)
+                res = _shard_job(mesh, rules, job, route0,
+                                 lambda: drawn.put(rank))
+            except BaseException:
+                import traceback
+                traceback.print_exc()
+                raise
             finally:
                 moe.route = route0
             del job
@@ -4791,7 +4925,7 @@ def _shard_rank(rank: int, world: int, tmp: str, jobs, done) -> None:
         dist.destroy_process_group()
 
 
-def _shard_job(mesh, rules, job: dict, route0) -> dict:
+def _shard_job(mesh, rules, job: dict, route0, drawn) -> dict:
     """One model on this rank (``job``: its phase, config, the parent's
     ``params`` and ``inputs``): its shards of ``params``, the prefill
     (each of the phase's dispatches; whisper's with its frames, then the
@@ -4802,7 +4936,7 @@ def _shard_job(mesh, rules, job: dict, route0) -> dict:
     import torch
     import torch.distributed as dist
     from repro_torch.configs.shapes import InputShape
-    from repro_torch.convert import shard_cache, shard_params
+    from repro_torch.convert import shard_cache
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
     from repro_torch.models import moe
@@ -4813,12 +4947,13 @@ def _shard_job(mesh, rules, job: dict, route0) -> dict:
     marks = {"entered": time.time()}
     ph, cfg = job["ph"], job["cfg"]
     params, inputs = job.pop("params"), job.pop("inputs")
-    lp = shard_params(params, mesh)
+    lp, init = _draw_shards(cfg, SERVE_SEED, mesh, rules, params)
     del params
+    drawn()
+    marks["shards"] = time.time()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     model = DecoderModel(cfg, device="cuda")
-    marks["shards"] = time.time()
     b_r = SHARD_B // SHARD_MESH[0]
     r0 = mesh.coords["data"] * b_r
     queue, seen = [], {"near": 0.0, "apart": math.inf}
@@ -4903,7 +5038,7 @@ def _shard_job(mesh, rules, job: dict, route0) -> dict:
         marks["train"] = time.time()
     del inputs
     return {"coords": mesh.coords, "out": out, "stats": stats,
-            "marks": marks, "pins": seen, "mem": serve_mem}
+            "marks": marks, "pins": seen, "mem": serve_mem, "init": init}
 
 
 def _wait_ranks(pool, done, world: int) -> None:
@@ -4963,7 +5098,7 @@ def serve_sharded(times: dict, ph: ShardPhase, then=()) -> dict:
     world = SHARD_MESH[0] * SHARD_MESH[1]
     runs = {}
     ctx = mp.get_context("spawn")
-    jobs, done = ctx.Queue(), ctx.Queue()
+    jobs, drawn, done = ctx.Queue(), ctx.Queue(), ctx.Queue()
     with tempfile.TemporaryDirectory() as tmp:
         pool = None
         try:
@@ -4973,10 +5108,16 @@ def serve_sharded(times: dict, ph: ShardPhase, then=()) -> dict:
                 t_spawn = time.time()
                 if pool is None:
                     pool = mp.start_processes(
-                        _shard_rank, args=(world, tmp, jobs, done),
+                        _shard_rank, args=(world, tmp, jobs, drawn, done),
                         nprocs=world, start_method="spawn", join=False)
                 for _ in range(world):
                     jobs.put(job)
+                # the ranks hold their own shards now: the whole draw goes
+                _wait_ranks(pool, drawn, world)
+                del job["params"]
+                gc.collect()
+                torch.cuda.ipc_collect()
+                torch.cuda.empty_cache()
                 _wait_ranks(pool, done, world)
                 res = [torch.load(f"{tmp}/rank{r}_{i}.pt")
                        for r in range(world)]
@@ -5033,7 +5174,8 @@ def _shard_reference(times: dict, ph: ShardPhase,
     total = get_config(ph.arch).n_layers
     cfg = dataclasses.replace(get_config(ph.arch), n_layers=ph.layers)
     model = DecoderModel(cfg, device="cuda")
-    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(SERVE_SEED))
     g = torch.Generator().manual_seed(3)
     inputs = {"tokens": torch.randint(1, cfg.vocab_size, (SHARD_B, ph.s),
                                       generator=g)}
@@ -5169,6 +5311,10 @@ def _check_shard(ph: ShardPhase, res: list, ref: dict) -> dict:
     want, per_block, tin = ref["want"], ref["per_block"], ref["tin"]
     total = ref["total"]
     world = len(res)
+    inits = {"serve": check_init(ph.arch, [r["init"] for r in res], total)}
+    if tin is not None:
+        inits["train"] = check_init(
+            ph.arch, [r["out"]["train"]["init"] for r in res], total)
     train_run = (check_sharded_train([r["out"]["train"] for r in res], tin)
                  if tin is not None else {})
     bad = []
@@ -5287,7 +5433,8 @@ def _check_shard(ph: ShardPhase, res: list, ref: dict) -> dict:
         "arch": f"{ph.arch} sharded", "launches": dict(launches),
         "iterations": len(steps_rep), "steps": steps_rep,
         "against_unsharded": report, "teacher_forced": forced_rep,
-        "pinning": {"near": near, "apart": apart}}, **train_run}}
+        "pinning": {"near": near, "apart": apart}, "init": inits},
+        **train_run}}
 
 
 # ---------------------------------------------------------------- phase 11

@@ -18,16 +18,22 @@ nothing.
 model)`` mesh: one process a GPU, 256 of them, which the caller starts
 (``torchrun``: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and the rendezvous
 in the environment; NCCL on the card, gloo with ``--device cpu``).
-Without such a process group it raises and says so.  Each rank draws the
-whole model from seed 0 on its device (it refuses, before drawing, a
-model whose weights exceed the device's free memory: deepseek-v2-236b's
-471 GB need a sharded init, ROADMAP.md §1 item 2), keeps its shards
-(``partition.param_specs``) and ZeRO-1 moments (``moment_specs``), and
-runs ``train_sharded``, the per-rank body, which takes any mesh (the
-tests drive it at (2, 2) on gloo CPU ranks); rank 0 prints the ``[train]``
-lines with the mesh, and ``--ckpt`` writes whole leaves, gathered by
-their specs, under the JAX package's leaf names (the one-device
-``--init`` reads them).
+Without such a process group it raises and says so.  Each rank draws
+only its own shards (``partition.param_specs``) of the seed-0 model
+(``DecoderModel.init_shards``: each its block of the one-device draw,
+bit for bit, as JAX's launcher materialises only each device's shards)
+and holds its ZeRO-1 moments (``moment_specs``); before drawing it
+refuses a rank whose shards, gradients, moments and one draw chunk
+exceed the device's free memory (``rank_bytes``: deepseek-v2-236b's rank
+needs 20.9 GB at 16x16).  ``--init`` restores the whole checkpoint
+on every rank and cuts it; ``--ckpt`` writes whole leaves, gathered on
+every rank by their specs, under the JAX package's leaf names (the
+one-device ``--init`` reads them); each refuses up front where that
+whole tree does not fit beside the rank's (the large MoE models and
+qwen2-vl-72b: a streamed, sharded checkpoint, ROADMAP.md §1 item 2).
+``train_sharded``, the per-rank body, takes any mesh (the tests drive it
+at (2, 2) on gloo CPU ranks); rank 0 prints the ``[train]`` lines with
+the mesh.
 
 Usage:
   # on the card, full minicpm-2b (2.7 B parameters), 8 x 256 tokens a step:
@@ -88,14 +94,91 @@ def _optimizer(args):
                  warmup=max(args.steps // 10, 1))
 
 
+# the ROADMAP.md item that lifts --init's and --ckpt's whole trees
+CKPT_ITEM = "a streamed, sharded checkpoint (ROADMAP.md §1 item 2, step 5)"
+
+
+def rank_bytes(cfg, mesh, coords=None, rules=None) -> dict:
+    """What a rank of ``mesh`` (``coords``, default the mesh's own) holds
+    to train ``cfg`` under ``--production-mesh``, in bytes, reckoned from
+    the parameter shapes and specs on the meta device (nothing is drawn):
+    ``params``, its parameter shards (``partition.param_specs``);
+    ``grads``, their gradients; ``zero1``, ZeRO-1's fp32 gradients in the
+    moments' layout and its two fp32 moments (``moment_specs``);
+    ``chunk``, the largest chunk of the draw (``layers.chunk_layout``);
+    ``rank``, their sum.  Also ``drawn``, the values the rank's draw
+    generates (every chunk that meets a block: all of a column-split
+    leaf), ``whole``, the whole parameter tree, and ``checkpoint``, the
+    whole tree ``--ckpt`` gathers (the parameters and both moments)."""
+    import math
+    from repro_torch.models import layers
+    from repro_torch.sharding.partition import (local_shape, moment_specs,
+                                                param_blocks, path_str,
+                                                tree_map_with_path)
+    shapes = DecoderModel(cfg, device="cpu").param_shapes()
+    blocks = param_blocks(shapes, mesh, coords, rules)
+    mspecs = moment_specs(shapes, mesh, rules)
+    out = dict.fromkeys(("params", "zero1", "chunk", "drawn", "whole",
+                         "checkpoint"), 0)
+
+    def leaf(path, x):
+        shape, size = tuple(x.shape), x.element_size()
+        block = blocks[path_str(path)]
+        mspec = mspecs
+        for k in path:
+            mspec = mspec[k]
+        n = math.prod(len(range(*s.indices(d))) for s, d in zip(block, shape))
+        out["params"] += n * size
+        out["zero1"] += 12 * math.prod(local_shape(shape, mspec, mesh))
+        out["chunk"] = max(out["chunk"], layers.chunk_elements(shape) * size)
+        out["drawn"] += layers.drawn_elements(shape, block) * size
+        out["whole"] += math.prod(shape) * size
+        out["checkpoint"] += math.prod(shape) * (size + 8)
+    tree_map_with_path(leaf, shapes)
+    out["grads"] = out["params"]
+    out["rank"] = out["params"] + out["grads"] + out["zero1"] + out["chunk"]
+    return out
+
+
+def _admit(cfg, args, need: dict, free: int) -> None:
+    """Refuse, before anything is drawn, a run whose rank needs more than
+    ``free`` bytes (``rank_bytes``): its shards and optimizer state, and
+    with ``--init`` or ``--ckpt`` the whole tree those take on every
+    rank."""
+    gb = {k: v / 1e9 for k, v in need.items()}
+    rank = (f"a rank needs {gb['rank']:.2f} GB (parameter shards "
+            f"{gb['params']:.2f}, their gradients {gb['grads']:.2f}, "
+            f"ZeRO-1's fp32 gradients and moments {gb['zero1']:.2f}, one "
+            f"draw chunk {gb['chunk']:.3f})")
+    if need["rank"] > free:
+        raise SystemExit(
+            f"--production-mesh: {cfg.name}: {rank}; the device has "
+            f"{free / 1e9:.1f} GB free")
+    if args.init and need["whole"] + need["params"] > free:
+        raise SystemExit(
+            f"--init restores the whole checkpoint on every rank before "
+            f"keeping its shards: {cfg.name}'s {gb['whole']:.1f} GB of "
+            f"parameters beside the rank's {gb['params']:.2f} GB of shards, "
+            f"the device has {free / 1e9:.1f} GB free; this size needs "
+            f"{CKPT_ITEM}")
+    if args.ckpt and need["rank"] + need["checkpoint"] > free:
+        raise SystemExit(
+            f"--ckpt gathers every leaf whole on every rank after the last "
+            f"step: {cfg.name}'s parameters and fp32 moments take "
+            f"{gb['checkpoint']:.1f} GB beside what {rank}, the device has "
+            f"{free / 1e9:.1f} GB free; this size needs {CKPT_ITEM}")
+
+
 def train_sharded(args, mesh, device=None) -> dict:
     """The per-rank body of ``--production-mesh`` over any ``mesh`` built
     with its process groups (``collectives.Mesh(..., distributed=True)``):
-    this rank's shards of the seed-0 model (or ``--init``'s), ZeRO-1
-    moments, the JAX launcher's data and schedule; rank 0 prints the
-    ``[train]`` lines.  Returns ``history`` (every step's metrics, read
-    back at the end; every rank holds the same), and the rank's
-    ``params`` and ``opt_state``."""
+    this rank's shards of the seed-0 model, drawn alone
+    (``DecoderModel.init_shards``; ``--init``: cut from the whole
+    checkpoint), ZeRO-1 moments, the JAX launcher's data and schedule;
+    rank 0 prints the ``[train]`` lines.  Refuses, before drawing, what
+    the device cannot hold (``rank_bytes``).  Returns ``history`` (every
+    step's metrics, read back at the end; every rank holds the same), and
+    the rank's ``params`` and ``opt_state``."""
     from repro_torch.convert import gather_params, shard_params
     from repro_torch.sharding.partition import (moment_specs, param_specs,
                                                 sharding_context)
@@ -106,21 +189,17 @@ def train_sharded(args, mesh, device=None) -> dict:
     model = DecoderModel(cfg, device=device, remat=not args.smoke)
     dev = model.device
     opt = _optimizer(args)
+    _admit(cfg, args, rank_bytes(cfg, mesh), _free_bytes(dev))
     shapes = model.param_shapes()
-    need = sum(p.numel() * p.element_size() for p in tree_leaves(shapes))
-    free = _free_bytes(dev)
-    if need > free:
-        raise SystemExit(
-            f"--production-mesh draws the whole model on each rank before "
-            f"keeping its shards: {cfg.name}'s weights take {need / 1e9:.1f} "
-            f"GB, the rank has {free / 1e9:.1f} GB free; models this large "
-            f"need a sharded init (ROADMAP.md §1 item 2, step 2)")
-    whole = model.init_params(torch.Generator(device=dev).manual_seed(0))
     if args.init:
-        whole = ckpt_io.restore(args.init, {"params": whole})["params"]
-    # this rank's own copies: nothing it updates aliases the whole tree
-    params = ops.tree_map(torch.clone, shard_params(whole, mesh))
-    del whole
+        whole = ckpt_io.restore(args.init, {"params": shapes},
+                                device=dev)["params"]
+        # this rank's own copies: nothing it updates aliases the whole tree
+        params = ops.tree_map(torch.clone, shard_params(whole, mesh))
+        del whole
+    else:
+        params = model.init_shards(
+            torch.Generator(device=dev).manual_seed(0), mesh)
     lead = mesh.rank == 0
     kept = []
     with sharding_context(mesh):
@@ -163,8 +242,8 @@ def train_sharded(args, mesh, device=None) -> dict:
 
 
 def _free_bytes(dev: torch.device) -> int:
-    """The memory free for the whole model on ``dev``: the card's, or the
-    host's available memory for the CPU."""
+    """The memory free on ``dev``: the card's, or the host's available
+    memory for the CPU."""
     if dev.type == "cuda":
         return torch.cuda.mem_get_info(dev)[0]
     import os

@@ -72,42 +72,43 @@ from repro_torch.sharding.partition import active_context, kv_cache_mode
 Tensor = torch.Tensor
 
 
-def init_attn(cfg: ModelConfig, spec: BlockSpec, device, generator,
+def init_attn(cfg: ModelConfig, spec: BlockSpec, draw, path: str,
               reps: int = 0) -> dict:
     _check_spec(spec)
     d, hd = cfg.d_model, cfg.head_dim_
     dt = torch_dtype(cfg.param_dtype)
 
-    def w(shape):
-        return layers.dense_init(shape, dt, device, generator, reps=reps)
+    def w(name, shape):
+        return layers.dense_init(draw, f"{path}/{name}", shape, dt, reps=reps)
+
+    def norm(name, dim=None):
+        return layers.init_norm(cfg, draw, f"{path}/{name}", dim=dim,
+                                reps=reps)
     if spec.mixer == MIXER_MLA:
         m, h = cfg.mla, cfg.n_heads
         qdim = h * (m.qk_nope_dim + m.qk_rope_dim)
         p = {}
         if m.q_lora_rank:
-            p["w_dq"] = w((d, m.q_lora_rank))
-            p["q_norm"] = layers.init_norm(cfg, device, dim=m.q_lora_rank,
-                                           reps=reps)
-            p["w_uq"] = w((m.q_lora_rank, qdim))
+            p["w_dq"] = w("w_dq", (d, m.q_lora_rank))
+            p["q_norm"] = norm("q_norm", m.q_lora_rank)
+            p["w_uq"] = w("w_uq", (m.q_lora_rank, qdim))
         else:
-            p["w_q"] = w((d, qdim))
-        p["w_dkv"] = w((d, m.kv_lora_rank))
-        p["kv_norm"] = layers.init_norm(cfg, device, dim=m.kv_lora_rank,
-                                        reps=reps)
-        p["w_kr"] = w((d, m.qk_rope_dim))
-        p["w_uk"] = w((m.kv_lora_rank, h * m.qk_nope_dim))
-        p["w_uv"] = w((m.kv_lora_rank, h * m.v_head_dim))
-        p["w_o"] = w((h * m.v_head_dim, d))
+            p["w_q"] = w("w_q", (d, qdim))
+        p["w_dkv"] = w("w_dkv", (d, m.kv_lora_rank))
+        p["kv_norm"] = norm("kv_norm", m.kv_lora_rank)
+        p["w_kr"] = w("w_kr", (d, m.qk_rope_dim))
+        p["w_uk"] = w("w_uk", (m.kv_lora_rank, h * m.qk_nope_dim))
+        p["w_uv"] = w("w_uv", (m.kv_lora_rank, h * m.v_head_dim))
+        p["w_o"] = w("w_o", (h * m.v_head_dim, d))
         return p
-    return {"w_q": w((d, cfg.n_heads * hd)), "w_k": w((d, cfg.n_kv_heads * hd)),
-            "w_v": w((d, cfg.n_kv_heads * hd)),
-            "w_o": w((cfg.n_heads * hd, d)),
-            **({"x_q": w((d, cfg.n_heads * hd)),
-                "x_k": w((d, cfg.n_kv_heads * hd)),
-                "x_v": w((d, cfg.n_kv_heads * hd)),
-                "x_o": w((cfg.n_heads * hd, d)),
-                "x_norm": layers.init_norm(cfg, device, reps=reps)}
-               if spec.cross_attn else {})}
+    q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    p = {"w_q": w("w_q", (d, q)), "w_k": w("w_k", (d, kv)),
+         "w_v": w("w_v", (d, kv)), "w_o": w("w_o", (q, d))}
+    if spec.cross_attn:
+        p.update(x_q=w("x_q", (d, q)), x_k=w("x_k", (d, kv)),
+                 x_v=w("x_v", (d, kv)), x_o=w("x_o", (q, d)),
+                 x_norm=norm("x_norm"))
+    return p
 
 
 def init_cache_attn(cfg: ModelConfig, spec: BlockSpec, batch: int,

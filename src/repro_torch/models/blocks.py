@@ -21,26 +21,28 @@ from repro_torch.models.config import (FFN_MOE, FFN_NONE, MIXER_MLSTM,
 Tensor = torch.Tensor
 
 
-def init_block(cfg: ModelConfig, spec: BlockSpec, device, generator,
+def init_block(cfg: ModelConfig, spec: BlockSpec, draw, path: str,
                reps: int = 0) -> dict:
-    """One block's parameters; ``reps > 0`` gives every leaf a leading
-    axis of ``reps`` independently drawn copies (a segment's stack)."""
-    p = {"ln1": layers.init_norm(cfg, device, reps=reps)}
+    """One block's parameters, each leaf drawn by ``draw`` (a
+    ``layers.Draw``) under its path below ``path``; ``reps > 0`` gives
+    every leaf a leading axis of ``reps`` independently drawn copies (a
+    segment's stack)."""
+    p = {"ln1": layers.init_norm(cfg, draw, f"{path}/ln1", reps=reps)}
     if spec.mixer == MIXER_RGLRU:
-        p["rglru"] = rglru.init_rglru(cfg, device, generator, reps=reps)
+        p["rglru"] = rglru.init_rglru(cfg, draw, f"{path}/rglru", reps=reps)
     elif spec.mixer == MIXER_MLSTM:
-        p["lstm"] = xlstm.init_mlstm(cfg, device, generator, reps=reps)
+        p["lstm"] = xlstm.init_mlstm(cfg, draw, f"{path}/lstm", reps=reps)
     elif spec.mixer == MIXER_SLSTM:
-        p["lstm"] = xlstm.init_slstm(cfg, device, generator, reps=reps)
+        p["lstm"] = xlstm.init_slstm(cfg, draw, f"{path}/lstm", reps=reps)
     else:
-        p["attn"] = attention.init_attn(cfg, spec, device, generator,
+        p["attn"] = attention.init_attn(cfg, spec, draw, f"{path}/attn",
                                         reps=reps)
     if spec.ffn != FFN_NONE:
-        p["ln2"] = layers.init_norm(cfg, device, reps=reps)
+        p["ln2"] = layers.init_norm(cfg, draw, f"{path}/ln2", reps=reps)
         if spec.ffn == FFN_MOE:
-            p["moe"] = moe.init_moe(cfg, device, generator, reps=reps)
+            p["moe"] = moe.init_moe(cfg, draw, f"{path}/moe", reps=reps)
         else:
-            p["mlp"] = layers.init_mlp(cfg, device, generator, reps=reps)
+            p["mlp"] = layers.init_mlp(cfg, draw, f"{path}/mlp", reps=reps)
     return p
 
 

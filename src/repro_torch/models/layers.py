@@ -6,12 +6,15 @@ weights are applied as ``x @ W`` with ``W`` of shape ``(d_in, d_out)``.
 
 from __future__ import annotations
 
+import hashlib
+import itertools
 import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.device import torch_dtype
 from repro_torch.models.config import ModelConfig
@@ -20,56 +23,182 @@ Tensor = torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# Init (same distributions as the JAX package's ``layers._dense``)
+# Init: a counter-based draw (the JAX package's ``layers._dense``
+# distributions)
 # ---------------------------------------------------------------------------
 
+# a chunk of a random leaf holds at most this many elements (32 MiB of bf16)
+CHUNK = 1 << 24
 
-def dense_init(shape, dtype: torch.dtype, device: torch.device,
-               generator: torch.Generator, scale: Optional[float] = None,
-               reps: int = 0) -> Tensor:
+
+def chunk_layout(shape) -> Tuple[int, int]:
+    """``(k, rows)``: a leaf of ``shape`` is drawn in chunks of one index
+    on each dim before ``k``, a run of ``rows`` on dim ``k`` and every dim
+    after it whole; ``k`` is the first dim whose trailing dims hold at most
+    ``CHUNK`` elements.  The layout depends on the shape only."""
+    shape = tuple(shape)
+    for k in range(len(shape)):
+        inner = math.prod(shape[k + 1:])
+        if inner <= CHUNK:
+            return k, min(shape[k], max(1, CHUNK // inner))
+    raise ValueError(f"no chunk layout for {shape}")
+
+
+def chunk_elements(shape) -> int:
+    """The elements of the largest chunk of a leaf of ``shape``."""
+    k, rows = chunk_layout(shape)
+    return rows * math.prod(tuple(shape)[k + 1:])
+
+
+def _bounds(block, shape) -> Tuple[Tuple[int, int], ...]:
+    return tuple(s.indices(n)[:2] for s, n in zip(block, shape))
+
+
+def drawn_elements(shape, block) -> int:
+    """The elements of the chunks that meet ``block`` (one slice per dim)
+    of a leaf of ``shape``: what a draw of that block generates."""
+    shape = tuple(shape)
+    k, rows = chunk_layout(shape)
+    b = _bounds(block, shape)
+    outer = math.prod(hi - lo for lo, hi in b[:k])
+    lo, hi = b[k]
+    n = 0
+    for j in range(lo // rows, -(-hi // rows)):
+        n += min((j + 1) * rows, shape[k]) - j * rows
+    return outer * n * math.prod(shape[k + 1:])
+
+
+class Draw:
+    """Every leaf of an init, by its '/'-joined tree path (JAX's leaf
+    path, ``segments/0/pattern/0/moe/w_gate``).  A random leaf is drawn
+    chunk by chunk (``chunk_layout``), each chunk in its dtype on
+    ``device`` from a generator seeded by a stable hash of (``seed``, the
+    path, the chunk's index), then transformed elementwise, so that its
+    values depend on nothing drawn before it.  With ``blocks`` ({path:
+    one slice per dim}) each leaf is its block only: the chunks that meet
+    the block are drawn and cut, which gives that block of the whole draw
+    bit for bit.  Constant leaves draw nothing.  On the meta device or
+    fake tensors (the dry-run's ``FakeTensorMode``) nothing is drawn."""
+
+    def __init__(self, seed: int, device, blocks: Optional[dict] = None):
+        self.seed = int(seed)
+        self.device = torch.device(device)
+        self.blocks = blocks
+        self._gen = None
+
+    def _block(self, path: str, shape) -> Tuple[slice, ...]:
+        if self.blocks is None:
+            return tuple(slice(0, n) for n in shape)
+        return tuple(slice(lo, hi) for lo, hi in
+                     _bounds(self.blocks[path], shape))
+
+    def _stream(self, path: str, c: int) -> torch.Generator:
+        # hashlib, not hash(): Python salts str hashes per process
+        h = hashlib.blake2b(f"{self.seed}/{path}/{c}".encode(),
+                            digest_size=8).digest()
+        if self._gen is None:
+            self._gen = torch.Generator(device=self.device)
+        return self._gen.manual_seed(int.from_bytes(h, "little") >> 1)
+
+    def _draw(self, path: str, shape, dtype: torch.dtype, fn) -> Tensor:
+        """``fn(generator, chunk shape)`` chunk by chunk into the leaf's
+        block."""
+        shape = tuple(shape)
+        block = self._block(path, shape)
+        out = torch.empty(tuple(s.stop - s.start for s in block),
+                          dtype=dtype, device=self.device)
+        if out.is_meta or isinstance(out, FakeTensor):
+            return out
+        k, rows = chunk_layout(shape)
+        n_k = -(-shape[k] // rows)
+        lo, hi = block[k].start, block[k].stop
+        for idx in itertools.product(*(range(s.start, s.stop)
+                                       for s in block[:k])):
+            first = int(np.ravel_multi_index(idx, shape[:k])) * n_k \
+                if k else 0
+            at = tuple(i - s.start for i, s in zip(idx, block[:k]))
+            for j in range(lo // rows, -(-hi // rows)):
+                r0, r1 = j * rows, min((j + 1) * rows, shape[k])
+                a, b = max(r0, lo), min(r1, hi)
+                # one chunk alive at a time: nothing names it past the copy
+                out[at + (slice(a - lo, b - lo),)].copy_(
+                    fn(self._stream(path, first + j),
+                       (r1 - r0,) + shape[k + 1:])[
+                        (slice(a - r0, b - r0),) + block[k + 1:]])
+        return out
+
+    def normal(self, path: str, shape, dtype: torch.dtype,
+               std: float) -> Tensor:
+        """normal * ``std``, drawn in ``dtype``."""
+        return self._draw(path, shape, dtype, lambda g, sh: torch.randn(
+            sh, dtype=dtype, device=self.device, generator=g).mul_(std))
+
+    def uniform(self, path: str, shape, dtype: torch.dtype, lo: float,
+                hi: float, then=None) -> Tensor:
+        """U[lo, hi) drawn in ``dtype``, then ``then`` (elementwise) on
+        each chunk."""
+        def fn(g, sh):
+            u = torch.rand(sh, dtype=dtype, device=self.device,
+                           generator=g) * (hi - lo) + lo
+            return then(u) if then is not None else u
+        return self._draw(path, shape, dtype, fn)
+
+    def const(self, path: str, whole: Tensor) -> Tensor:
+        """A constant leaf's block of ``whole`` (on the device; an
+        expanded view is enough: only the block is allocated)."""
+        return whole[self._block(path, tuple(whole.shape))].contiguous()
+
+    def full(self, path: str, shape, dtype: torch.dtype,
+             value: float) -> Tensor:
+        return self.const(path, torch.full((), value, dtype=dtype,
+                                           device=self.device).expand(shape))
+
+
+def dense_init(draw: Draw, path: str, shape, dtype: torch.dtype,
+               scale: Optional[float] = None, reps: int = 0) -> Tensor:
     """normal * 1/sqrt(shape[0]) (or * ``scale``), drawn directly in
-    ``dtype`` on ``device`` — the full bf16 model never passes through fp32
-    on the host.  ``reps > 0`` draws a stack of ``reps`` such leaves at
-    once (a segment's stacked parameters)."""
+    ``dtype`` on the draw's device: the full bf16 model never passes
+    through fp32 on the host.  ``reps > 0`` draws a stack of ``reps``
+    independent such leaves (a segment's stacked parameters)."""
     std = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     full = (reps,) + tuple(shape) if reps else tuple(shape)
-    w = torch.randn(full, dtype=dtype, device=device, generator=generator)
-    return w.mul_(std)
+    return draw.normal(path, full, dtype, std)
 
 
-def init_norm(cfg: ModelConfig, device: torch.device,
+def init_norm(cfg: ModelConfig, draw: Draw, path: str,
               dim: Optional[int] = None, reps: int = 0) -> dict:
     d = dim or cfg.d_model
     dt = torch_dtype(cfg.param_dtype)
     shape = (reps, d) if reps else (d,)
-    p = {"scale": torch.ones(shape, dtype=dt, device=device)}
+    p = {"scale": draw.full(f"{path}/scale", shape, dt, 1.0)}
     if cfg.norm == "layernorm":
-        p["bias"] = torch.zeros(shape, dtype=dt, device=device)
+        p["bias"] = draw.full(f"{path}/bias", shape, dt, 0.0)
     return p
 
 
-def init_mlp(cfg: ModelConfig, device, generator, d_ff: Optional[int] = None,
-             reps: int = 0):
+def init_mlp(cfg: ModelConfig, draw: Draw, path: str,
+             d_ff: Optional[int] = None, reps: int = 0):
     d, f = cfg.d_model, (d_ff or cfg.d_ff)
     dt = torch_dtype(cfg.param_dtype)
 
-    def w(shape):
-        return dense_init(shape, dt, device, generator, reps=reps)
+    def w(name, shape):
+        return dense_init(draw, f"{path}/{name}", shape, dt, reps=reps)
     if cfg.activation in ("swiglu", "geglu"):
-        return {"w_gate": w((d, f)), "w_up": w((d, f)), "w_down": w((f, d))}
-    return {"w_up": w((d, f)), "w_down": w((f, d))}
+        return {"w_gate": w("w_gate", (d, f)), "w_up": w("w_up", (d, f)),
+                "w_down": w("w_down", (f, d))}
+    return {"w_up": w("w_up", (d, f)), "w_down": w("w_down", (f, d))}
 
 
-def init_embed(cfg: ModelConfig, device, generator) -> dict:
+def init_embed(cfg: ModelConfig, draw: Draw) -> dict:
     dt = torch_dtype(cfg.param_dtype)
-    p = {"tok": dense_init((cfg.vocab_size, cfg.d_model), dt, device,
-                           generator, scale=0.02)}
+    p = {"tok": dense_init(draw, "embed/tok", (cfg.vocab_size, cfg.d_model),
+                           dt, scale=0.02)}
     if not cfg.tie_embeddings:
-        p["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size), dt, device,
-                                  generator)
+        p["lm_head"] = dense_init(draw, "embed/lm_head",
+                                  (cfg.d_model, cfg.vocab_size), dt)
     if cfg.pos_emb == "learned":
-        p["pos"] = dense_init((cfg.max_seq_len, cfg.d_model), dt, device,
-                              generator, scale=0.02)
+        p["pos"] = dense_init(draw, "embed/pos",
+                              (cfg.max_seq_len, cfg.d_model), dt, scale=0.02)
     return p
 
 

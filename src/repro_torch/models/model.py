@@ -57,8 +57,8 @@ from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention, blocks, layers
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.sharding import spmd
-from repro_torch.sharding.partition import (active_context, shard_seq_hint,
-                                            sharding_context)
+from repro_torch.sharding.partition import (active_context, param_blocks,
+                                            shard_seq_hint, sharding_context)
 
 Tensor = torch.Tensor
 
@@ -125,23 +125,46 @@ class DecoderModel:
         """Random parameters with the JAX package's distributions (normal x
         1/sqrt(fan_in); 0.02 for router and embeddings; RG-LRU's
         ``a_param`` and the xLSTM gate biases as in models/rglru.py and
-        models/xlstm.py), drawn directly in
-        ``param_dtype`` on the model's device from ``generator`` (a
-        ``torch.Generator`` on that device; seed 0 when omitted)."""
-        cfg, dev = self.cfg, self.device
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        params: dict = {"embed": layers.init_embed(cfg, dev, generator),
-                        "final_norm": layers.init_norm(cfg, dev)}
+        models/xlstm.py), drawn directly in ``param_dtype`` on the model's
+        device, chunk by chunk from the seed of ``generator`` (a
+        ``torch.Generator`` on that device; seed 0 when omitted): each
+        value depends on the seed, its leaf's path and its chunk only
+        (``layers.Draw``), so ``init_shards`` gives any rank its block of
+        this draw."""
+        return self._init(layers.Draw(self._seed(generator), self.device))
+
+    def init_shards(self, generator: Optional[torch.Generator], mesh,
+                    coords=None, rules=None) -> dict:
+        """Rank ``coords``' (default: the mesh's own rank's) block of every
+        leaf under ``partition.param_specs``, equal bit for bit to that
+        block of ``init_params(generator)``: only the chunks that meet a
+        block are drawn, one at a time.  Reads the mesh's ``shape``,
+        ``axis_names`` and coordinates only (no process group)."""
+        blocks = param_blocks(self.param_shapes(), mesh, coords, rules)
+        return self._init(layers.Draw(self._seed(generator), self.device,
+                                      blocks))
+
+    def _seed(self, generator: Optional[torch.Generator]) -> int:
+        return 0 if generator is None else generator.initial_seed()
+
+    def _init(self, draw: layers.Draw) -> dict:
+        cfg = self.cfg
+        params: dict = {"embed": layers.init_embed(cfg, draw),
+                        "final_norm": layers.init_norm(cfg, draw,
+                                                       "final_norm")}
         params["segments"] = [
-            {"pattern": [blocks.init_block(cfg, sp, dev, generator, reps=reps)
-                         for sp in pattern]}
-            for pattern, reps in self.segments]
+            {"pattern": [blocks.init_block(cfg, sp, draw,
+                                           f"segments/{s}/pattern/{p}",
+                                           reps=reps)
+                         for p, sp in enumerate(pattern)]}
+            for s, (pattern, reps) in enumerate(self.segments)]
         if cfg.encoder.enabled:
             params["encoder"] = {
-                "blocks": [blocks.init_block(cfg, ENCODER_SPEC, dev, generator)
-                           for _ in range(cfg.encoder.n_layers)],
-                "final_norm": layers.init_norm(cfg, dev)}
+                "blocks": [blocks.init_block(cfg, ENCODER_SPEC, draw,
+                                             f"encoder/blocks/{i}")
+                           for i in range(cfg.encoder.n_layers)],
+                "final_norm": layers.init_norm(cfg, draw,
+                                               "encoder/final_norm")}
         return params
 
     def init_cache(self, batch: int, max_len: int, dtype=None) -> list:
@@ -268,12 +291,11 @@ class DecoderModel:
     # -- execution -----------------------------------------------------------
 
     def param_shapes(self) -> dict:
-        """The parameter tree at full size on fake tensors (shapes and
-        dtypes, no memory): what the spec functions read."""
-        from torch._subclasses.fake_tensor import FakeTensorMode
-        with FakeTensorMode():
-            return DecoderModel(self.cfg, device="cpu").init_params(
-                torch.Generator().manual_seed(0))
+        """The parameter tree at full size on the meta device (shapes and
+        dtypes, no memory, nothing drawn; no fake-tensor machinery, whose
+        first use in a process takes seconds): what the spec functions
+        read."""
+        return self._init(layers.Draw(0, "meta"))
 
     def block_params(self, params, b: int) -> dict:
         s, r, p_idx = self.index_map[b]

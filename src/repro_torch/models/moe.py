@@ -58,25 +58,27 @@ from repro_torch.sharding.partition import active_context
 Tensor = torch.Tensor
 
 
-def init_moe(cfg: ModelConfig, device, generator, reps: int = 0) -> dict:
+def init_moe(cfg: ModelConfig, draw, path: str, reps: int = 0) -> dict:
     e = cfg.moe
     d, f = cfg.d_model, e.expert_d_ff
     dt = torch_dtype(cfg.param_dtype)
 
-    def w(shape, scale=None):
-        return dense_init(shape, dt, device, generator, scale=scale, reps=reps)
+    def w(name, shape, scale=None):
+        return dense_init(draw, f"{path}/{name}", shape, dt, scale=scale,
+                          reps=reps)
     p = {
-        "router": w((d, e.n_experts), scale=0.02),
+        "router": w("router", (d, e.n_experts), scale=0.02),
         # fan-in is shape[0] = E for the stacked expert weights, exactly as
         # the JAX package's layers._dense draws them
-        "w_gate": w((e.n_experts, d, f)),
-        "w_up": w((e.n_experts, d, f)),
-        "w_down": w((e.n_experts, f, d)),
+        "w_gate": w("w_gate", (e.n_experts, d, f)),
+        "w_up": w("w_up", (e.n_experts, d, f)),
+        "w_down": w("w_down", (e.n_experts, f, d)),
     }
     if e.n_shared_experts:
         fs = e.shared_d_ff * e.n_shared_experts
-        p["shared"] = {"w_gate": w((d, fs)), "w_up": w((d, fs)),
-                       "w_down": w((fs, d))}
+        p["shared"] = {"w_gate": w("shared/w_gate", (d, fs)),
+                       "w_up": w("shared/w_up", (d, fs)),
+                       "w_down": w("shared/w_down", (fs, d))}
     return p
 
 

@@ -60,7 +60,7 @@ def _block_diag(x: Tensor, w: Tensor) -> Tensor:
     return torch.einsum("...nb,nbc->...nc", xb, w).reshape(x.shape)
 
 
-def init_rglru(cfg: ModelConfig, device, generator, reps: int = 0) -> dict:
+def init_rglru(cfg: ModelConfig, draw, path: str, reps: int = 0) -> dict:
     """The JAX package's distributions: dense weights normal x
     1/sqrt(fan_in) (0.1 for the conv, 0.02 for the block-diagonal gates),
     and ``a_param`` in fp32 such that a^2 ~ U[0.81, 0.999] (the paper's
@@ -68,23 +68,27 @@ def init_rglru(cfg: ModelConfig, device, generator, reps: int = 0) -> dict:
     d, w = cfg.d_model, lru_width(cfg)
     dt = torch_dtype(cfg.param_dtype)
 
-    def dense(shape, scale=None):
-        return layers.dense_init(shape, dt, device, generator, scale=scale,
-                                 reps=reps)
+    def dense(name, shape, scale=None):
+        return layers.dense_init(draw, f"{path}/{name}", shape, dt,
+                                 scale=scale, reps=reps)
     lead = (reps,) if reps else ()
-    u = torch.rand(lead + (w,), dtype=torch.float32, device=device,
-                   generator=generator) * (0.999 - 0.81) + 0.81
-    log_a = 0.5 * torch.log(u)
+
+    def a_param(u):
+        log_a = 0.5 * torch.log(u)
+        return torch.log(torch.expm1(-log_a / _C))
     nb = _N_GATE_BLOCKS
     return {
-        "w_x": dense((d, w)),
-        "w_gate": dense((d, w)),
-        "w_out": dense((w, d)),
-        "conv_w": dense((cfg.conv_width, w), scale=0.1),
-        "conv_b": torch.zeros(lead + (w,), dtype=dt, device=device),
-        "w_input_gate": dense((nb, w // nb, w // nb), scale=0.02),
-        "w_rec_gate": dense((nb, w // nb, w // nb), scale=0.02),
-        "a_param": torch.log(torch.expm1(-log_a / _C)),
+        "w_x": dense("w_x", (d, w)),
+        "w_gate": dense("w_gate", (d, w)),
+        "w_out": dense("w_out", (w, d)),
+        "conv_w": dense("conv_w", (cfg.conv_width, w), scale=0.1),
+        "conv_b": draw.full(f"{path}/conv_b", lead + (w,), dt, 0.0),
+        "w_input_gate": dense("w_input_gate", (nb, w // nb, w // nb),
+                              scale=0.02),
+        "w_rec_gate": dense("w_rec_gate", (nb, w // nb, w // nb),
+                            scale=0.02),
+        "a_param": draw.uniform(f"{path}/a_param", lead + (w,),
+                                torch.float32, 0.81, 0.999, then=a_param),
     }
 
 

@@ -24,7 +24,8 @@ recurrent weight whole and split only the up and down projections:
   ``w_v`` the whole ``xin``, so both are gathered over ``model`` and the
   recurrence runs whole on every rank (``C``, ``n``, ``m`` are whole over
   ``model``).  ``h * silu(z)`` is cut to the rank's ``w_down`` rows (``z``
-  computed for those columns only) and summed by ``spmd.reduce_rows``.
+  computed for those columns only), multiplied in fp32 and summed by
+  ``spmd.reduce_rows``, then rounded once.
 - sLSTM: the recurrence runs whole on every rank; the cache's ``h`` lies
   split over ``model`` (the JAX rule for RG-LRU's ``h`` catches it by
   name), so it is gathered on entry and cut on exit.  The GLU pairs
@@ -83,26 +84,27 @@ def _store(cache: dict, state: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def init_mlstm(cfg: ModelConfig, device, generator, reps: int = 0) -> dict:
+def init_mlstm(cfg: ModelConfig, draw, path: str, reps: int = 0) -> dict:
     d, di, h = cfg.d_model, _inner(cfg), _heads(cfg)
     dt = torch_dtype(cfg.param_dtype)
 
-    def dense(shape, scale=None):
-        return layers.dense_init(shape, dt, device, generator, scale=scale,
-                                 reps=reps)
+    def dense(name, shape, scale=None):
+        return layers.dense_init(draw, f"{path}/{name}", shape, dt,
+                                 scale=scale, reps=reps)
     lead = (reps,) if reps else ()
     b_if = torch.cat([torch.zeros(h), 3.0 * torch.ones(h)]).to(dt)
     return {
-        "w_up": dense((d, di)),
-        "w_z": dense((d, di)),                      # output gate branch
-        "conv_w": dense((4, di), scale=0.1),
-        "conv_b": torch.zeros(lead + (di,), dtype=dt, device=device),
-        "w_q": dense((di, di)),
-        "w_k": dense((di, di)),
-        "w_v": dense((di, di)),
-        "w_if": dense((di, 2 * h), scale=0.02),     # i, f gate logits
-        "b_if": b_if.to(device).expand(lead + (2 * h,)).clone(),
-        "w_down": dense((di, d)),
+        "w_up": dense("w_up", (d, di)),
+        "w_z": dense("w_z", (d, di)),                # output gate branch
+        "conv_w": dense("conv_w", (4, di), scale=0.1),
+        "conv_b": draw.full(f"{path}/conv_b", lead + (di,), dt, 0.0),
+        "w_q": dense("w_q", (di, di)),
+        "w_k": dense("w_k", (di, di)),
+        "w_v": dense("w_v", (di, di)),
+        "w_if": dense("w_if", (di, 2 * h), scale=0.02),  # i, f gate logits
+        "b_if": draw.const(f"{path}/b_if", b_if.to(draw.device).expand(
+            lead + (2 * h,))),
+        "w_down": dense("w_down", (di, d)),
     }
 
 
@@ -267,13 +269,20 @@ def apply_mlstm(cfg: ModelConfig, p, x: Tensor, *,
     state, h = form(q, k, v, log_i, log_f, state, valid)
     h = h.reshape(b, s, di).to(x.dtype)
     if split is not None:
-        h = h[..., split]
-    out = (h * F.silu(z)) @ p["w_down"]
+        # the rank's share of the w_down product stays fp32 until the
+        # sum, which rounds once, as the whole product does: the block's
+        # update is about 3% of its residual, so a share rounded to bf16
+        # first moves the update by about half its rounding floor again
+        g = h[..., split] * F.silu(z)
+        out = g.float() @ p["w_down"].float()
+    else:
+        out = (h * F.silu(z)) @ p["w_down"]
     if cache is not None:
         _store(cache, {"C": state[0], "n": state[1], "m": state[2],
                        "conv": new_tail})
     if lay is not None:
-        out = spmd.reduce_rows(mesh, rules, out, lay, split is not None)
+        out = spmd.reduce_rows(mesh, rules, out, lay,
+                               split is not None).to(x.dtype)
     return out, cache
 
 
@@ -282,23 +291,26 @@ def apply_mlstm(cfg: ModelConfig, p, x: Tensor, *,
 # ---------------------------------------------------------------------------
 
 
-def init_slstm(cfg: ModelConfig, device, generator, reps: int = 0) -> dict:
+def init_slstm(cfg: ModelConfig, draw, path: str, reps: int = 0) -> dict:
     d, h = cfg.d_model, _heads(cfg)
     dh = d // h
     dt = torch_dtype(cfg.param_dtype)
 
-    def dense(shape, scale=None):
-        return layers.dense_init(shape, dt, device, generator, scale=scale,
-                                 reps=reps)
+    def dense(name, shape, scale=None):
+        return layers.dense_init(draw, f"{path}/{name}", shape, dt,
+                                 scale=scale, reps=reps)
     lead = (reps,) if reps else ()
     b_zifo = torch.cat([torch.zeros(2 * d), 3.0 * torch.ones(d),
                         torch.zeros(d)]).to(dt)
     return {
-        "w_zifo": dense((d, 4 * d)),                # input weights z, i, f, o
-        "b_zifo": b_zifo.to(device).expand(lead + (4 * d,)).clone(),
-        "r_zifo": dense((4, h, dh, dh), scale=0.02),  # per-head recurrent
-        "w_up": dense((d, 2 * d)),
-        "w_down": dense((d, d)),                    # after the GLU halves
+        # input weights z, i, f, o
+        "w_zifo": dense("w_zifo", (d, 4 * d)),
+        "b_zifo": draw.const(f"{path}/b_zifo", b_zifo.to(draw.device).expand(
+            lead + (4 * d,))),
+        # per-head recurrent
+        "r_zifo": dense("r_zifo", (4, h, dh, dh), scale=0.02),
+        "w_up": dense("w_up", (d, 2 * d)),
+        "w_down": dense("w_down", (d, d)),           # after the GLU halves
     }
 
 

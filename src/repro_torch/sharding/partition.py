@@ -429,6 +429,24 @@ def local_slices(shape, spec: Spec, mesh, coords=None) -> Tuple[slice, ...]:
     return tuple(out)
 
 
+def param_blocks(params, mesh, coords=None,
+                 rules: Optional[dict] = None) -> dict:
+    """{'/'-joined leaf path: rank ``coords``' block (``local_slices``)}
+    over the parameter tree ``params`` (global shapes) under
+    ``param_specs``."""
+    specs = param_specs(params, mesh, rules)
+    out = {}
+
+    def leaf(path, x):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        out[path_str(path)] = local_slices(tuple(x.shape), spec, mesh,
+                                           coords)
+    tree_map_with_path(leaf, params)
+    return out
+
+
 def local_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
     return tuple(n // _axes_size(mesh, spec[i] if i < len(spec) else None)
                  for i, n in enumerate(shape))

@@ -183,11 +183,23 @@ def _colls(rank: int, mesh, job: dict) -> dict:
 
 
 def _launcher(rank: int, mesh, job: dict) -> dict:
-    """The launcher's per-rank body (``train_sharded``) with ``argv``."""
+    """The launcher's per-rank body (``train_sharded``) with ``argv``;
+    with ``no_whole_draw`` a call of ``DecoderModel.init_params`` (the
+    whole draw) raises in the rank."""
     from repro_torch.launch import train
+    from repro_torch.models.model import DecoderModel
     from repro_torch.training.optimizer import tree_leaves
     args = train.build_parser().parse_args(job["argv"])
-    run = train.train_sharded(args, mesh, device="cpu")
+    whole = DecoderModel.init_params
+
+    def refused(*a, **kw):
+        raise AssertionError("a launcher rank drew the whole model")
+    if job.get("no_whole_draw"):
+        DecoderModel.init_params = refused
+    try:
+        run = train.train_sharded(args, mesh, device="cpu")
+    finally:
+        DecoderModel.init_params = whole
     state = run["opt_state"]
     return {"history": run["history"], "params": tree_leaves(run["params"]),
             "mu": tree_leaves(state.mu), "nu": tree_leaves(state.nu)}

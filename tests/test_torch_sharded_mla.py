@@ -145,14 +145,56 @@ def test_sharded_mla_train_step_matches_jax(train_results, i):
     assert np.isfinite(results[0][i]["steps"][1]["metrics"]["loss"])
 
 
-def test_production_mesh_refuses_a_whole_draw_over_free_memory():
-    """``launch/train.py --production-mesh``'s per-rank body draws the
-    whole model before keeping its shards: it refuses, before drawing,
-    deepseek-v2-236b's 471 GB of bf16 weights (more than any one card or
-    this host has free), naming the ROADMAP.md item of a sharded init."""
+def _no_draw(monkeypatch):
+    """The launcher's draws raise: a refusal must come before them."""
+    from repro_torch.models.model import DecoderModel
+
+    def drawn(*a, **kw):
+        raise AssertionError("drew before refusing")
+    monkeypatch.setattr(DecoderModel, "init_params", drawn)
+    monkeypatch.setattr(DecoderModel, "init_shards", drawn)
+
+
+@pytest.mark.parametrize("flag", ["--init", "--ckpt"])
+def test_production_mesh_whole_checkpoints_refuse_up_front(monkeypatch,
+                                                           flag):
+    """``--production-mesh``'s two paths that take the whole tree on every
+    rank refuse deepseek-v2-236b on an 80 GB card before anything is drawn
+    or restored (and so before the first step): ``--init`` restores its
+    471.5 GB of parameters, ``--ckpt`` gathers them and the fp32 moments
+    (2357.4 GB); each names the ROADMAP.md item of a streamed, sharded
+    checkpoint and gives its reckoning."""
     from repro_torch.launch import train as tlaunch
+    _no_draw(monkeypatch)
+    monkeypatch.setattr(tlaunch, "_free_bytes", lambda dev: int(80e9))
+    args = tlaunch.build_parser().parse_args(
+        ["--arch", "deepseek-v2-236b", "--device", "cpu", "--steps", "1",
+         flag, "/nonexistent/ck.pt"])
+    whole = r"471\.5 GB" if flag == "--init" else r"2357\.4 GB"
+    with pytest.raises(SystemExit, match=whole + r".*80\.0 GB free; this "
+                       r"size needs a streamed, sharded checkpoint "
+                       r"\(ROADMAP\.md §1 item 2, step 5\)"):
+        tlaunch.train_sharded(args, StandIn((16, 16), DM), device="cpu")
+
+
+def test_production_mesh_guard_reckons_the_rank(monkeypatch):
+    """``train_sharded``'s guard reckons the rank's own bytes at 16x16
+    (``rank_bytes``), not the whole model's: deepseek-v2-236b's rank needs
+    20.93 GB (4.68 of parameter shards, as much of gradients, 11.54 of
+    ZeRO-1's fp32 gradients and moments, a 32 MiB chunk), refused on a
+    device with 20 GB free before drawing, admitted on an 80 GB card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as tlaunch
+    _no_draw(monkeypatch)
+    monkeypatch.setattr(tlaunch, "_free_bytes", lambda dev: int(20e9))
     args = tlaunch.build_parser().parse_args(
         ["--arch", "deepseek-v2-236b", "--device", "cpu", "--steps", "1"])
-    with pytest.raises(SystemExit, match=r"471\.\d GB.*sharded init "
-                       r"\(ROADMAP\.md §1 item 2, step 2\)"):
-        tlaunch.train_sharded(args, mesh=None, device="cpu")
+    mesh = StandIn((16, 16), DM)
+    with pytest.raises(SystemExit, match=(
+            r"deepseek-v2-236b: a rank needs 20\.93 GB \(parameter shards "
+            r"4\.68, their gradients 4\.68, ZeRO-1's fp32 gradients and "
+            r"moments 11\.54, one draw chunk 0\.034\); the device has "
+            r"20\.0 GB free")):
+        tlaunch.train_sharded(args, mesh, device="cpu")
+    need = tlaunch.rank_bytes(get_config("deepseek-v2-236b"), mesh)
+    tlaunch._admit(get_config("deepseek-v2-236b"), args, need, int(80e9))

@@ -355,11 +355,13 @@ def test_collective_gradients(train_results, name):
 
 def test_launcher_rank_body_and_checkpoint(tmp_path, capfd):
     """``train_sharded`` at (2, 2) on minicpm-2b's smoke config, three
-    steps: rank 0 prints the JAX launcher's ``[train]`` lines; the metrics
+    steps, each rank drawing only its shards (a whole draw raises in the
+    ranks): rank 0 prints the JAX launcher's ``[train]`` lines; the metrics
     are finite, equal on every rank and within 1e-5 of a one-device run's
     of the same steps, ce falls; ``--ckpt`` writes whole leaves under the
     one-device checkpoint's (JAX's) leaf names, each rank's blocks of them
-    exactly, and the one-device ``--init`` reads them back bit for bit."""
+    exactly, and the one-device ``--init`` reads them back bit for bit, as
+    the sharded ``--init`` reads each rank's blocks."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import DecoderModel
     from repro_torch.training.data import PackedDataset, SyntheticCorpus
@@ -368,7 +370,7 @@ def test_launcher_rank_body_and_checkpoint(tmp_path, capfd):
     argv = ["--smoke", "--device", "cpu", "--steps", "3", "--batch", "4",
             "--seq", "64", "--lr", "3e-3"]
     res = worker.run_ranks(4, str(tmp_path), {"runs": [{
-        "kind": "launcher", "mesh": (2, 2), "axes": DM,
+        "kind": "launcher", "mesh": (2, 2), "axes": DM, "no_whole_draw": True,
         "argv": argv + ["--ckpt", sharded]}]})
     out = capfd.readouterr().out
     assert "[train] minicpm-2b-smoke:" in out
@@ -415,3 +417,16 @@ def test_launcher_rank_body_and_checkpoint(tmp_path, capfd):
     for k, v in got.items():
         if k.startswith("params/"):
             assert torch.equal(restored[k], v), k
+    # the sharded --init: each rank's blocks of the whole leaves it read
+    (tmp_path / "init").mkdir()
+    res = worker.run_ranks(4, str(tmp_path / "init"), {"runs": [{
+        "kind": "launcher", "mesh": (2, 2), "axes": DM,
+        "no_whole_draw": True,
+        "argv": argv + ["--steps", "0", "--init", sharded]}]})
+    for r in res:
+        for name, lp, block in zip(names, topt.tree_leaves(plan),
+                                   r[0]["params"]):
+            whole = got[f"params/{name}"]
+            sl = tpart.local_slices(tuple(whole.shape), lp.spec, mesh,
+                                    r[0]["coords"])
+            assert torch.equal(whole[sl], block), name
