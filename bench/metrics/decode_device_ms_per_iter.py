@@ -1,0 +1,9 @@
+"""Model: device time of the kernels launched inside
+``Engine._decode_step_impl`` (the ``bench.decode`` span), per iteration,
+ms."""
+
+from bench.metrics._span import device_ms_per_iter
+
+
+def read(ctx):
+    return device_ms_per_iter(ctx, "decode")
